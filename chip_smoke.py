@@ -1,0 +1,595 @@
+#!/usr/bin/env python3
+"""Quickest proof that the PyTorch/CUDA port (``src/repro_torch``) works on
+one NVIDIA H100.
+
+    python3 chip_smoke.py                  # every phase
+    python3 chip_smoke.py --phases build,kernels
+
+Phases (each raises on failure; nothing is swallowed):
+
+1. build   — compile every CUDA source of the port with nvcc (in
+             parallel), print the build seconds and ptxas' register and
+             shared-memory report.
+2. kernels — hold each kernel against its plain PyTorch version on the card
+             at the serving path's shapes and at the small GQA/MQA/MHA,
+             odd-length and dead-split shapes of the kernel tests, in fp32
+             and bf16. Each case prints its max error beside the tolerance,
+             the kernel's, the plain version's and a library call's time
+             (SDPA over the gathered KV; timed here only, never used by the
+             port) from CUDA events, and the bound (the least time for the
+             bytes and operations the inputs need, at the card's published
+             3.35 TB/s and 989 bf16 / 67 fp32 TFLOP/s).
+3. parity  — full-width qwen3-4b cut to 4 layers, fp32 with TF32 off: the
+             kernel path's logits against the port's plain path for one
+             decode step and one duet step.
+4. serve   — full qwen3-4b (36 layers, bf16, random weights from a seed)
+             serves 8 azure-conv requests through the async engine, the
+             sync engine, and the async engine again with
+             split_kv_threshold=256, with attn_kernel=True and
+             strict_kernel=True. Every request must finish, the async runs
+             must keep host_syncs <= super_iterations and make at least one
+             duet dispatch, and every kernel's launch count over the three
+             runs (reset to 0 just before them) must be above 0. Wall-clock
+             tokens/s on the card are printed as measured.
+
+Before the last line it prints the card's name and power limit
+(``nvidia-smi``) and a ``{"kernels": [...]}`` JSON line; the last line is
+``{"ok": true, "device": {...}}``. Without CUDA, or without the repository
+beside it, it exits non-zero and prints no result.
+"""
+from __future__ import annotations
+
+import argparse
+import copy
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+PHASES = ("build", "kernels", "parity", "serve")
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# logits of the kernel path vs the plain path, full width, fp32, TF32 off:
+# only the attention reduction order differs
+PARITY_TOL = 1e-4           # relative to max |logit|
+KERNEL_SOURCES = {
+    "paged_decode": ("src/repro_torch/kernels/csrc/paged_decode.cu",
+                     "src/repro/kernels/paged_decode.py:85"),
+    "paged_decode_splitkv": ("src/repro_torch/kernels/csrc/paged_decode.cu",
+                             "src/repro/kernels/paged_decode.py:183"),
+    "duet_attention_paged": (
+        "src/repro_torch/kernels/csrc/duet_attention_paged.cu",
+        "src/repro/kernels/duet_attention.py:189"),
+}
+
+
+def log(msg: str):
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of one call, from CUDA events around ``iters``
+    back-to-back calls after ``warmup`` calls."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+# ---------------------------------------------------------------------------
+# phase 1: build
+# ---------------------------------------------------------------------------
+def phase_build():
+    from repro_torch.kernels import _build
+    t0 = time.time()
+    logs = _build.build_all()
+    log(f"[build] {len(logs)} sources built in {time.time() - t0:.2f} s "
+        f"into {_build.BUILD_DIR}")
+    for name, text in logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build] {name}: {line.strip()}")
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+def _bound(nbytes: float, ops: float, dtype) -> tuple:
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / PEAK_OPS[dtype]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _decode_inputs(rng, B, H, G, Dh, N, ps, P, dtype, lengths=None,
+                   distinct=False):
+    dev = "cuda"
+    q = torch.from_numpy(rng.standard_normal((B, H, Dh), np.float32))
+    kp = torch.from_numpy(rng.standard_normal((N, ps, G, Dh), np.float32))
+    vp = torch.from_numpy(rng.standard_normal((N, ps, G, Dh), np.float32))
+    if distinct:     # a real pool: every request owns its own pages
+        tables = 1 + rng.permutation(N - 1)[:B * P].reshape(B, P)
+    else:
+        tables = rng.integers(1, N, (B, P))
+    if lengths is None:
+        lengths = rng.integers(1, P * ps + 1, (B,))
+    return (q.to(dev, dtype), kp.to(dev, dtype), vp.to(dev, dtype),
+            torch.tensor(tables, dtype=torch.int32, device=dev),
+            torch.tensor(lengths, dtype=torch.int32, device=dev))
+
+
+def _sdpa_decode(q, kp, vp, tables, lengths):
+    """Library yardstick: SDPA over the gathered, head-repeated KV."""
+    B, H, Dh = q.shape
+    _, ps, G, _ = kp.shape
+    P = tables.shape[1]
+    k = kp[tables.long()].reshape(B, P * ps, G, Dh)
+    v = vp[tables.long()].reshape(B, P * ps, G, Dh)
+    k = k.repeat_interleave(H // G, dim=2).transpose(1, 2)
+    v = v.repeat_interleave(H // G, dim=2).transpose(1, 2)
+    mask = (torch.arange(P * ps, device=q.device)[None, :]
+            < lengths[:, None].long())[:, None, None, :]
+    qq = q[:, :, None, :]
+    fn = torch.nn.functional.scaled_dot_product_attention
+    return lambda: fn(qq, k, v, attn_mask=mask)
+
+
+def _check(name, got, want, dtype, label, record):
+    err = (got.float() - want.float()).abs().max().item()
+    ok = torch.allclose(got.float(), want.float(), atol=TOL[dtype],
+                        rtol=TOL[dtype])
+    record.update(max_abs_err=err, tol=TOL[dtype])
+    if not ok:
+        raise AssertionError(f"{name} [{label}] disagrees with its plain "
+                             f"version: max abs err {err:.3e} > "
+                             f"tol {TOL[dtype]:.0e}")
+
+
+def check_decode(rng, label, dtype, B, H, G, Dh, N, ps, P, splits=None,
+                 lengths=None, distinct=False):
+    from repro_torch.kernels.paged_decode import (
+        paged_decode, paged_decode_plain, paged_decode_splitkv,
+        paged_decode_splitkv_plain)
+    q, kp, vp, tables, ln = _decode_inputs(rng, B, H, G, Dh, N, ps, P, dtype,
+                                           lengths, distinct)
+    if splits is None:
+        name = "paged_decode"
+        kernel = lambda: paged_decode(q, kp, vp, tables, ln)  # noqa: E731
+        plain = lambda: paged_decode_plain(q, kp, vp, tables, ln)  # noqa
+    else:
+        name = "paged_decode_splitkv"
+        kernel = lambda: paged_decode_splitkv(  # noqa: E731
+            q, kp, vp, tables, ln, num_splits=splits)
+        plain = lambda: paged_decode_splitkv_plain(  # noqa: E731
+            q, kp, vp, tables, ln, num_splits=splits)
+    rec = {"name": name, "case": label, "dtype": str(dtype)}
+    got = kernel()
+    torch.cuda.synchronize()
+    _check(name, got, plain(), dtype, label, rec)
+    elt = q.element_size()
+    live = int(ln.long().sum().item())
+    nbytes = (2 * q.numel() * elt + tables.numel() * 4 + B * 4
+              + 2 * live * G * Dh * elt)
+    ops = 4.0 * live * H * Dh
+    rec["bound_ms"], rec["bound_by"] = _bound(nbytes, ops, dtype)
+    rec["ms"] = time_ms(kernel)
+    rec["plain_ms"] = time_ms(plain, iters=5)
+    rec["library_ms"] = time_ms(_sdpa_decode(q, kp, vp, tables, ln))
+    return rec
+
+
+def check_duet(rng, label, dtype, N, ps, G, H, Dh, P, decode_rows,
+               prefill_rows, bq):
+    from repro_torch.kernels.duet_attention import (
+        duet_attention_paged, duet_attention_paged_plain)
+    from repro_torch.kernels.ops import (build_duet_schedule,
+                                         pack_duet_queries,
+                                         unpack_duet_output)
+    dev = "cuda"
+    kp = torch.from_numpy(rng.standard_normal((N, ps, G, Dh), np.float32)
+                          ).to(dev, dtype)
+    vp = torch.from_numpy(rng.standard_normal((N, ps, G, Dh), np.float32)
+                          ).to(dev, dtype)
+    nslot = max(s for s, _ in decode_rows + prefill_rows) + 1
+    tables = torch.tensor(1 + rng.permutation(N - 1)[:nslot * P]
+                          .reshape(nslot, P), dtype=torch.int32, device=dev)
+    sched = build_duet_schedule(decode_rows, prefill_rows, block_q=bq)
+    rows = decode_rows + prefill_rows
+    src_q = torch.from_numpy(rng.standard_normal((len(rows), H, Dh),
+                                                 np.float32)).to(dev, dtype)
+    q = pack_duet_queries(sched, src_q).contiguous()
+    row_pos = torch.tensor(sched.row_pos, device=dev)[:, None].contiguous()
+    tile_slot = torch.tensor(sched.tile_slot, device=dev)
+    kernel = lambda: duet_attention_paged(  # noqa: E731
+        q, row_pos, tile_slot, kp, vp, tables, block_q=bq)
+    plain = lambda: duet_attention_paged_plain(  # noqa: E731
+        q, row_pos, tile_slot, kp, vp, tables, block_q=bq)
+    rec = {"name": "duet_attention_paged", "case": label,
+           "dtype": str(dtype)}
+    got = unpack_duet_output(sched, kernel(), len(rows))
+    torch.cuda.synchronize()
+    want = unpack_duet_output(sched, plain(), len(rows))
+    _check("duet_attention_paged", got, want, dtype, label, rec)
+    elt = q.element_size()
+    chain = {}
+    for s, p in rows:
+        chain[s] = max(chain.get(s, 0), p + 1)
+    kv_tokens = sum(chain.values())
+    nbytes = (2 * len(rows) * H * Dh * elt + 2 * kv_tokens * G * Dh * elt
+              + tables.numel() * 4 + 4 * (len(rows) + len(sched.tile_slot)))
+    ops = 4.0 * H * Dh * sum(p + 1 for _, p in rows)
+    rec["bound_ms"], rec["bound_by"] = _bound(nbytes, ops, dtype)
+    rec["ms"] = time_ms(kernel)
+    rec["plain_ms"] = time_ms(plain, iters=3)
+    # library yardstick: SDPA with one query row per batch entry over
+    # its gathered, head-repeated chain, masked causally by row position
+    R = len(rows)
+    slots = torch.tensor([s for s, _ in rows], device=dev).long()
+    pos = torch.tensor([p for _, p in rows], device=dev)
+    chains = tables.long()[slots]
+    k = kp[chains].reshape(R, P * ps, G, Dh).repeat_interleave(
+        H // G, dim=2).transpose(1, 2)
+    v = vp[chains].reshape(R, P * ps, G, Dh).repeat_interleave(
+        H // G, dim=2).transpose(1, 2)
+    mask = (torch.arange(P * ps, device=dev)[None, :]
+            <= pos[:, None])[:, None, None, :]
+    qq = src_q[:, :, None, :]
+    fn = torch.nn.functional.scaled_dot_product_attention
+    rec["library_ms"] = time_ms(lambda: fn(qq, k, v, attn_mask=mask))
+    del k, v
+    return rec
+
+
+def phase_kernels():
+    from repro_torch.kernels.ops import num_splits_for
+    rng = np.random.default_rng(0)
+    records = []
+    main = {}
+    # the serving path's shapes: qwen3-4b heads, 8 decode slots with
+    # contexts 256..2048 tokens (table bucket P=128 pages of 16), one
+    # 256-row prefill chunk beside them in the duet launch
+    B, H, G, Dh, ps, P = 8, 32, 8, 128, 16, 128
+    lens = np.linspace(256, 2048, B).astype(np.int64)
+    N = B * P + 1 + 64
+    splits = num_splits_for(P, ps, 256)
+    for dtype in (torch.bfloat16, torch.float32):
+        r = check_decode(rng, "main B=8 ctx 256-2048", dtype, B, H, G, Dh, N,
+                         ps, P, lengths=lens, distinct=True)
+        records.append(r)
+        r = check_decode(rng, f"main B=8 ctx 256-2048 S={splits}", dtype, B,
+                         H, G, Dh, N, ps, P, splits=splits, lengths=lens,
+                         distinct=True)
+        records.append(r)
+        decode_rows = [(b, int(lens[b]) - 1) for b in range(B)]
+        prefill_rows = [(B, 512 + i) for i in range(256)]
+        r = check_duet(rng, "main 8 decode + 256-row chunk", dtype,
+                       (B + 1) * P + 1, ps, G, H, Dh, P, decode_rows,
+                       prefill_rows, bq=1)
+        records.append(r)
+        if dtype == torch.bfloat16:      # the serving path's working type
+            for rec in records[-3:]:
+                main[rec["name"]] = rec
+    # the kernel tests' shapes: GQA / MQA / MHA, odd lengths, dead splits
+    for dtype in (torch.float32, torch.bfloat16):
+        for (Bs, Hs, Gs, Ds, Ns, pss, Ps) in [(2, 4, 2, 64, 16, 16, 4),
+                                               (3, 8, 1, 128, 32, 16, 6),
+                                               (2, 4, 4, 64, 16, 8, 5)]:
+            records.append(check_decode(
+                rng, f"sweep B{Bs} H{Hs} G{Gs} Dh{Ds} ps{pss} P{Ps}", dtype,
+                Bs, Hs, Gs, Ds, Ns, pss, Ps))
+        for (Bs, Hs, Gs, Ds, Ns, pss, Ps, S, ln) in [
+                (2, 4, 2, 64, 16, 16, 4, 2, None),
+                (2, 4, 2, 64, 16, 16, 5, 2, None),
+                (3, 8, 1, 128, 32, 16, 6, 3, None),
+                (2, 8, 2, 64, 16, 8, 6, 4, None),
+                (2, 4, 2, 64, 16, 8, 1, 4, None),
+                (2, 4, 2, 64, 16, 8, 4, 2, (16, 32)),
+                (2, 4, 2, 64, 16, 8, 4, 4, (1, 31))]:
+            records.append(check_decode(
+                rng, f"splitkv B{Bs} H{Hs} G{Gs} P{Ps} S{S} lens {ln}",
+                dtype, Bs, Hs, Gs, Ds, Ns, pss, Ps, splits=S, lengths=ln))
+        for bq in (1, 4):
+            records.append(check_duet(
+                rng, f"mixed phases bq={bq}", dtype, 40, 16, 2, 4, 64, 8,
+                [(0, 100), (1, 57), (2, 127)],
+                [(3, 64 + i) for i in range(20)], bq=bq))
+    card = card_line()
+    for rec in records:
+        log(f"[kernels] {rec['name']:22s} {rec['dtype']:15s} "
+            f"{rec['case']:40s} max_abs_err={rec['max_abs_err']:.3e} "
+            f"tol={rec['tol']:.0e} ms={rec['ms']:.4f} "
+            f"plain_ms={rec['plain_ms']:.4f} "
+            f"library_ms={rec['library_ms']:.4f} "
+            f"bound_ms={rec['bound_ms']:.3g} ({rec['bound_by']}) [{card}]")
+    return main
+
+
+# ---------------------------------------------------------------------------
+# phase 3: logits parity, kernel path vs plain path
+# ---------------------------------------------------------------------------
+def phase_parity():
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build_duet_schedule
+    from repro_torch.models import Model
+    from repro_torch.serving.kvcache import PagePoolConfig, init_page_pools
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log("[parity] fp32, TF32 off (matmul and cudnn)")
+    full = get_config("qwen3-4b")
+    cfg = dataclasses.replace(full, num_layers=4,
+                              block_pattern=full.block_pattern[:4])
+    kern = Model.init(cfg, seed=0, dtype=torch.float32, device="cuda",
+                      attn_kernel=True)
+    plain = copy.copy(kern)          # the same weights, plain attention
+    plain.attn_kernel = False
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(5)
+    ps, P = 16, 16
+    pool = PagePoolConfig(num_pages=64, page_size=ps)
+
+    def fresh():
+        return init_page_pools(cfg, pool, torch.float32, device=dev)
+
+    tblA = torch.arange(1, 1 + P, dtype=torch.int32, device=dev)[None]
+    tblB = torch.arange(1 + P, 1 + 2 * P, dtype=torch.int32,
+                        device=dev)[None]
+    toksA = torch.tensor(rng.integers(0, cfg.vocab_size, (1, 200)),
+                         device=dev)
+    toksB = torch.tensor(rng.integers(0, cfg.vocab_size, (1, 64)),
+                         device=dev)
+    tok = torch.tensor(rng.integers(0, cfg.vocab_size, (1, 1)), device=dev)
+    pos = torch.tensor([200], dtype=torch.int32, device=dev)
+    state = [None] * cfg.num_layers
+
+    def prefilled():
+        pools = fresh()
+        plain.prefill_paged(toksA, pools, state, tblA, start_pos=0)
+        return pools
+
+    with torch.no_grad():
+        lk, _, _ = kern.decode_step_paged(prefilled(), state, tok, pos, tblA)
+        lp, _, _ = plain.decode_step_paged(prefilled(), state, tok, pos,
+                                           tblA)
+        C = toksB.shape[1]
+        sched = build_duet_schedule([(0, 200)], [(1, i) for i in range(C)],
+                                    block_q=1)
+        row_tok = torch.cat([tok[:, 0], toksB[0]])[:, None]
+        row_pos = torch.cat([pos, torch.arange(C, dtype=torch.int32,
+                                               device=dev)])
+        row_tbl = torch.cat([tblA, tblB.expand(C, P)])
+        order = torch.tensor(sched.row_src, device=dev)
+        ld, _, _ = kern.duet_step_paged(prefilled(), state, row_tok, row_pos,
+                                        row_tbl, order)
+        seq_pools = prefilled()
+        ls_dec, _, _ = plain.decode_step_paged(seq_pools, state, tok, pos,
+                                               tblA)
+        ls_pre, _, _ = plain.prefill_paged(toksB, seq_pools, state, tblB,
+                                           start_pos=0)
+    for name, got, want in [("decode step", lk, lp),
+                            ("duet step, decode row", ld[0], ls_dec[0]),
+                            ("duet step, last chunk row", ld[C], ls_pre[0])]:
+        V = cfg.vocab_size          # the padded columns hold finfo.min
+        got, want = got[..., :V], want[..., :V]
+        scale = max(1.0, want.abs().max().item())
+        err = (got - want).abs().max().item()
+        if not (torch.isfinite(got).all() and err <= PARITY_TOL * scale):
+            raise AssertionError(f"[parity] {name}: max abs err {err:.3e} > "
+                                 f"{PARITY_TOL:.0e} x {scale:.3g}")
+        log(f"[parity] {name}: max abs err {err:.3e} "
+            f"(tol {PARITY_TOL:.0e} x max|logit| {scale:.3g})")
+    del kern, plain
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 4: full-width serving through the engines
+# ---------------------------------------------------------------------------
+def phase_serve():
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import _clamp_lengths
+    from repro_torch.models import Model
+    from repro_torch.serving import (AsyncDuetEngine, DuetEngine,
+                                     EngineConfig)
+    from repro_torch.serving.traces import synth_trace
+    cfg = get_config("qwen3-4b")
+    t0 = time.time()
+    model = Model.init(cfg, seed=0, dtype=torch.bfloat16, device="cuda",
+                       attn_kernel=True)
+    torch.cuda.synchronize()
+    log(f"[serve] {cfg.name}: {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, bf16 weights "
+        f"{sum(b.numel() for b in model.buffers()) * 2 / 1e9:.2f} GB, "
+        f"random from seed 0 in {time.time() - t0:.1f} s")
+    card = card_line()
+
+    def requests():
+        return _clamp_lengths(synth_trace("azure-conv", 8, 4.0, seed=0),
+                              1024, True)
+
+    runs = [("async", AsyncDuetEngine, None),
+            ("sync", DuetEngine, None),
+            ("async split_kv_threshold=256", AsyncDuetEngine, 256)]
+    outputs = {}
+    reset_launch_counts()            # the main path's launches start here
+    for label, cls, thr in runs:
+        ec = EngineConfig(max_slots=8, max_len=1024, token_budget=256,
+                          strict_kernel=True, split_kv_threshold=thr)
+        engine = cls(model, ec, seed=0, device="cuda")
+        before = launch_counts()
+        reqs = requests()
+        engine.submit(reqs)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        metrics = engine.run()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        after = launch_counts()
+        summ = metrics.summary()
+        n_tok = sum(len(r.output_tokens) for r in metrics.requests)
+        if summ["num_finished"] != len(reqs):
+            raise AssertionError(f"[serve] {label}: {summ['num_finished']}"
+                                 f"/{len(reqs)} requests finished")
+        for r in metrics.requests:
+            if len(r.output_tokens) != r.output_len or not all(
+                    0 <= t < cfg.vocab_size for t in r.output_tokens):
+                raise AssertionError(f"[serve] {label}: request {r.rid} "
+                                     "produced bad tokens")
+        if engine.kernel_path != "cuda":
+            raise AssertionError(f"[serve] {label}: kernel_path "
+                                 f"{engine.kernel_path}")
+        line = (f"[serve] {label}: {len(reqs)} requests, {n_tok} tokens in "
+                f"{wall:.2f} s wall = {n_tok / wall:.1f} tokens/s measured "
+                f"on the card [{card}]; launches "
+                f"{ {k: after[k] - before[k] for k in after} }")
+        if cls is AsyncDuetEngine:
+            st = engine.dstats
+            duet = sum(1 for k in engine._programs if k[-1])
+            if not 0 < st.host_syncs <= st.super_iterations:
+                raise AssertionError(f"[serve] {label}: host_syncs "
+                                     f"{st.host_syncs} > super_iterations "
+                                     f"{st.super_iterations}")
+            if duet == 0 or after["duet_attention_paged"] == \
+                    before["duet_attention_paged"]:
+                raise AssertionError(f"[serve] {label}: no duet dispatch")
+            line += (f"; super_iterations {st.super_iterations}, "
+                     f"host_syncs {st.host_syncs}, duet buckets {duet}")
+        log(line)
+        outputs[label] = {r.rid: list(r.output_tokens)
+                          for r in metrics.requests}
+        log(f"[serve] {label}: virtual-clock summary (TPU v5e roofline "
+            f"prediction, not a card measurement): mean TTFT "
+            f"{summ['mean_ttft_s']} s, mean TBT {summ['mean_tbt_s']} s")
+        del engine
+        torch.cuda.empty_cache()
+    counts = launch_counts()
+    a, s = outputs["async"], outputs["sync"]
+    same = sum(a[r] == s[r] for r in a)
+    first = {r: next((i for i, (x, y) in enumerate(zip(a[r], s[r]))
+                      if x != y), None) for r in a}
+    log(f"[serve] async vs sync greedy streams identical for {same}/"
+        f"{len(a)} requests (bf16; the kernels differ in summation order); "
+        f"first differing token index per request: {first}")
+    for name, n in counts.items():
+        if n <= 0:
+            raise AssertionError(f"[serve] kernel {name} was never launched "
+                                 "on the main path")
+    log(f"[serve] main-path launches: {counts}")
+    profile_decode(model, card)
+    return counts
+
+
+def profile_decode(model, card):
+    """Where one full-width decode step's time goes: 8 slots at 1000 tokens
+    of context through the kernel path, timed on the host clock without
+    the profiler, then traced with torch.profiler for the device time by
+    kernel. Device busy share = summed kernel time / wall time. Launches
+    made here come after the main path's counts were read."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving.kvcache import PagePoolConfig, init_page_pools
+    cfg, B, P, ps, steps = model.cfg, 8, 64, 16, 4
+    pools = init_page_pools(cfg, PagePoolConfig(num_pages=B * P + 1,
+                                                page_size=ps),
+                            torch.bfloat16, device="cuda")
+    tables = torch.arange(1, B * P + 1, dtype=torch.int32,
+                          device="cuda").reshape(B, P)
+    pos = torch.full((B,), 1000, dtype=torch.int32, device="cuda")
+    tok = torch.zeros((B, 1), dtype=torch.int32, device="cuda")
+    state = model.init_state_cache(B)
+
+    def run():
+        for _ in range(steps):
+            model.decode_step_paged(pools, state, tok, pos, tables)
+        torch.cuda.synchronize()
+
+    run()
+    t0 = time.time()
+    run()
+    wall = (time.time() - t0) / steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev = sum(e.self_device_time_total for e in events) / steps / 1e3
+    busy = (f"{dev:.2f} ms/step (torch.profiler); device busy "
+            f"{100 * dev / (wall * 1e3):.1f}%" if dev > 0 else
+            "not measured (the profiler recorded no device time)")
+    log(f"[profile] decode step, {cfg.num_layers} layers, B={B}, ctx 1000, "
+        f"bf16: wall {wall * 1e3:.2f} ms/step (host clock, no profiler); "
+        f"device kernel time {busy} [{card}]")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"[profile]   {e.self_device_time_total / steps / 1e3:8.3f} "
+            f"ms/step  {e.count // steps:5d} calls/step  {e.key[:70]}")
+
+
+# ---------------------------------------------------------------------------
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help=f"comma-separated subset of {','.join(PHASES)}")
+    args = ap.parse_args(argv)
+    phases = [p for p in args.phases.split(",") if p]
+    unknown = set(phases) - set(PHASES)
+    if unknown:
+        ap.error(f"unknown phases {sorted(unknown)}")
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; the port's smoke test "
+              "needs one card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    import repro_torch  # noqa: F401  (fails outside the repository)
+    log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
+        f"cuda {torch.version.cuda} card {torch.cuda.get_device_name(0)}")
+    t0 = time.time()
+    main_rec, counts = {}, {}
+    if "build" in phases:
+        phase_build()
+    if "kernels" in phases:
+        main_rec = phase_kernels()
+    if "parity" in phases:
+        phase_parity()
+    if "serve" in phases:
+        counts = phase_serve()
+    kernels = []
+    for name, (source, replaces) in KERNEL_SOURCES.items():
+        rec = main_rec.get(name, {})
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": counts.get(name),
+            "max_abs_err": rec.get("max_abs_err"), "ms": rec.get("ms"),
+            "plain_ms": rec.get("plain_ms"),
+            "bound_ms": rec.get("bound_ms"),
+            "bound_by": rec.get("bound_by"),
+            "library_ms": rec.get("library_ms")})
+    log(f"[done] {time.time() - t0:.1f} s")
+    print(card_line())
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

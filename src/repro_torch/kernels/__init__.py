@@ -1,0 +1,44 @@
+"""Hopper CUDA kernels for the serving hot spots, each with a plain PyTorch
+version beside it (the CPU path and the on-card oracle), a launch counter
+and a public dispatcher in ops.py:
+
+  paged_decode         — decode attention over paged KV (block tables)
+  paged_decode_splitkv — flash-decoding variant: per-split (m, l, acc)
+                         partials, combined in a log-sum-exp second launch
+  duet_attention_paged — fused mixed-phase attention over the paged pool
+                         (decode rows + one prefill chunk in one launch)
+
+``paged_decode_auto`` picks the plain or split-KV decode kernel from the
+table capacity. Sources are in ``csrc/``; ``_build`` compiles them with
+nvcc at first use.
+"""
+from typing import Dict
+
+from repro_torch.kernels.ops import (DuetSchedule, build_duet_schedule,
+                                     duet_attention_paged, pack_duet_queries,
+                                     paged_decode, paged_decode_auto,
+                                     paged_decode_splitkv,
+                                     unpack_duet_output)
+# the submodules share names with the dispatchers above, so their launch
+# counters are imported by full module path
+from repro_torch.kernels.duet_attention import launches as _duet_launches
+from repro_torch.kernels.paged_decode import launches as _paged_launches
+
+
+def launch_counts() -> Dict[str, int]:
+    """Kernel launches per wrapper since the last reset."""
+    return {**_paged_launches, **_duet_launches}
+
+
+def reset_launch_counts():
+    for counts in (_paged_launches, _duet_launches):
+        for name in counts:
+            counts[name] = 0
+
+
+__all__ = [
+    "DuetSchedule", "build_duet_schedule", "duet_attention_paged",
+    "pack_duet_queries", "paged_decode", "paged_decode_auto",
+    "paged_decode_splitkv", "unpack_duet_output", "launch_counts",
+    "reset_launch_counts",
+]

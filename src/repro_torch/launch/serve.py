@@ -1,0 +1,297 @@
+"""Serving launcher: run the port's DuetServe engine on a trace (CLI).
+
+One process drives one replica on one device — the CUDA card by default,
+the CPU with ``--device cpu``. The flags are the reference's
+(``repro.launch.serve``); the ones of features not yet ported (``--tp > 1``,
+``--dp > 1``, ``--elastic``, the stochastic load generator's ``--arrival``,
+``--service-mix`` and ``--rho``, and ``--no-paged``) exit with "not yet
+ported". Weights are random, from ``--seed``.
+
+Two execution modes:
+
+* default — synchronous :class:`DuetEngine` (the token-equivalence oracle)
+* ``--stream`` — asynchronous :class:`AsyncDuetEngine` with open-loop
+  arrival replay; per-token events print as JSON lines while generation is
+  still in flight.
+
+The summary's TTFT/TBT/throughput come from the engine's virtual clock, a
+TPU v5e roofline prediction (as in the reference), not from the card.
+
+Usage:
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \\
+      --attn-kernel --stream --num-requests 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --reduced \\
+      --device cpu --stream --num-requests 4
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import sys
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config, list_configs, reduced
+from repro_torch.core.device import resolve_device
+from repro_torch.models.transformer import Model
+from repro_torch.serving.async_engine import (AsyncDuetEngine, FinishEvent,
+                                              TokenEvent)
+from repro_torch.serving.engine import DuetEngine, EngineConfig
+from repro_torch.serving.kvcache import DEFAULT_PAGE_SIZE, KV_QUANT_MODES
+from repro_torch.serving.request import synth_prompt_tokens
+from repro_torch.serving.traces import TRACES, synth_trace
+
+# the reference's choices for flags whose features are not yet ported
+ARRIVAL_PROCESSES = ("poisson", "mmpp")
+SERVICE_MIXES = ("lognormal", "mixture")
+ROUTER_POLICIES = ("round-robin", "least-loaded", "prefix")
+
+
+def _warn(msg: str):
+    print(f"warning: {msg}", file=sys.stderr)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        description="Run the port's DuetServe engine on a synthesised "
+                    "trace.")
+    ap.add_argument("--arch", choices=list_configs(), default="qwen3-4b")
+    ap.add_argument("--reduced", action="store_true",
+                    help="reduced config (CPU-runnable)")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the CUDA card; 'cpu' runs "
+                         "the plain PyTorch path)")
+    ap.add_argument("--trace", choices=list(TRACES), default="azure-conv")
+    ap.add_argument("--qps", type=float, default=4.0)
+    ap.add_argument("--num-requests", type=int, default=16)
+    ap.add_argument("--token-budget", type=int, default=256)
+    ap.add_argument("--tbt-slo", type=float, default=0.1)
+    ap.add_argument("--max-len", type=int, default=1024)
+    ap.add_argument("--max-slots", type=int, default=8)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--paged", dest="paged", action="store_true",
+                    default=True, help="paged-KV execution (default)")
+    ap.add_argument("--no-paged", dest="paged", action="store_false",
+                    help="slab-KV oracle mode (not yet ported)")
+    ap.add_argument("--page-size", type=int, default=DEFAULT_PAGE_SIZE)
+    ap.add_argument("--kv-pool-tokens", type=int, default=None,
+                    help="device page-pool size in tokens "
+                         "(default: max_slots * max_len)")
+    ap.add_argument("--attn-kernel", action="store_true",
+                    help="route decode and duet attention through the CUDA "
+                         "kernels (plain PyTorch versions on the CPU); the "
+                         "summary reports the executed path as kernel_path "
+                         "(cuda or torch)")
+    ap.add_argument("--split-kv-threshold", type=int, default=None,
+                    help="block-table capacity (tokens) above which the "
+                         "kernel path decodes with the split-KV kernel "
+                         "(default: priced from the roofline; 0 disables "
+                         "splitting)")
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel degree (not yet ported: 1 only)")
+    ap.add_argument("--dp", type=int, default=1,
+                    help="data-parallel replicas (not yet ported: 1 only)")
+    ap.add_argument("--elastic", action="store_true",
+                    help="elastic replica set (not yet ported)")
+    ap.add_argument("--min-dp", type=int, default=1,
+                    help="--elastic only (not yet ported)")
+    ap.add_argument("--max-dp", type=int, default=None,
+                    help="--elastic only (not yet ported)")
+    ap.add_argument("--scale-up-tokens", type=int, default=512,
+                    help="--elastic only (not yet ported)")
+    ap.add_argument("--scale-down-tokens", type=int, default=64,
+                    help="--elastic only (not yet ported)")
+    ap.add_argument("--scale-cooldown", type=float, default=0.5,
+                    help="--elastic only (not yet ported)")
+    ap.add_argument("--scale-interval", type=float, default=0.25,
+                    help="--elastic only (not yet ported)")
+    ap.add_argument("--arrival", choices=list(ARRIVAL_PROCESSES),
+                    default="poisson",
+                    help="arrival process (only poisson: the load "
+                         "generator is not yet ported)")
+    ap.add_argument("--service-mix", choices=list(SERVICE_MIXES),
+                    default="lognormal",
+                    help="request-length mix (only the trace's lognormal: "
+                         "the load generator is not yet ported)")
+    ap.add_argument("--rho", type=float, default=None,
+                    help="target utilisation (not yet ported)")
+    ap.add_argument("--router-policy", choices=list(ROUTER_POLICIES),
+                    default="round-robin",
+                    help="dispatch policy for --dp > 1 (not yet ported)")
+    ap.add_argument("--prefix-cache", dest="prefix_cache",
+                    action="store_true", default=True,
+                    help="share prompt-prefix KV pages across requests "
+                         "(default)")
+    ap.add_argument("--no-prefix-cache", dest="prefix_cache",
+                    action="store_false",
+                    help="disable prefix sharing (cold-cache baseline)")
+    ap.add_argument("--shared-prefix-len", type=int, default=0,
+                    help="prepend a common system prompt of this many "
+                         "tokens to every trace request")
+    ap.add_argument("--shared-prefix-every", type=int, default=1,
+                    metavar="N",
+                    help="apply the shared prefix to every Nth request "
+                         "only (default 1 = all)")
+    ap.add_argument("--host-kv-tokens", type=int, default=0,
+                    help="host-DRAM demotion tier capacity in tokens "
+                         "(0 = eviction-only; requires the prefix cache)")
+    ap.add_argument("--kv-quant", choices=list(KV_QUANT_MODES),
+                    default="none",
+                    help="storage format of host-tier pages")
+    ap.add_argument("--clamp", dest="clamp", action="store_true",
+                    default=True,
+                    help="clamp trace lengths into the engine capacity "
+                         "(default; a warning reports every truncation)")
+    ap.add_argument("--no-clamp", dest="clamp", action="store_false",
+                    help="submit trace lengths unmodified; oversized "
+                         "requests get explicit REJECTED outcomes")
+    ap.add_argument("--stream", action="store_true",
+                    help="serve with AsyncDuetEngine and print per-token "
+                         "events as JSON lines")
+    return ap
+
+
+def _not_yet_ported(args):
+    """Exit for flags whose features the port does not have yet."""
+    unported = {
+        "--tp > 1": args.tp > 1, "--dp > 1": args.dp > 1,
+        "--elastic": args.elastic, "--no-paged": not args.paged,
+        "--arrival": args.arrival != "poisson",
+        "--service-mix": args.service_mix != "lognormal",
+        "--rho": args.rho is not None,
+    }
+    bad = [flag for flag, hit in unported.items() if hit]
+    if bad:
+        raise SystemExit(f"{', '.join(bad)}: not yet ported to repro_torch")
+
+
+def _apply_shared_prefix(reqs, prefix_len: int, vocab_size: int, seed: int,
+                         every: int = 1):
+    """Prepend one common system prompt to every `every`-th request (the
+    body comes from the same rid-seeded derivation the engine uses)."""
+    if prefix_len <= 0:
+        return reqs
+    if every < 1:
+        raise SystemExit("--shared-prefix-every must be >= 1")
+    common = np.random.default_rng(10_000 + seed).integers(
+        0, vocab_size, prefix_len).astype(np.int32)
+    for r in reqs:
+        if r.rid % every:
+            continue
+        body = synth_prompt_tokens(r.rid, vocab_size, r.prompt_len)
+        r.prompt_tokens = np.concatenate([common, body])
+        r.prompt_len += prefix_len
+    return reqs
+
+
+def _clamp_lengths(reqs, max_len: int, clamp: bool):
+    """Fit trace lengths to the engine, loudly. Returns the request list."""
+    p_cap, o_cap = max_len // 2, max_len // 4
+    over = [r for r in reqs
+            if r.prompt_len > p_cap or r.output_len > o_cap]
+    if not over:
+        return reqs
+    if clamp:
+        _warn(f"{len(over)}/{len(reqs)} trace requests exceed --max-len "
+              f"{max_len} (prompt cap {p_cap}, output cap {o_cap}); "
+              "clamping lengths — pass --no-clamp to reject them instead")
+        for r in over:
+            r.prompt_len = min(r.prompt_len, p_cap)
+            r.output_len = min(r.output_len, o_cap)
+            if r.prompt_tokens is not None:
+                r.prompt_tokens = r.prompt_tokens[:r.prompt_len]
+    else:
+        _warn(f"{len(over)}/{len(reqs)} trace requests exceed --max-len "
+              f"{max_len}; submitting unmodified — the engine will record "
+              "REJECTED outcomes for footprints beyond its KV capacity")
+    return reqs
+
+
+def describe_device(device: torch.device) -> dict:
+    """The one device a replica runs on (the reference's ``mesh`` entry)."""
+    out = {"type": device.type, "count": 1}
+    if device.type == "cuda":
+        out["name"] = torch.cuda.get_device_name(device)
+    return out
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    _not_yet_ported(args)
+    device = resolve_device(args.device)
+
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = reduced(cfg)
+    # weights and KV in bf16 on the card, fp32 on the CPU
+    dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+    model = Model.init(cfg, seed=args.seed, dtype=dtype, device=device,
+                       attn_kernel=args.attn_kernel)
+
+    reqs = synth_trace(args.trace, args.num_requests, args.qps,
+                       seed=args.seed)
+    reqs = _apply_shared_prefix(reqs, args.shared_prefix_len,
+                                cfg.vocab_size, args.seed,
+                                every=args.shared_prefix_every)
+    reqs = _clamp_lengths(reqs, args.max_len, args.clamp)
+
+    if args.host_kv_tokens > 0 and not args.prefix_cache:
+        _warn("--host-kv-tokens requires the prefix cache; running without "
+              "the host tier")
+    ec = EngineConfig(
+        max_slots=args.max_slots, max_len=args.max_len,
+        token_budget=args.token_budget, tbt_slo=args.tbt_slo,
+        page_size=args.page_size, kv_pool_tokens=args.kv_pool_tokens,
+        prefix_cache=args.prefix_cache,
+        host_kv_tokens=args.host_kv_tokens, kv_quant=args.kv_quant,
+        temperature=args.temperature,
+        split_kv_threshold=args.split_kv_threshold,
+        strict_kernel=args.attn_kernel and not args.clamp)
+    if args.split_kv_threshold is not None and not args.attn_kernel:
+        _warn("--split-kv-threshold only applies with --attn-kernel; "
+              "ignored on the plain attention path")
+
+    def print_event(ev):
+        if isinstance(ev, TokenEvent):
+            print(json.dumps({"event": "token", "rid": ev.rid,
+                              "index": ev.index, "token": ev.token,
+                              "t": round(ev.t, 6)}))
+        elif isinstance(ev, FinishEvent):
+            print(json.dumps({"event": "finish", "rid": ev.rid,
+                              "reason": ev.reason,
+                              "n_tokens": ev.n_tokens,
+                              "t": round(ev.t, 6)}))
+
+    if args.stream:
+        engine = AsyncDuetEngine(model, ec, seed=args.seed, device=device)
+        engine.submit(reqs)   # open-loop: arrivals replay on the inbox
+        for ev in engine.events():
+            print_event(ev)
+        print(json.dumps({"event": "device", **describe_device(device),
+                          "kernel_path": engine.kernel_path,
+                          "collectives_per_iteration": 0}))
+        print(json.dumps({"event": "prefix_cache",
+                          **engine.kv_mgr.prefix_stats()}))
+        metrics = engine.run()   # drained: collects metrics only
+        out = metrics.summary()
+        out["dispatch_stats"] = dataclasses.asdict(engine.dstats)
+    else:
+        engine = DuetEngine(model, ec, seed=args.seed, device=device)
+        engine.submit(reqs)
+        metrics = engine.run()
+        out = metrics.summary()
+    out["slo_attainment"] = metrics.slo_attainment(args.tbt_slo)
+    out["duet_fraction"] = engine.mux.stats.duet_fraction
+    out["iterations"] = engine.mux.stats.iterations
+    out["device"] = describe_device(device)
+    out["kernel_path"] = engine.kernel_path
+    out["collectives_per_iteration"] = 0
+    out["prefix_cache"] = engine.kv_mgr.prefix_stats()
+    print(json.dumps(out, indent=2))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,127 @@
+"""The port on the card: each CUDA kernel against its plain PyTorch version
+on the kernel tests' shapes, and both engines on a reduced qwen3-4b
+through the kernels. Needs an NVIDIA card (and nvcc, to build the
+kernels); every test skips without CUDA. On the card, without the JAX
+package's test configuration:
+
+    PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_config, reduced
+from repro_torch.kernels import (build_duet_schedule, launch_counts,
+                                 pack_duet_queries, unpack_duet_output)
+from repro_torch.kernels.duet_attention import (duet_attention_paged,
+                                                duet_attention_paged_plain)
+from repro_torch.kernels.paged_decode import (paged_decode,
+                                              paged_decode_plain,
+                                              paged_decode_splitkv,
+                                              paged_decode_splitkv_plain)
+from repro_torch.models import Model
+from repro_torch.serving import (AsyncDuetEngine, DuetEngine, EngineConfig,
+                                 Request)
+
+pytestmark = pytest.mark.cuda
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card with CUDA")
+    return torch.device("cuda")
+
+
+def _randn(rng, shape, dtype, dev):
+    return torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
+        dev, DTYPES[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,G,Dh,N,ps,P,S,lens", [
+    (2, 4, 2, 64, 16, 16, 4, 1, None),
+    (3, 8, 1, 128, 32, 16, 6, 3, None),      # MQA
+    (2, 4, 4, 64, 16, 8, 5, 2, None),        # MHA, padded split
+    (2, 4, 2, 64, 16, 8, 4, 4, (1, 31)),     # odd lengths, dead splits
+    (8, 32, 8, 128, 600, 16, 64, 4, None),   # qwen3-4b heads
+])
+def test_paged_decode_kernels_match_plain(dev, B, H, G, Dh, N, ps, P, S,
+                                          lens, dtype):
+    rng = np.random.default_rng(0)
+    q = _randn(rng, (B, H, Dh), dtype, dev)
+    kp = _randn(rng, (N, ps, G, Dh), dtype, dev)
+    vp = _randn(rng, (N, ps, G, Dh), dtype, dev)
+    tables = torch.tensor(rng.integers(1, N, (B, P)), dtype=torch.int32,
+                          device=dev)
+    if lens is None:
+        lens = rng.integers(1, P * ps + 1, (B,))
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    torch.testing.assert_close(
+        paged_decode(q, kp, vp, tables, lengths),
+        paged_decode_plain(q, kp, vp, tables, lengths),
+        atol=TOL[dtype], rtol=TOL[dtype])
+    torch.testing.assert_close(
+        paged_decode_splitkv(q, kp, vp, tables, lengths, num_splits=S),
+        paged_decode_splitkv_plain(q, kp, vp, tables, lengths,
+                                   num_splits=S),
+        atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bq", [1, 4])
+def test_duet_attention_kernel_matches_plain(dev, bq, dtype):
+    rng = np.random.default_rng(3)
+    N, ps, G, H, Dh, P = 24, 16, 2, 4, 64, 8
+    kp = _randn(rng, (N, ps, G, Dh), dtype, dev)
+    vp = _randn(rng, (N, ps, G, Dh), dtype, dev)
+    tables = torch.tensor(rng.integers(1, N, (4, P)), dtype=torch.int32,
+                          device=dev)
+    decode_rows = [(0, 100), (1, 57), (2, 127)]
+    prefill_rows = [(3, 64 + i) for i in range(20)]
+    sched = build_duet_schedule(decode_rows, prefill_rows, block_q=bq)
+    n = len(decode_rows) + len(prefill_rows)
+    q = pack_duet_queries(sched, _randn(rng, (n, H, Dh), dtype, dev))
+    args = (q.contiguous(),
+            torch.tensor(sched.row_pos, device=dev)[:, None].contiguous(),
+            torch.tensor(sched.tile_slot, device=dev), kp, vp, tables)
+    got = unpack_duet_output(
+        sched, duet_attention_paged(*args, block_q=bq), n)
+    want = unpack_duet_output(
+        sched, duet_attention_paged_plain(*args, block_q=bq), n)
+    torch.testing.assert_close(got, want, atol=TOL[dtype], rtol=TOL[dtype])
+
+
+def test_engines_on_the_card_match_the_cpu(dev):
+    """Reduced qwen3-4b in fp32: the sync and async engines through the
+    CUDA kernels (the async one with fused duet steps) give the plain CPU
+    path's greedy tokens and the same ServingMetrics summary."""
+    cfg = reduced(get_config("qwen3-4b"))
+    cpu = Model.init(cfg, seed=0, device="cpu", attn_kernel=True)
+    card = Model.init(cfg, seed=0, device="cpu", attn_kernel=True).to(dev)
+    specs = [(i, i * 0.0003, 20 + 7 * i, 6 + i) for i in range(5)]
+    kw = dict(max_slots=3, max_len=128, token_budget=48, page_size=8)
+    runs = {}
+    for label, cls, model, device in (
+            ("cpu", DuetEngine, cpu, "cpu"),
+            ("sync", DuetEngine, card, dev),
+            ("async", AsyncDuetEngine, card, dev)):
+        before = launch_counts()
+        eng = cls(model, EngineConfig(**kw), device=device)
+        eng.submit([Request(rid=r, arrival=a, prompt_len=p, output_len=o)
+                    for r, a, p, o in specs])
+        metrics = eng.run()
+        after = launch_counts()
+        runs[label] = ({r.rid: list(r.output_tokens)
+                        for r in metrics.requests}, metrics.summary())
+        if device != "cpu":
+            assert eng.kernel_path == "cuda"
+            assert after["paged_decode"] > before["paged_decode"]
+        if cls is AsyncDuetEngine:
+            assert after["duet_attention_paged"] > \
+                before["duet_attention_paged"]
+            assert 0 < eng.dstats.host_syncs <= eng.dstats.super_iterations
+    assert runs["sync"] == runs["cpu"]
+    assert runs["async"] == runs["cpu"]

@@ -1,0 +1,121 @@
+"""Rules of the PyTorch port: it imports neither JAX nor the JAX package,
+its entry points run on CUDA unless the CPU is asked for (and raise
+without CUDA), flags of features not yet ported say so, and a kernel
+wrapper given a tensor off the CPU launches its kernel or raises — it never
+falls back to the plain version."""
+import ast
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.configs import get_config, reduced
+from repro_torch.core.device import resolve_device
+from repro_torch.kernels import _build
+from repro_torch.kernels.duet_attention import duet_attention_paged
+from repro_torch.kernels.paged_decode import paged_decode
+from repro_torch.launch import serve
+from repro_torch.models import Model
+from repro_torch.serving import DuetEngine, EngineConfig
+
+REPO = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
+    REPO / "chip_smoke.py"]
+
+
+def test_cli_serves_on_cpu_without_jax_or_reference():
+    """The serve CLI in a fresh interpreter: every request finishes, and
+    neither ``jax`` nor ``repro`` was ever imported."""
+    code = (
+        "import runpy, sys\n"
+        "sys.argv = ['serve', '--reduced', '--device', 'cpu', '--stream',\n"
+        "            '--num-requests', '4', '--max-len', '128',\n"
+        "            '--attn-kernel']\n"
+        "runpy.run_module('repro_torch.launch.serve', run_name='__main__')\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
+    lines = proc.stdout.splitlines()
+    finishes = [json.loads(ln) for ln in lines
+                if ln.startswith('{"event": "finish"')]
+    assert sorted(f["rid"] for f in finishes) == [0, 1, 2, 3]
+    summary = json.loads(proc.stdout[proc.stdout.index("\n{\n") + 1:])
+    assert summary["num_finished"] == 4
+    assert summary["kernel_path"] == "torch"
+    assert summary["device"] == {"type": "cpu", "count": 1}
+    st = summary["dispatch_stats"]
+    assert 0 < st["host_syncs"] <= st["super_iterations"]
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_port_source_imports_no_jax_or_reference(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in ("jax", "jaxlib", "repro"), \
+                f"{path}: imports {name}"
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_without_device_raise_without_cuda(no_cuda):
+    cfg = reduced(get_config("qwen3-4b"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Model.init(cfg)
+    model = Model.init(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DuetEngine(model, EngineConfig())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--reduced", "--num-requests", "1"])
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+@pytest.mark.parametrize("flags", [
+    ["--tp", "2"], ["--dp", "2"], ["--elastic"], ["--no-paged"],
+    ["--arrival", "mmpp"], ["--service-mix", "mixture"], ["--rho", "0.5"],
+])
+def test_unported_flags_exit(flags):
+    with pytest.raises(SystemExit, match="not yet ported"):
+        serve.main(["--reduced", "--device", "cpu", *flags])
+
+
+def test_kernel_wrappers_never_fall_back_off_the_cpu():
+    """A tensor that is neither on the CPU nor on a CUDA card (here the
+    meta device) is refused, not served by the plain version."""
+    q = torch.empty((2, 4, 64), device="meta")
+    pages = torch.empty((8, 16, 2, 64), device="meta")
+    tables = torch.empty((2, 4), dtype=torch.int32, device="meta")
+    lengths = torch.empty((2,), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="is not on"):
+        paged_decode(q, pages, pages, tables, lengths)
+    with pytest.raises(ValueError, match="is not on"):
+        duet_attention_paged(q, lengths[:, None], lengths, pages, pages,
+                             tables, block_q=1)
+
+
+def test_build_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build_all()
