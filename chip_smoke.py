@@ -12,28 +12,39 @@ Phases (each raises on failure; nothing is swallowed):
              shared-memory report.
 2. kernels — hold each kernel against its plain PyTorch version on the card
              at the serving path's shapes and at the small GQA/MQA/MHA,
-             odd-length and dead-split shapes of the kernel tests, in fp32
-             and bf16. Each case prints its max error beside the tolerance,
-             the kernel's, the plain version's and a library call's time
-             (SDPA over the gathered KV; timed here only, never used by the
-             port) from CUDA events, and the bound (the least time for the
-             bytes and operations the inputs need, at the card's published
-             3.35 TB/s and 989 bf16 / 67 fp32 TFLOP/s).
+             odd-length, dead-split and ragged shapes of the kernel tests,
+             in fp32 and bf16. Each case prints its max error beside the
+             tolerance, the kernel's, the plain version's and a library
+             call's time (SDPA over the gathered, head-repeated KV; timed
+             here only, never used by the port) from CUDA events, and the
+             bound (the least time for the bytes and operations the inputs
+             need, at the card's published 3.35 TB/s and 989 bf16 / 67 fp32
+             TFLOP/s).
 3. parity  — full-width qwen3-4b cut to 4 layers, fp32 with TF32 off: the
              kernel path's logits against the port's plain path for one
-             decode step and one duet step.
+             paged decode step, one duet step, and one slab decode step
+             after a chunked slab prefill; and flash_prefill on the port's
+             gqa_prefill q/K/V against gqa_prefill's own attention.
 4. serve   — full qwen3-4b (36 layers, bf16, random weights from a seed)
-             serves 8 azure-conv requests through the async engine, the
-             sync engine, and the async engine again with
-             split_kv_threshold=256, with attn_kernel=True and
-             strict_kernel=True. Every request must finish, the async runs
-             must keep host_syncs <= super_iterations and make at least one
-             duet dispatch, and every kernel's launch count over the three
-             runs (reset to 0 just before them) must be above 0. Wall-clock
-             tokens/s on the card are printed as measured.
+             serves azure-conv requests on two paths, each with
+             attn_kernel=True and strict_kernel=True and the launch counts
+             reset to 0 just before it and read just after it:
+             the paged path (4 of the 8 requests, those with the shortest
+             outputs, through the async engine, the sync engine, and the
+             async engine again with split_kv_threshold=256) and the slab
+             path (all 8 requests; paged=False: the sync and the async
+             engine). The kernels line's launches sum both paths. Every
+             request must finish, the async runs must keep host_syncs <=
+             super_iterations, the paged async runs must make at least one
+             duet dispatch, and every kernel of a path must have launched
+             on it. Wall-clock tokens/s on the card are printed as measured.
+             A profile step then times one full-width decode step of each
+             path.
 
 Before the last line it prints the card's name and power limit
-(``nvidia-smi``) and a ``{"kernels": [...]}`` JSON line; the last line is
+(``nvidia-smi``) and a ``{"kernels": [...]}`` JSON line (flash_prefill
+has no serving path: the reference calls it only from its tests, and the
+serve phase fails unless its count reads 0); the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the repository
 beside it, it exits non-zero and prints no result.
 """
@@ -55,9 +66,10 @@ PHASES = ("build", "kernels", "parity", "serve")
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
-# logits of the kernel path vs the plain path, full width, fp32, TF32 off:
-# only the attention reduction order differs
-PARITY_TOL = 1e-4           # relative to max |logit|
+# logits (and flash_prefill's attention output) of the kernel path vs the
+# plain path, full width, fp32, TF32 off: only the attention reduction
+# order differs
+PARITY_TOL = 1e-4           # relative to the reference's max |value|
 KERNEL_SOURCES = {
     "paged_decode": ("src/repro_torch/kernels/csrc/paged_decode.cu",
                      "src/repro/kernels/paged_decode.py:85"),
@@ -66,7 +78,16 @@ KERNEL_SOURCES = {
     "duet_attention_paged": (
         "src/repro_torch/kernels/csrc/duet_attention_paged.cu",
         "src/repro/kernels/duet_attention.py:189"),
+    "duet_attention": ("src/repro_torch/kernels/csrc/duet_attention.cu",
+                       "src/repro/kernels/duet_attention.py:112"),
+    "flash_prefill": ("src/repro_torch/kernels/csrc/flash_prefill.cu",
+                      "src/repro/kernels/flash_prefill.py:78"),
 }
+# the serving path that must launch each kernel; flash_prefill is on none
+# (the reference calls it only from its tests), and its count must read 0
+PATH_OF = {"paged_decode": "paged", "paged_decode_splitkv": "paged",
+           "duet_attention_paged": "paged", "duet_attention": "slab"}
+PAGED_MAX_OUTPUT = 160      # see phase_serve's requests()
 
 
 def log(msg: str):
@@ -259,6 +280,103 @@ def check_duet(rng, label, dtype, N, ps, G, H, Dh, P, decode_rows,
     return rec
 
 
+def check_duet_slab(rng, label, dtype, Ns, S, G, H, Dh, decode_rows,
+                    prefill_rows, bq, block_k=128):
+    from repro_torch.kernels.duet_attention import (duet_attention,
+                                                    duet_attention_plain)
+    from repro_torch.kernels.ops import (build_duet_schedule,
+                                         pack_duet_queries,
+                                         unpack_duet_output)
+    dev = "cuda"
+    ks = torch.from_numpy(rng.standard_normal((Ns, S, G, Dh), np.float32)
+                          ).to(dev, dtype)
+    vs = torch.from_numpy(rng.standard_normal((Ns, S, G, Dh), np.float32)
+                          ).to(dev, dtype)
+    sched = build_duet_schedule(decode_rows, prefill_rows, block_q=bq)
+    rows = decode_rows + prefill_rows
+    src_q = torch.from_numpy(rng.standard_normal((len(rows), H, Dh),
+                                                 np.float32)).to(dev, dtype)
+    q = pack_duet_queries(sched, src_q).contiguous()
+    row_pos = torch.tensor(sched.row_pos, device=dev)[:, None].contiguous()
+    tile_slot = torch.tensor(sched.tile_slot, device=dev)
+    kernel = lambda: duet_attention(  # noqa: E731
+        q, row_pos, tile_slot, ks, vs, block_q=bq, block_k=block_k)
+    plain = lambda: duet_attention_plain(  # noqa: E731
+        q, row_pos, tile_slot, ks, vs, block_q=bq)
+    rec = {"name": "duet_attention", "case": label, "dtype": str(dtype)}
+    got = unpack_duet_output(sched, kernel(), len(rows))
+    torch.cuda.synchronize()
+    want = unpack_duet_output(sched, plain(), len(rows))
+    _check("duet_attention", got, want, dtype, label, rec)
+    elt = q.element_size()
+    live = {}
+    for s_, p in rows:
+        live[s_] = max(live.get(s_, 0), p + 1)
+    nbytes = (2 * len(rows) * H * Dh * elt
+              + 2 * sum(live.values()) * G * Dh * elt
+              + 4 * (len(rows) + len(sched.tile_slot)))
+    ops = 4.0 * H * Dh * sum(p + 1 for _, p in rows)
+    rec["bound_ms"], rec["bound_by"] = _bound(nbytes, ops, dtype)
+    rec["ms"] = time_ms(kernel)
+    rec["plain_ms"] = time_ms(plain, iters=3)
+    # library yardstick: SDPA with one query row per batch entry over its
+    # slot's head-repeated slab row, masked causally by row position
+    slots = torch.tensor([s_ for s_, _ in rows], device=dev).long()
+    pos = torch.tensor([p for _, p in rows], device=dev)
+    k = ks[slots].repeat_interleave(H // G, dim=2).transpose(1, 2)
+    v = vs[slots].repeat_interleave(H // G, dim=2).transpose(1, 2)
+    mask = (torch.arange(S, device=dev)[None, :]
+            <= pos[:, None])[:, None, None, :]
+    qq = src_q[:, :, None, :]
+    fn = torch.nn.functional.scaled_dot_product_attention
+    rec["library_ms"] = time_ms(lambda: fn(qq, k, v, attn_mask=mask))
+    del k, v
+    return rec
+
+
+def check_flash(rng, label, dtype, B, Sq, Sk, H, G, Dh, q_offset,
+                kv_len=None):
+    from repro_torch.kernels.flash_prefill import (flash_prefill,
+                                                   flash_prefill_plain)
+    dev = "cuda"
+
+    def randn(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
+            dev, dtype)
+    q, k, v = randn(B, Sq, H, Dh), randn(B, Sk, G, Dh), randn(B, Sk, G, Dh)
+    kernel = lambda: flash_prefill(  # noqa: E731
+        q, k, v, q_offset=q_offset, kv_len=kv_len)
+    plain = lambda: flash_prefill_plain(  # noqa: E731
+        q, k, v, q_offset=q_offset, kv_len=kv_len)
+    rec = {"name": "flash_prefill", "case": label, "dtype": str(dtype)}
+    got = kernel()
+    torch.cuda.synchronize()
+    _check("flash_prefill", got, plain(), dtype, label, rec)
+    # the work these inputs need: query i sees keys 0..min(q_offset + i,
+    # kv_end - 1)
+    kv_end = Sk if kv_len is None else min(Sk, kv_len)
+    qpos = q_offset + np.arange(Sq)
+    pairs = int(np.clip(np.minimum(qpos + 1, kv_end), 0, None).sum())
+    keys = min(kv_end, q_offset + Sq)
+    elt = q.element_size()
+    nbytes = (2 * B * Sq * H * Dh + 2 * B * keys * G * Dh) * elt
+    ops = 4.0 * B * H * Dh * pairs
+    rec["bound_ms"], rec["bound_by"] = _bound(nbytes, ops, dtype)
+    rec["ms"] = time_ms(kernel)
+    rec["plain_ms"] = time_ms(plain, iters=5)
+    # library yardstick: SDPA over head-repeated K/V with the
+    # causal-offset (and kv_len) mask
+    qq = q.transpose(1, 2)
+    kk = k.repeat_interleave(H // G, dim=2).transpose(1, 2)
+    vv = v.repeat_interleave(H // G, dim=2).transpose(1, 2)
+    kpos = torch.arange(Sk, device=dev)
+    mask = (kpos[None, :] <= torch.tensor(qpos, device=dev)[:, None]) \
+        & (kpos[None, :] < kv_end)
+    fn = torch.nn.functional.scaled_dot_product_attention
+    rec["library_ms"] = time_ms(lambda: fn(qq, kk, vv, attn_mask=mask))
+    return rec
+
+
 def phase_kernels():
     from repro_torch.kernels.ops import num_splits_for
     rng = np.random.default_rng(0)
@@ -285,8 +403,22 @@ def phase_kernels():
                        (B + 1) * P + 1, ps, G, H, Dh, P, decode_rows,
                        prefill_rows, bq=1)
         records.append(r)
+        # the slab decode step: 8 decode rows (block_q 1) over the engine's
+        # slab (8 slots x 1024), contexts 256..1000
+        slab_rows = [(b, int(c) - 1) for b, c in
+                     enumerate(np.linspace(256, 1000, B).astype(np.int64))]
+        records.append(check_duet_slab(
+            rng, "main slab 8 decode ctx 256-1000", dtype, B, 1024, G, H,
+            Dh, slab_rows, [], bq=1))
+        # a slab prefill chunk's shapes: 256 queries at offset 512
+        records.append(check_flash(
+            rng, "main Sq 256 @ 512, Sk 768", dtype, 1, 256, 768, H, G, Dh,
+            512))
+        records.append(check_flash(
+            rng, "ragged Sq 100 @ 200, Sk 300, kv_len 250", dtype, 2, 100,
+            300, H, G, Dh, 200, kv_len=250))
         if dtype == torch.bfloat16:      # the serving path's working type
-            for rec in records[-3:]:
+            for rec in records[-6:-1]:
                 main[rec["name"]] = rec
     # the kernel tests' shapes: GQA / MQA / MHA, odd lengths, dead splits
     for dtype in (torch.float32, torch.bfloat16):
@@ -312,6 +444,21 @@ def phase_kernels():
                 rng, f"mixed phases bq={bq}", dtype, 40, 16, 2, 4, 64, 8,
                 [(0, 100), (1, 57), (2, 127)],
                 [(3, 64 + i) for i in range(20)], bq=bq))
+        for bq in (1, 8):
+            records.append(check_duet_slab(
+                rng, f"slab mixed phases bq={bq}", dtype, 4, 256, 2, 4, 64,
+                [(0, 100), (1, 57), (2, 200)],
+                [(3, 64 + i) for i in range(20)], bq=bq))
+        for (Bs, Sq, Sk, Hs, Gs, Ds, off, kvl) in [
+                (1, 128, 128, 4, 2, 64, 0, None),
+                (2, 128, 256, 4, 4, 64, 128, None),
+                (1, 256, 256, 8, 2, 128, 0, None),
+                (1, 128, 128, 4, 1, 64, 0, None),
+                (1, 77, 200, 4, 2, 64, 100, 150)]:
+            records.append(check_flash(
+                rng, f"sweep B{Bs} Sq{Sq} Sk{Sk} H{Hs} G{Gs} Dh{Ds} "
+                f"off{off} kv_len {kvl}", dtype, Bs, Sq, Sk, Hs, Gs, Ds, off,
+                kv_len=kvl))
     card = card_line()
     for rec in records:
         log(f"[kernels] {rec['name']:22s} {rec['dtype']:15s} "
@@ -385,10 +532,40 @@ def phase_parity():
                                                tblA)
         ls_pre, _, _ = plain.prefill_paged(toksB, seq_pools, state, tblB,
                                            start_pos=0)
+        # slab: two slots, 200-token prompts prefilled in chunks of 128 +
+        # 72, then one decode step of both
+        toks2 = torch.tensor(rng.integers(0, cfg.vocab_size, (2, 201)),
+                             device=dev)
+
+        def slab_prefilled():
+            cache = plain.init_cache(2, 256)
+            for s0, s1 in ((0, 128), (128, 200)):
+                plain.prefill(toks2[:, s0:s1], cache=cache, start_pos=s0)
+            return cache
+        tok2 = toks2[:, 200:]
+        pos2 = torch.full((2,), 200, dtype=torch.int32, device=dev)
+        lsk, _ = kern.decode_step(slab_prefilled(), tok2, pos2)
+        lsp, _ = plain.decode_step(slab_prefilled(), tok2, pos2)
+        # flash_prefill's contract: on gqa_prefill's own q/K/V it gives
+        # gqa_prefill's attention (the reference's tests/test_kernels.py)
+        from repro_torch.kernels import flash_prefill
+        from repro_torch.models import attention as attn_mod
+        p0 = kern.params["layers"][0]["attn"]
+        x = torch.from_numpy(rng.standard_normal((1, 256, cfg.d_model),
+                                                 np.float32)).to(dev)
+        positions = torch.arange(256, device=dev)[None]
+        out_model, cache = attn_mod.gqa_prefill(p0, cfg, x, positions)
+        q, _, _ = attn_mod._project_qkv(p0, cfg, x, positions)
+        out_kernel = torch.einsum("bshe,hed->bsd", flash_prefill(
+            q.contiguous(), cache.k.contiguous(), cache.v.contiguous()),
+            p0["w_o"])
     for name, got, want in [("decode step", lk, lp),
                             ("duet step, decode row", ld[0], ls_dec[0]),
-                            ("duet step, last chunk row", ld[C], ls_pre[0])]:
-        V = cfg.vocab_size          # the padded columns hold finfo.min
+                            ("duet step, last chunk row", ld[C], ls_pre[0]),
+                            ("slab decode step", lsk, lsp),
+                            ("flash_prefill on gqa_prefill's q/K/V "
+                             "(attention output)", out_kernel, out_model)]:
+        V = cfg.vocab_size          # padded logit columns hold finfo.min
         got, want = got[..., :V], want[..., :V]
         scale = max(1.0, want.abs().max().item())
         err = (got - want).abs().max().item()
@@ -396,7 +573,7 @@ def phase_parity():
             raise AssertionError(f"[parity] {name}: max abs err {err:.3e} > "
                                  f"{PARITY_TOL:.0e} x {scale:.3g}")
         log(f"[parity] {name}: max abs err {err:.3e} "
-            f"(tol {PARITY_TOL:.0e} x max|logit| {scale:.3g})")
+            f"(tol {PARITY_TOL:.0e} x max|reference| {scale:.3g})")
     del kern, plain
     torch.cuda.empty_cache()
 
@@ -423,103 +600,141 @@ def phase_serve():
         f"random from seed 0 in {time.time() - t0:.1f} s")
     card = card_line()
 
-    def requests():
-        return _clamp_lengths(synth_trace("azure-conv", 8, 4.0, seed=0),
+    def requests(path):
+        reqs = _clamp_lengths(synth_trace("azure-conv", 8, 4.0, seed=0),
                               1024, True)
+        # the paged path's three runs serve the trace's requests of at most
+        # PAGED_MAX_OUTPUT output tokens (4 of the 8), which halves their
+        # decode steps; the slab path serves all 8
+        if path == "paged":
+            reqs = [r for r in reqs if r.output_len <= PAGED_MAX_OUTPUT]
+        return reqs
 
-    runs = [("async", AsyncDuetEngine, None),
-            ("sync", DuetEngine, None),
-            ("async split_kv_threshold=256", AsyncDuetEngine, 256)]
-    outputs = {}
-    reset_launch_counts()            # the main path's launches start here
-    for label, cls, thr in runs:
-        ec = EngineConfig(max_slots=8, max_len=1024, token_budget=256,
-                          strict_kernel=True, split_kv_threshold=thr)
-        engine = cls(model, ec, seed=0, device="cuda")
-        before = launch_counts()
-        reqs = requests()
-        engine.submit(reqs)
-        torch.cuda.synchronize()
-        t0 = time.time()
-        metrics = engine.run()
-        torch.cuda.synchronize()
-        wall = time.time() - t0
-        after = launch_counts()
-        summ = metrics.summary()
-        n_tok = sum(len(r.output_tokens) for r in metrics.requests)
-        if summ["num_finished"] != len(reqs):
-            raise AssertionError(f"[serve] {label}: {summ['num_finished']}"
-                                 f"/{len(reqs)} requests finished")
-        for r in metrics.requests:
-            if len(r.output_tokens) != r.output_len or not all(
-                    0 <= t < cfg.vocab_size for t in r.output_tokens):
-                raise AssertionError(f"[serve] {label}: request {r.rid} "
-                                     "produced bad tokens")
-        if engine.kernel_path != "cuda":
-            raise AssertionError(f"[serve] {label}: kernel_path "
-                                 f"{engine.kernel_path}")
-        line = (f"[serve] {label}: {len(reqs)} requests, {n_tok} tokens in "
-                f"{wall:.2f} s wall = {n_tok / wall:.1f} tokens/s measured "
-                f"on the card [{card}]; launches "
-                f"{ {k: after[k] - before[k] for k in after} }")
-        if cls is AsyncDuetEngine:
-            st = engine.dstats
-            duet = sum(1 for k in engine._programs if k[-1])
-            if not 0 < st.host_syncs <= st.super_iterations:
-                raise AssertionError(f"[serve] {label}: host_syncs "
-                                     f"{st.host_syncs} > super_iterations "
-                                     f"{st.super_iterations}")
-            if duet == 0 or after["duet_attention_paged"] == \
-                    before["duet_attention_paged"]:
-                raise AssertionError(f"[serve] {label}: no duet dispatch")
-            line += (f"; super_iterations {st.super_iterations}, "
-                     f"host_syncs {st.host_syncs}, duet buckets {duet}")
-        log(line)
-        outputs[label] = {r.rid: list(r.output_tokens)
-                          for r in metrics.requests}
-        log(f"[serve] {label}: virtual-clock summary (TPU v5e roofline "
-            f"prediction, not a card measurement): mean TTFT "
-            f"{summ['mean_ttft_s']} s, mean TBT {summ['mean_tbt_s']} s")
-        del engine
-        torch.cuda.empty_cache()
-    counts = launch_counts()
-    a, s = outputs["async"], outputs["sync"]
-    same = sum(a[r] == s[r] for r in a)
-    first = {r: next((i for i, (x, y) in enumerate(zip(a[r], s[r]))
-                      if x != y), None) for r in a}
-    log(f"[serve] async vs sync greedy streams identical for {same}/"
-        f"{len(a)} requests (bf16; the kernels differ in summation order); "
-        f"first differing token index per request: {first}")
-    for name, n in counts.items():
-        if n <= 0:
-            raise AssertionError(f"[serve] kernel {name} was never launched "
-                                 "on the main path")
-    log(f"[serve] main-path launches: {counts}")
-    profile_decode(model, card)
+    paths = {
+        "paged": [("async", AsyncDuetEngine, {}),
+                  ("sync", DuetEngine, {}),
+                  ("async split_kv_threshold=256", AsyncDuetEngine,
+                   {"split_kv_threshold": 256})],
+        "slab": [("slab sync", DuetEngine, {"paged": False}),
+                 ("slab async", AsyncDuetEngine, {"paged": False})],
+    }
+    outputs, counts = {}, {}
+    for path, runs in paths.items():
+        reset_launch_counts()        # this path's launches start here
+        for label, cls, extra in runs:
+            ec = EngineConfig(max_slots=8, max_len=1024, token_budget=256,
+                              strict_kernel=True, **extra)
+            engine = cls(model, ec, seed=0, device="cuda")
+            before = launch_counts()
+            reqs = requests(path)
+            engine.submit(reqs)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            metrics = engine.run()
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            after = launch_counts()
+            summ = metrics.summary()
+            n_tok = sum(len(r.output_tokens) for r in metrics.requests)
+            if summ["num_finished"] != len(reqs):
+                raise AssertionError(f"[serve] {label}: "
+                                     f"{summ['num_finished']}/{len(reqs)} "
+                                     "requests finished")
+            for r in metrics.requests:
+                if len(r.output_tokens) != r.output_len or not all(
+                        0 <= t < cfg.vocab_size for t in r.output_tokens):
+                    raise AssertionError(f"[serve] {label}: request "
+                                         f"{r.rid} produced bad tokens")
+            if engine.kernel_path != "cuda":
+                raise AssertionError(f"[serve] {label}: kernel_path "
+                                     f"{engine.kernel_path}")
+            line = (f"[serve] {label}: {len(reqs)} requests, {n_tok} tokens "
+                    f"in {wall:.2f} s wall = {n_tok / wall:.1f} tokens/s "
+                    f"measured on the card [{card}]; launches "
+                    f"{ {k: after[k] - before[k] for k in after} }")
+            if cls is AsyncDuetEngine:
+                st = engine.dstats
+                if not 0 < st.host_syncs <= st.super_iterations:
+                    raise AssertionError(
+                        f"[serve] {label}: host_syncs {st.host_syncs} > "
+                        f"super_iterations {st.super_iterations}")
+                line += (f"; super_iterations {st.super_iterations}, "
+                         f"host_syncs {st.host_syncs}")
+                if path == "paged":
+                    duet = sum(1 for k in engine._programs if k[-1])
+                    if duet == 0 or after["duet_attention_paged"] == \
+                            before["duet_attention_paged"]:
+                        raise AssertionError(f"[serve] {label}: no duet "
+                                             "dispatch")
+                    line += f", duet buckets {duet}"
+            log(line)
+            outputs[label] = {r.rid: list(r.output_tokens)
+                              for r in metrics.requests}
+            log(f"[serve] {label}: virtual-clock summary (TPU v5e roofline "
+                f"prediction, not a card measurement): mean TTFT "
+                f"{summ['mean_ttft_s']} s, mean TBT {summ['mean_tbt_s']} s")
+            del engine
+            torch.cuda.empty_cache()
+        got = launch_counts()        # this path's launches end here
+        log(f"[serve] {path} path launches: {got}")
+        for name, n in got.items():
+            counts[name] = counts.get(name, 0) + n
+            if PATH_OF.get(name) == path and n <= 0:
+                raise AssertionError(f"[serve] kernel {name} was never "
+                                     f"launched on the {path} path")
+    if counts["flash_prefill"] != 0:
+        raise AssertionError("[serve] flash_prefill launched "
+                             f"{counts['flash_prefill']} times on a serving "
+                             "path (the reference serves without it)")
+    for a_label, b_label in (("async", "sync"), ("slab async", "slab sync"),
+                             ("slab sync", "sync")):
+        a, b = outputs[a_label], outputs[b_label]
+        a = {r: a[r] for r in b if r in a}     # the paged path serves fewer
+        same = sum(a[r] == b[r] for r in a)
+        first = {r: next((i for i, (x, y) in enumerate(zip(a[r], b[r]))
+                          if x != y), None) for r in a}
+        log(f"[serve] {a_label} vs {b_label} greedy streams identical for "
+            f"{same}/{len(a)} requests (bf16; the kernels differ in "
+            f"summation order); first differing token index per request: "
+            f"{first}")
+    for slab in (False, True):
+        profile_decode(model, card, slab)
     return counts
 
 
-def profile_decode(model, card):
+def profile_decode(model, card, slab: bool):
     """Where one full-width decode step's time goes: 8 slots at 1000 tokens
-    of context through the kernel path, timed on the host clock without
-    the profiler, then traced with torch.profiler for the device time by
+    of context through the kernel path (paged pool, or slab cache with the
+    engine's 1024-token rows), timed on the host clock without the
+    profiler, then traced with torch.profiler for the device time by
     kernel. Device busy share = summed kernel time / wall time. Launches
     made here come after the main path's counts were read."""
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.lookahead import lookahead_decode
     from repro_torch.serving.kvcache import PagePoolConfig, init_page_pools
     cfg, B, P, ps, steps = model.cfg, 8, 64, 16, 4
-    pools = init_page_pools(cfg, PagePoolConfig(num_pages=B * P + 1,
-                                                page_size=ps),
-                            torch.bfloat16, device="cuda")
-    tables = torch.arange(1, B * P + 1, dtype=torch.int32,
-                          device="cuda").reshape(B, P)
     pos = torch.full((B,), 1000, dtype=torch.int32, device="cuda")
     tok = torch.zeros((B, 1), dtype=torch.int32, device="cuda")
-    state = model.init_state_cache(B)
+    if slab:
+        cache = model.init_cache(B, 1024)
+        active = torch.ones((B,), dtype=torch.bool, device="cuda")
+
+        def step():   # the engine's slab step: decode + inactive freeze
+            lookahead_decode(model, cache, tok, pos, 1, active_mask=active)
+    else:
+        pools = init_page_pools(cfg, PagePoolConfig(num_pages=B * P + 1,
+                                                    page_size=ps),
+                                torch.bfloat16, device="cuda")
+        tables = torch.arange(1, B * P + 1, dtype=torch.int32,
+                              device="cuda").reshape(B, P)
+        state = model.init_state_cache(B)
+
+        def step():
+            model.decode_step_paged(pools, state, tok, pos, tables)
 
     def run():
         for _ in range(steps):
-            model.decode_step_paged(pools, state, tok, pos, tables)
+            step()
         torch.cuda.synchronize()
 
     run()
@@ -535,9 +750,10 @@ def profile_decode(model, card):
     busy = (f"{dev:.2f} ms/step (torch.profiler); device busy "
             f"{100 * dev / (wall * 1e3):.1f}%" if dev > 0 else
             "not measured (the profiler recorded no device time)")
-    log(f"[profile] decode step, {cfg.num_layers} layers, B={B}, ctx 1000, "
-        f"bf16: wall {wall * 1e3:.2f} ms/step (host clock, no profiler); "
-        f"device kernel time {busy} [{card}]")
+    label = "slab" if slab else "paged"
+    log(f"[profile] {label} decode step, {cfg.num_layers} layers, B={B}, "
+        f"ctx 1000, bf16: wall {wall * 1e3:.2f} ms/step (host clock, no "
+        f"profiler); device kernel time {busy} [{card}]")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"[profile]   {e.self_device_time_total / steps / 1e3:8.3f} "
             f"ms/step  {e.count // steps:5d} calls/step  {e.key[:70]}")
@@ -563,20 +779,24 @@ def main(argv=None) -> int:
         f"cuda {torch.version.cuda} card {torch.cuda.get_device_name(0)}")
     t0 = time.time()
     main_rec, counts = {}, {}
-    if "build" in phases:
-        phase_build()
-    if "kernels" in phases:
-        main_rec = phase_kernels()
-    if "parity" in phases:
-        phase_parity()
-    if "serve" in phases:
-        counts = phase_serve()
+    for phase in (p for p in PHASES if p in phases):
+        t_phase = time.time()
+        if phase == "build":
+            phase_build()
+        elif phase == "kernels":
+            main_rec = phase_kernels()
+        elif phase == "parity":
+            phase_parity()
+        elif phase == "serve":
+            counts = phase_serve()
+        log(f"[time] {phase} phase {time.time() - t_phase:.1f} s")
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
         rec = main_rec.get(name, {})
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": counts.get(name),
+            "replaces": replaces,
+            "launches": counts[name] if counts else None,
             "max_abs_err": rec.get("max_abs_err"), "ms": rec.get("ms"),
             "plain_ms": rec.get("plain_ms"),
             "bound_ms": rec.get("bound_ms"),

@@ -17,6 +17,8 @@ from typing import TYPE_CHECKING, Optional
 
 import torch
 
+from repro_torch.models.attention import slot_views
+
 if TYPE_CHECKING:   # the model imports core.device; no runtime cycle
     from repro_torch.models.transformer import Model
 
@@ -32,6 +34,50 @@ def _sample(logits: torch.Tensor, gen: Optional[torch.Generator],
     g = -torch.log(-torch.log(u + 1e-9) + 1e-9)
     return torch.argmax(logits.float() / temperature + g,
                         dim=-1).to(torch.int32)
+
+
+def lookahead_decode(model: Model, cache, first_token: torch.Tensor,
+                     start_pos: torch.Tensor, k: int, *,
+                     gen: Optional[torch.Generator] = None,
+                     temperature: float = 0.0, sliding: bool = False,
+                     active_mask: Optional[torch.Tensor] = None):
+    """k decode steps against the slab cache (updated in place) without a
+    host sync.
+
+    Args:
+      first_token: (B, 1) int32 — token to feed at the first step.
+      start_pos: (B,) int32 — cache position of the first step per request
+        (continuous batching: requests sit at different depths).
+      active_mask: (B,) bool — inactive slots keep their token, position
+        and slab row (retired slots must not corrupt the cache).
+
+    Returns (tokens (B, k), cache, new_pos (B,)).
+    """
+    B = first_token.shape[0]
+    if active_mask is None:
+        active_mask = torch.ones((B,), dtype=torch.bool,
+                                 device=first_token.device)
+    tok, pos = first_token, start_pos
+    toks = []
+    for _ in range(k):
+        logits, cache = model.decode_step(cache, tok, pos, sliding=sliding,
+                                          active_mask=active_mask)
+        nxt = _sample(logits, gen, temperature)[:, None]
+        tok = torch.where(active_mask[:, None], nxt, tok)
+        pos = torch.where(active_mask, pos + 1, pos)
+        toks.append(tok[:, 0])
+    return torch.stack(toks, dim=1), cache, pos
+
+
+def make_lookahead_fn(model: Model, k: int, *, temperature: float = 0.0,
+                      sliding: bool = False):
+    """The k-step slab decode program (one per k — the engine caches these
+    as the paper caches one CUDA Graph per batch shape)."""
+    def run(cache, first_token, start_pos, gen, active_mask):
+        return lookahead_decode(model, cache, first_token, start_pos, k,
+                                gen=gen, temperature=temperature,
+                                sliding=sliding, active_mask=active_mask)
+    return run
 
 
 def lookahead_decode_paged(model: Model, pools, state,
@@ -96,10 +142,11 @@ def _set_row(t: torch.Tensor, row: int, value) -> torch.Tensor:
     return t
 
 
-def make_superiter_fn(model: Model, kb: int, *, chunk: int = 0,
-                      finish: bool = False, sample: bool = False,
-                      temperature: float = 0.0, duet_kernel: bool = False):
-    """Build one fused duet super-iteration program (paged mode).
+def make_superiter_fn(model: Model, kb: int, *, paged: bool = True,
+                      chunk: int = 0, finish: bool = False,
+                      sample: bool = False, temperature: float = 0.0,
+                      duet_kernel: bool = False):
+    """Build one fused duet super-iteration program.
 
     Bucket parameters (the engine's dispatch cache keys on them plus the
     argument shape buckets):
@@ -112,15 +159,19 @@ def make_superiter_fn(model: Model, kb: int, *, chunk: int = 0,
                 (False on preemption resume: the host already knows the next
                 token and passes it as ``override_tok``)
       duet_kernel — decode step 1 and the chunk run as ONE duet attention
-                launch per layer (needs kb > 0 and chunk > 0)
+                launch per layer (paged only; needs kb > 0 and chunk > 0)
 
-    Signature (B = engine slot count, W/Wp = block-table width buckets,
+    Signatures (B = engine slot count, W/Wp = block-table width buckets,
     C = chunk):
 
-      run(pools, state, last_tok (B,1), pos (B,), tables (B,W), gen,
-          active (B,), pre_toks (1,C), pre_tbl (1,Wp), pre_start: int,
-          pre_slot: int, override_tok: int[, order (B+C,)])
-        -> (toks (B,kb), sampled, last_tok, pos, pools, state, gen)
+      paged: run(pools, state, last_tok (B,1), pos (B,), tables (B,W), gen,
+                 active (B,), pre_toks (1,C), pre_tbl (1,Wp),
+                 pre_start: int, pre_slot: int, override_tok: int
+                 [, order (B+C,)])
+               -> (toks (B,kb), sampled, last_tok, pos, pools, state, gen)
+      slab:  run(cache, last_tok, pos, gen, active, pre_toks, pre_start,
+                 pre_slot, override_tok)
+               -> (toks (B,kb), sampled, last_tok, pos, cache, gen)
 
     ``sampled`` is the finishing prefill's next token (a 0-d device tensor)
     or None: the host fetches it together with ``toks`` in the single
@@ -128,8 +179,8 @@ def make_superiter_fn(model: Model, kb: int, *, chunk: int = 0,
     """
     if kb == 0 and chunk == 0:
         raise ValueError("empty super-iteration")
-    if duet_kernel and (kb == 0 or chunk == 0):
-        raise ValueError("duet_kernel needs both phases "
+    if duet_kernel and (not paged or kb == 0 or chunk == 0):
+        raise ValueError("duet_kernel needs paged mode with both phases "
                          "(kb > 0 and chunk > 0)")
 
     def _finish(logits_row, last_tok, pos, pre_start, pre_slot,
@@ -184,6 +235,28 @@ def make_superiter_fn(model: Model, kb: int, *, chunk: int = 0,
                 override_tok)
             return toks, sampled, last_tok, pos, pools, state, gen
         return fused
+
+    if not paged:
+        def fused_slab(cache, last_tok, pos, gen, active, pre_toks,
+                       pre_start, pre_slot, override_tok):
+            toks = torch.zeros((last_tok.shape[0], 0), dtype=torch.int32,
+                               device=last_tok.device)
+            sampled = None
+            if kb > 0:
+                toks, cache, pos = lookahead_decode(
+                    model, cache, last_tok, pos, kb, gen=gen,
+                    temperature=temperature, active_mask=active)
+                last_tok = torch.where(active[:, None], toks[:, -1:],
+                                       last_tok)
+            if chunk > 0:
+                logits, _ = model.prefill(
+                    pre_toks, cache=slot_views(cache, pre_slot),
+                    start_pos=pre_start)
+                sampled, last_tok, pos = _finish(
+                    logits[0], last_tok, pos, pre_start, pre_slot,
+                    override_tok)
+            return toks, sampled, last_tok, pos, cache, gen
+        return fused_slab
 
     def fused(pools, state, last_tok, pos, tables, gen, active, pre_toks,
               pre_tbl, pre_start, pre_slot, override_tok):

@@ -7,6 +7,10 @@ and a public dispatcher in ops.py:
                          partials, combined in a log-sum-exp second launch
   duet_attention_paged — fused mixed-phase attention over the paged pool
                          (decode rows + one prefill chunk in one launch)
+  duet_attention       — the same over the slab cache (the slab decode
+                         step's kernel path)
+  flash_prefill        — causal GQA flash attention with a query offset
+                         for chunked prefill
 
 ``paged_decode_auto`` picks the plain or split-KV decode kernel from the
 table capacity. Sources are in ``csrc/``; ``_build`` compiles them with
@@ -15,30 +19,34 @@ nvcc at first use.
 from typing import Dict
 
 from repro_torch.kernels.ops import (DuetSchedule, build_duet_schedule,
-                                     duet_attention_paged, pack_duet_queries,
+                                     duet_attention, duet_attention_paged,
+                                     flash_prefill, pack_duet_queries,
                                      paged_decode, paged_decode_auto,
                                      paged_decode_splitkv,
                                      unpack_duet_output)
 # the submodules share names with the dispatchers above, so their launch
 # counters are imported by full module path
 from repro_torch.kernels.duet_attention import launches as _duet_launches
+from repro_torch.kernels.flash_prefill import launches as _flash_launches
 from repro_torch.kernels.paged_decode import launches as _paged_launches
+
+_COUNTERS = (_paged_launches, _duet_launches, _flash_launches)
 
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches per wrapper since the last reset."""
-    return {**_paged_launches, **_duet_launches}
+    return {name: n for counts in _COUNTERS for name, n in counts.items()}
 
 
 def reset_launch_counts():
-    for counts in (_paged_launches, _duet_launches):
+    for counts in _COUNTERS:
         for name in counts:
             counts[name] = 0
 
 
 __all__ = [
-    "DuetSchedule", "build_duet_schedule", "duet_attention_paged",
-    "pack_duet_queries", "paged_decode", "paged_decode_auto",
-    "paged_decode_splitkv", "unpack_duet_output", "launch_counts",
-    "reset_launch_counts",
+    "DuetSchedule", "build_duet_schedule", "duet_attention",
+    "duet_attention_paged", "flash_prefill", "pack_duet_queries",
+    "paged_decode", "paged_decode_auto", "paged_decode_splitkv",
+    "unpack_duet_output", "launch_counts", "reset_launch_counts",
 ]

@@ -29,7 +29,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 # -Xptxas -v: each kernel's registers, shared memory and spills in the log
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-SOURCES = ("paged_decode", "duet_attention_paged")
+SOURCES = ("paged_decode", "duet_attention_paged", "duet_attention",
+           "flash_prefill")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -43,6 +44,12 @@ SIGNATURES = {
     },
     "duet_attention_paged": {
         "duet_attention_paged_launch": [_P] * 7 + [_I] * 7 + [_F, _I, _P],
+    },
+    "duet_attention": {
+        "duet_attention_launch": [_P] * 6 + [_I] * 6 + [_F, _I, _P],
+    },
+    "flash_prefill": {
+        "flash_prefill_launch": [_P] * 4 + [_I] * 8 + [_F, _I, _P],
     },
 }
 

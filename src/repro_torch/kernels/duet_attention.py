@@ -1,30 +1,32 @@
-"""Fused duet attention over the paged pool: a CUDA kernel for Hopper + its
-plain version.
+"""Fused duet attention, over the slab cache and over the paged pool: CUDA
+kernels for Hopper + their plain versions.
 
-Replaces the Pallas TPU kernel ``duet_attention_paged`` of
-``src/repro/kernels/duet_attention.py`` (``_paged_kernel``,
-``_attend_tile``, ``_write_tile``). The slab variant ``duet_attention``
-(``_kernel``) is not yet ported.
+Replaces the Pallas TPU kernels of ``src/repro/kernels/duet_attention.py``:
+``duet_attention`` (slab, ``_kernel``) and ``duet_attention_paged``
+(``_paged_kernel``), with their shared ``_attend_tile`` / ``_write_tile``.
 
 Work items are *rows*: a decode row is one request's single query token; a
 prefill row is one query position of the chunk being prefilled. Rows are
-grouped into per-slot tiles of ``block_q`` rows; tile t resolves
-``tile_slot[t]`` -> block-table row -> pages, and every row attends
-causally over that chain (``k_pos <= row_pos``). Decode rows and the
+grouped into per-slot tiles of ``block_q`` rows; tile t reads the KV of
+``tile_slot[t]`` (a slab slot, or a block-table row -> pages) and every
+row attends causally over it (``k_pos <= row_pos``). Decode rows and the
 prefill chunk run in ONE launch — the reference's stand-in for the paper's
 SM partition. The tile ORDER (``ops.build_duet_schedule``) is scheduling
 only; the numerics do not depend on it.
 
-Kernel source: ``csrc/duet_attention_paged.cu`` (design notes there).
-Bound on an H100: memory (the unique KV bytes of the tiles' chains at
-3.35 TB/s). This first kernel gives every tile its own block, so chain
-pages shared by a prefill chunk's tiles are read once per tile.
+Kernel sources: ``csrc/duet_attention.cu`` (slab) and
+``csrc/duet_attention_paged.cu`` (pages), both on ``csrc/attn_common.cuh``
+(design notes there). Bound on an H100: memory (the unique live KV bytes
+of the tiles at 3.35 TB/s). These first kernels give every tile its own
+block, so keys shared by a prefill chunk's tiles are read once per tile.
+Both stop after the key of the tile's largest ``row_pos`` (the Pallas
+grids walk all of S, or all P pages).
 
 Pad rows (``row_pos < 0``) and pad tiles (``tile_slot < 0``) come out as
-zeros here and in the plain version (the reference kernel leaves the mean
-of V there); callers read only unpacked rows. On a CPU tensor the wrapper
+zeros here and in the plain versions (the reference kernels leave the mean
+of V there); callers read only unpacked rows. On a CPU tensor a wrapper
 runs the plain version; on a CUDA tensor it launches the kernel or raises.
-:data:`launches` counts kernel launches.
+:data:`launches` counts kernel launches per wrapper.
 """
 from __future__ import annotations
 
@@ -34,90 +36,160 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ops import (NEG_INF, default_sm_scale,
                                      gqa_split_heads)
 
-launches = {"duet_attention_paged": 0}
+launches = {"duet_attention": 0, "duet_attention_paged": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_QUERY_ROWS = 16      # block_q * rep of one block (csrc: 4 warps x 4)
-_PLAIN_ROWS = 16         # rows per gathered chunk in the plain version
+_PLAIN_ROWS = 16         # rows per gathered chunk in the plain versions
+
+
+def _attend_rows(q, pos, live, k, v):
+    """Masked fp32 softmax attention of n query rows, each over its own
+    keys: q (n,H,Dh); pos, live (n,); k/v (n,L,G,Dh). Dead rows give
+    zeros."""
+    n, H, Dh = q.shape
+    G = k.shape[2]
+    kpos = torch.arange(k.shape[1], device=q.device)
+    qg = gqa_split_heads(q.float(), G)                              # (n,G,r,D)
+    s = torch.einsum("ngrd,nkgd->ngrk", qg, k.float()) * default_sm_scale(Dh)
+    mask = (kpos[None, :] <= pos[:, None]) & live[:, None]          # (n,L)
+    s = torch.where(mask[:, None, None, :], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    p = torch.where(live[:, None, None, None], p, torch.zeros_like(p))
+    o = torch.einsum("ngrk,nkgd->ngrd", p, v.float())
+    return o.reshape(n, H, Dh).to(q.dtype)
+
+
+def _plain(q, row_pos, tile_slot, block_q, gather_kv):
+    """Rows go in chunks of 16 so the gathered keys stay small at serving
+    widths; ``gather_kv(slots)`` gives the chunk's (k, v) (n,L,G,Dh)."""
+    row_slot = tile_slot.long().repeat_interleave(block_q)          # (R,)
+    pos = row_pos.reshape(-1).long()
+    live = (row_slot >= 0) & (pos >= 0)
+    out = torch.empty_like(q)
+    for r0 in range(0, q.shape[0], _PLAIN_ROWS):
+        sl = slice(r0, r0 + _PLAIN_ROWS)
+        k, v = gather_kv(row_slot[sl].clamp(min=0))
+        out[sl] = _attend_rows(q[sl], pos[sl], live[sl], k, v)
+    return out
+
+
+def duet_attention_plain(q, row_pos, tile_slot, k_slab, v_slab, *,
+                         block_q: int = 8):
+    """Plain PyTorch version of :func:`duet_attention`: each row reads its
+    tile's slab slot and runs a masked fp32 softmax. Pad rows and pad
+    tiles give zeros."""
+    return _plain(q, row_pos, tile_slot, block_q,
+                  lambda slots: (k_slab[slots], v_slab[slots]))
 
 
 def duet_attention_paged_plain(q, row_pos, tile_slot, k_pages, v_pages,
                                tables, *, block_q: int = 8):
-    """Plain PyTorch version: each row gathers its tile's chain and runs a
-    masked fp32 softmax; rows go in chunks of 16 so the gathered chains
-    stay small at serving widths. Pad rows and pad tiles give zeros."""
+    """Plain PyTorch version of :func:`duet_attention_paged`: each row
+    gathers its tile's page chain and runs a masked fp32 softmax. Pad rows
+    and pad tiles give zeros."""
+    N, ps, G, Dh = k_pages.shape
+    L = tables.shape[1] * ps
+
+    def gather(slots):
+        chain = tables[slots].long()                                # (n,P)
+        return (k_pages[chain].reshape(len(slots), L, G, Dh),
+                v_pages[chain].reshape(len(slots), L, G, Dh))
+    return _plain(q, row_pos, tile_slot, block_q, gather)
+
+
+def _check_launch(name, q, row_pos, tile_slot, kv, ints, block_q):
+    """The checks both CUDA wrappers make before a launch. ``kv``: the two
+    KV tensors, (..., G, Dh); ``ints``: the int32 index tensors."""
     R, H, Dh = q.shape
-    N, ps, G, _ = k_pages.shape
-    P = tables.shape[1]
-    L = P * ps
-    rep = H // G
-    row_slot = tile_slot.long().repeat_interleave(block_q)          # (R,)
-    pos = row_pos.reshape(-1).long()
-    live = (row_slot >= 0) & (pos >= 0)
-    kpos = torch.arange(L, device=q.device)
+    G, Dk = kv[0].shape[-2:]
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"{name}: unsupported dtype {q.dtype}")
+    for label, t in zip(("k", "v"), kv):
+        if t.dtype != q.dtype or t.shape != kv[0].shape:
+            raise ValueError(f"{name}: {label} must be {q.dtype} "
+                             f"{tuple(kv[0].shape)}")
+    for label, t in (("q", q), ("row_pos", row_pos), ("tile_slot", tile_slot),
+                     ("k", kv[0]), ("v", kv[1]), *ints.items()):
+        if not t.is_cuda or t.device != q.device:
+            raise ValueError(f"{name}: {label} is not on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {label} is not contiguous")
+    for label, t in (("row_pos", row_pos), ("tile_slot", tile_slot),
+                     *ints.items()):
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name}: {label} must be int32")
+    if R != tile_slot.shape[0] * block_q or row_pos.numel() != R:
+        raise ValueError(f"{name}: rows != tiles * block_q")
+    if Dk != Dh or Dh not in (32, 64, 128, 256) or H % G:
+        raise ValueError(f"{name}: unsupported H={H} G={G} Dh={Dh}")
+    if block_q * (H // G) > MAX_QUERY_ROWS:
+        raise ValueError(f"{name}: block_q * rep = {block_q * (H // G)} > "
+                         f"{MAX_QUERY_ROWS}")
+    if kv[0].data_ptr() % 16 or kv[1].data_ptr() % 16:
+        raise ValueError(f"{name}: k and v must be 16-byte aligned")
+
+
+def _launch(q, row_pos, tile_slot, k_slab, v_slab, block_q):
+    S = k_slab.shape[1]
+    _check_launch("duet_attention", q, row_pos, tile_slot, (k_slab, v_slab),
+                  {}, block_q)
+    R, H, Dh = q.shape
     out = torch.empty_like(q)
-    for r0 in range(0, R, _PLAIN_ROWS):
-        sl = slice(r0, r0 + _PLAIN_ROWS)
-        chain = tables[row_slot[sl].clamp(min=0)].long()            # (n,P)
-        n = chain.shape[0]
-        k = k_pages[chain].reshape(n, L, G, Dh).float()
-        v = v_pages[chain].reshape(n, L, G, Dh).float()
-        qg = gqa_split_heads(q[sl].float(), G)                      # (n,G,r,D)
-        s = torch.einsum("ngrd,nkgd->ngrk", qg, k) * default_sm_scale(Dh)
-        mask = (kpos[None, :] <= pos[sl, None]) & live[sl, None]    # (n,L)
-        s = torch.where(mask[:, None, None, :], s, torch.full_like(s, NEG_INF))
-        p = torch.softmax(s, dim=-1)
-        p = torch.where(live[sl, None, None, None], p, torch.zeros_like(p))
-        o = torch.einsum("ngrk,nkgd->ngrd", p, v)
-        out[sl] = o.reshape(n, G * rep, Dh).to(q.dtype)
+    lib = _build.load("duet_attention")
+    err = lib.duet_attention_launch(
+        q.data_ptr(), row_pos.data_ptr(), tile_slot.data_ptr(),
+        k_slab.data_ptr(), v_slab.data_ptr(), out.data_ptr(),
+        tile_slot.shape[0], block_q, H, k_slab.shape[2], Dh, S,
+        default_sm_scale(Dh), _DTYPES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "duet_attention")
+    launches["duet_attention"] += 1
     return out
 
 
-def _launch(q, row_pos, tile_slot, k_pages, v_pages, tables, block_q):
+def _launch_paged(q, row_pos, tile_slot, k_pages, v_pages, tables, block_q):
+    _check_launch("duet_attention_paged", q, row_pos, tile_slot,
+                  (k_pages, v_pages), {"tables": tables}, block_q)
     R, H, Dh = q.shape
-    N, ps, G, Dk = k_pages.shape
-    T = tile_slot.shape[0]
-    if q.dtype not in _DTYPES:
-        raise TypeError(f"duet_attention_paged: unsupported dtype {q.dtype}")
-    for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
-        if t.dtype != q.dtype or t.shape != k_pages.shape:
-            raise ValueError(f"duet_attention_paged: {name} must be "
-                             f"{q.dtype} {tuple(k_pages.shape)}")
-    for name, t in (("q", q), ("row_pos", row_pos), ("tile_slot", tile_slot),
-                    ("k_pages", k_pages), ("v_pages", v_pages),
-                    ("tables", tables)):
-        if not t.is_cuda or t.device != q.device:
-            raise ValueError(
-                f"duet_attention_paged: {name} is not on {q.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"duet_attention_paged: {name} is not "
-                             "contiguous")
-    for name, t in (("row_pos", row_pos), ("tile_slot", tile_slot),
-                    ("tables", tables)):
-        if t.dtype != torch.int32:
-            raise TypeError(f"duet_attention_paged: {name} must be int32")
-    if R != T * block_q or row_pos.numel() != R:
-        raise ValueError("duet_attention_paged: rows != tiles * block_q")
-    if Dk != Dh or Dh not in (32, 64, 128, 256) or H % G:
-        raise ValueError(
-            f"duet_attention_paged: unsupported H={H} G={G} Dh={Dh}")
-    if block_q * (H // G) > MAX_QUERY_ROWS:
-        raise ValueError(f"duet_attention_paged: block_q * rep = "
-                         f"{block_q * (H // G)} > {MAX_QUERY_ROWS}")
-    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
-        raise ValueError("duet_attention_paged: page pools must be 16-byte "
-                         "aligned")
+    N, ps, G, _ = k_pages.shape
     out = torch.empty_like(q)
     lib = _build.load("duet_attention_paged")
     err = lib.duet_attention_paged_launch(
         q.data_ptr(), row_pos.data_ptr(), tile_slot.data_ptr(),
         k_pages.data_ptr(), v_pages.data_ptr(), tables.data_ptr(),
-        out.data_ptr(), T, block_q, H, G, Dh, ps, tables.shape[1],
-        default_sm_scale(Dh), _DTYPES[q.dtype],
+        out.data_ptr(), tile_slot.shape[0], block_q, H, G, Dh, ps,
+        tables.shape[1], default_sm_scale(Dh), _DTYPES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "duet_attention_paged")
     launches["duet_attention_paged"] += 1
     return out
+
+
+def duet_attention(q, row_pos, tile_slot, k_slab, v_slab, *,
+                   block_q: int = 8, block_k: int = 128):
+    """Fused mixed-phase attention over the slab cache.
+
+    Args:
+      q:         (T*block_q, H, Dh) query rows, tile-grouped. Tile t's rows
+                 all target slab slot ``tile_slot[t]`` (host groups + pads).
+      row_pos:   (T*block_q, 1) int32 absolute position per row (-1 = pad
+                 row).
+      tile_slot: (T,) int32 slab slot per tile (-1 = pad tile). The ORDER
+                 of tiles is the duet schedule (decode tiles interleaved).
+      k_slab/v_slab: (Ns, S, G, Dh) slab KV (chunk K/V pre-written).
+      block_k:   the reference's KV tile; S must be a multiple of it (the
+                 reference's contract). The CUDA kernel stages its own
+                 tiles and the result does not depend on it.
+    Returns (T*block_q, H, Dh).
+    """
+    if k_slab.shape[1] % block_k:
+        raise ValueError(f"duet_attention: S={k_slab.shape[1]} is not a "
+                         f"multiple of block_k={block_k}")
+    if q.device.type == "cpu":
+        return duet_attention_plain(q, row_pos, tile_slot, k_slab, v_slab,
+                                    block_q=block_q)
+    return _launch(q, row_pos, tile_slot, k_slab, v_slab, block_q)
 
 
 def duet_attention_paged(q, row_pos, tile_slot, k_pages, v_pages, tables, *,
@@ -138,4 +210,5 @@ def duet_attention_paged(q, row_pos, tile_slot, k_pages, v_pages, tables, *,
     if q.device.type == "cpu":
         return duet_attention_paged_plain(q, row_pos, tile_slot, k_pages,
                                           v_pages, tables, block_q=block_q)
-    return _launch(q, row_pos, tile_slot, k_pages, v_pages, tables, block_q)
+    return _launch_paged(q, row_pos, tile_slot, k_pages, v_pages, tables,
+                         block_q)

@@ -23,7 +23,7 @@ import torch
 
 # ---------------------------------------------------------------------------
 # Shared kernel conventions (imported by kernels/{paged_decode,
-# duet_attention,ref}.py — keep above the kernel imports).
+# duet_attention,flash_prefill,ref}.py — keep above the kernel imports).
 # ---------------------------------------------------------------------------
 NEG_INF = -1e30
 # an online-softmax denominator is clamped to this before any division
@@ -78,7 +78,8 @@ def num_splits_for(num_pages: int, page_size: int,
 
 # the kernel wrappers, re-exported as this module's dispatchers
 from repro_torch.kernels.duet_attention import (  # noqa: E402,F401
-    duet_attention_paged)
+    duet_attention, duet_attention_paged)
+from repro_torch.kernels.flash_prefill import flash_prefill  # noqa: E402,F401
 from repro_torch.kernels.paged_decode import (  # noqa: E402
     paged_decode, paged_decode_splitkv)
 

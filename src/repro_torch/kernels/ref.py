@@ -1,6 +1,7 @@
 """Plain PyTorch oracles for the ported kernels (the allclose targets).
 
 Shapes follow the kernel contracts:
+  flash_prefill : q (B,S,H,Dh), k/v (B,S,G,Dh), causal (+offset for chunks)
   paged_decode  : q (B,H,Dh), pages (N,ps,G,Dh), tables (B,P), lengths (B,)
   duet_attention: q rows (R,H,Dh) over a slot slab (Ns,S,G,Dh) with per-row
                   slot ids and positions (mixed prefill rows + decode rows)
@@ -19,6 +20,24 @@ from repro_torch.kernels.ops import NEG_INF, default_sm_scale, gqa_repeat_kv
 def _gqa_probs(scores, mask):
     scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
     return torch.softmax(scores.float(), dim=-1)
+
+
+def flash_prefill_ref(q, k, v, *, q_offset: int = 0):
+    """Causal attention. q (B,Sq,H,Dh); k,v (B,Sk,G,Dh); queries start at
+    absolute position q_offset (chunked prefill)."""
+    B, Sq, H, Dh = q.shape
+    G = k.shape[2]
+    rep = H // G
+    kr = gqa_repeat_kv(k, rep).float()
+    vr = gqa_repeat_kv(v, rep).float()
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr)
+    scores = scores * default_sm_scale(Dh)
+    qpos = torch.arange(Sq, device=q.device) + q_offset
+    kpos = torch.arange(k.shape[1], device=q.device)
+    mask = kpos[None, :] <= qpos[:, None]
+    probs = _gqa_probs(scores, mask[None, None])
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, vr)
+    return out.to(q.dtype)
 
 
 def paged_decode_ref(q, k_pages, v_pages, tables, lengths):

@@ -3,9 +3,11 @@
 One process drives one replica on one device — the CUDA card by default,
 the CPU with ``--device cpu``. The flags are the reference's
 (``repro.launch.serve``); the ones of features not yet ported (``--tp > 1``,
-``--dp > 1``, ``--elastic``, the stochastic load generator's ``--arrival``,
-``--service-mix`` and ``--rho``, and ``--no-paged``) exit with "not yet
-ported". Weights are random, from ``--seed``.
+``--dp > 1``, ``--elastic``, and the stochastic load generator's
+``--arrival``, ``--service-mix`` and ``--rho``) exit with "not yet
+ported". ``--no-paged`` serves from the slab KV cache (the reference's
+equivalence oracle for the paged path). Weights are random, from
+``--seed``.
 
 Two execution modes:
 
@@ -22,6 +24,8 @@ Usage:
       --attn-kernel --stream --num-requests 8
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced \\
       --device cpu --stream --num-requests 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --reduced \\
+      --device cpu --no-paged --stream --num-requests 4
 """
 from __future__ import annotations
 
@@ -74,14 +78,15 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--paged", dest="paged", action="store_true",
                     default=True, help="paged-KV execution (default)")
     ap.add_argument("--no-paged", dest="paged", action="store_false",
-                    help="slab-KV oracle mode (not yet ported)")
+                    help="slab-KV oracle mode")
     ap.add_argument("--page-size", type=int, default=DEFAULT_PAGE_SIZE)
     ap.add_argument("--kv-pool-tokens", type=int, default=None,
                     help="device page-pool size in tokens "
                          "(default: max_slots * max_len)")
     ap.add_argument("--attn-kernel", action="store_true",
                     help="route decode and duet attention through the CUDA "
-                         "kernels (plain PyTorch versions on the CPU); the "
+                         "kernels (plain PyTorch versions on the CPU; with "
+                         "--no-paged the slab duet_attention kernel); the "
                          "summary reports the executed path as kernel_path "
                          "(cuda or torch)")
     ap.add_argument("--split-kv-threshold", type=int, default=None,
@@ -121,10 +126,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--router-policy", choices=list(ROUTER_POLICIES),
                     default="round-robin",
                     help="dispatch policy for --dp > 1 (not yet ported)")
+    # copy-on-write prefix caching (paged mode only; default: follow
+    # --paged, so --no-paged alone never warns about a flag nobody passed)
     ap.add_argument("--prefix-cache", dest="prefix_cache",
-                    action="store_true", default=True,
+                    action="store_true", default=None,
                     help="share prompt-prefix KV pages across requests "
-                         "(default)")
+                         "(default in paged mode)")
     ap.add_argument("--no-prefix-cache", dest="prefix_cache",
                     action="store_false",
                     help="disable prefix sharing (cold-cache baseline)")
@@ -158,7 +165,7 @@ def _not_yet_ported(args):
     """Exit for flags whose features the port does not have yet."""
     unported = {
         "--tp > 1": args.tp > 1, "--dp > 1": args.dp > 1,
-        "--elastic": args.elastic, "--no-paged": not args.paged,
+        "--elastic": args.elastic,
         "--arrival": args.arrival != "poisson",
         "--service-mix": args.service_mix != "lognormal",
         "--rho": args.rho is not None,
@@ -238,21 +245,28 @@ def main(argv=None):
                                 every=args.shared_prefix_every)
     reqs = _clamp_lengths(reqs, args.max_len, args.clamp)
 
-    if args.host_kv_tokens > 0 and not args.prefix_cache:
-        _warn("--host-kv-tokens requires the prefix cache; running without "
-              "the host tier")
+    if args.prefix_cache and not args.paged:
+        # only reachable when --prefix-cache was passed explicitly
+        _warn("--prefix-cache requires paged KV; running without it")
+    prefix_cache = args.paged if args.prefix_cache is None \
+        else args.prefix_cache
+    if args.host_kv_tokens > 0 and not (args.paged and prefix_cache):
+        _warn("--host-kv-tokens requires paged KV with the prefix cache; "
+              "running without the host tier")
     ec = EngineConfig(
         max_slots=args.max_slots, max_len=args.max_len,
         token_budget=args.token_budget, tbt_slo=args.tbt_slo,
-        page_size=args.page_size, kv_pool_tokens=args.kv_pool_tokens,
-        prefix_cache=args.prefix_cache,
+        paged=args.paged, page_size=args.page_size,
+        kv_pool_tokens=args.kv_pool_tokens,
+        prefix_cache=prefix_cache,
         host_kv_tokens=args.host_kv_tokens, kv_quant=args.kv_quant,
         temperature=args.temperature,
         split_kv_threshold=args.split_kv_threshold,
         strict_kernel=args.attn_kernel and not args.clamp)
-    if args.split_kv_threshold is not None and not args.attn_kernel:
-        _warn("--split-kv-threshold only applies with --attn-kernel; "
-              "ignored on the plain attention path")
+    if args.split_kv_threshold is not None and not (args.attn_kernel
+                                                    and args.paged):
+        _warn("--split-kv-threshold only applies to paged serving with "
+              "--attn-kernel; ignored")
 
     def print_event(ev):
         if isinstance(ev, TokenEvent):
@@ -273,8 +287,9 @@ def main(argv=None):
         print(json.dumps({"event": "device", **describe_device(device),
                           "kernel_path": engine.kernel_path,
                           "collectives_per_iteration": 0}))
-        print(json.dumps({"event": "prefix_cache",
-                          **engine.kv_mgr.prefix_stats()}))
+        if args.paged:
+            print(json.dumps({"event": "prefix_cache",
+                              **engine.kv_mgr.prefix_stats()}))
         metrics = engine.run()   # drained: collects metrics only
         out = metrics.summary()
         out["dispatch_stats"] = dataclasses.asdict(engine.dstats)
@@ -289,7 +304,8 @@ def main(argv=None):
     out["device"] = describe_device(device)
     out["kernel_path"] = engine.kernel_path
     out["collectives_per_iteration"] = 0
-    out["prefix_cache"] = engine.kv_mgr.prefix_stats()
+    if args.paged:
+        out["prefix_cache"] = engine.kv_mgr.prefix_stats()
     print(json.dumps(out, indent=2))
 
 

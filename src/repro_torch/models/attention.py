@@ -1,19 +1,30 @@
-"""GQA attention over the paged KV pool — the serving engine's paths.
+"""GQA attention over the slab cache and the paged KV pool — the serving
+engine's paths.
 
-Ports the paged GQA subset of the reference's ``repro.models.attention``:
-chunked prefill (:func:`gqa_prefill_paged`), one-token decode with the
-kernel hook (:func:`gqa_decode_paged`) and the fused mixed-phase duet step
-(:func:`gqa_duet_paged`). The attention math stays plain tensor math as in
-the reference (einsum + softmax); the decode and duet reads may go through
-the CUDA kernels in ``repro_torch.kernels``.
+Ports the GQA subset of the reference's ``repro.models.attention``:
 
-The page pools are updated IN PLACE (the reference is functional): each
-function writes the new K/V into the tensors it is given and returns the
-same tensors. Scores and probabilities are fp32.
+* slab cache (:class:`AttnCache`, one (B, S_max|W, G, Dh) row per slot):
+  full-sequence prefill (:func:`gqa_prefill`), chunked prefill into the
+  slab (:func:`gqa_prefill_cached`), one-token decode (:func:`gqa_decode`,
+  with the sliding ring buffer) and its kernel hook
+  (:func:`gqa_decode_kernel`, the slab ``duet_attention`` kernel);
+* paged pool: chunked prefill (:func:`gqa_prefill_paged`), one-token
+  decode with the kernel hook (:func:`gqa_decode_paged`) and the fused
+  mixed-phase duet step (:func:`gqa_duet_paged`).
+
+The attention math stays plain tensor math as in the reference (einsum +
+softmax); the decode and duet reads may go through the CUDA kernels in
+``repro_torch.kernels``.
+
+Caches and page pools are updated IN PLACE (the reference is functional):
+each function writes the new K/V into the tensors it is given and returns
+the same tensors. Scores and probabilities are fp32.
 
 Shapes: x (B, S, D); q (B, S, H, Dh); kv (B, S, G, Dh); positions (B, S).
 """
 from __future__ import annotations
+
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -23,6 +34,18 @@ from repro_torch.kernels.ops import NEG_INF
 from repro_torch.models.layers import apply_rope, rms_norm
 
 ATTN_BLOCK_Q = 1024  # query-block size for memory-efficient attention
+
+
+class AttnCache(NamedTuple):
+    k: torch.Tensor  # (B, S_max|W, G, Dh)
+    v: torch.Tensor
+
+
+def slot_views(cache, slot: int):
+    """Slot ``slot``'s rows of every layer's AttnCache as (1, S, G, Dh)
+    views: a prefill into them writes the slab in place."""
+    return [AttnCache(c.k[slot:slot + 1], c.v[slot:slot + 1])
+            for c in cache]
 
 
 # ---------------------------------------------------------------------------
@@ -81,6 +104,195 @@ def _project_qkv(params, cfg: ArchConfig, x, positions):
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def make_prefill_mask(Sq: int, Sk: int, *, prefix_len: int = 0,
+                      window: Optional[int] = None, q_offset: int = 0,
+                      device=None) -> torch.Tensor:
+    """(Sq, Sk) boolean mask. Causal, optionally prefix-bidirectional
+    and/or sliding-window. ``q_offset`` shifts query positions (chunked
+    prefill: queries are the tail of the key range)."""
+    qpos = torch.arange(Sq, device=device) + q_offset
+    kpos = torch.arange(Sk, device=device)
+    mask = kpos[None, :] <= qpos[:, None]
+    if prefix_len > 0:
+        mask = mask | (kpos[None, :] < prefix_len)
+    if window is not None:
+        mask = mask & (kpos[None, :] > qpos[:, None] - window)
+    return mask
+
+
+def _attend(q, k, v, positions, mask_fn, out_dtype):
+    """Masked attention of q (B,Sq,H,Dh) over k/v (B,Sk,G,Dh), in query
+    blocks of ATTN_BLOCK_Q when Sq is larger. mask_fn(px) -> (B, bq, Sk)."""
+    if q.shape[1] > ATTN_BLOCK_Q:
+        return _blockwise_gqa(q, k, v, positions, mask_fn)
+    scores = _gqa_scores(q, k) / (q.shape[-1] ** 0.5)
+    probs = _softmax(scores, mask_fn(positions)[:, None, None, :, :])
+    return _gqa_combine(probs, v).to(out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# Slab cache (one contiguous row per slot)
+# ---------------------------------------------------------------------------
+def gqa_prefill(params, cfg: ArchConfig, x: torch.Tensor,
+                positions: torch.Tensor, *, prefix_len: int = 0,
+                window: Optional[int] = None):
+    """Full-sequence attention. Returns (out, AttnCache of the new K/V)."""
+    q, k, v = _project_qkv(params, cfg, x, positions)
+    Sq, Sk = q.shape[1], k.shape[1]
+    if Sq > ATTN_BLOCK_Q:
+        kpos = torch.arange(Sk, device=x.device)
+
+        def mask_fn(px):
+            m = kpos[None, None, :] <= px[:, :, None]
+            if prefix_len > 0:
+                m = m | (kpos[None, None, :] < prefix_len)
+            if window is not None:
+                m = m & (kpos[None, None, :] > px[:, :, None] - window)
+            return m & (px[:, :, None] >= 0)
+    else:
+        mask = make_prefill_mask(Sq, Sk, prefix_len=prefix_len,
+                                 window=window, device=x.device)
+
+        def mask_fn(px):
+            return mask[None]
+
+    out = _attend(q, k, v, positions, mask_fn, x.dtype)
+    out = torch.einsum("bshe,hed->bsd", out, params["w_o"])
+    return out, AttnCache(k=k, v=v)
+
+
+def _slab_write(cache: AttnCache, slot: torch.Tensor, k: torch.Tensor,
+                v: torch.Tensor, active_mask: Optional[torch.Tensor]):
+    """Write one token's K/V (B, G, Dh) per slab row at ``slot`` (B,), in
+    place. Rows off ``active_mask`` keep the entry they had: a retired
+    slot's stale position may point into a row now owned by a mid-prefill
+    request, so its write must not stick. (The reference writes every row
+    and then takes a ``where`` over the whole slab; masking the one entry
+    gives the same cache.)"""
+    bidx = torch.arange(slot.shape[0], device=slot.device)
+    k, v = k.to(cache.k.dtype), v.to(cache.v.dtype)
+    if active_mask is not None:
+        keep = active_mask[:, None, None]
+        k = torch.where(keep, k, cache.k[bidx, slot])
+        v = torch.where(keep, v, cache.v[bidx, slot])
+    cache.k[bidx, slot] = k
+    cache.v[bidx, slot] = v
+
+
+def gqa_decode(params, cfg: ArchConfig, x: torch.Tensor, cache: AttnCache,
+               pos: torch.Tensor, *, sliding: bool = False,
+               active_mask: Optional[torch.Tensor] = None):
+    """One-token decode. x (B,1,D); pos (B,) = index of the new token.
+
+    Full cache: write at ``pos``, attend over 0..pos.
+    Sliding (ring buffer of width W): write at ``pos % W``; a slot s holds
+    absolute position pos - ((pos - s) mod W), valid iff that is >= 0.
+    The new K/V is written into the cache in place, except for rows off
+    ``active_mask`` (the port's argument; see :func:`_slab_write`).
+    """
+    W = cache.k.shape[1]
+    q, k, v = _project_qkv(params, cfg, x, pos[:, None])
+    pos = pos.long()
+    slot = (pos % W) if sliding else pos
+    _slab_write(cache, slot, k[:, 0], v[:, 0], active_mask)
+
+    # read path: cast (no-op when the cache holds the compute dtype)
+    k_read = cache.k.to(q.dtype)
+    v_read = cache.v.to(q.dtype)
+    scores = _gqa_scores(q, k_read) / (cfg.head_dim ** 0.5)
+    slots = torch.arange(W, device=x.device)
+    if sliding:
+        valid = ((pos[:, None] - slots[None, :]) % W) <= pos[:, None]
+    else:
+        valid = slots[None, :] <= pos[:, None]
+    probs = _softmax(scores, valid[:, None, None, None, :])
+    out = _gqa_combine(probs, v_read).to(x.dtype)
+    out = torch.einsum("bshe,hed->bsd", out, params["w_o"])
+    return out, cache
+
+
+def gqa_prefill_cached(params, cfg: ArchConfig, x: torch.Tensor,
+                       positions: torch.Tensor, cache: AttnCache, *,
+                       window: Optional[int] = None, prefix_len: int = 0):
+    """Chunked prefill: write this chunk's K/V into the cache slab, then
+    attend chunk queries against the slab (previous chunks + chunk).
+
+    positions (B, L) are absolute. Slab slots beyond the chunk are masked
+    out causally. Sliding mode uses the ring-buffer mapping: slot s holds absolute
+    position Pmax - ((Pmax - s) mod W) where Pmax is the last written
+    position. The slab is written in place.
+    """
+    B, L, _ = x.shape
+    q, k, v = _project_qkv(params, cfg, x, positions)
+    W = cache.k.shape[1]
+    bidx = torch.arange(B, device=x.device)[:, None]
+    kslot = torch.arange(W, device=x.device)
+    positions = positions.long()
+    if window:
+        # Two-phase sliding attention: chunk queries attend the PRE-update
+        # ring (positions <= start-1) plus the in-chunk K/V — writing first
+        # would overwrite in-window keys of early chunk queries. Exact for
+        # any chunk length; the ring is updated afterwards.
+        start = positions[:, :1]                           # (B,1)
+        pmax_old = start - 1
+        abs_old = pmax_old - ((pmax_old - kslot[None, :]) % W)   # (B, W)
+        k_cat = torch.cat([cache.k.to(k.dtype), k], dim=1)
+        v_cat = torch.cat([cache.v.to(v.dtype), v], dim=1)
+
+        def mask_fn(px):
+            old = (abs_old[:, None, :] <= px[:, :, None]) \
+                & (abs_old[:, None, :] > px[:, :, None] - window) \
+                & (abs_old[:, None, :] >= 0)
+            new = (positions[:, None, :] <= px[:, :, None]) \
+                & (positions[:, None, :] > px[:, :, None] - window)
+            return torch.cat([old, new], dim=-1) & (px[:, :, None] >= 0)
+
+        out = _attend(q, k_cat, v_cat, positions, mask_fn, x.dtype)
+        # only the chunk's last W positions survive in the ring: writing
+        # just those keeps the in-place scatter free of duplicate slots
+        tail = slice(max(0, L - W), L)
+        slots = positions[:, tail] % W
+        cache.k[bidx, slots] = k[:, tail].to(cache.k.dtype)
+        cache.v[bidx, slots] = v[:, tail].to(cache.v.dtype)
+    else:
+        cache.k[bidx, positions] = k.to(cache.k.dtype)
+        cache.v[bidx, positions] = v.to(cache.v.dtype)
+
+        def mask_fn(px):
+            m = kslot[None, None, :] <= px[:, :, None]
+            if prefix_len > 0:
+                m = m | (kslot[None, None, :] < prefix_len)
+            return m & (px[:, :, None] >= 0)
+
+        out = _attend(q, cache.k.to(q.dtype), cache.v.to(q.dtype),
+                      positions, mask_fn, x.dtype)
+    out = torch.einsum("bshe,hed->bsd", out, params["w_o"])
+    return out, cache
+
+
+def gqa_decode_kernel(params, cfg: ArchConfig, x: torch.Tensor,
+                      cache: AttnCache, pos: torch.Tensor, *,
+                      block_k: int = 128,
+                      active_mask: Optional[torch.Tensor] = None):
+    """Decode attention routed through the fused duet-attention kernel
+    (``kernels.duet_attention``, the CUDA kernel on the card and its plain
+    version on the CPU): each active request is one decode row over its
+    slab slot — the engine's kernel path. Semantically identical to
+    :func:`gqa_decode` (full cache, no sliding)."""
+    B = x.shape[0]
+    W = cache.k.shape[1]
+    q, k, v = _project_qkv(params, cfg, x, pos[:, None])
+    bidx = torch.arange(B, device=x.device)
+    _slab_write(cache, pos.long(), k[:, 0], v[:, 0], active_mask)
+    # one tile per decode row (block_q=1): tile_slot = batch index
+    rows = kernel_ops.duet_attention(
+        q[:, 0].contiguous(), pos[:, None].to(torch.int32).contiguous(),
+        bidx.to(torch.int32), cache.k.to(q.dtype), cache.v.to(q.dtype),
+        block_q=1, block_k=min(block_k, W))
+    out = torch.einsum("bhe,hed->bd", rows, params["w_o"])[:, None, :]
+    return out, cache
 
 
 # ---------------------------------------------------------------------------
@@ -169,12 +381,7 @@ def gqa_prefill_paged(params, cfg: ArchConfig, x: torch.Tensor,
         return (kpos[None, None, :] <= px[:, :, None]) \
             & (px[:, :, None] >= 0)
 
-    if x.shape[1] > ATTN_BLOCK_Q:
-        out = _blockwise_gqa(q, kg, vg, positions, mask_fn)
-    else:
-        scores = _gqa_scores(q, kg) / (cfg.head_dim ** 0.5)
-        probs = _softmax(scores, mask_fn(positions)[:, None, None, :, :])
-        out = _gqa_combine(probs, vg).to(x.dtype)
+    out = _attend(q, kg, vg, positions, mask_fn, x.dtype)
     out = torch.einsum("bshe,hed->bsd", out, params["w_o"])
     return out, (k_pages, v_pages)
 

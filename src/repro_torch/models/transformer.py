@@ -1,20 +1,29 @@
 """The served model: an ``nn.Module`` that holds its weights and runs the
-paged serving steps of the reference's ``repro.models.transformer.Model``.
+serving steps of the reference's ``repro.models.transformer.Model``.
+
+Slab cache (one contiguous KV row per slot, ``init_cache``):
+
+  * ``prefill``           — full-sequence or chunked prefill into the slab
+  * ``decode_step``       — one token per slot; the kernel hook routes the
+                            attention through the slab ``duet_attention``
+                            kernel, ``sliding`` uses the ring buffer
+
+Paged KV pool:
 
   * ``prefill_paged``     — chunked prefill against the paged KV pool
   * ``decode_step_paged`` — one token per slot (continuous batching)
   * ``duet_step_paged``   — decode rows + one prefill chunk in one fused
                             attention launch per layer
 
-Only all-GQA dense block patterns (the qwen3 family) are ported; the slab
-cache, MLA, MoE, recurrent blocks and frontends are not yet. Weights keep
-the reference's layouts and names (``params_from_jax`` carries a JAX tree
-over unchanged), and the weight methods take no ``params`` argument: the
-module owns them. Page pools are updated in place.
+Only all-GQA dense block patterns (the qwen3 family) are ported; MLA, MoE,
+recurrent blocks and frontends are not yet. Weights keep the reference's
+layouts and names (``params_from_jax`` carries a JAX tree over unchanged),
+and the weight methods take no ``params`` argument: the module owns them.
+Slab caches and page pools are updated in place.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional
 
 import torch
 from torch import nn
@@ -99,6 +108,78 @@ class Model(nn.Module):
         h = rms_norm(x, p["mlp_norm"], self.cfg.norm_eps)
         return x + gated_mlp(p["mlp"], h, self.cfg.activation)
 
+    def _run_block_prefill(self, i, x, positions, cache_in, *, window=None):
+        """One GQA block (the only kind ``layout`` admits) of a
+        full-sequence (``cache_in`` None) or chunked prefill. Returns
+        (x, the layer's AttnCache)."""
+        cfg = self.cfg
+        p = self.params["layers"][i]
+        h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
+        if cache_in is not None:
+            out, new_cache = attn_mod.gqa_prefill_cached(
+                p["attn"], cfg, h, positions, cache_in, window=window)
+        else:
+            out, new_cache = attn_mod.gqa_prefill(p["attn"], cfg, h,
+                                                  positions, window=window)
+        return self._mlp_block(p, x + out), new_cache
+
+    # ------------------------------------------------------------- slab serve
+    def prefill(self, tokens, *, cache=None,
+                start_pos: Optional[int] = None, sliding: bool = False):
+        """Prefill (optionally a chunk continuing an existing cache).
+
+        Returns (last_position_logits, cache). With ``cache`` given (one
+        AttnCache per layer, e.g. slot views of the engine's slab), the new
+        chunk K/V is written into it in place; without it, the cache of the
+        new K/V is returned. ``start_pos``: the chunk's first absolute
+        position (default 0).
+        """
+        cfg = self.cfg
+        x = self._embed(tokens)
+        B, S = x.shape[:2]
+        start = 0 if start_pos is None else int(start_pos)
+        positions = (start + torch.arange(S, device=x.device))[None, :] \
+            .expand(B, S)
+        window = cfg.sliding_window if sliding else None
+        new_cache = []
+        for i in range(cfg.num_layers):
+            c = None if cache is None else cache[i]
+            if c is not None and window is None:
+                # keys past the chunk are all masked: views of the slab cut
+                # at the chunk's end keep the attention off its unwritten
+                # tail (the writes still land in the slab)
+                c = attn_mod.AttnCache(c.k[:, :start + S], c.v[:, :start + S])
+            x, c = self._run_block_prefill(i, x, positions, c, window=window)
+            new_cache.append(c)
+        x = rms_norm(x, self.params["final_norm"], cfg.norm_eps)
+        logits = self._logits(x[:, -1:])
+        return logits[:, 0], (new_cache if cache is None else cache)
+
+    def decode_step(self, cache, token, pos, *, sliding: bool = False,
+                    active_mask: Optional[torch.Tensor] = None):
+        """One decode step against the slab cache. token (B,1); pos (B,)
+        int. The kernel hook (``attn_kernel``) takes the slab
+        ``duet_attention`` kernel unless ``sliding``. ``active_mask`` (B,)
+        bool, the port's argument: rows off it keep their slab entry (the
+        reference's look-ahead loop restores them after the step).
+        Returns (logits (B, V), cache)."""
+        cfg = self.cfg
+        x = self._embed(token)
+        for i, p in enumerate(self.params["layers"]):
+            h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
+            if self.attn_kernel and not sliding:
+                out, cache[i] = attn_mod.gqa_decode_kernel(
+                    p["attn"], cfg, h, cache[i], pos,
+                    active_mask=active_mask)
+            else:
+                out, cache[i] = attn_mod.gqa_decode(
+                    p["attn"], cfg, h, cache[i], pos, sliding=sliding,
+                    active_mask=active_mask)
+            x = self._mlp_block(p, x + out)
+        x = rms_norm(x, self.params["final_norm"], cfg.norm_eps)
+        logits = self._logits(x)
+        return logits[:, 0], cache
+
     # ------------------------------------------------------------ paged serve
     def prefill_paged(self, tokens, pools, state, tables, *,
                       start_pos: Optional[int] = None):
@@ -164,7 +245,29 @@ class Model(nn.Module):
         return logits[:, 0], pools, state
 
     # ---------------------------------------------------------------- cache
+    def init_cache(self, batch: int, max_len: int,
+                   dtype: Optional[torch.dtype] = None, *,
+                   sliding: bool = False) -> List[attn_mod.AttnCache]:
+        """Zeroed slab cache on the model's device, one AttnCache
+        (batch, S, G, Dh) per layer, S = max_len (min(max_len,
+        sliding_window) with ``sliding``). ``dtype`` defaults to the
+        model's."""
+        return _build_cache(self.cfg, batch, max_len,
+                            dtype or self.dtype, sliding, self.device)
+
     def init_state_cache(self, batch: int):
         """Per-slot cache for paged serving: every layer of an all-GQA
         pattern keeps its KV in the page pools, so every entry is None."""
         return [None for _ in self.cfg.block_pattern]
+
+
+def _build_cache(cfg: ArchConfig, batch: int, max_len: int, dtype, sliding,
+                 device) -> List[attn_mod.AttnCache]:
+    """One zeroed AttnCache per layer (every layer is GQA: ``layout``
+    refuses other kinds)."""
+    S = min(max_len, cfg.sliding_window) if sliding else max_len
+    shape = (batch, S, cfg.num_kv_heads, cfg.head_dim)
+    return [attn_mod.AttnCache(
+        k=torch.zeros(shape, dtype=dtype, device=device),
+        v=torch.zeros(shape, dtype=dtype, device=device))
+        for _ in cfg.block_pattern]

@@ -146,7 +146,7 @@ class AsyncDuetEngine(DuetEngine):
         # tile permutation depends only on (max_slots, chunk), so it is
         # cached per chunk bucket as a device tensor.
         self._duet_kernel = (
-            self.model.attn_kernel
+            self.model.attn_kernel and self.paged
             and all(k in GQA_KINDS for k in self.cfg.block_pattern))
         self._duet_orders: dict = {}
         self._duet_safe = True
@@ -351,8 +351,11 @@ class AsyncDuetEngine(DuetEngine):
                 continue   # preempted earlier in this iteration
             if not self._ensure_pages(r, chunk):
                 continue   # deferred: decode completions free pages
-            # privatise a shared first page (CoW) before the chunk writes
-            self._cow_copy(self.kv_mgr.ensure_writable(r.rid, r.prefilled))
+            if self.paged:
+                # privatise a shared first page (CoW) before the chunk
+                # writes
+                self._cow_copy(
+                    self.kv_mgr.ensure_writable(r.rid, r.prefilled))
             self.kv_mgr.allocate(r.rid, chunk)
             start = r.prefilled
             toks_np = r.prefill_token_ids()[start:start + chunk]
@@ -372,8 +375,11 @@ class AsyncDuetEngine(DuetEngine):
                 self.kv_mgr.insert_prefix(r.rid, r.prefill_token_ids())
             # snapshot the chunk's block table before any retire below can
             # free the pages (an output_len==1 request finishes here)
-            pwidth = self._table_width([r.rid])
-            ptbl = self.kv_mgr.padded_tables([r.rid], pwidth)
+            if self.paged:
+                pwidth = self._table_width([r.rid])
+                ptbl = self.kv_mgr.padded_tables([r.rid], pwidth)
+            else:
+                pwidth, ptbl = 1, None
             pre_items.append((r, chunk, start, toks_np, status, ptbl,
                               pwidth))
             if status in ("first", "resumed"):
@@ -407,7 +413,8 @@ class AsyncDuetEngine(DuetEngine):
         if prog is None:
             self.dstats.cache_misses += 1
             prog = make_superiter_fn(
-                self.model, kb, chunk=chunk, finish=finish, sample=sample,
+                self.model, kb, paged=self.paged, chunk=chunk,
+                finish=finish, sample=sample,
                 temperature=self.ec.temperature, duet_kernel=duet)
             self._programs[key] = prog
         else:
@@ -447,7 +454,7 @@ class AsyncDuetEngine(DuetEngine):
             finish = status in ("first", "resumed")
             sample = status == "first"
             pre_toks = self._h2d(np.asarray(toks_np)[None, :])
-            pre_tbl = self._h2d(ptbl)
+            pre_tbl = None if ptbl is None else self._h2d(ptbl)
             pre_slot = r.slot
             if finish and not sample:
                 # resume finish: the pre-preemption next token becomes the
@@ -468,13 +475,19 @@ class AsyncDuetEngine(DuetEngine):
                finish, sample, duet)
         prog = self._program(key, kb, chunk, finish, sample, duet)
         self.dstats.dispatches += 1
-        pargs = (self.pools, self.cache, self.d_last_tok, self.d_pos,
-                 self._h2d(tbl), self.gen, self._h2d(active), pre_toks,
-                 pre_tbl, start, pre_slot, override)
-        if duet:
-            pargs += (self._duet_order(chunk),)
-        (toks, sampled, self.d_last_tok, self.d_pos, self.pools,
-         self.cache, self.gen) = prog(*pargs)
+        if self.paged:
+            pargs = (self.pools, self.cache, self.d_last_tok, self.d_pos,
+                     self._h2d(tbl), self.gen, self._h2d(active), pre_toks,
+                     pre_tbl, start, pre_slot, override)
+            if duet:
+                pargs += (self._duet_order(chunk),)
+            (toks, sampled, self.d_last_tok, self.d_pos, self.pools,
+             self.cache, self.gen) = prog(*pargs)
+        else:
+            (toks, sampled, self.d_last_tok, self.d_pos, self.cache,
+             self.gen) = prog(self.cache, self.d_last_tok, self.d_pos,
+                              self.gen, self._h2d(active), pre_toks, start,
+                              pre_slot, override)
         if kb > 0:
             inf.toks_idx = len(inf.fetch)
             inf.fetch.append(toks)

@@ -10,13 +10,21 @@ the JAX reference), so TTFT/TBT/throughput in ``ServingMetrics`` are TPU v5e
 predictions that equal the reference's on the same trace — they are not
 measurements of the card.
 
-KV memory: attention KV lives in per-layer device page pools
-(PagedAttention layout) addressed through per-request block tables;
-admission is page-granular against the live :class:`PagedKVCacheManager`,
-look-ahead decode preallocates pages for all k steps, and under pool
-pressure the engine first shrinks k, then preempts a victim (free its
-pages, requeue for recompute-from-prompt). The reference's slab mode
-(``paged=False``) and TP/DP meshes are not yet ported.
+KV memory (``EngineConfig.paged``):
+
+* paged (default) — attention KV lives in per-layer device page pools
+  (PagedAttention layout) addressed through per-request block tables;
+  admission is page-granular against the live
+  :class:`PagedKVCacheManager`, look-ahead decode preallocates pages for
+  all k steps, and under pool pressure the engine first shrinks k, then
+  preempts a victim (free its pages, requeue for recompute-from-prompt).
+* slab (``paged=False``) — one contiguous (max_len) KV row per slot, the
+  reference's equivalence oracle for the paged path. The page manager
+  still does the accounting (admission, reservation, preemption) over a
+  pool sized max_slots rows; the model reads and writes the slab rows in
+  place. No prefix cache.
+
+TP/DP meshes are not yet ported.
 """
 from __future__ import annotations
 
@@ -31,9 +39,11 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.device import DeviceLike, resolve_device, to_device
-from repro_torch.core.lookahead import make_paged_lookahead_fn
+from repro_torch.core.lookahead import (make_lookahead_fn,
+                                        make_paged_lookahead_fn)
 from repro_torch.core.multiplexer import AdaptiveMultiplexer
 from repro_torch.core.roofline import HardwareSpec, RooflineModel, TPU_V5E
+from repro_torch.models.attention import slot_views
 from repro_torch.models.transformer import Model
 from repro_torch.serving.kvcache import (DEFAULT_PAGE_SIZE, HostPoolConfig,
                                          PagedKVCacheManager, PagePoolConfig,
@@ -65,14 +75,14 @@ class EngineConfig:
     temperature: float = 0.0
     sched_overhead: float = 0.0005
     dispatch_overhead: float = 0.004
-    # paged-KV execution; the slab oracle (paged=False) is not yet ported.
-    # ``kv_pool_tokens`` sizes the device page pools; None = max_slots *
-    # max_len.
+    # paged-KV execution; paged=False serves from the slab cache (the
+    # equivalence oracle). ``kv_pool_tokens`` sizes the device page pools;
+    # None = max_slots * max_len.
     paged: bool = True
     kv_pool_tokens: Optional[int] = None
-    # copy-on-write prefix caching over the paged pool: requests sharing a
-    # prompt prefix map the cached pages read-only and prefill only the
-    # uncached suffix.
+    # copy-on-write prefix caching over the paged pool (paged mode only):
+    # requests sharing a prompt prefix map the cached pages read-only and
+    # prefill only the uncached suffix.
     prefix_cache: bool = True
     # host-DRAM demotion tier: cold cached pages demote to a numpy page
     # store of ``host_kv_tokens`` capacity instead of being evicted, and
@@ -82,10 +92,10 @@ class EngineConfig:
     kv_quant: str = "none"
     # kernel path (Model.attn_kernel engines): ``DuetEngine.kernel_path``
     # reports "cuda" when the CUDA kernels launch and "torch" otherwise.
-    # ``split_kv_threshold``: table capacity in tokens above which decode
-    # uses the split-KV kernel — None prices the threshold from the
-    # roofline, 0 disables splitting. ``strict_kernel`` makes a kernel
-    # request on a Model without attn_kernel an error.
+    # ``split_kv_threshold`` (paged only): table capacity in tokens above
+    # which decode uses the split-KV kernel — None prices the threshold
+    # from the roofline, 0 disables splitting. ``strict_kernel`` makes a
+    # kernel request on a Model without attn_kernel an error.
     split_kv_threshold: Optional[int] = None
     strict_kernel: bool = False
 
@@ -96,9 +106,6 @@ class DuetEngine:
     def __init__(self, model: Model, engine_cfg: EngineConfig,
                  hw: HardwareSpec = TPU_V5E, seed: int = 0,
                  device: DeviceLike = None):
-        if not engine_cfg.paged:
-            raise NotImplementedError(
-                "slab-KV serving (paged=False) is not yet ported")
         if engine_cfg.tp > 1:
             raise NotImplementedError("tensor parallelism is not yet ported")
         self.device = resolve_device(device)
@@ -109,6 +116,7 @@ class DuetEngine:
         self.ec = engine_cfg
         self.hw = hw
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
+        self.paged = engine_cfg.paged
 
         # capability probe: pin the executed attention path on a per-engine
         # Model copy (other engines may share the Model; the copy shares the
@@ -118,12 +126,13 @@ class DuetEngine:
         if model.attn_kernel:
             if self.device.type == "cuda":
                 self.kernel_path = "cuda"
-            thr = engine_cfg.split_kv_threshold
-            if thr is None:  # roofline-priced default; 0 disables
-                thr = RooflineModel(
-                    self.cfg, hw,
-                    page_size=engine_cfg.page_size).split_kv_threshold()
-            model.split_kv_threshold = int(thr)
+            if self.paged:   # split-KV is a paged-decode kernel
+                thr = engine_cfg.split_kv_threshold
+                if thr is None:  # roofline-priced default; 0 disables
+                    thr = RooflineModel(
+                        self.cfg, hw,
+                        page_size=engine_cfg.page_size).split_kv_threshold()
+                model.split_kv_threshold = int(thr)
         elif engine_cfg.strict_kernel:
             raise ValueError(
                 "strict_kernel requires a Model built with attn_kernel=True")
@@ -133,7 +142,7 @@ class DuetEngine:
         # prefix caching skips the matched prefix's prefill entirely, which
         # is only sound when every layer's sequence state lives in the paged
         # KV pool.
-        self.prefix_cache = engine_cfg.prefix_cache
+        self.prefix_cache = self.paged and engine_cfg.prefix_cache
         if self.prefix_cache and not self.cfg.attention_only:
             warnings.warn(
                 f"prefix_cache disabled for {self.cfg.name}: block pattern "
@@ -142,27 +151,40 @@ class DuetEngine:
             self.prefix_cache = False
 
         ps = engine_cfg.page_size
-        pool_tokens = engine_cfg.kv_pool_tokens \
-            or engine_cfg.max_slots * engine_cfg.max_len
-        num_pages = -(-pool_tokens // ps) + 1   # +1: reserved null page
-        host_pool = None
-        if engine_cfg.host_kv_tokens > 0 and self.prefix_cache:
-            host_pool = HostPoolConfig(
-                num_pages=-(-engine_cfg.host_kv_tokens // ps),
-                quant=engine_cfg.kv_quant)
-        self.kv_mgr = PagedKVCacheManager(
-            PagePoolConfig(num_pages=num_pages, page_size=ps),
-            prefix_cache=self.prefix_cache, host_pool=host_pool)
-        # block-table width: one request may span the whole pool
-        self.max_pages = num_pages - 1
-        # pools hold the model's dtype, so the kernels read them as they are
-        self.pools = init_page_pools(self.cfg, self.kv_mgr.pool,
-                                     dtype=model.dtype, device=self.device)
-        self.cache = model.init_state_cache(engine_cfg.max_slots)
+        if self.paged:
+            pool_tokens = engine_cfg.kv_pool_tokens \
+                or engine_cfg.max_slots * engine_cfg.max_len
+            num_pages = -(-pool_tokens // ps) + 1   # +1: reserved null page
+            host_pool = None
+            if engine_cfg.host_kv_tokens > 0 and self.prefix_cache:
+                host_pool = HostPoolConfig(
+                    num_pages=-(-engine_cfg.host_kv_tokens // ps),
+                    quant=engine_cfg.kv_quant)
+            self.kv_mgr = PagedKVCacheManager(
+                PagePoolConfig(num_pages=num_pages, page_size=ps),
+                prefix_cache=self.prefix_cache, host_pool=host_pool)
+            # block-table width: one request may span the whole pool
+            self.max_pages = num_pages - 1
+            # pools hold the model's dtype, so the kernels read them as
+            # they are
+            self.pools = init_page_pools(self.cfg, self.kv_mgr.pool,
+                                         dtype=model.dtype,
+                                         device=self.device)
+            self.cache = model.init_state_cache(engine_cfg.max_slots)
+        else:
+            # the page manager only accounts: one max_len row per slot
+            pool_pages = engine_cfg.max_slots * (
+                -(-engine_cfg.max_len // ps)) + 1
+            self.kv_mgr = PagedKVCacheManager(
+                PagePoolConfig(num_pages=pool_pages, page_size=ps))
+            self.max_pages = -(-engine_cfg.max_len // ps)
+            self.pools = None
+            self.cache = model.init_cache(engine_cfg.max_slots,
+                                          engine_cfg.max_len)
         self.mux = AdaptiveMultiplexer(
             self.cfg, hw=hw,
             total_units=engine_cfg.units, tbt_slo=engine_cfg.tbt_slo,
-            page_size=ps)
+            page_size=ps if self.paged else 1)
         self.policy = DuetPolicy(self.mux,
                                  token_budget=engine_cfg.token_budget,
                                  max_batch=engine_cfg.max_slots,
@@ -189,8 +211,10 @@ class DuetEngine:
 
     def _decode_fn(self, k: int):
         if k not in self._decode_fns:
-            self._decode_fns[k] = make_paged_lookahead_fn(
-                self.model, k, temperature=self.ec.temperature)
+            make = make_paged_lookahead_fn if self.paged \
+                else make_lookahead_fn
+            self._decode_fns[k] = make(self.model, k,
+                                       temperature=self.ec.temperature)
         return self._decode_fns[k]
 
     def _table_width(self, rids: List[int]) -> int:
@@ -258,8 +282,10 @@ class DuetEngine:
 
     def _admissible(self, r: Request) -> bool:
         """Can this request's full KV footprint ever fit the engine?"""
-        need = -(-(r.prompt_len + r.output_len) // self.ec.page_size)
-        return need <= self.max_pages
+        if self.paged:
+            need = -(-(r.prompt_len + r.output_len) // self.ec.page_size)
+            return need <= self.max_pages
+        return r.prompt_len + r.output_len <= self.ec.max_len
 
     def _reject(self, r: Request, why: str):
         if r.slot is not None:
@@ -362,18 +388,24 @@ class DuetEngine:
         preempt)."""
         if not self._ensure_pages(r, chunk):
             return "deferred"
-        # the chunk's first write may land in a shared/cached page
-        # (fully page-aligned prefix hit): privatise it first
-        self._cow_copy(self.kv_mgr.ensure_writable(r.rid, r.prefilled))
+        if self.paged:
+            # the chunk's first write may land in a shared/cached page
+            # (fully page-aligned prefix hit): privatise it first
+            self._cow_copy(self.kv_mgr.ensure_writable(r.rid, r.prefilled))
         self.kv_mgr.allocate(r.rid, chunk)
         toks = self._h2d(
             r.prefill_token_ids()[r.prefilled:r.prefilled + chunk][None, :])
-        # flush tier migrations before the program touches the pools
-        self._service_tiers()
-        tbl = self._h2d(self.kv_mgr.padded_tables(
-            [r.rid], self._table_width([r.rid])))
-        logits, self.pools, self.cache = self.model.prefill_paged(
-            toks, self.pools, self.cache, tbl, start_pos=r.prefilled)
+        if self.paged:
+            # flush tier migrations before the program touches the pools
+            self._service_tiers()
+            tbl = self._h2d(self.kv_mgr.padded_tables(
+                [r.rid], self._table_width([r.rid])))
+            logits, self.pools, self.cache = self.model.prefill_paged(
+                toks, self.pools, self.cache, tbl, start_pos=r.prefilled)
+        else:
+            logits, _ = self.model.prefill(
+                toks, cache=slot_views(self.cache, r.slot),
+                start_pos=r.prefilled)
         r.prefilled += chunk
         r.prefill_executed += chunk
         if r.remaining_prompt > 0:
@@ -434,6 +466,8 @@ class DuetEngine:
     def _privatize_decode_pages(self, reqs: List[Request]):
         """CoW guard for the decode append: only the page holding the next
         write position can be shared (look-ahead pages are fresh)."""
+        if not self.paged:
+            return
         for r in reqs:
             self._cow_copy(
                 self.kv_mgr.ensure_writable(r.rid,
@@ -447,7 +481,7 @@ class DuetEngine:
         active = np.zeros(B, bool)
         for r in dec_reqs:
             active[r.slot] = True
-        if kb > 0 and dec_reqs:
+        if self.paged and kb > 0 and dec_reqs:
             width = self._table_width([r.rid for r in dec_reqs])
             tbl = np.zeros((B, width), np.int32)
             rows = self.kv_mgr.padded_tables([r.rid for r in dec_reqs],
@@ -468,10 +502,15 @@ class DuetEngine:
         self._service_tiers()
         active, tbl, _ = self._decode_args(reqs, kb)
         fn = self._decode_fn(kb)
-        d_toks, self.pools, self.cache, d_pos = fn(
-            self.pools, self.cache, self._h2d(self.slot_last_token[:, None]),
-            self._h2d(self.slot_pos), self._h2d(tbl), self.gen,
-            self._h2d(active))
+        first = self._h2d(self.slot_last_token[:, None])
+        pos = self._h2d(self.slot_pos)
+        if self.paged:
+            d_toks, self.pools, self.cache, d_pos = fn(
+                self.pools, self.cache, first, pos, self._h2d(tbl),
+                self.gen, self._h2d(active))
+        else:
+            d_toks, self.cache, d_pos = fn(self.cache, first, pos, self.gen,
+                                           self._h2d(active))
         # the synchronous oracle reads tokens and positions every iteration
         toks = d_toks.cpu().numpy()
         self.slot_pos = d_pos.cpu().numpy().astype(np.int32)

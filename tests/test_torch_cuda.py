@@ -1,7 +1,7 @@
 """The port on the card: each CUDA kernel against its plain PyTorch version
-on the kernel tests' shapes, and both engines on a reduced qwen3-4b
-through the kernels. Needs an NVIDIA card (and nvcc, to build the
-kernels); every test skips without CUDA. On the card, without the JAX
+on the kernel tests' shapes, and both engines, paged and slab, on a
+reduced qwen3-4b through the kernels. Needs an NVIDIA card (and nvcc, to
+build the kernels); every test skips without CUDA. On the card, without the JAX
 package's test configuration:
 
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -13,8 +13,12 @@ import torch
 from repro_torch.configs import get_config, reduced
 from repro_torch.kernels import (build_duet_schedule, launch_counts,
                                  pack_duet_queries, unpack_duet_output)
-from repro_torch.kernels.duet_attention import (duet_attention_paged,
-                                                duet_attention_paged_plain)
+from repro_torch.kernels.duet_attention import (duet_attention,
+                                                duet_attention_paged,
+                                                duet_attention_paged_plain,
+                                                duet_attention_plain)
+from repro_torch.kernels.flash_prefill import (flash_prefill,
+                                               flash_prefill_plain)
 from repro_torch.kernels.paged_decode import (paged_decode,
                                               paged_decode_plain,
                                               paged_decode_splitkv,
@@ -94,6 +98,50 @@ def test_duet_attention_kernel_matches_plain(dev, bq, dtype):
     torch.testing.assert_close(got, want, atol=TOL[dtype], rtol=TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bq,decode_rows,prefill_rows", [
+    (8, [(0, 100), (1, 57), (2, 200)], [(3, 64 + i) for i in range(20)]),
+    (1, [(b, 255 + 92 * b) for b in range(8)], []),   # slab decode step
+])
+def test_slab_duet_attention_kernel_matches_plain(dev, bq, decode_rows,
+                                                  prefill_rows, dtype):
+    rng = np.random.default_rng(4)
+    Ns = max(s for s, _ in decode_rows + prefill_rows) + 1
+    S, H, G, Dh = (256, 4, 2, 64) if bq == 8 else (1024, 32, 8, 128)
+    ks = _randn(rng, (Ns, S, G, Dh), dtype, dev)
+    vs = _randn(rng, (Ns, S, G, Dh), dtype, dev)
+    sched = build_duet_schedule(decode_rows, prefill_rows, block_q=bq)
+    n = len(decode_rows) + len(prefill_rows)
+    q = pack_duet_queries(sched, _randn(rng, (n, H, Dh), dtype, dev))
+    args = (q.contiguous(),
+            torch.tensor(sched.row_pos, device=dev)[:, None].contiguous(),
+            torch.tensor(sched.tile_slot, device=dev), ks, vs)
+    got = unpack_duet_output(sched, duet_attention(*args, block_q=bq), n)
+    want = unpack_duet_output(sched, duet_attention_plain(*args, block_q=bq),
+                              n)
+    torch.testing.assert_close(got, want, atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Sq,Sk,H,G,Dh,off,kv_len", [
+    (1, 128, 128, 4, 2, 64, 0, None),
+    (2, 128, 256, 4, 4, 64, 128, None),
+    (1, 256, 256, 8, 2, 128, 0, None),
+    (1, 128, 128, 4, 1, 64, 0, None),       # MQA
+    (2, 77, 300, 32, 8, 128, 200, 250),     # ragged, padded keys
+])
+def test_flash_prefill_kernel_matches_plain(dev, B, Sq, Sk, H, G, Dh, off,
+                                            kv_len, dtype):
+    rng = np.random.default_rng(5)
+    q = _randn(rng, (B, Sq, H, Dh), dtype, dev)
+    k = _randn(rng, (B, Sk, G, Dh), dtype, dev)
+    v = _randn(rng, (B, Sk, G, Dh), dtype, dev)
+    torch.testing.assert_close(
+        flash_prefill(q, k, v, q_offset=off, kv_len=kv_len),
+        flash_prefill_plain(q, k, v, q_offset=off, kv_len=kv_len),
+        atol=TOL[dtype], rtol=TOL[dtype])
+
+
 def test_engines_on_the_card_match_the_cpu(dev):
     """Reduced qwen3-4b in fp32: the sync and async engines through the
     CUDA kernels (the async one with fused duet steps) give the plain CPU
@@ -122,6 +170,38 @@ def test_engines_on_the_card_match_the_cpu(dev):
         if cls is AsyncDuetEngine:
             assert after["duet_attention_paged"] > \
                 before["duet_attention_paged"]
+            assert 0 < eng.dstats.host_syncs <= eng.dstats.super_iterations
+    assert runs["sync"] == runs["cpu"]
+    assert runs["async"] == runs["cpu"]
+
+
+def test_slab_engines_on_the_card_match_the_cpu(dev):
+    """Reduced qwen3-4b in fp32 with paged=False: the sync and async slab
+    engines through the slab duet_attention kernel give the plain CPU
+    path's greedy tokens and the same ServingMetrics summary."""
+    cfg = reduced(get_config("qwen3-4b"))
+    cpu = Model.init(cfg, seed=0, device="cpu", attn_kernel=True)
+    card = Model.init(cfg, seed=0, device="cpu", attn_kernel=True).to(dev)
+    specs = [(i, i * 0.0003, 20 + 7 * i, 6 + i) for i in range(5)]
+    kw = dict(max_slots=3, max_len=128, token_budget=48, page_size=8,
+              paged=False)
+    runs = {}
+    for label, cls, model, device in (
+            ("cpu", DuetEngine, cpu, "cpu"),
+            ("sync", DuetEngine, card, dev),
+            ("async", AsyncDuetEngine, card, dev)):
+        before = launch_counts()
+        eng = cls(model, EngineConfig(**kw), device=device)
+        eng.submit([Request(rid=r, arrival=a, prompt_len=p, output_len=o)
+                    for r, a, p, o in specs])
+        metrics = eng.run()
+        after = launch_counts()
+        runs[label] = ({r.rid: list(r.output_tokens)
+                        for r in metrics.requests}, metrics.summary())
+        if device != "cpu":
+            assert eng.kernel_path == "cuda"
+            assert after["duet_attention"] > before["duet_attention"]
+        if cls is AsyncDuetEngine:
             assert 0 < eng.dstats.host_syncs <= eng.dstats.super_iterations
     assert runs["sync"] == runs["cpu"]
     assert runs["async"] == runs["cpu"]

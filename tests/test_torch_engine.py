@@ -205,8 +205,6 @@ def test_host_tier_round_trip_keeps_tokens(setup, cls):
 def test_engine_rejects_unported_modes(setup):
     jcfg, forward, tcfg, tmodel = setup
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        DuetEngine(tmodel, EngineConfig(paged=False), device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
         DuetEngine(tmodel, EngineConfig(tp=2), device="cpu")
 
 

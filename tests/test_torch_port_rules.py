@@ -16,7 +16,9 @@ import torch
 from repro_torch.configs import get_config, reduced
 from repro_torch.core.device import resolve_device
 from repro_torch.kernels import _build
-from repro_torch.kernels.duet_attention import duet_attention_paged
+from repro_torch.kernels.duet_attention import (duet_attention,
+                                                duet_attention_paged)
+from repro_torch.kernels.flash_prefill import flash_prefill
 from repro_torch.kernels.paged_decode import paged_decode
 from repro_torch.launch import serve
 from repro_torch.models import Model
@@ -91,8 +93,8 @@ def test_entry_points_without_device_raise_without_cuda(no_cuda):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--tp", "2"], ["--dp", "2"], ["--elastic"], ["--no-paged"],
-    ["--arrival", "mmpp"], ["--service-mix", "mixture"], ["--rho", "0.5"],
+    ["--tp", "2"], ["--dp", "2"], ["--elastic"], ["--arrival", "mmpp"],
+    ["--service-mix", "mixture"], ["--rho", "0.5"],
 ])
 def test_unported_flags_exit(flags):
     with pytest.raises(SystemExit, match="not yet ported"):
@@ -111,6 +113,12 @@ def test_kernel_wrappers_never_fall_back_off_the_cpu():
     with pytest.raises(ValueError, match="is not on"):
         duet_attention_paged(q, lengths[:, None], lengths, pages, pages,
                              tables, block_q=1)
+    with pytest.raises(ValueError, match="is not on"):
+        duet_attention(q, lengths[:, None], lengths, pages, pages,
+                       block_q=1, block_k=16)
+    seq = torch.empty((1, 16, 4, 64), device="meta")
+    with pytest.raises(ValueError, match="is not on"):
+        flash_prefill(seq, pages[:1, :, :2], pages[:1, :, :2])
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
