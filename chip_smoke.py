@@ -11,15 +11,18 @@ Phases (each raises on failure; nothing is swallowed):
              parallel), print the build seconds and ptxas' register and
              shared-memory report.
 2. kernels — hold each kernel against its plain PyTorch version on the card
-             at the serving path's shapes and at the small GQA/MQA/MHA,
-             odd-length, dead-split and ragged shapes of the kernel tests,
-             in fp32 and bf16. Each case prints its max error beside the
-             tolerance, the kernel's, the plain version's and a library
-             call's time (SDPA over the gathered, head-repeated KV; timed
-             here only, never used by the port) from CUDA events, and the
-             bound (the least time for the bytes and operations the inputs
-             need, at the card's published 3.35 TB/s and 989 bf16 / 67 fp32
-             TFLOP/s).
+             at the serving path's shapes, at the small GQA/MQA/MHA,
+             odd-length, dead-split and ragged shapes of the kernel tests
+             and at the cluster decode kernels' edges, in fp32 and bf16.
+             Each case prints its max error beside the tolerance, the
+             kernel's time with its inputs in L2 (ms, back-to-back calls)
+             and with a cold L2 (cold_ms), the plain version's and a
+             library call's time (SDPA over the gathered, head-repeated KV;
+             timed here only, never used by the port) from CUDA events, and
+             the bound (the least time for the bytes and operations the
+             inputs need, at the card's published 3.35 TB/s and 989 bf16 /
+             67 fp32 TFLOP/s) with its share of cold_ms. Then the cluster
+             kernels' occupancy at the main shapes.
 3. parity  — full-width qwen3-4b cut to 4 layers, fp32 with TF32 off: the
              kernel path's logits against the port's plain path for one
              paged decode step, one duet step, and one slab decode step
@@ -101,19 +104,47 @@ def card_line() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
+# A spin kernel queued ahead of the timed work keeps the card busy while
+# the host queues it, so the events time the card and not the host's pace.
+HOLD_CYCLES = 400_000       # about 0.2 ms at the H100's clock
+FLUSH_BYTES = 128 << 20     # written between cold calls: > the 50 MB L2
+
+
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean device time of one call, from CUDA events around ``iters``
-    back-to-back calls after ``warmup`` calls."""
+    back-to-back calls after ``warmup`` calls (their inputs stay in L2
+    where they fit)."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(HOLD_CYCLES * iters)
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def time_cold_ms(fn, iters: int = 10) -> float:
+    """Mean device time of one call with a cold L2: a FLUSH_BYTES buffer is
+    written before each call, and CUDA events time each call alone (the
+    flush is not timed)."""
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    fn()
+    pairs = []
+    for i in range(iters):
+        flush.fill_(i & 0xFF)
+        torch.cuda._sleep(HOLD_CYCLES)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in pairs) / iters
 
 
 # ---------------------------------------------------------------------------
@@ -202,6 +233,9 @@ def check_decode(rng, label, dtype, B, H, G, Dh, N, ps, P, splits=None,
             q, kp, vp, tables, ln, num_splits=splits)
         plain = lambda: paged_decode_splitkv_plain(  # noqa: E731
             q, kp, vp, tables, ln, num_splits=splits)
+    if splits is None:
+        from repro_torch.kernels.paged_decode import cluster_for
+        label += f" C={cluster_for(q, kp, tables)}"
     rec = {"name": name, "case": label, "dtype": str(dtype)}
     got = kernel()
     torch.cuda.synchronize()
@@ -213,6 +247,7 @@ def check_decode(rng, label, dtype, B, H, G, Dh, N, ps, P, splits=None,
     ops = 4.0 * live * H * Dh
     rec["bound_ms"], rec["bound_by"] = _bound(nbytes, ops, dtype)
     rec["ms"] = time_ms(kernel)
+    rec["cold_ms"] = time_cold_ms(kernel)
     rec["plain_ms"] = time_ms(plain, iters=5)
     rec["library_ms"] = time_ms(_sdpa_decode(q, kp, vp, tables, ln))
     return rec
@@ -260,6 +295,7 @@ def check_duet(rng, label, dtype, N, ps, G, H, Dh, P, decode_rows,
     ops = 4.0 * H * Dh * sum(p + 1 for _, p in rows)
     rec["bound_ms"], rec["bound_by"] = _bound(nbytes, ops, dtype)
     rec["ms"] = time_ms(kernel)
+    rec["cold_ms"] = time_cold_ms(kernel)
     rec["plain_ms"] = time_ms(plain, iters=3)
     # library yardstick: SDPA with one query row per batch entry over
     # its gathered, head-repeated chain, masked causally by row position
@@ -303,6 +339,8 @@ def check_duet_slab(rng, label, dtype, Ns, S, G, H, Dh, decode_rows,
         q, row_pos, tile_slot, ks, vs, block_q=bq, block_k=block_k)
     plain = lambda: duet_attention_plain(  # noqa: E731
         q, row_pos, tile_slot, ks, vs, block_q=bq)
+    from repro_torch.kernels.duet_attention import cluster_for
+    label += f" C={cluster_for(q, tile_slot, ks, bq)}"
     rec = {"name": "duet_attention", "case": label, "dtype": str(dtype)}
     got = unpack_duet_output(sched, kernel(), len(rows))
     torch.cuda.synchronize()
@@ -318,6 +356,7 @@ def check_duet_slab(rng, label, dtype, Ns, S, G, H, Dh, decode_rows,
     ops = 4.0 * H * Dh * sum(p + 1 for _, p in rows)
     rec["bound_ms"], rec["bound_by"] = _bound(nbytes, ops, dtype)
     rec["ms"] = time_ms(kernel)
+    rec["cold_ms"] = time_cold_ms(kernel)
     rec["plain_ms"] = time_ms(plain, iters=3)
     # library yardstick: SDPA with one query row per batch entry over its
     # slot's head-repeated slab row, masked causally by row position
@@ -363,6 +402,7 @@ def check_flash(rng, label, dtype, B, Sq, Sk, H, G, Dh, q_offset,
     ops = 4.0 * B * H * Dh * pairs
     rec["bound_ms"], rec["bound_by"] = _bound(nbytes, ops, dtype)
     rec["ms"] = time_ms(kernel)
+    rec["cold_ms"] = time_cold_ms(kernel)
     rec["plain_ms"] = time_ms(plain, iters=5)
     # library yardstick: SDPA over head-repeated K/V with the
     # causal-offset (and kv_len) mask
@@ -459,15 +499,81 @@ def phase_kernels():
                 rng, f"sweep B{Bs} Sq{Sq} Sk{Sk} H{Hs} G{Gs} Dh{Ds} "
                 f"off{off} kv_len {kvl}", dtype, Bs, Sq, Sk, Hs, Gs, Ds, off,
                 kv_len=kvl))
+    # the cluster kernels' edges: one request or row (C = 8), 32 of them
+    # (C = 1 or 2), lengths 1, 16, 17 and 2048, Dh 64 / 128 / 256, slab
+    # tiles of block_q 1 and 8
+    edge = (1, 16, 17, 2048)
+    edge_rows = [(0, 0), (1, 15), (2, 16), (3, 2047)]
+    chunk = [(3, 64 + i) for i in range(20)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for (Bs, Hs, Gs, Ds, ln) in [(1, 32, 8, 128, (2048,)),
+                                     (1, 32, 8, 128, (1,)),
+                                     (4, 32, 8, 128, edge),
+                                     (32, 32, 8, 128, edge * 8),
+                                     (4, 8, 2, 64, edge),
+                                     (4, 8, 4, 256, edge),
+                                     (2, 8, 2, 256, (17, 128))]:
+            records.append(check_decode(
+                rng, f"edge B{Bs} H{Hs} G{Gs} Dh{Ds} lens {ln[:4]}", dtype,
+                Bs, Hs, Gs, Ds, 257, 16, 128, lengths=ln))
+        for (bq, drows, prows, S, Hs, Gs, Ds) in [
+                (1, [(0, 1000)], [], 1024, 32, 8, 128),
+                (1, [(b, (0, 15, 16, 1023)[b % 4]) for b in range(32)], [],
+                 1024, 32, 8, 128),
+                (1, edge_rows, [], 2048, 8, 2, 64),
+                (1, edge_rows, [], 2048, 8, 4, 256),
+                (8, edge_rows[:3], chunk, 256, 4, 2, 128),
+                (8, edge_rows[:3], chunk, 256, 4, 2, 256)]:
+            records.append(check_duet_slab(
+                rng, f"edge bq={bq} {len(drows)} decode + {len(prows)} "
+                f"S{S} H{Hs} G{Gs} Dh{Ds}", dtype,
+                max(s_ for s_, _ in drows + prows) + 1, S, Gs, Hs, Ds, drows,
+                prows, bq=bq))
     card = card_line()
     for rec in records:
         log(f"[kernels] {rec['name']:22s} {rec['dtype']:15s} "
-            f"{rec['case']:40s} max_abs_err={rec['max_abs_err']:.3e} "
+            f"{rec['case']:44s} max_abs_err={rec['max_abs_err']:.3e} "
             f"tol={rec['tol']:.0e} ms={rec['ms']:.4f} "
+            f"cold_ms={rec['cold_ms']:.4f} "
             f"plain_ms={rec['plain_ms']:.4f} "
             f"library_ms={rec['library_ms']:.4f} "
-            f"bound_ms={rec['bound_ms']:.3g} ({rec['bound_by']}) [{card}]")
+            f"bound_ms={rec['bound_ms']:.3g} ({rec['bound_by']}, "
+            f"{rec['bound_ms'] / rec['cold_ms']:.1%} of cold_ms) [{card}]")
+    report_occupancy(card)
     return main
+
+
+def report_occupancy(card):
+    """The cluster kernels' residency at the main path's shapes (bf16): the
+    cluster size the wrappers pick, how many clusters the card holds at
+    once (cudaOccupancyMaxActiveClusters) and the ring's loads that can be
+    in flight per SM."""
+    from repro_torch.kernels.duet_attention import cluster_for as slab_c
+    from repro_torch.kernels.duet_attention import occupancy as slab_occ
+    from repro_torch.kernels.paged_decode import cluster_for as paged_c
+    from repro_torch.kernels.paged_decode import occupancy as paged_occ
+    dev = torch.cuda.current_device()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    B, G, rep, Dh, P, S = 8, 8, 4, 128, 128, 1024
+    bf16 = torch.bfloat16
+    q = torch.empty((B, G * rep, Dh), dtype=bf16, device="cuda")
+    kp = torch.empty((1, 16, G, Dh), dtype=bf16, device="cuda")
+    tables = torch.empty((B, P), dtype=torch.int32, device="cuda")
+    ks = torch.empty((B, S, G, Dh), dtype=bf16, device="cuda")
+    tiles = torch.empty((B,), dtype=torch.int32, device="cuda")
+    picks = {"paged_decode": (paged_c(q, kp, tables), lambda C: paged_occ(
+                 dev, bf16, Dh, rep, P, C)),
+             "duet_attention": (slab_c(q, tiles, ks, 1), lambda C: slab_occ(
+                 dev, bf16, Dh, rep, C))}
+    for name, (C, occupancy) in picks.items():
+        clusters, smem, ahead = occupancy(C)
+        per_sm = clusters * C / sms
+        log(f"[kernels] {name} main bf16: C={C}, grid {B * G * C} CTAs of "
+            f"{smem / 1024:.1f} KB shared memory; {clusters} clusters "
+            f"({clusters * C} CTAs, {per_sm:.2f} per SM) resident at once; "
+            f"{ahead / 1024:.0f} KB of loads ahead per CTA, up to "
+            f"{min(per_sm, B * G * C / sms) * ahead / 1024:.0f} KB in flight "
+            f"per SM [{card}]")
 
 
 # ---------------------------------------------------------------------------
@@ -798,7 +904,7 @@ def main(argv=None) -> int:
             "replaces": replaces,
             "launches": counts[name] if counts else None,
             "max_abs_err": rec.get("max_abs_err"), "ms": rec.get("ms"),
-            "plain_ms": rec.get("plain_ms"),
+            "cold_ms": rec.get("cold_ms"), "plain_ms": rec.get("plain_ms"),
             "bound_ms": rec.get("bound_ms"),
             "bound_by": rec.get("bound_by"),
             "library_ms": rec.get("library_ms")})

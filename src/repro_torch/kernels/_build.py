@@ -38,7 +38,8 @@ _F = ctypes.c_float
 # argtypes of each C entry point: every pointer and the stream as c_void_p
 SIGNATURES = {
     "paged_decode": {
-        "paged_decode_launch": [_P] * 6 + [_I] * 6 + [_F, _I, _P],
+        "paged_decode_launch": [_P] * 6 + [_I] * 7 + [_F, _I, _P],
+        "paged_decode_occupancy": [_I] * 5 + [_P],
         "paged_decode_partials_launch": [_P] * 8 + [_I] * 7 + [_F, _I, _P],
         "paged_decode_combine_launch": [_P] * 4 + [_I] * 5 + [_P],
     },
@@ -46,7 +47,8 @@ SIGNATURES = {
         "duet_attention_paged_launch": [_P] * 7 + [_I] * 7 + [_F, _I, _P],
     },
     "duet_attention": {
-        "duet_attention_launch": [_P] * 6 + [_I] * 6 + [_F, _I, _P],
+        "duet_attention_launch": [_P] * 6 + [_I] * 7 + [_F, _I, _P],
+        "duet_attention_occupancy": [_I] * 4 + [_P],
     },
     "flash_prefill": {
         "flash_prefill_launch": [_P] * 4 + [_I] * 8 + [_F, _I, _P],

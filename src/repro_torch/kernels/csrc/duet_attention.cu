@@ -12,159 +12,117 @@
 // and row are live. Decode rows and the prefill chunk's rows run in ONE
 // launch.
 //
-// Design: the paged kernel (duet_attention_paged.cu) with slab addressing.
-// One block per (tile, KV group) holds the tile's bq * rep query rows of
-// that group in shared memory and walks the slot's keys KEY_TILE at a time
-// (K/V rows of the group staged in shared memory as fp32, online softmax
-// per row in fp32, attn_common.cuh). Key k of the slot sits at
-// (slot * S + k) * G * Dh: no table lookup. The Pallas grid walks all S
-// keys in block_k steps; this kernel stops after the tile holding the
-// tile's largest row_pos, so a decode row at position p reads p + 1 keys
-// and not S. Pad rows and pad tiles see no valid key; the dead-row guard
-// keeps their l = 0 and acc = 0, so they come out as zeros (the reference
-// kernel leaves the mean of V there; only unpacked rows are ever read).
+// Design (decode_core.cuh): grid (T, G, C) with clusters of C CTAs along z.
+// The tile's keys 0 .. max(row_pos) (the Pallas grid walks all S keys in
+// block_k steps; no row of the tile sees a later key) split into C
+// contiguous spans of whole 64-key units; CTA rank r streams span r's K/V
+// rows of its group through the cp.async ring (key k of the slot sits at
+// (slot * S + k) * G * Dh: no table lookup) and takes each stage against
+// all bq * rep query rows of the (tile, group); rank 0 combines the
+// cluster's partials through distributed shared memory. Pad rows and pad
+// tiles see no valid key; the dead-row guard keeps their l = 0 and acc = 0,
+// so they come out as zeros (the reference kernel leaves the mean of V
+// there; only unpacked rows are ever read).
 //
 // Bound: memory, the live KV bytes (each tile's keys 0..max row_pos of its
 // group) at 3.35 TB/s. Tiles of one slot re-read its keys once per tile.
 #include "attn_common.cuh"
+#include "decode_core.cuh"
 
 using namespace attn;
 
-constexpr int KEY_TILE = 64;  // keys staged per step (shared memory)
-
-template <typename T, int DPL>
-__global__ void __launch_bounds__(THREADS) duet_attention_kernel(
-    const T* __restrict__ q, const int* __restrict__ row_pos,
-    const int* __restrict__ tile_slot, const T* __restrict__ k_slab,
-    const T* __restrict__ v_slab, T* __restrict__ out, int H, int G, int S,
-    int bq, float scale) {
-  constexpr int Dh = DPL * 32;
+template <typename T, int DH, int NRB>
+__global__ void __launch_bounds__(dcore::Cfg<T, DH, NRB>::THREADS)
+    duet_attention_cluster_kernel(const T* __restrict__ q,
+                                  const int* __restrict__ row_pos,
+                                  const int* __restrict__ tile_slot,
+                                  const T* __restrict__ k_slab,
+                                  const T* __restrict__ v_slab,
+                                  T* __restrict__ out, int H, int G, int S,
+                                  int bq, float scale) {
+  using Cf = dcore::Cfg<T, DH, NRB>;
+  extern __shared__ __align__(16) char core_smem[];
   const int t = blockIdx.x, g = blockIdx.y;
+  const int C = gridDim.z;               // the cluster spans z
+  const int rank = blockIdx.z;
   const int rep = H / G;
-  const int nrows = bq * rep;            // block row i: tile row i / rep,
+  const int nrows = bq * rep;            // CTA row i: tile row i / rep,
                                          // head g * rep + i % rep
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-  extern __shared__ float smem[];
-  float* q_s = smem;                     // nrows rows of Dh
-  float* k_s = q_s + nrows * Dh;         // KEY_TILE rows, stride Dh + 1
-  float* v_s = k_s + KEY_TILE * (Dh + 1);  // KEY_TILE rows, stride Dh
-
-  for (int i = threadIdx.x; i < nrows * Dh; i += blockDim.x) {
-    const int row = i / Dh, d = i - row * Dh;
-    const int r = row / rep, j = row - r * rep;
-    q_s[i] = to_f32(q[((size_t)(t * bq + r) * H + g * rep + j) * Dh + d]);
-  }
-
+  // keys 0 .. n_keys - 1 can be valid for some row of this tile; this
+  // CTA's span of its 64-key units (ops.cluster_spans)
   const int slot = tile_slot[t];
   int maxpos = -1;
   if (slot >= 0)
     for (int r = 0; r < bq; ++r) maxpos = max(maxpos, row_pos[t * bq + r]);
-
-  int limit[MAX_ROWS_PER_WARP];
-  float m[MAX_ROWS_PER_WARP], l[MAX_ROWS_PER_WARP];
-  float acc[MAX_ROWS_PER_WARP][DPL];
-#pragma unroll
-  for (int ri = 0; ri < MAX_ROWS_PER_WARP; ++ri) {
-    const int row = warp + ri * WARPS;
-    limit[ri] = (slot >= 0 && row < nrows) ? row_pos[t * bq + row / rep] : -1;
-    m[ri] = NEG_INF;
-    l[ri] = 0.f;
-#pragma unroll
-    for (int j = 0; j < DPL; ++j) acc[ri][j] = 0.f;
-  }
-
-  // keys 0 .. n_keys - 1 can be valid for some row of this tile
   const int n_keys = maxpos < 0 ? 0 : min(S, maxpos + 1);
-  const size_t row_stride = (size_t)G * Dh;
-  const T* k_base = k_slab + ((size_t)max(slot, 0) * S * G + g) * Dh;
-  const T* v_base = v_slab + ((size_t)max(slot, 0) * S * G + g) * Dh;
-  for (int k0 = 0; k0 < n_keys; k0 += KEY_TILE) {
-    const int nk = min(KEY_TILE, n_keys - k0);
-    __syncthreads();  // q_s written / the previous tile consumed
-    load_page<T>(k_s, Dh + 1, k_base + k0 * row_stride, row_stride, nk, Dh);
-    load_page<T>(v_s, Dh, v_base + k0 * row_stride, row_stride, nk, Dh);
-    __syncthreads();
-    attend_page<DPL>(q_s, k_s, v_s, nk, Dh, k0, limit, warp, nrows, scale, m,
-                     l, acc);
-  }
+  const int units = (n_keys + dcore::SPLIT_KEYS - 1) / dcore::SPLIT_KEYS;
+  const int span = (units + C - 1) / C;
+  const int u0 = min(rank * span, units), u1 = min(u0 + span, units);
 
-#pragma unroll
-  for (int ri = 0; ri < MAX_ROWS_PER_WARP; ++ri) {
-    const int row = warp + ri * WARPS;
-    if (row >= nrows) continue;
-    const int r = row / rep, j = row - r * rep;
-    const float denom = fmaxf(l[ri], DENOM_EPS);
-    T* o = out + ((size_t)(t * bq + r) * H + g * rep + j) * Dh;
-#pragma unroll
-    for (int jj = 0; jj < DPL; ++jj)
-      o[lane + 32 * jj] = from_f32<T>(acc[ri][jj] / denom);
-  }
+  auto row_head = [&](int i) {   // (row of q / out, head) of CTA row i
+    return ((size_t)t * bq + i / rep) * H + (size_t)g * rep + i % rep;
+  };
+  const dcore::SlabSrc src{((size_t)max(slot, 0) * S * G + g) * DH,
+                           (size_t)G * DH};
+  dcore::decode_cluster<Cf>(
+      core_smem, k_slab, v_slab, src, u0 * dcore::SPLIT_KEYS,
+      min(u1 * dcore::SPLIT_KEYS, n_keys),
+      [&](int i) { return q + row_head(i) * DH; },
+      [&](int i) { return slot >= 0 ? row_pos[t * bq + i / rep] : -1; },
+      nrows, scale, [&](int i, int d, float x) {
+        out[row_head(i) * DH + d] = from_f32<T>(x);
+      });
 }
 
-template <typename T, int DPL>
-static cudaError_t launch_duet(const void* q, const int* row_pos,
-                               const int* tile_slot, const void* k,
+static cudaError_t launch_slab(const void* q, const void* row_pos,
+                               const void* tile_slot, const void* k,
                                const void* v, void* out, int T_, int bq,
-                               int H, int G, int S, float scale,
-                               cudaStream_t stream) {
-  constexpr int Dh = DPL * 32;
-  const int nrows = bq * (H / G);
-  const size_t smem = sizeof(float) * (size_t)(nrows * Dh +
-                                               KEY_TILE * (Dh + 1) +
-                                               KEY_TILE * Dh);
-  auto kernel = duet_attention_kernel<T, DPL>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  kernel<<<dim3(T_, G), THREADS, smem, stream>>>(
-      static_cast<const T*>(q), row_pos, tile_slot, static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), H, G, S, bq, scale);
-  return cudaGetLastError();
+                               int H, int G, int Dh, int S, int C,
+                               float scale, int dtype, cudaStream_t stream) {
+  if (C < 1 || C > dcore::MAX_CLUSTER) return cudaErrorInvalidValue;
+  return dcore::dispatch(dtype, Dh, bq * (H / G), [&](auto cf) {
+    using Cf = decltype(cf);
+    using T = typename Cf::T;
+    return dcore::launch_cluster<Cf>(
+        duet_attention_cluster_kernel<T, Cf::DH, Cf::NRB>, dim3(T_, G, C), C,
+        (size_t)Cf::FIXED_BYTES, stream, static_cast<const T*>(q),
+        static_cast<const int*>(row_pos), static_cast<const int*>(tile_slot),
+        static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<T*>(out), H, G, S, bq, scale);
+  });
 }
 
-template <typename T>
-static cudaError_t dispatch_dh(int Dh, const void* q, const int* row_pos,
-                               const int* tile_slot, const void* k,
-                               const void* v, void* out, int T_, int bq,
-                               int H, int G, int S, float scale,
-                               cudaStream_t stream) {
-#define DA_CASE(DH)                                                        \
-  case DH:                                                                 \
-    return launch_duet<T, DH / 32>(q, row_pos, tile_slot, k, v, out, T_,   \
-                                   bq, H, G, S, scale, stream);
-  switch (Dh) {
-    DA_CASE(32)
-    DA_CASE(64)
-    DA_CASE(128)
-    DA_CASE(256)
-  }
-#undef DA_CASE
-  return cudaErrorInvalidValue;
+static cudaError_t slab_occupancy(int Dh, int rows, int C, int dtype,
+                                  int* res) {
+  if (C < 1 || C > dcore::MAX_CLUSTER) return cudaErrorInvalidValue;
+  return dcore::dispatch(dtype, Dh, rows, [&](auto cf) {
+    using Cf = decltype(cf);
+    res[1] = Cf::FIXED_BYTES;
+    res[2] = (dcore::NSTAGE - 1) * Cf::STAGE_BYTES;
+    return dcore::max_active_clusters<Cf>(
+        duet_attention_cluster_kernel<typename Cf::T, Cf::DH, Cf::NRB>, C,
+        (size_t)res[1], &res[0]);
+  });
 }
 
 extern "C" {
 
-// grid (T, G); out (T*bq, H, Dh).
+// grid (T, G, C) in clusters of C CTAs along z; out (T*bq, H, Dh).
 int duet_attention_launch(const void* q, const void* row_pos,
                           const void* tile_slot, const void* k, const void* v,
                           void* out, int T_, int bq, int H, int G, int Dh,
-                          int S, float scale, int dtype, void* stream) {
-  const int* rp = static_cast<const int*>(row_pos);
-  const int* ts = static_cast<const int*>(tile_slot);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (dtype == DTYPE_F32)
-    e = dispatch_dh<float>(Dh, q, rp, ts, k, v, out, T_, bq, H, G, S, scale,
-                           st);
-  else if (dtype == DTYPE_BF16)
-    e = dispatch_dh<__nv_bfloat16>(Dh, q, rp, ts, k, v, out, T_, bq, H, G, S,
-                                   scale, st);
-  else
-    e = cudaErrorInvalidValue;
-  return (int)e;
+                          int S, int C, float scale, int dtype, void* stream) {
+  return (int)launch_slab(q, row_pos, tile_slot, k, v, out, T_, bq, H, G, Dh,
+                          S, C, scale, dtype,
+                          static_cast<cudaStream_t>(stream));
+}
+
+// duet_attention_launch's occupancy for ``rows`` (= bq * rep) query rows
+// per CTA: res = {clusters of C CTAs the card holds at once, dynamic shared
+// memory bytes per CTA, bytes the ring loads ahead}.
+int duet_attention_occupancy(int Dh, int rows, int C, int dtype, void* res) {
+  return (int)slab_occupancy(Dh, rows, C, dtype, static_cast<int*>(res));
 }
 
 }  // extern "C"

@@ -1,5 +1,5 @@
-// Paged decode attention for Hopper (sm_90a): the plain page walk and the
-// split-KV (flash-decoding) partials + combine.
+// Paged decode attention for Hopper (sm_90a): the plain page walk as one
+// cluster launch, and the split-KV (flash-decoding) partials + combine.
 //
 // Replaces the Pallas kernels of src/repro/kernels/paged_decode.py
 // (paged_decode: _kernel, paged_decode_splitkv: _splitkv_kernel).
@@ -8,20 +8,28 @@
 // bf16; tables (B,P) int32 page ids; lengths (B,) int32. Head h reads KV
 // group h / rep. Token tok of request b is valid iff tok < lengths[b].
 //
-// Design: one block per (request, KV group[, split]) holds the rep query
-// rows of its group in shared memory and walks its span of the block table
-// one page at a time: the page's K and V rows of the group are staged in
-// shared memory as fp32 (16-byte loads), then each warp runs an online
-// softmax for its rows (one lane per token for the scores, one lane per 32
-// output dims for acc). The walk stops after the last live page
-// ceil(lengths / ps): every later page is fully masked, so the result is
-// the reference's. Blocks run in no order, so split partials (m, l, acc)
-// go to fp32 scratch and a second kernel does the log-sum-exp combine,
-// skipping dead splits (m <= MASKED_M_THRESHOLD).
+// paged_decode (paged_decode_cluster_kernel, on decode_core.cuh): grid
+// (B, G, C) with clusters of C CTAs along z. The request's live pages
+// ceil(lengths / ps) (every later page is fully masked, so the result is
+// the reference's) split into C contiguous spans of ceil(live / C) pages;
+// CTA rank r walks span r. The CTA first copies its span's page ids from
+// the block table into shared memory, then streams the pages' K/V rows of
+// its group through the cp.async ring, taking each stage against all rep
+// query rows of the group; rank 0 combines the cluster's partials through
+// distributed shared memory. Design notes in decode_core.cuh.
+//
+// paged_decode_splitkv (paged_decode_kernel with FINAL = false, on
+// attn_common.cuh): one block per (request, KV group, split) walks its span
+// of the block table one page at a time, staging the page's K and V rows in
+// shared memory as fp32 (16-byte loads) before an online softmax per warp
+// and row; the split partials (m, l, acc) go to fp32 scratch and a second
+// kernel does the log-sum-exp combine, skipping dead splits
+// (m <= MASKED_M_THRESHOLD).
 //
 // Bound: memory. Each live KV byte is read once and the arithmetic is
 // 4 FLOP per KV element, far below the card's 295 FLOP/byte ridge.
 #include "attn_common.cuh"
+#include "decode_core.cuh"
 
 using namespace attn;
 
@@ -194,16 +202,107 @@ static int decode_entry(const void* q, const void* k, const void* v,
   return (int)e;
 }
 
+// ---------------------------------------------------------------------------
+// paged_decode: one cluster launch on decode_core.cuh
+// ---------------------------------------------------------------------------
+template <typename T, int DH, int NRB>
+__global__ void __launch_bounds__(dcore::Cfg<T, DH, NRB>::THREADS)
+    paged_decode_cluster_kernel(const T* __restrict__ q,
+                                const T* __restrict__ k_pages,
+                                const T* __restrict__ v_pages,
+                                const int* __restrict__ tables,
+                                const int* __restrict__ lengths,
+                                T* __restrict__ out, int H, int G, int ps,
+                                int P, float scale) {
+  using Cf = dcore::Cfg<T, DH, NRB>;
+  extern __shared__ __align__(16) char core_smem[];
+  const int b = blockIdx.x, g = blockIdx.y;
+  const int C = gridDim.z;               // the cluster spans z
+  const int rank = blockIdx.z;
+  const int rep = H / G;
+
+  // this CTA's span of the live pages (ops.cluster_spans)
+  const int len = max(lengths[b], 0);
+  const int live = min(P, (len + ps - 1) / ps);
+  const int span = (live + C - 1) / C;
+  const int p0 = min(rank * span, live), p1 = min(p0 + span, live);
+  int* pid = reinterpret_cast<int*>(core_smem + Cf::FIXED_BYTES);
+  for (int i = threadIdx.x; i < p1 - p0; i += Cf::THREADS)
+    pid[i] = tables[(size_t)b * P + p0 + i];
+  __syncthreads();                       // page ids in place
+
+  const size_t row_elems = (size_t)G * DH;
+  const int ps_shift = (ps & (ps - 1)) ? -1 : __ffs(ps) - 1;
+  const dcore::PagedSrc src{pid, p0 * ps, ps, ps_shift,
+                            (size_t)ps * row_elems, row_elems,
+                            (size_t)g * DH};
+  const T* qb = q + ((size_t)b * H + (size_t)g * rep) * DH;
+  T* ob = out + ((size_t)b * H + (size_t)g * rep) * DH;
+  dcore::decode_cluster<Cf>(
+      core_smem, k_pages, v_pages, src, p0 * ps, min(p1 * ps, len),
+      [&](int r) { return qb + (size_t)r * DH; },
+      [&](int) { return len - 1; }, rep, scale,
+      [&](int r, int d, float x) {
+        ob[(size_t)r * DH + d] = from_f32<T>(x);
+      });
+}
+
+// dynamic shared memory of one CTA: the core's + the span's page ids
+template <class Cf>
+static size_t cluster_smem(int P, int C) {
+  return Cf::FIXED_BYTES + sizeof(int) * (size_t)((P + C - 1) / C);
+}
+
+static cudaError_t launch_paged(const void* q, const void* k, const void* v,
+                                const void* tables, const void* lengths,
+                                void* out, int B, int H, int G, int Dh,
+                                int ps, int P, int C, float scale, int dtype,
+                                cudaStream_t stream) {
+  if (C < 1 || C > dcore::MAX_CLUSTER) return cudaErrorInvalidValue;
+  return dcore::dispatch(dtype, Dh, H / G, [&](auto cf) {
+    using Cf = decltype(cf);
+    using T = typename Cf::T;
+    return dcore::launch_cluster<Cf>(
+        paged_decode_cluster_kernel<T, Cf::DH, Cf::NRB>, dim3(B, G, C), C,
+        cluster_smem<Cf>(P, C), stream, static_cast<const T*>(q),
+        static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const int*>(tables), static_cast<const int*>(lengths),
+        static_cast<T*>(out), H, G, ps, P, scale);
+  });
+}
+
+static cudaError_t paged_occupancy(int Dh, int rows, int P, int C, int dtype,
+                                   int* res) {
+  if (C < 1 || C > dcore::MAX_CLUSTER) return cudaErrorInvalidValue;
+  return dcore::dispatch(dtype, Dh, rows, [&](auto cf) {
+    using Cf = decltype(cf);
+    res[1] = (int)cluster_smem<Cf>(P, C);
+    res[2] = (dcore::NSTAGE - 1) * Cf::STAGE_BYTES;
+    return dcore::max_active_clusters<Cf>(
+        paged_decode_cluster_kernel<typename Cf::T, Cf::DH, Cf::NRB>, C,
+        (size_t)res[1], &res[0]);
+  });
+}
+
 extern "C" {
 
-// The plain walk: grid (B, G), writes out (B,H,Dh) directly.
+// The plain walk: grid (B, G, C) in clusters of C CTAs along z; writes out
+// (B,H,Dh) directly.
 int paged_decode_launch(const void* q, const void* k, const void* v,
                         const void* tables, const void* lengths, void* out,
-                        int B, int H, int G, int Dh, int ps, int P,
+                        int B, int H, int G, int Dh, int ps, int P, int C,
                         float scale, int dtype, void* stream) {
-  return decode_entry<true>(q, k, v, tables, lengths, out, nullptr, nullptr,
-                            nullptr, B, H, G, Dh, ps, P, 1, scale, dtype,
-                            stream);
+  return (int)launch_paged(q, k, v, tables, lengths, out, B, H, G, Dh, ps, P,
+                           C, scale, dtype,
+                           static_cast<cudaStream_t>(stream));
+}
+
+// paged_decode_launch's occupancy for ``rows`` query rows per CTA: res =
+// {clusters of C CTAs the card holds at once, dynamic shared memory bytes
+// per CTA, bytes the ring loads ahead}.
+int paged_decode_occupancy(int Dh, int rows, int P, int C, int dtype,
+                           void* res) {
+  return (int)paged_occupancy(Dh, rows, P, C, dtype, static_cast<int*>(res));
 }
 
 // Split-KV partials: grid (B, G, S); m/l (B,S,H) and acc (B,S,H,Dh) fp32.

@@ -14,13 +14,17 @@ prefill chunk run in ONE launch — the reference's stand-in for the paper's
 SM partition. The tile ORDER (``ops.build_duet_schedule``) is scheduling
 only; the numerics do not depend on it.
 
-Kernel sources: ``csrc/duet_attention.cu`` (slab) and
-``csrc/duet_attention_paged.cu`` (pages), both on ``csrc/attn_common.cuh``
-(design notes there). Bound on an H100: memory (the unique live KV bytes
-of the tiles at 3.35 TB/s). These first kernels give every tile its own
-block, so keys shared by a prefill chunk's tiles are read once per tile.
+Kernel sources: ``csrc/duet_attention.cu`` (slab, on the cluster decode
+core ``csrc/decode_core.cuh``) and ``csrc/duet_attention_paged.cu`` (pages,
+on ``csrc/attn_common.cuh``); design notes there. Bound on an H100: memory
+(the unique live KV bytes of the tiles at 3.35 TB/s). Every tile has its
+own CTAs, so keys shared by a prefill chunk's tiles are read once per tile.
 Both stop after the key of the tile's largest ``row_pos`` (the Pallas
-grids walk all of S, or all P pages).
+grids walk all of S, or all P pages). The slab kernel splits a tile's keys
+over a cluster of C CTAs (each a span of whole 64-key units, combined
+through distributed shared memory); C comes from
+:func:`~repro_torch.kernels.ops.cluster_size` on the host: the most CTAs
+the card runs in one wave, capped at 8 and at the slab's 64-key units.
 
 Pad rows (``row_pos < 0``) and pad tiles (``tile_slot < 0``) come out as
 zeros here and in the plain versions (the reference kernels leave the mean
@@ -30,16 +34,19 @@ runs the plain version; on a CUDA tensor it launches the kernel or raises.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ops import (NEG_INF, default_sm_scale,
-                                     gqa_split_heads)
+from repro_torch.kernels.ops import (NEG_INF, SPLIT_KEYS, cluster_size,
+                                     default_sm_scale, gqa_split_heads)
 
 launches = {"duet_attention": 0, "duet_attention_paged": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_QUERY_ROWS = 16      # block_q * rep of one block (csrc: 4 warps x 4)
+MAX_QUERY_ROWS = 16      # block_q * rep of one block (csrc: 16 at most)
 _PLAIN_ROWS = 16         # rows per gathered chunk in the plain versions
 
 
@@ -130,18 +137,46 @@ def _check_launch(name, q, row_pos, tile_slot, kv, ints, block_q):
         raise ValueError(f"{name}: k and v must be 16-byte aligned")
 
 
+@functools.lru_cache(maxsize=None)
+def occupancy(device: int, dtype, Dh: int, rows: int, C: int):
+    """(clusters of C CTAs the card runs at once, shared memory bytes per
+    CTA, bytes each CTA's ring loads ahead) of the slab
+    :func:`duet_attention` kernel for ``rows`` (block_q * rep) query rows
+    per CTA (cudaOccupancyMaxActiveClusters; a host query, no device
+    sync)."""
+    res = (ctypes.c_int * 3)()
+    with torch.cuda.device(device):
+        err = _build.load("duet_attention").duet_attention_occupancy(
+            Dh, rows, C, _DTYPES[dtype], ctypes.addressof(res))
+    _build.check(err, "duet_attention occupancy")
+    return tuple(res)
+
+
+def cluster_for(q, tile_slot, k_slab, block_q) -> int:
+    """The cluster size the slab :func:`duet_attention` launches these
+    inputs with."""
+    H, Dh = q.shape[1:]
+    S, G = k_slab.shape[1:3]
+    dev = q.device.index if q.device.index is not None else \
+        torch.cuda.current_device()
+    return cluster_size(
+        tile_slot.shape[0] * G, -(-S // SPLIT_KEYS),
+        lambda C: C * occupancy(dev, q.dtype, Dh, block_q * (H // G), C)[0])
+
+
 def _launch(q, row_pos, tile_slot, k_slab, v_slab, block_q):
     S = k_slab.shape[1]
     _check_launch("duet_attention", q, row_pos, tile_slot, (k_slab, v_slab),
                   {}, block_q)
     R, H, Dh = q.shape
+    T, G = tile_slot.shape[0], k_slab.shape[2]
+    C = cluster_for(q, tile_slot, k_slab, block_q)
     out = torch.empty_like(q)
     lib = _build.load("duet_attention")
     err = lib.duet_attention_launch(
         q.data_ptr(), row_pos.data_ptr(), tile_slot.data_ptr(),
-        k_slab.data_ptr(), v_slab.data_ptr(), out.data_ptr(),
-        tile_slot.shape[0], block_q, H, k_slab.shape[2], Dh, S,
-        default_sm_scale(Dh), _DTYPES[q.dtype],
+        k_slab.data_ptr(), v_slab.data_ptr(), out.data_ptr(), T, block_q, H,
+        G, Dh, S, C, default_sm_scale(Dh), _DTYPES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "duet_attention")
     launches["duet_attention"] += 1

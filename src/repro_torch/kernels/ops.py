@@ -76,6 +76,40 @@ def num_splits_for(num_pages: int, page_size: int,
     return max(2, min(num_pages, -(-capacity // split_threshold), 8))
 
 
+# The key split of the cluster decode kernels (csrc/decode_core.cuh):
+# ``paged_decode`` splits a request's live pages, the slab
+# ``duet_attention`` a tile's keys in units of SPLIT_KEYS, over a cluster
+# of C CTAs.
+CLUSTER_MAX = 8          # the portable cluster size
+SPLIT_KEYS = 64          # the slab split's unit (keys)
+
+
+def cluster_size(ctas: int, max_units: int, holds) -> int:
+    """C for a launch of ``ctas`` (request or tile, KV group) clusters: the
+    largest power of two, at most :data:`CLUSTER_MAX` and at most
+    ``max_units`` (the split units of the longest row; the host passes a
+    bound that needs no device read: the table's width, or the slab's
+    64-key units), whose grid of ``ctas * C`` CTAs the card runs in one
+    wave. ``holds(C)`` is how many CTAs of clusters of C the card runs at
+    once (cudaOccupancyMaxActiveClusters). 1 when the grid already fills
+    the card."""
+    C = 1
+    while (2 * C <= min(CLUSTER_MAX, max_units)
+           and ctas * 2 * C <= holds(2 * C)):
+        C *= 2
+    return C
+
+
+def cluster_spans(n_units: int, C: int) -> List[Tuple[int, int]]:
+    """The [start, end) units each rank of a cluster of C walks: contiguous
+    spans of ceil(n_units / C) in rank order, clipped to ``n_units`` (ranks
+    past the last live unit get empty spans). The kernels compute the same
+    spans on the card from the row's live length."""
+    span = -(-n_units // C)
+    return [(min(r * span, n_units), min((r + 1) * span, n_units))
+            for r in range(C)]
+
+
 # the kernel wrappers, re-exported as this module's dispatchers
 from repro_torch.kernels.duet_attention import (  # noqa: E402,F401
     duet_attention, duet_attention_paged)

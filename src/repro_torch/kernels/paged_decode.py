@@ -12,13 +12,18 @@ Replaces the Pallas TPU kernels of ``src/repro/kernels/paged_decode.py``:
   (``_splitkv_kernel``): flash decoding, each request's page chain split
   into ``num_splits`` contiguous spans with their own (m, l, acc).
 
-Kernel source: ``csrc/paged_decode.cu`` (design notes there). Bound on an
-H100: memory — each live KV byte is read once at 3.35 TB/s; the arithmetic
-(4 FLOP per KV element) is far below the card's ridge. The plain walk has
-one block per (request, KV group), which leaves most SMs idle at small
-batch; the split-KV variant multiplies the blocks by the split count and
-pays a second launch (the log-sum-exp combine) because blocks on the card
-run in no order and cannot carry partials from one to the next.
+Kernel source: ``csrc/paged_decode.cu`` (design notes there and in
+``csrc/decode_core.cuh``). Bound on an H100: memory — each live KV byte is
+read once at 3.35 TB/s; the arithmetic (4 FLOP per KV element) is far
+below the card's ridge. :func:`paged_decode` is one cluster launch: each
+(request, KV group) owns a cluster of C CTAs, each walking one span of the
+request's live pages through a cp.async ring, combined through distributed
+shared memory. C comes from :func:`~repro_torch.kernels.ops.cluster_size`
+on the host (no device read): the most CTAs the card runs in one wave,
+capped at 8 and at the table's width. :func:`paged_decode_cluster_plain`
+is that span split in plain PyTorch. The split-KV variant keeps the first
+port's kernel: one block per (request, group, split) and a second launch
+(the log-sum-exp combine) over fp32 scratch.
 
 On a CPU tensor each wrapper runs its plain PyTorch version; on a CUDA
 tensor it launches the kernel or raises. :data:`launches` counts kernel
@@ -27,17 +32,21 @@ counts once).
 """
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.ops import (DENOM_EPS, MASKED_M_THRESHOLD, NEG_INF,
+                                     cluster_size, cluster_spans,
                                      default_sm_scale, gqa_repeat_kv)
 
 launches = {"paged_decode": 0, "paged_decode_splitkv": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_QUERY_ROWS = 16      # query rows of one block (csrc: 4 warps x 4 rows)
+MAX_QUERY_ROWS = 16      # query rows (rep) of one block (csrc: 16 at most)
 
 
 # ---------------------------------------------------------------------------
@@ -56,22 +65,16 @@ def splitkv_spans(num_pages: int, num_splits: int):
     return S, pps, S * pps - num_pages
 
 
-def paged_decode_splitkv_plain(q, k_pages, v_pages, tables, lengths, *,
-                               num_splits: int):
-    """The split-KV algorithm in plain PyTorch: per-split (m, l, acc)
-    partials with the dead-split guard, then the log-sum-exp combine."""
-    B, H, Dh = q.shape
-    N, ps, G, _ = k_pages.shape
-    rep = H // G
-    S, pps, pad = splitkv_spans(tables.shape[1], num_splits)
-    tbl = torch.nn.functional.pad(tables.long(), (0, pad))    # null pages
-    L = pps * ps
-    k = gqa_repeat_kv(k_pages[tbl].reshape(B, S, L, G, Dh), rep).float()
-    v = gqa_repeat_kv(v_pages[tbl].reshape(B, S, L, G, Dh), rep).float()
+def _split_attend(q, k, v, valid):
+    """Split attention in plain PyTorch: per-split (m, l, acc) partials
+    with the dead-split guard, then the log-sum-exp combine in split order.
+    q (B,H,Dh); k/v (B,S,L,G,Dh) the splits' gathered keys; valid (B,S,L)."""
+    Dh = q.shape[-1]
+    rep = q.shape[1] // k.shape[3]
+    k = gqa_repeat_kv(k, rep).float()
+    v = gqa_repeat_kv(v, rep).float()
     s = torch.einsum("bhd,bslhd->bshl", q.float(), k) * default_sm_scale(Dh)
-    tok = torch.arange(S * L, device=q.device).reshape(S, L)
-    valid = tok[None, :, None, :] < lengths[:, None, None, None]
-    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    s = torch.where(valid[:, :, None, :], s, torch.full_like(s, NEG_INF))
     m = s.amax(dim=-1)                                       # (B,S,H)
     live = m > MASKED_M_THRESHOLD
     p = torch.where(live[..., None], torch.exp(s - m[..., None]),
@@ -83,6 +86,47 @@ def paged_decode_splitkv_plain(q, k_pages, v_pages, tables, lengths, *,
     l_star = (w * l_part).sum(dim=1)                          # (B,H)
     out = (acc * w[..., None]).sum(dim=1)
     return (out / l_star.clamp(min=DENOM_EPS)[..., None]).to(q.dtype)
+
+
+def paged_decode_splitkv_plain(q, k_pages, v_pages, tables, lengths, *,
+                               num_splits: int):
+    """The split-KV algorithm in plain PyTorch: the table cut into
+    ``num_splits`` spans of whole pages (the same spans for every request),
+    then :func:`_split_attend`."""
+    B = q.shape[0]
+    N, ps, G, Dh = k_pages.shape
+    S, pps, pad = splitkv_spans(tables.shape[1], num_splits)
+    tbl = torch.nn.functional.pad(tables.long(), (0, pad))    # null pages
+    L = pps * ps
+    tok = torch.arange(S * L, device=q.device).reshape(S, L)
+    return _split_attend(q, k_pages[tbl].reshape(B, S, L, G, Dh),
+                         v_pages[tbl].reshape(B, S, L, G, Dh),
+                         tok[None] < lengths[:, None, None])
+
+
+def paged_decode_cluster_plain(q, k_pages, v_pages, tables, lengths, *,
+                               cluster: int):
+    """The cluster kernel's algorithm in plain PyTorch: each request's live
+    pages ceil(lengths / ps) cut into ``cluster`` spans by
+    :func:`~repro_torch.kernels.ops.cluster_spans` (so the spans follow
+    each request's length), then :func:`_split_attend`."""
+    B = q.shape[0]
+    N, ps, G, Dh = k_pages.shape
+    P = tables.shape[1]
+    live = [min(P, -(-max(n, 0) // ps)) for n in lengths.tolist()]
+    width = max(1, -(-P // cluster))            # pages of the longest span
+    idx = torch.full((B, cluster, width), -1, dtype=torch.long)
+    for b, n in enumerate(live):
+        for r, (p0, p1) in enumerate(cluster_spans(n, cluster)):
+            idx[b, r, :p1 - p0] = torch.arange(p0, p1)
+    idx = idx.to(q.device)
+    pages = tables.long().gather(1, idx.clamp(min=0).reshape(B, -1))
+    key = idx[..., None] * ps + torch.arange(ps, device=q.device)
+    valid = (idx[..., None] >= 0) & (key < lengths[:, None, None, None])
+    L = width * ps
+    return _split_attend(q, k_pages[pages].reshape(B, cluster, L, G, Dh),
+                         v_pages[pages].reshape(B, cluster, L, G, Dh),
+                         valid.reshape(B, cluster, L))
 
 
 # ---------------------------------------------------------------------------
@@ -119,17 +163,43 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+@functools.lru_cache(maxsize=None)
+def occupancy(device: int, dtype, Dh: int, rows: int, P: int, C: int):
+    """(clusters of C CTAs the card runs at once, shared memory bytes per
+    CTA, bytes each CTA's ring loads ahead) of the :func:`paged_decode`
+    kernel for ``rows`` query rows per CTA and tables of width P
+    (cudaOccupancyMaxActiveClusters; a host query, no device sync)."""
+    res = (ctypes.c_int * 3)()
+    with torch.cuda.device(device):
+        err = _build.load("paged_decode").paged_decode_occupancy(
+            Dh, rows, P, C, _DTYPES[dtype], ctypes.addressof(res))
+    _build.check(err, "paged_decode occupancy")
+    return tuple(res)
+
+
+def cluster_for(q, k_pages, tables) -> int:
+    """The cluster size :func:`paged_decode` launches these inputs with."""
+    B, H, Dh = q.shape
+    G, P = k_pages.shape[2], tables.shape[1]
+    dev = q.device.index if q.device.index is not None else \
+        torch.cuda.current_device()
+    return cluster_size(B * G, P, lambda C: C * occupancy(
+        dev, q.dtype, Dh, H // G, P, C)[0])
+
+
 def _launch_paged_decode(q, k_pages, v_pages, tables, lengths):
     _check_inputs(q, k_pages, v_pages, tables, lengths)
     B, H, Dh = q.shape
     _, ps, G, _ = k_pages.shape
+    P = tables.shape[1]
+    C = cluster_for(q, k_pages, tables)
     out = torch.empty_like(q)
     lib = _build.load("paged_decode")
     err = lib.paged_decode_launch(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        B, H, G, Dh, ps, tables.shape[1], default_sm_scale(Dh),
-        _DTYPES[q.dtype], _stream(q))
+        B, H, G, Dh, ps, P, C, default_sm_scale(Dh), _DTYPES[q.dtype],
+        _stream(q))
     _build.check(err, "paged_decode")
     launches["paged_decode"] += 1
     return out

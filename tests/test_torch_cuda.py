@@ -51,6 +51,15 @@ def _randn(rng, shape, dtype, dev):
     (2, 4, 4, 64, 16, 8, 5, 2, None),        # MHA, padded split
     (2, 4, 2, 64, 16, 8, 4, 4, (1, 31)),     # odd lengths, dead splits
     (8, 32, 8, 128, 600, 16, 64, 4, None),   # qwen3-4b heads
+    # cluster edges: B=1 (C = 8), B=32 (C = 1 or 2); lengths 1, 16, 17,
+    # 2048
+    (1, 32, 8, 128, 200, 16, 128, 4, (2048,)),
+    (1, 32, 8, 128, 200, 16, 128, 4, (1,)),
+    (4, 32, 8, 128, 600, 16, 128, 4, (1, 16, 17, 2048)),
+    (32, 32, 8, 128, 4200, 16, 128, 4, (1, 16, 17, 2048) * 8),
+    (4, 8, 2, 64, 64, 16, 128, 2, (1, 16, 17, 2048)),      # Dh 64
+    (4, 8, 4, 256, 64, 16, 128, 2, (1, 16, 17, 2048)),     # Dh 256
+    (2, 8, 2, 256, 32, 16, 8, 2, (17, 128)),               # Dh 256, rep 4
 ])
 def test_paged_decode_kernels_match_plain(dev, B, H, G, Dh, N, ps, P, S,
                                           lens, dtype):
@@ -98,16 +107,29 @@ def test_duet_attention_kernel_matches_plain(dev, bq, dtype):
     torch.testing.assert_close(got, want, atol=TOL[dtype], rtol=TOL[dtype])
 
 
+EDGE_ROWS = [(0, 0), (1, 15), (2, 16), (3, 2047)]   # lengths 1, 16, 17, 2048
+CHUNK = [(3, 64 + i) for i in range(20)]
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("bq,decode_rows,prefill_rows", [
-    (8, [(0, 100), (1, 57), (2, 200)], [(3, 64 + i) for i in range(20)]),
-    (1, [(b, 255 + 92 * b) for b in range(8)], []),   # slab decode step
+@pytest.mark.parametrize("bq,decode_rows,prefill_rows,S,H,G,Dh", [
+    (8, [(0, 100), (1, 57), (2, 200)], CHUNK, 256, 4, 2, 64),
+    (1, [(b, 255 + 92 * b) for b in range(8)], [], 1024, 32, 8, 128),
+    # cluster edges: one row (C = 8), 32 rows (C = 1 or 2), lengths 1, 16,
+    # 17, 2048, Dh 64 / 128 / 256, bq 1 and 8
+    (1, [(0, 1000)], [], 1024, 32, 8, 128),
+    (1, [(b, (0, 15, 16, 1023)[b % 4]) for b in range(32)], [], 1024, 32, 8,
+     128),
+    (1, EDGE_ROWS, [], 2048, 8, 2, 64),
+    (1, EDGE_ROWS, [], 2048, 8, 4, 256),
+    (8, EDGE_ROWS[:3], CHUNK, 256, 4, 2, 128),
+    (8, EDGE_ROWS[:3], CHUNK, 256, 4, 2, 256),
 ])
 def test_slab_duet_attention_kernel_matches_plain(dev, bq, decode_rows,
-                                                  prefill_rows, dtype):
+                                                  prefill_rows, S, H, G, Dh,
+                                                  dtype):
     rng = np.random.default_rng(4)
     Ns = max(s for s, _ in decode_rows + prefill_rows) + 1
-    S, H, G, Dh = (256, 4, 2, 64) if bq == 8 else (1024, 32, 8, 128)
     ks = _randn(rng, (Ns, S, G, Dh), dtype, dev)
     vs = _randn(rng, (Ns, S, G, Dh), dtype, dev)
     sched = build_duet_schedule(decode_rows, prefill_rows, block_q=bq)

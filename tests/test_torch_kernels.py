@@ -3,7 +3,10 @@
 (what the CUDA kernels are held to on the card) against the JAX package's
 oracles in ``repro.kernels.ref`` on the sweeps of ``tests/test_kernels.py``,
 plus one small case each against the Pallas kernel in interpret mode, and
-the host-side schedule helpers against their JAX namesakes.
+the host-side schedule helpers against their JAX namesakes. The cluster
+decode kernels' key split is pinned here too: the host's choice of the
+cluster size C and of the spans, and the span-split algorithm in plain
+PyTorch against the same oracles.
 
 Inputs come from a seeded numpy generator and feed both packages; bf16
 cases round the same float32 values in both. Tolerances are the kernel
@@ -25,6 +28,7 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels.duet_attention import (duet_attention_paged,
                                                 duet_attention_paged_plain)
 from repro_torch.kernels.paged_decode import (paged_decode,
+                                              paged_decode_cluster_plain,
                                               paged_decode_splitkv,
                                               paged_decode_splitkv_plain)
 
@@ -249,3 +253,95 @@ def test_auto_dispatch_picks_split_above_threshold():
     assert ops.num_splits_for(16, 8, 32) == 4
     _close(split, paged_decode_ref(*jx), "float32")
     torch.testing.assert_close(split, plain, atol=2e-5, rtol=2e-5)
+
+
+# ---------------------------------------------------------------------------
+# the cluster decode kernels' key split (csrc/decode_core.cuh)
+# ---------------------------------------------------------------------------
+def _holds(C):
+    """CTAs of clusters of C a card runs at once: 2 per SM on 132 SMs,
+    240 once clusters of 4 or 8 must share a GPC (the bf16 kernels' shape
+    on an H100)."""
+    return 264 if C <= 2 else 240
+
+
+@pytest.mark.parametrize("ctas,max_units,want", [
+    (64, 128, 2),       # B=8, G=8: 128 CTAs; 256 would need two waves
+    (8, 128, 8),        # B=1: C stops at 8
+    (32, 128, 4),
+    (256, 128, 1),      # B=32, G=8: B·G already fills the card
+    (1000, 128, 1),
+    (132, 128, 2),      # 264 CTAs: exactly one wave
+    (8, 5, 4),          # capped at the longest row's units
+    (8, 3, 2),
+    (64, 1, 1),
+    (64, 0, 1),
+])
+def test_cluster_size(ctas, max_units, want):
+    assert ops.cluster_size(ctas, max_units, _holds) == want
+
+
+def test_cluster_size_is_the_largest_power_of_two_in_one_wave():
+    for ctas in range(1, 700, 3):
+        for units in (*range(0, 20), 64, 128):
+            C = ops.cluster_size(ctas, units, _holds)
+            assert C in (1, 2, 4, 8)
+            assert C <= max(1, units)
+            assert C == 1 or ctas * C <= _holds(C)     # one wave
+            if ctas * 2 > _holds(2):                   # B·G fills the card
+                assert C == 1
+            # largest: doubling C would pass a cap or a second wave
+            assert (2 * C > min(ops.CLUSTER_MAX, units)
+                    or ctas * 2 * C > _holds(2 * C))
+
+
+@pytest.mark.parametrize("C", [1, 2, 4, 8])
+def test_cluster_spans_cover_every_live_unit_once(C):
+    for n in range(70):
+        spans = ops.cluster_spans(n, C)
+        assert len(spans) == C
+        assert all(0 <= a <= e <= n for a, e in spans)   # none past the end
+        # contiguous, in rank order, every unit exactly once
+        assert [u for a, e in spans for u in range(a, e)] == list(range(n))
+        if n < C:                        # short rows leave ranks empty
+            assert sum(a == e for a, e in spans) >= C - n
+
+
+@pytest.mark.parametrize("C", [1, 2, 4, 8])
+@pytest.mark.parametrize("unit,P", [(8, 12), (16, 9), (ops.SPLIT_KEYS, 16)])
+def test_cluster_spans_cover_every_live_key_once(C, unit, P):
+    """Keys as the kernels walk them: rank r takes keys [a * unit,
+    min(e * unit, length)) of its span (a, e) of the row's ceil(length /
+    unit) live units — pages of ``unit`` tokens, or the slab's 64-key
+    units."""
+    for length in range(0, P * unit + 1):
+        live = min(P, -(-length // unit))
+        keys = [k for a, e in ops.cluster_spans(live, C)
+                for k in range(a * unit, min(e * unit, length))]
+        assert keys == list(range(length))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("C", [1, 2, 4, 8])
+@pytest.mark.parametrize("B,H,G,Dh,N,ps,P,lens", [
+    (2, 4, 2, 64, 16, 16, 4, None),
+    (3, 8, 1, 128, 32, 16, 6, None),            # MQA
+    (2, 4, 4, 64, 16, 8, 5, None),              # MHA
+    (4, 4, 2, 64, 24, 16, 4, (1, 16, 17, 64)),  # 1 token, a page, a page
+    (4, 8, 2, 64, 48, 8, 9, (1, 16, 17, 72)),   # + 1, the full table
+])
+def test_paged_decode_cluster_plain_matches_jax_oracle(B, H, G, Dh, N, ps, P,
+                                                       lens, C, dtype):
+    """The span split of the cluster kernel (each request's live pages in
+    C spans, dead spans weighing 0, LSE combine in rank order) against the
+    gathered-chain oracle."""
+    jx, tx = _decode_case(14, B, H, G, Dh, N, ps, P, dtype, lens)
+    got = paged_decode_cluster_plain(*tx, cluster=C)
+    _close(got, paged_decode_ref(*jx), dtype)
+
+
+@pytest.mark.parametrize("C,lens", [(2, None), (8, (1, 17))])
+def test_paged_decode_cluster_plain_matches_jax_interpret_kernel(C, lens):
+    jx, tx = _decode_case(15, 2, 4, 2, 64, 16, 8, 4, "float32", lens)
+    _close(paged_decode_cluster_plain(*tx, cluster=C),
+           jax_paged_decode(*jx, interpret=True), "float32")
