@@ -8,21 +8,27 @@ one NVIDIA H100.
 Phases (each raises on failure; nothing is swallowed):
 
 1. build   — compile every CUDA source of the port with nvcc (in
-             parallel), print the build seconds and ptxas' register and
-             shared-memory report.
+             parallel), print the build seconds and ptxas' registers and
+             spills of each kernel, by name.
 2. kernels — hold each kernel against its plain PyTorch version on the card
              at the serving path's shapes, at the small GQA/MQA/MHA,
              odd-length, dead-split and ragged shapes of the kernel tests
-             and at the cluster decode kernels' edges, in fp32 and bf16.
+             and at the cluster decode kernels' edges, in fp32 and bf16
+             (paged_decode_splitkv against both its plain versions: the
+             cluster's span split it runs and the reference's table
+             split; flash_prefill also at a whole 4096-token prompt and at
+             the last 512-token chunk of one, and at its tile edges).
              Each case prints its max error beside the tolerance, the
              kernel's time with its inputs in L2 (ms, back-to-back calls)
              and with a cold L2 (cold_ms), the plain version's and a
-             library call's time (SDPA over the gathered, head-repeated KV;
+             library call's time (SDPA over the gathered, head-repeated KV
+             with the same mask; for flash_prefill also SDPA with the
+             lower-right causal bias where that is the same function;
              timed here only, never used by the port) from CUDA events, and
              the bound (the least time for the bytes and operations the
              inputs need, at the card's published 3.35 TB/s and 989 bf16 /
              67 fp32 TFLOP/s) with its share of cold_ms. Then the cluster
-             kernels' occupancy at the main shapes.
+             kernels' and flash_prefill's occupancy at the main shapes.
 3. parity  — full-width qwen3-4b cut to 4 layers, fp32 with TF32 off: the
              kernel path's logits against the port's plain path for one
              paged decode step, one duet step, and one slab decode step
@@ -157,9 +163,30 @@ def phase_build():
     log(f"[build] {len(logs)} sources built in {time.time() - t0:.2f} s "
         f"into {_build.BUILD_DIR}")
     for name, text in logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+        for kernel, line in ptxas_report(text):
+            log(f"[build] {name}: {kernel}: {line}")
+
+
+def ptxas_report(text: str):
+    """(kernel, ptxas line) for each register and spill line of an nvcc
+    -Xptxas -v log; kernel names demangled with c++filt where it exists."""
+    import re
+    import shutil
+    rows, kernel = [], "?"
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w$]+)'?", line)
+        if m:
+            kernel = m.group(1)
+        elif "registers" in line or "spill" in line:
+            rows.append((kernel, line.strip()))
+    names = sorted({k for k, _ in rows})
+    if names and shutil.which("c++filt"):
+        out = subprocess.run(["c++filt", *names], capture_output=True,
+                             text=True, check=True).stdout.splitlines()
+        plain = dict(zip(names, out))
+        rows = [(plain.get(k, k), line) for k, line in rows]
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -219,8 +246,8 @@ def _check(name, got, want, dtype, label, record):
 def check_decode(rng, label, dtype, B, H, G, Dh, N, ps, P, splits=None,
                  lengths=None, distinct=False):
     from repro_torch.kernels.paged_decode import (
-        paged_decode, paged_decode_plain, paged_decode_splitkv,
-        paged_decode_splitkv_plain)
+        paged_decode, paged_decode_cluster_plain, paged_decode_plain,
+        paged_decode_splitkv, paged_decode_splitkv_plain, splitkv_spans)
     q, kp, vp, tables, ln = _decode_inputs(rng, B, H, G, Dh, N, ps, P, dtype,
                                            lengths, distinct)
     if splits is None:
@@ -239,7 +266,16 @@ def check_decode(rng, label, dtype, B, H, G, Dh, N, ps, P, splits=None,
     rec = {"name": name, "case": label, "dtype": str(dtype)}
     got = kernel()
     torch.cuda.synchronize()
+    if splits is not None:
+        # the algorithm the kernel runs: the live pages in C = S spans
+        C = splitkv_spans(P, splits)[0]
+        _check(name, got, paged_decode_cluster_plain(
+            q, kp, vp, tables, ln, cluster=C), dtype, label + " (spans)",
+            rec)
+        span_err = rec["max_abs_err"]
     _check(name, got, plain(), dtype, label, rec)
+    if splits is not None:
+        rec["max_abs_err"] = max(rec["max_abs_err"], span_err)
     elt = q.element_size()
     live = int(ln.long().sum().item())
     nbytes = (2 * q.numel() * elt + tables.numel() * 4 + B * 4
@@ -375,6 +411,8 @@ def check_duet_slab(rng, label, dtype, Ns, S, G, H, Dh, decode_rows,
 
 def check_flash(rng, label, dtype, B, Sq, Sk, H, G, Dh, q_offset,
                 kv_len=None):
+    """flash_prefill against its plain version, timed with the plain
+    version and SDPA."""
     from repro_torch.kernels.flash_prefill import (flash_prefill,
                                                    flash_prefill_plain)
     dev = "cuda"
@@ -388,9 +426,11 @@ def check_flash(rng, label, dtype, B, Sq, Sk, H, G, Dh, q_offset,
     plain = lambda: flash_prefill_plain(  # noqa: E731
         q, k, v, q_offset=q_offset, kv_len=kv_len)
     rec = {"name": "flash_prefill", "case": label, "dtype": str(dtype)}
+    want = plain()
     got = kernel()
     torch.cuda.synchronize()
-    _check("flash_prefill", got, plain(), dtype, label, rec)
+    _check("flash_prefill", got, want, dtype, label, rec)
+    del want, got
     # the work these inputs need: query i sees keys 0..min(q_offset + i,
     # kv_end - 1)
     kv_end = Sk if kv_len is None else min(Sk, kv_len)
@@ -404,8 +444,11 @@ def check_flash(rng, label, dtype, B, Sq, Sk, H, G, Dh, q_offset,
     rec["ms"] = time_ms(kernel)
     rec["cold_ms"] = time_cold_ms(kernel)
     rec["plain_ms"] = time_ms(plain, iters=5)
-    # library yardstick: SDPA over head-repeated K/V with the
-    # causal-offset (and kv_len) mask
+    # library yardsticks: SDPA over head-repeated K/V with the
+    # causal-offset (and kv_len) mask (library_ms, as for every kernel),
+    # and, where the queries are the tail of the keys (q_offset = Sk - Sq,
+    # no kv_len cut), SDPA with the lower-right causal bias, which SDPA
+    # runs on its fused causal path without a mask (library_causal_ms)
     qq = q.transpose(1, 2)
     kk = k.repeat_interleave(H // G, dim=2).transpose(1, 2)
     vv = v.repeat_interleave(H // G, dim=2).transpose(1, 2)
@@ -414,6 +457,17 @@ def check_flash(rng, label, dtype, B, Sq, Sk, H, G, Dh, q_offset,
         & (kpos[None, :] < kv_end)
     fn = torch.nn.functional.scaled_dot_product_attention
     rec["library_ms"] = time_ms(lambda: fn(qq, kk, vv, attn_mask=mask))
+    if q_offset == Sk - Sq and kv_end == Sk:
+        from torch.nn.attention.bias import causal_lower_right
+        bias = causal_lower_right(Sq, Sk)
+        ref = fn(qq, kk, vv, attn_mask=mask)
+        alt = fn(qq, kk, vv, attn_mask=bias)
+        if not torch.allclose(alt.float(), ref.float(), atol=TOL[dtype],
+                              rtol=TOL[dtype]):
+            raise AssertionError(f"[kernels] SDPA's lower-right causal "
+                                 f"bias disagrees with its mask [{label}]")
+        rec["library_causal_ms"] = time_ms(
+            lambda: fn(qq, kk, vv, attn_mask=bias))
     return rec
 
 
@@ -454,12 +508,19 @@ def phase_kernels():
         records.append(check_flash(
             rng, "main Sq 256 @ 512, Sk 768", dtype, 1, 256, 768, H, G, Dh,
             512))
+        if dtype == torch.bfloat16:      # the serving path's working type
+            for rec in records[-5:]:
+                main[rec["name"]] = rec
+        # a whole 4096-token prompt, and the last 512-token chunk of one
+        records.append(check_flash(
+            rng, "long Sq 4096 @ 0, Sk 4096", dtype, 1, 4096, 4096, H, G, Dh,
+            0))
+        records.append(check_flash(
+            rng, "chunk Sq 512 @ 3584, Sk 4096", dtype, 1, 512, 4096, H, G,
+            Dh, 3584))
         records.append(check_flash(
             rng, "ragged Sq 100 @ 200, Sk 300, kv_len 250", dtype, 2, 100,
             300, H, G, Dh, 200, kv_len=250))
-        if dtype == torch.bfloat16:      # the serving path's working type
-            for rec in records[-6:-1]:
-                main[rec["name"]] = rec
     # the kernel tests' shapes: GQA / MQA / MHA, odd lengths, dead splits
     for dtype in (torch.float32, torch.bfloat16):
         for (Bs, Hs, Gs, Ds, Ns, pss, Ps) in [(2, 4, 2, 64, 16, 16, 4),
@@ -494,7 +555,16 @@ def phase_kernels():
                 (2, 128, 256, 4, 4, 64, 128, None),
                 (1, 256, 256, 8, 2, 128, 0, None),
                 (1, 128, 128, 4, 1, 64, 0, None),
-                (1, 77, 200, 4, 2, 64, 100, 150)]:
+                (1, 77, 200, 4, 2, 64, 100, 150),
+                # the bf16 kernel's tile edges: one query, rows that end
+                # mid-block (Sq * rep not a multiple of 64 or 128), keys
+                # that end mid-tile (Sk not a multiple of 64), kv_len
+                # inside a tile, rep 8 and 64, Dh 32, no valid key at all
+                (1, 1, 33, 32, 8, 128, 32, None),
+                (2, 45, 130, 32, 8, 128, 85, 100),
+                (1, 200, 200, 8, 1, 32, 0, None),
+                (1, 67, 129, 64, 1, 64, 62, None),
+                (1, 16, 64, 4, 2, 64, 0, 0)]:
             records.append(check_flash(
                 rng, f"sweep B{Bs} Sq{Sq} Sk{Sk} H{Hs} G{Gs} Dh{Ds} "
                 f"off{off} kv_len {kvl}", dtype, Bs, Sq, Sk, Hs, Gs, Ds, off,
@@ -538,7 +608,11 @@ def phase_kernels():
             f"plain_ms={rec['plain_ms']:.4f} "
             f"library_ms={rec['library_ms']:.4f} "
             f"bound_ms={rec['bound_ms']:.3g} ({rec['bound_by']}, "
-            f"{rec['bound_ms'] / rec['cold_ms']:.1%} of cold_ms) [{card}]")
+            f"{rec['bound_ms'] / rec['cold_ms']:.1%} of cold_ms)"
+            + (f" library_causal_ms={rec['library_causal_ms']:.4f}"
+               if "library_causal_ms" in rec else "")
+
+            + f" [{card}]")
     report_occupancy(card)
     return main
 
@@ -565,6 +639,11 @@ def report_occupancy(card):
                  dev, bf16, Dh, rep, P, C)),
              "duet_attention": (slab_c(q, tiles, ks, 1), lambda C: slab_occ(
                  dev, bf16, Dh, rep, C))}
+    from repro_torch.kernels.flash_prefill import occupancy as flash_occ
+    blocks, smem = flash_occ(dev, Dh)
+    log(f"[kernels] flash_prefill bf16 Dh {Dh}: {blocks} blocks of 4 warps "
+        f"(64 rows, {smem / 1024:.0f} KB shared memory each) resident per "
+        f"SM [{card}]")
     for name, (C, occupancy) in picks.items():
         clusters, smem, ahead = occupancy(C)
         per_sm = clusters * C / sms

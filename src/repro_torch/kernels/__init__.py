@@ -3,8 +3,9 @@ version beside it (the CPU path and the on-card oracle), a launch counter
 and a public dispatcher in ops.py:
 
   paged_decode         — decode attention over paged KV (block tables)
-  paged_decode_splitkv — flash-decoding variant: per-split (m, l, acc)
-                         partials, combined in a log-sum-exp second launch
+  paged_decode_splitkv — flash-decoding variant: the caller's S splits as
+                         the S CTAs of one cluster, their (m, l, acc)
+                         partials combined in shared memory, one launch
   duet_attention_paged — fused mixed-phase attention over the paged pool
                          (decode rows + one prefill chunk in one launch)
   duet_attention       — the same over the slab cache (the slab decode

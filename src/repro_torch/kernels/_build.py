@@ -40,8 +40,6 @@ SIGNATURES = {
     "paged_decode": {
         "paged_decode_launch": [_P] * 6 + [_I] * 7 + [_F, _I, _P],
         "paged_decode_occupancy": [_I] * 5 + [_P],
-        "paged_decode_partials_launch": [_P] * 8 + [_I] * 7 + [_F, _I, _P],
-        "paged_decode_combine_launch": [_P] * 4 + [_I] * 5 + [_P],
     },
     "duet_attention_paged": {
         "duet_attention_paged_launch": [_P] * 7 + [_I] * 7 + [_F, _I, _P],
@@ -52,6 +50,7 @@ SIGNATURES = {
     },
     "flash_prefill": {
         "flash_prefill_launch": [_P] * 4 + [_I] * 8 + [_F, _I, _P],
+        "flash_prefill_occupancy": [_I, _P],
     },
 }
 

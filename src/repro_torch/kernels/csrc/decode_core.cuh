@@ -37,7 +37,9 @@
 //   products of a warp step (TPS keys x NRB rows) summed by one 31-shuffle
 //   transpose-reduce. Scores, m, l and acc are fp32 in both; scores are in
 //   the log2 domain (scaled by scale * log2(e)). The bf16 path rounds P to
-//   bf16 for the P.V product and sums l from the rounded values.
+//   bf16 for the P.V product and sums l from the rounded values. The
+//   cp.async, ldmatrix and mma.sync wrappers live in sm90_mma.cuh, shared
+//   with flash_prefill.cu.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -46,10 +48,12 @@
 #include <type_traits>
 
 #include "attn_common.cuh"
+#include "sm90_mma.cuh"
 
 namespace dcore {
 
 namespace cg = cooperative_groups;
+using namespace sm90;   // cp.async, ldmatrix, mma.sync (sm90_mma.cuh)
 using attn::DENOM_EPS;
 using attn::MASKED_M_THRESHOLD;
 using attn::NEG_INF;
@@ -108,22 +112,6 @@ struct Cfg {
 // ---------------------------------------------------------------------------
 // copies
 // ---------------------------------------------------------------------------
-// 16 bytes from global to shared memory; src_bytes = 0 writes zeros
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           int src_bytes = 16) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // Key addressing, in elements from the pool (or slab) base.
 struct PagedSrc {            // key -> page pid[(key - key0) / ps]
   const int* pid;            // the span's page ids (shared memory)
@@ -175,42 +163,6 @@ __device__ __forceinline__ void issue_stage(char* stage, const T* k,
 // ---------------------------------------------------------------------------
 // bf16: tensor cores
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], unsigned addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], unsigned addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], unsigned addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-      : "=r"(r[0]), "=r"(r[1])
-      : "r"(addr));
-}
-// d += a b: m16n8k16, bf16 inputs, fp32 accumulators
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
 // One lane's state on the tensor-core path. With g = lane / 4, c = lane % 4,
 // the lane holds rows nt * 8 + 2c and 2c + 1 of every 8-row tile nt: their
 // running max and (its share of) the denominator, the B fragments of Q^T,

@@ -1,4 +1,4 @@
-"""Paged decode attention: CUDA kernels for Hopper + their plain versions.
+"""Paged decode attention: a CUDA kernel for Hopper + its plain versions.
 
 One new query token per request attends over its paged KV cache
 (PagedAttention layout: pages (N, page_size, G, Dh) + per-request block
@@ -15,20 +15,22 @@ Replaces the Pallas TPU kernels of ``src/repro/kernels/paged_decode.py``:
 Kernel source: ``csrc/paged_decode.cu`` (design notes there and in
 ``csrc/decode_core.cuh``). Bound on an H100: memory — each live KV byte is
 read once at 3.35 TB/s; the arithmetic (4 FLOP per KV element) is far
-below the card's ridge. :func:`paged_decode` is one cluster launch: each
-(request, KV group) owns a cluster of C CTAs, each walking one span of the
-request's live pages through a cp.async ring, combined through distributed
-shared memory. C comes from :func:`~repro_torch.kernels.ops.cluster_size`
-on the host (no device read): the most CTAs the card runs in one wave,
-capped at 8 and at the table's width. :func:`paged_decode_cluster_plain`
-is that span split in plain PyTorch. The split-KV variant keeps the first
-port's kernel: one block per (request, group, split) and a second launch
-(the log-sum-exp combine) over fp32 scratch.
+below the card's ridge. Both wrappers are one launch of the same cluster
+kernel: each (request, KV group) owns a cluster of C CTAs, each walking
+one span of the request's live pages through a cp.async ring, combined
+through distributed shared memory. :func:`paged_decode` picks C with
+:func:`~repro_torch.kernels.ops.cluster_size` on the host (no device
+read): the most CTAs the card runs in one wave, capped at 8 and at the
+table's width. :func:`paged_decode_splitkv` launches C = ``num_splits``
+(the caller's static choice, at most 8, ``ops.CLUSTER_MAX``; clamped to
+the table's width as the reference clamps it): its splits are the cluster's spans of the live pages, so the partials
+never reach HBM. :func:`paged_decode_cluster_plain` is that span split in
+plain PyTorch; :func:`paged_decode_splitkv_plain` is the reference's split
+of the whole table, the CPU path.
 
 On a CPU tensor each wrapper runs its plain PyTorch version; on a CUDA
 tensor it launches the kernel or raises. :data:`launches` counts kernel
-launches per wrapper (one per call; the split-KV call is two launches and
-counts once).
+launches per wrapper (one per call).
 """
 from __future__ import annotations
 
@@ -39,7 +41,8 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
-from repro_torch.kernels.ops import (DENOM_EPS, MASKED_M_THRESHOLD, NEG_INF,
+from repro_torch.kernels.ops import (CLUSTER_MAX, DENOM_EPS,
+                                     MASKED_M_THRESHOLD, NEG_INF,
                                      cluster_size, cluster_spans,
                                      default_sm_scale, gqa_repeat_kv)
 
@@ -187,46 +190,36 @@ def cluster_for(q, k_pages, tables) -> int:
         dev, q.dtype, Dh, H // G, P, C)[0])
 
 
-def _launch_paged_decode(q, k_pages, v_pages, tables, lengths):
-    _check_inputs(q, k_pages, v_pages, tables, lengths)
+def _launch(q, k_pages, v_pages, tables, lengths, C):
+    """One launch of the cluster kernel with clusters of C CTAs (inputs
+    checked by the caller)."""
     B, H, Dh = q.shape
     _, ps, G, _ = k_pages.shape
-    P = tables.shape[1]
-    C = cluster_for(q, k_pages, tables)
     out = torch.empty_like(q)
-    lib = _build.load("paged_decode")
-    err = lib.paged_decode_launch(
+    err = _build.load("paged_decode").paged_decode_launch(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        B, H, G, Dh, ps, P, C, default_sm_scale(Dh), _DTYPES[q.dtype],
-        _stream(q))
+        B, H, G, Dh, ps, tables.shape[1], C, default_sm_scale(Dh),
+        _DTYPES[q.dtype], _stream(q))
     _build.check(err, "paged_decode")
+    return out
+
+
+def _launch_paged_decode(q, k_pages, v_pages, tables, lengths):
+    _check_inputs(q, k_pages, v_pages, tables, lengths)
+    out = _launch(q, k_pages, v_pages, tables, lengths,
+                  cluster_for(q, k_pages, tables))
     launches["paged_decode"] += 1
     return out
 
 
 def _launch_splitkv(q, k_pages, v_pages, tables, lengths, num_splits):
     _check_inputs(q, k_pages, v_pages, tables, lengths)
-    B, H, Dh = q.shape
-    _, ps, G, _ = k_pages.shape
-    P = tables.shape[1]
-    S, _, _ = splitkv_spans(P, num_splits)
-    m_part = torch.empty((B, S, H), dtype=torch.float32, device=q.device)
-    l_part = torch.empty_like(m_part)
-    acc_part = torch.empty((B, S, H, Dh), dtype=torch.float32,
-                           device=q.device)
-    out = torch.empty_like(q)
-    lib = _build.load("paged_decode")
-    err = lib.paged_decode_partials_launch(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        tables.data_ptr(), lengths.data_ptr(), m_part.data_ptr(),
-        l_part.data_ptr(), acc_part.data_ptr(), B, H, G, Dh, ps, P, S,
-        default_sm_scale(Dh), _DTYPES[q.dtype], _stream(q))
-    _build.check(err, "paged_decode_splitkv partials")
-    err = lib.paged_decode_combine_launch(
-        m_part.data_ptr(), l_part.data_ptr(), acc_part.data_ptr(),
-        out.data_ptr(), B, H, Dh, S, _DTYPES[q.dtype], _stream(q))
-    _build.check(err, "paged_decode_splitkv combine")
+    if num_splits > CLUSTER_MAX:
+        raise ValueError(f"paged_decode_splitkv: num_splits {num_splits} > "
+                         f"{CLUSTER_MAX} (the cluster size limit)")
+    S, _, _ = splitkv_spans(tables.shape[1], num_splits)
+    out = _launch(q, k_pages, v_pages, tables, lengths, S)
     launches["paged_decode_splitkv"] += 1
     return out
 
@@ -249,8 +242,10 @@ def paged_decode(q, k_pages, v_pages, tables, lengths):
 def paged_decode_splitkv(q, k_pages, v_pages, tables, lengths, *,
                          num_splits: int):
     """Flash-decoding variant of :func:`paged_decode`: same contract; the
-    page walk is partitioned into ``num_splits`` contiguous spans of the
-    block table whose (m, l, acc) partials are LSE-combined."""
+    page walk is partitioned into ``num_splits`` contiguous spans whose
+    (m, l, acc) partials are LSE-combined (on the card: the spans of each
+    request's live pages, one CTA of a cluster each; ``num_splits`` <= 8
+    there)."""
     if q.device.type == "cpu":
         return paged_decode_splitkv_plain(q, k_pages, v_pages, tables,
                                           lengths, num_splits=num_splits)

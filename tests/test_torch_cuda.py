@@ -20,6 +20,7 @@ from repro_torch.kernels.duet_attention import (duet_attention,
 from repro_torch.kernels.flash_prefill import (flash_prefill,
                                                flash_prefill_plain)
 from repro_torch.kernels.paged_decode import (paged_decode,
+                                              paged_decode_cluster_plain,
                                               paged_decode_plain,
                                               paged_decode_splitkv,
                                               paged_decode_splitkv_plain)
@@ -60,6 +61,9 @@ def _randn(rng, shape, dtype, dev):
     (4, 8, 2, 64, 64, 16, 128, 2, (1, 16, 17, 2048)),      # Dh 64
     (4, 8, 4, 256, 64, 16, 128, 2, (1, 16, 17, 2048)),     # Dh 256
     (2, 8, 2, 256, 32, 16, 8, 2, (17, 128)),               # Dh 256, rep 4
+    # split-KV at S = 8 (the cap): a one-token request beside a full one
+    (2, 32, 8, 128, 300, 16, 128, 8, (1, 2048)),
+    (4, 32, 8, 128, 600, 16, 128, 8, (1, 16, 17, 300)),
 ])
 def test_paged_decode_kernels_match_plain(dev, B, H, G, Dh, N, ps, P, S,
                                           lens, dtype):
@@ -81,6 +85,35 @@ def test_paged_decode_kernels_match_plain(dev, B, H, G, Dh, N, ps, P, S,
         paged_decode_splitkv_plain(q, kp, vp, tables, lengths,
                                    num_splits=S),
         atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S,lens", [(2, (1, 900)), (8, (1, 2048)),
+                                    (8, (1, 16, 17, 300))])
+def test_splitkv_kernel_matches_its_span_split(dev, S, lens, dtype):
+    """The split-KV kernel runs the cluster's span split of the live pages
+    with C = S: held to that algorithm in plain PyTorch."""
+    rng = np.random.default_rng(1)
+    B, H, G, Dh, N, ps, P = len(lens), 32, 8, 128, 600, 16, 128
+    q = _randn(rng, (B, H, Dh), dtype, dev)
+    kp = _randn(rng, (N, ps, G, Dh), dtype, dev)
+    vp = _randn(rng, (N, ps, G, Dh), dtype, dev)
+    tables = torch.tensor(rng.integers(1, N, (B, P)), dtype=torch.int32,
+                          device=dev)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    torch.testing.assert_close(
+        paged_decode_splitkv(q, kp, vp, tables, lengths, num_splits=S),
+        paged_decode_cluster_plain(q, kp, vp, tables, lengths, cluster=S),
+        atol=TOL[dtype], rtol=TOL[dtype])
+
+
+def test_splitkv_kernel_refuses_more_than_eight_splits(dev):
+    q = torch.zeros((1, 4, 64), device=dev)
+    pages = torch.zeros((20, 16, 2, 64), device=dev)
+    tables = torch.ones((1, 16), dtype=torch.int32, device=dev)
+    lengths = torch.full((1,), 200, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="num_splits 9"):
+        paged_decode_splitkv(q, pages, pages, tables, lengths, num_splits=9)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -151,6 +184,16 @@ def test_slab_duet_attention_kernel_matches_plain(dev, bq, decode_rows,
     (1, 256, 256, 8, 2, 128, 0, None),
     (1, 128, 128, 4, 1, 64, 0, None),       # MQA
     (2, 77, 300, 32, 8, 128, 200, 250),     # ragged, padded keys
+    # the bf16 kernel's tile edges: one query; rows ending mid-block
+    # (Sq * rep not a multiple of 64 or 128); keys ending mid-tile (Sk not
+    # a multiple of 64); kv_len inside a tile; rep 8 and 64; Dh 32; no
+    # valid key at all (zeros)
+    (1, 1, 33, 32, 8, 128, 32, None),
+    (2, 45, 130, 32, 8, 128, 85, 100),
+    (1, 200, 200, 8, 1, 32, 0, None),
+    (1, 67, 129, 64, 1, 64, 62, None),
+    (1, 300, 700, 32, 8, 128, 400, 650),
+    (1, 16, 64, 4, 2, 64, 0, 0),
 ])
 def test_flash_prefill_kernel_matches_plain(dev, B, Sq, Sk, H, G, Dh, off,
                                             kv_len, dtype):
@@ -162,6 +205,29 @@ def test_flash_prefill_kernel_matches_plain(dev, B, Sq, Sk, H, G, Dh, off,
         flash_prefill(q, k, v, q_offset=off, kv_len=kv_len),
         flash_prefill_plain(q, k, v, q_offset=off, kv_len=kv_len),
         atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,G,Dh,off,kv_len", [
+    (1, 256, 768, 32, 8, 128, 512, None),   # the main chunk
+    (2, 45, 130, 32, 8, 128, 85, 100),
+    (1, 200, 200, 8, 1, 32, 0, None),
+    (1, 67, 129, 64, 1, 64, 62, None),
+])
+def test_flash_prefill_bf16_matches_its_tile_schedule(dev, B, Sq, Sk, H, G,
+                                                      Dh, off, kv_len):
+    """The bf16 kernel against the plain version and against its own tile
+    schedule in plain PyTorch."""
+    from repro_torch.kernels.flash_prefill import flash_prefill_tiled_plain
+    rng = np.random.default_rng(6)
+    q = _randn(rng, (B, Sq, H, Dh), "bfloat16", dev)
+    k = _randn(rng, (B, Sk, G, Dh), "bfloat16", dev)
+    v = _randn(rng, (B, Sk, G, Dh), "bfloat16", dev)
+    got = flash_prefill(q, k, v, q_offset=off, kv_len=kv_len)
+    for want in (flash_prefill_plain(q, k, v, q_offset=off, kv_len=kv_len),
+                 flash_prefill_tiled_plain(q, k, v, q_offset=off,
+                                           kv_len=kv_len)):
+        torch.testing.assert_close(got, want, atol=TOL["bfloat16"],
+                                   rtol=TOL["bfloat16"])
 
 
 def test_engines_on_the_card_match_the_cpu(dev):

@@ -6,6 +6,7 @@ falls back to the plain version."""
 import ast
 import json
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -26,7 +27,8 @@ from repro_torch.serving import DuetEngine, EngineConfig
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py", REPO / "decode_core_sweep.py"]
+    REPO / "chip_smoke.py", REPO / "decode_core_sweep.py",
+    REPO / "flash_prefill_sweep.py"]
 
 
 def test_cli_serves_on_cpu_without_jax_or_reference():
@@ -127,3 +129,27 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build_all()
+
+
+def _c_entries(source: str):
+    """The functions defined inside the ``extern "C"`` blocks of a CUDA
+    source (each returns int: a CUDA error code)."""
+    names = []
+    for block in re.findall(r'extern "C" \{(.*?)\n\}  // extern "C"',
+                            source, flags=re.S):
+        names += re.findall(r"^int\s+(\w+)\s*\(", block, flags=re.M)
+    return names
+
+
+def test_every_c_entry_has_a_signature_and_every_signature_an_entry():
+    """_build.SIGNATURES sets the ctypes argtypes of every C entry point:
+    an entry without a row would be called with ctypes' default int
+    arguments (cutting 64-bit pointers), a row without an entry fails at
+    load. Every built source is listed, and every source is built."""
+    sources = {p.stem: p.read_text() for p in _build.CSRC.glob("*.cu")}
+    assert set(sources) == set(_build.SOURCES) == set(_build.SIGNATURES)
+    for name, text in sources.items():
+        entries = _c_entries(text)
+        assert entries, f"{name}.cu has no extern \"C\" entry"
+        assert len(entries) == len(set(entries)), entries
+        assert set(entries) == set(_build.SIGNATURES[name]), name
