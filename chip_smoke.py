@@ -17,7 +17,10 @@ Phases (each raises on failure; nothing is swallowed):
              (paged_decode_splitkv against both its plain versions: the
              cluster's span split it runs and the reference's table
              split; flash_prefill also at a whole 4096-token prompt and at
-             the last 512-token chunk of one, and at its tile edges).
+             the last 512-token chunk of one, and at its tile edges;
+             duet_attention_paged at the async engine's tiles of 64 // rep
+             rows, the main record, and at one row a tile, and at its tile
+             edges, against both its plain versions, pad rows zero).
              Each case prints its max error beside the tolerance, the
              kernel's time with its inputs in L2 (ms, back-to-back calls)
              and with a cold L2 (cold_ms), the plain version's and a
@@ -28,10 +31,12 @@ Phases (each raises on failure; nothing is swallowed):
              the bound (the least time for the bytes and operations the
              inputs need, at the card's published 3.35 TB/s and 989 bf16 /
              67 fp32 TFLOP/s) with its share of cold_ms. Then the cluster
-             kernels' and flash_prefill's occupancy at the main shapes.
+             kernels' and flash_prefill's occupancy at the main shapes
+             (the paged duet kernel's at C = 1, 2, 4, 8 with registers).
 3. parity  — full-width qwen3-4b cut to 4 layers, fp32 with TF32 off: the
              kernel path's logits against the port's plain path for one
-             paged decode step, one duet step, and one slab decode step
+             paged decode step, one duet step (one row a tile and the
+             engine's tiles), and one slab decode step
              after a chunked slab prefill; and flash_prefill on the port's
              gqa_prefill q/K/V against gqa_prefill's own attention.
 4. serve   — full qwen3-4b (36 layers, bf16, random weights from a seed)
@@ -48,7 +53,8 @@ Phases (each raises on failure; nothing is swallowed):
              duet dispatch, and every kernel of a path must have launched
              on it. Wall-clock tokens/s on the card are printed as measured.
              A profile step then times one full-width decode step of each
-             path.
+             path and one fused duet super-iteration (kb 1, a 256-row
+             chunk), with the duet kernel's share.
 
 Before the last line it prints the card's name and power limit
 (``nvidia-smi``) and a ``{"kernels": [...]}`` JSON line (flash_prefill
@@ -75,6 +81,11 @@ PHASES = ("build", "kernels", "parity", "serve")
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# the paged duet kernel in bf16, (atol, rtol): its errors are the bf16
+# rounding of the output (an ulp) and of P before P V (about 2^-9 of a
+# key's weight times |v|, at most ~3e-3 on rows of a few keys); the
+# CPU decomposition tests read at most 0.62 of this limit
+DUET_BF16_TOL = (5e-3, 1e-2)
 # logits (and flash_prefill's attention output) of the kernel path vs the
 # plain path, full width, fp32, TF32 off: only the attention reduction
 # order differs
@@ -112,45 +123,88 @@ def card_line() -> str:
 
 # A spin kernel queued ahead of the timed work keeps the card busy while
 # the host queues it, so the events time the card and not the host's pace.
+# Where the card was no longer spinning once the host had queued the timed
+# work (the start event had completed), the hold grows 4x and the timing
+# runs again, HOLD_TRIES times at most.
 HOLD_CYCLES = 400_000       # about 0.2 ms at the H100's clock
+HOLD_TRIES = 4
 FLUSH_BYTES = 128 << 20     # written between cold calls: > the 50 MB L2
 
 
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+def _held(run, hold: int, stats):
+    """``run(hold)`` -> (ms, ahead, host_ms) until ``ahead`` (the card was
+    still spinning when the host had queued the timed calls), the hold
+    growing 4x a try. ``stats`` (a dict or None) gets the host's ms per
+    queued call, the tries and whether the card was ahead at the last."""
+    for tries in range(1, HOLD_TRIES + 1):
+        ms, ahead, host_ms = run(hold)
+        if ahead:
+            break
+        hold *= 4
+    if stats is not None:
+        stats.update(host_ms=host_ms, tries=tries, ahead=ahead)
+    return ms
+
+
+def time_ms(fn, iters: int = 20, warmup: int = 3, stats=None) -> float:
     """Mean device time of one call, from CUDA events around ``iters``
     back-to-back calls after ``warmup`` calls (their inputs stay in L2
-    where they fit)."""
+    where they fit), behind a spin of HOLD_CYCLES per call."""
     for _ in range(warmup):
         fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(HOLD_CYCLES * iters)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
-
-def time_cold_ms(fn, iters: int = 10) -> float:
-    """Mean device time of one call with a cold L2: a FLUSH_BYTES buffer is
-    written before each call, and CUDA events time each call alone (the
-    flush is not timed)."""
-    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
-    fn()
-    pairs = []
-    for i in range(iters):
-        flush.fill_(i & 0xFF)
-        torch.cuda._sleep(HOLD_CYCLES)
+    def run(hold):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(hold)
         start.record()
-        fn()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3 / iters
         end.record()
-        pairs.append((start, end))
-    torch.cuda.synchronize()
-    return sum(s.elapsed_time(e) for s, e in pairs) / iters
+        ahead = not start.query()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / iters, ahead, host_ms
+    return _held(run, HOLD_CYCLES * iters, stats)
+
+
+def time_cold_ms(fn, iters: int = 10, stats=None) -> float:
+    """Mean device time of one call with a cold L2: a FLUSH_BYTES buffer is
+    written before each call, and CUDA events time each call alone (the
+    flush is not timed), each behind a spin of HOLD_CYCLES."""
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    fn()
+
+    def run(hold):
+        pairs, ahead, host_s = [], True, 0.0
+        for i in range(iters):
+            flush.fill_(i & 0xFF)
+            torch.cuda._sleep(hold)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            t0 = time.perf_counter()
+            fn()
+            host_s += time.perf_counter() - t0
+            end.record()
+            ahead &= not start.query()
+            pairs.append((start, end))
+        torch.cuda.synchronize()
+        return (sum(s.elapsed_time(e) for s, e in pairs) / iters, ahead,
+                host_s * 1e3 / iters)
+    return _held(run, HOLD_CYCLES, stats)
+
+
+def _time_kernel(kernel, rec):
+    """A kernel's hot and cold ms into ``rec``, with the host's ms to queue
+    one hot call and whether the card stayed ahead of the host in both."""
+    hot, cold = {}, {}
+    rec["ms"] = time_ms(kernel, stats=hot)
+    rec["cold_ms"] = time_cold_ms(kernel, stats=cold)
+    rec["host_ms"] = hot["host_ms"]
+    rec["held"] = hot["ahead"] and cold["ahead"]
+    rec["hold_tries"] = (hot["tries"], cold["tries"])
 
 
 # ---------------------------------------------------------------------------
@@ -232,15 +286,15 @@ def _sdpa_decode(q, kp, vp, tables, lengths):
     return lambda: fn(qq, k, v, attn_mask=mask)
 
 
-def _check(name, got, want, dtype, label, record):
+def _check(name, got, want, dtype, label, record, tol=None):
+    atol, rtol = tol or (TOL[dtype], TOL[dtype])
     err = (got.float() - want.float()).abs().max().item()
-    ok = torch.allclose(got.float(), want.float(), atol=TOL[dtype],
-                        rtol=TOL[dtype])
-    record.update(max_abs_err=err, tol=TOL[dtype])
+    ok = torch.allclose(got.float(), want.float(), atol=atol, rtol=rtol)
+    record.update(max_abs_err=err, tol=atol, rtol=rtol)
     if not ok:
         raise AssertionError(f"{name} [{label}] disagrees with its plain "
                              f"version: max abs err {err:.3e} > "
-                             f"tol {TOL[dtype]:.0e}")
+                             f"atol {atol:.0e} + rtol {rtol:.0e}")
 
 
 def check_decode(rng, label, dtype, B, H, G, Dh, N, ps, P, splits=None,
@@ -282,17 +336,17 @@ def check_decode(rng, label, dtype, B, H, G, Dh, N, ps, P, splits=None,
               + 2 * live * G * Dh * elt)
     ops = 4.0 * live * H * Dh
     rec["bound_ms"], rec["bound_by"] = _bound(nbytes, ops, dtype)
-    rec["ms"] = time_ms(kernel)
-    rec["cold_ms"] = time_cold_ms(kernel)
+    _time_kernel(kernel, rec)
     rec["plain_ms"] = time_ms(plain, iters=5)
     rec["library_ms"] = time_ms(_sdpa_decode(q, kp, vp, tables, ln))
     return rec
 
 
 def check_duet(rng, label, dtype, N, ps, G, H, Dh, P, decode_rows,
-               prefill_rows, bq):
+               prefill_rows, bq, pad_tile=False):
     from repro_torch.kernels.duet_attention import (
-        duet_attention_paged, duet_attention_paged_plain)
+        duet_attention_paged, duet_attention_paged_plain,
+        duet_attention_paged_tiled_plain, paged_cluster_for)
     from repro_torch.kernels.ops import (build_duet_schedule,
                                          pack_duet_queries,
                                          unpack_duet_output)
@@ -308,19 +362,43 @@ def check_duet(rng, label, dtype, N, ps, G, H, Dh, P, decode_rows,
     rows = decode_rows + prefill_rows
     src_q = torch.from_numpy(rng.standard_normal((len(rows), H, Dh),
                                                  np.float32)).to(dev, dtype)
-    q = pack_duet_queries(sched, src_q).contiguous()
-    row_pos = torch.tensor(sched.row_pos, device=dev)[:, None].contiguous()
+    q = pack_duet_queries(sched, src_q)
+    row_pos = torch.tensor(sched.row_pos, device=dev)
     tile_slot = torch.tensor(sched.tile_slot, device=dev)
+    if pad_tile:     # one more tile of pad rows on a -1 slot
+        q = torch.cat([q, torch.ones_like(q[:bq])])
+        row_pos = torch.cat([row_pos, torch.full_like(row_pos[:bq], -1)])
+        tile_slot = torch.cat([tile_slot, torch.full_like(tile_slot[:1],
+                                                          -1)])
+    q, row_pos = q.contiguous(), row_pos[:, None].contiguous()
     kernel = lambda: duet_attention_paged(  # noqa: E731
         q, row_pos, tile_slot, kp, vp, tables, block_q=bq)
     plain = lambda: duet_attention_paged_plain(  # noqa: E731
         q, row_pos, tile_slot, kp, vp, tables, block_q=bq)
+    C = paged_cluster_for(q, tile_slot, kp, tables)
+    label += f" C={C}"
     rec = {"name": "duet_attention_paged", "case": label,
            "dtype": str(dtype)}
-    got = unpack_duet_output(sched, kernel(), len(rows))
+    out = kernel()
     torch.cuda.synchronize()
-    want = unpack_duet_output(sched, plain(), len(rows))
-    _check("duet_attention_paged", got, want, dtype, label, rec)
+    got = unpack_duet_output(sched, out[:len(sched.row_src)], len(rows))
+    want = unpack_duet_output(sched, plain()[:len(sched.row_src)],
+                              len(rows))
+    tol = DUET_BF16_TOL if dtype == torch.bfloat16 else None
+    _check("duet_attention_paged", got, want, dtype, label, rec, tol)
+    # the algorithm the kernel runs: roles, C spans of 64-key units, the
+    # rank-order combine
+    err = rec["max_abs_err"]
+    _check("duet_attention_paged", got, unpack_duet_output(
+        sched, duet_attention_paged_tiled_plain(
+            q, row_pos, tile_slot, kp, vp, tables, block_q=bq,
+            cluster=C)[:len(sched.row_src)], len(rows)), dtype,
+        label + " (tiles)", rec, tol)
+    rec["max_abs_err"] = max(err, rec["max_abs_err"])
+    # pad rows come out as zeros
+    if torch.count_nonzero(out[row_pos[:, 0] < 0]):
+        raise AssertionError(f"duet_attention_paged [{label}]: pad rows "
+                             "are not zeros")
     elt = q.element_size()
     chain = {}
     for s, p in rows:
@@ -330,8 +408,7 @@ def check_duet(rng, label, dtype, N, ps, G, H, Dh, P, decode_rows,
               + tables.numel() * 4 + 4 * (len(rows) + len(sched.tile_slot)))
     ops = 4.0 * H * Dh * sum(p + 1 for _, p in rows)
     rec["bound_ms"], rec["bound_by"] = _bound(nbytes, ops, dtype)
-    rec["ms"] = time_ms(kernel)
-    rec["cold_ms"] = time_cold_ms(kernel)
+    _time_kernel(kernel, rec)
     rec["plain_ms"] = time_ms(plain, iters=3)
     # library yardstick: SDPA with one query row per batch entry over
     # its gathered, head-repeated chain, masked causally by row position
@@ -391,8 +468,7 @@ def check_duet_slab(rng, label, dtype, Ns, S, G, H, Dh, decode_rows,
               + 4 * (len(rows) + len(sched.tile_slot)))
     ops = 4.0 * H * Dh * sum(p + 1 for _, p in rows)
     rec["bound_ms"], rec["bound_by"] = _bound(nbytes, ops, dtype)
-    rec["ms"] = time_ms(kernel)
-    rec["cold_ms"] = time_cold_ms(kernel)
+    _time_kernel(kernel, rec)
     rec["plain_ms"] = time_ms(plain, iters=3)
     # library yardstick: SDPA with one query row per batch entry over its
     # slot's head-repeated slab row, masked causally by row position
@@ -441,8 +517,7 @@ def check_flash(rng, label, dtype, B, Sq, Sk, H, G, Dh, q_offset,
     nbytes = (2 * B * Sq * H * Dh + 2 * B * keys * G * Dh) * elt
     ops = 4.0 * B * H * Dh * pairs
     rec["bound_ms"], rec["bound_by"] = _bound(nbytes, ops, dtype)
-    rec["ms"] = time_ms(kernel)
-    rec["cold_ms"] = time_cold_ms(kernel)
+    _time_kernel(kernel, rec)
     rec["plain_ms"] = time_ms(plain, iters=5)
     # library yardsticks: SDPA over head-repeated K/V with the
     # causal-offset (and kv_len) mask (library_ms, as for every kernel),
@@ -472,7 +547,7 @@ def check_flash(rng, label, dtype, B, Sq, Sk, H, G, Dh, q_offset,
 
 
 def phase_kernels():
-    from repro_torch.kernels.ops import num_splits_for
+    from repro_torch.kernels.ops import duet_block_q, num_splits_for
     rng = np.random.default_rng(0)
     records = []
     main = {}
@@ -483,6 +558,7 @@ def phase_kernels():
     lens = np.linspace(256, 2048, B).astype(np.int64)
     N = B * P + 1 + 64
     splits = num_splits_for(P, ps, 256)
+    duet_bq = duet_block_q(H, G, Dh)
     for dtype in (torch.bfloat16, torch.float32):
         r = check_decode(rng, "main B=8 ctx 256-2048", dtype, B, H, G, Dh, N,
                          ps, P, lengths=lens, distinct=True)
@@ -493,9 +569,11 @@ def phase_kernels():
         records.append(r)
         decode_rows = [(b, int(lens[b]) - 1) for b in range(B)]
         prefill_rows = [(B, 512 + i) for i in range(256)]
-        r = check_duet(rng, "main 8 decode + 256-row chunk", dtype,
-                       (B + 1) * P + 1, ps, G, H, Dh, P, decode_rows,
-                       prefill_rows, bq=1)
+        # the async engine's tiles (64 // rep rows: decode rows on the
+        # decode core, chunk tiles on the prefill block)
+        r = check_duet(rng, f"main 8 decode + 256-row chunk bq={duet_bq}",
+                       dtype, (B + 1) * P + 1, ps, G, H, Dh, P, decode_rows,
+                       prefill_rows, bq=duet_bq)
         records.append(r)
         # the slab decode step: 8 decode rows (block_q 1) over the engine's
         # slab (8 slots x 1024), contexts 256..1000
@@ -511,6 +589,11 @@ def phase_kernels():
         if dtype == torch.bfloat16:      # the serving path's working type
             for rec in records[-5:]:
                 main[rec["name"]] = rec
+        # the reference's layout, one row a tile
+        records.append(check_duet(
+            rng, "main 8 decode + 256-row chunk bq=1", dtype,
+            (B + 1) * P + 1, ps, G, H, Dh, P, decode_rows, prefill_rows,
+            bq=1))
         # a whole 4096-token prompt, and the last 512-token chunk of one
         records.append(check_flash(
             rng, "long Sq 4096 @ 0, Sk 4096", dtype, 1, 4096, 4096, H, G, Dh,
@@ -599,12 +682,37 @@ def phase_kernels():
                 f"S{S} H{Hs} G{Gs} Dh{Ds}", dtype,
                 max(s_ for s_, _ in drows + prows) + 1, S, Gs, Hs, Ds, drows,
                 prows, bq=bq))
+    # the paged duet kernel's tiles at full width (the CPU tile tests'
+    # edges): decode contexts 1, 16, 17 and 2048, chunks of 20 and 1 rows
+    # (one at position 0), pages of 8, 16 and 32, a pad tile, Dh 64 and
+    # 128, and enough tiles for C = 8, 4, 2 and 1
+    def edge_rows(n):
+        return [(b, (0, 15, 16, 2047)[b % 4]) for b in range(n)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for (nd, chunk_rows, pss, Ds, pad) in [
+                (1, 16, 32, 128, True),     # 3 tiles: C = 8
+                (4, 20, 16, 128, False),    # C = 4
+                (4, 1, 8, 128, True),       # a one-row chunk at position 0
+                (14, 20, 16, 128, False),   # 16 tiles: C = 2
+                (32, 20, 16, 128, True),    # 35 tiles: C = 1
+                (4, 20, 16, 64, True)]:     # Dh 64
+            start = 0 if chunk_rows == 1 else 64
+            drows = edge_rows(nd)
+            records.append(check_duet(
+                rng, f"edge {nd} decode + {chunk_rows} chunk ps{pss} "
+                f"Dh{Ds}{' pad tile' if pad else ''}", dtype,
+                (nd + 1) * (2048 // pss) + 1, pss, G, H, Ds, 2048 // pss,
+                drows, [(nd, start + i) for i in range(chunk_rows)],
+                bq=duet_block_q(H, G, Ds), pad_tile=pad))
     card = card_line()
     for rec in records:
         log(f"[kernels] {rec['name']:22s} {rec['dtype']:15s} "
             f"{rec['case']:44s} max_abs_err={rec['max_abs_err']:.3e} "
-            f"tol={rec['tol']:.0e} ms={rec['ms']:.4f} "
+            f"tol={rec['tol']:.0e}/{rec['rtol']:.0e} ms={rec['ms']:.4f} "
             f"cold_ms={rec['cold_ms']:.4f} "
+            f"host_ms={rec['host_ms']:.4f} hold_tries="
+            f"{rec['hold_tries'][0]}/{rec['hold_tries'][1]}"
+            f"{'' if rec['held'] else ' (host behind the hold)'} "
             f"plain_ms={rec['plain_ms']:.4f} "
             f"library_ms={rec['library_ms']:.4f} "
             f"bound_ms={rec['bound_ms']:.3g} ({rec['bound_by']}, "
@@ -653,6 +761,21 @@ def report_occupancy(card):
             f"{ahead / 1024:.0f} KB of loads ahead per CTA, up to "
             f"{min(per_sm, B * G * C / sms) * ahead / 1024:.0f} KB in flight "
             f"per SM [{card}]")
+    # the paged duet kernel at the engine's main launch: 8 decode tiles and
+    # 16 chunk tiles of 16 rows (T = 24)
+    from repro_torch.kernels.duet_attention import (paged_cluster_for,
+                                                    paged_occupancy)
+    T = 24
+    tiles = torch.empty((T,), dtype=torch.int32, device="cuda")
+    C = paged_cluster_for(q, tiles, kp, tables)
+    for c in sorted({1, 2, 4, 8, C}):
+        clusters, smem, regs = paged_occupancy(dev, bf16, Dh, 16, P, c)
+        log(f"[kernels] duet_attention_paged main bf16 C={c}"
+            f"{' (the wrapper picks it)' if c == C else ''}: grid "
+            f"{T * G * c} CTAs of {smem / 1024:.1f} KB shared memory, "
+            f"{regs} registers a thread; {clusters} clusters "
+            f"({clusters * c} CTAs, {clusters * c / sms:.2f} per SM) "
+            f"resident at once [{card}]")
 
 
 # ---------------------------------------------------------------------------
@@ -662,6 +785,7 @@ def phase_parity():
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.kernels import build_duet_schedule
+    from repro_torch.kernels.ops import duet_block_q
     from repro_torch.models import Model
     from repro_torch.serving.kvcache import PagePoolConfig, init_page_pools
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -703,15 +827,21 @@ def phase_parity():
         lp, _, _ = plain.decode_step_paged(prefilled(), state, tok, pos,
                                            tblA)
         C = toksB.shape[1]
-        sched = build_duet_schedule([(0, 200)], [(1, i) for i in range(C)],
-                                    block_q=1)
         row_tok = torch.cat([tok[:, 0], toksB[0]])[:, None]
         row_pos = torch.cat([pos, torch.arange(C, dtype=torch.int32,
                                                device=dev)])
         row_tbl = torch.cat([tblA, tblB.expand(C, P)])
-        order = torch.tensor(sched.row_src, device=dev)
-        ld, _, _ = kern.duet_step_paged(prefilled(), state, row_tok, row_pos,
-                                        row_tbl, order)
+        duet = {}
+        # the reference's tiles (one row each) and the async engine's
+        for bq in (1, duet_block_q(cfg.num_heads, cfg.num_kv_heads,
+                                   cfg.head_dim)):
+            sched = build_duet_schedule([(0, 200)],
+                                        [(1, i) for i in range(C)],
+                                        block_q=bq)
+            order = torch.tensor(sched.row_src, device=dev)
+            duet[bq], _, _ = kern.duet_step_paged(
+                prefilled(), state, row_tok, row_pos, row_tbl, order,
+                block_q=bq)
         seq_pools = prefilled()
         ls_dec, _, _ = plain.decode_step_paged(seq_pools, state, tok, pos,
                                                tblA)
@@ -744,9 +874,11 @@ def phase_parity():
         out_kernel = torch.einsum("bshe,hed->bsd", flash_prefill(
             q.contiguous(), cache.k.contiguous(), cache.v.contiguous()),
             p0["w_o"])
-    for name, got, want in [("decode step", lk, lp),
-                            ("duet step, decode row", ld[0], ls_dec[0]),
-                            ("duet step, last chunk row", ld[C], ls_pre[0]),
+    checks = [("decode step", lk, lp)]
+    for bq, ld in duet.items():
+        checks += [(f"duet step bq={bq}, decode row", ld[0], ls_dec[0]),
+                   (f"duet step bq={bq}, last chunk row", ld[C], ls_pre[0])]
+    for name, got, want in checks + [
                             ("slab decode step", lsk, lsp),
                             ("flash_prefill on gqa_prefill's q/K/V "
                              "(attention output)", out_kernel, out_model)]:
@@ -884,6 +1016,7 @@ def phase_serve():
             f"{first}")
     for slab in (False, True):
         profile_decode(model, card, slab)
+    profile_duet(model, card)
     return counts
 
 
@@ -894,7 +1027,6 @@ def profile_decode(model, card, slab: bool):
     profiler, then traced with torch.profiler for the device time by
     kernel. Device busy share = summed kernel time / wall time. Launches
     made here come after the main path's counts were read."""
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.lookahead import lookahead_decode
     from repro_torch.serving.kvcache import PagePoolConfig, init_page_pools
     cfg, B, P, ps, steps = model.cfg, 8, 64, 16, 4
@@ -922,26 +1054,89 @@ def profile_decode(model, card, slab: bool):
             step()
         torch.cuda.synchronize()
 
-    run()
-    t0 = time.time()
-    run()
-    wall = (time.time() - t0) / steps
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run()
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+    wall, events = _profile(run, steps)
+    log_profile(f"{'slab' if slab else 'paged'} decode step, "
+                f"{cfg.num_layers} layers, B={B}, ctx 1000, bf16", wall,
+                events, steps, card)
+
+
+def log_profile(what, wall, events, steps, card, extra=""):
+    """Print a profiled step: wall ms, device kernel ms and busy share, and
+    the 8 kernels with the most device time."""
     dev = sum(e.self_device_time_total for e in events) / steps / 1e3
     busy = (f"{dev:.2f} ms/step (torch.profiler); device busy "
-            f"{100 * dev / (wall * 1e3):.1f}%" if dev > 0 else
+            f"{100 * dev / wall:.1f}%" if dev > 0 else
             "not measured (the profiler recorded no device time)")
-    label = "slab" if slab else "paged"
-    log(f"[profile] {label} decode step, {cfg.num_layers} layers, B={B}, "
-        f"ctx 1000, bf16: wall {wall * 1e3:.2f} ms/step (host clock, no "
-        f"profiler); device kernel time {busy} [{card}]")
+    log(f"[profile] {what}: wall {wall:.2f} ms/step (host clock, no "
+        f"profiler); device kernel time {busy}{extra} [{card}]")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"[profile]   {e.self_device_time_total / steps / 1e3:8.3f} "
             f"ms/step  {e.count // steps:5d} calls/step  {e.key[:70]}")
+
+
+def _profile(run, steps):
+    """(wall ms per step on the host clock without the profiler, device
+    kernel events of a traced run) of ``run``, which does ``steps`` steps
+    and synchronises."""
+    from torch.profiler import ProfilerActivity, profile
+    run()
+    t0 = time.time()
+    run()
+    wall = (time.time() - t0) / steps * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+    return wall, [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def profile_duet(model, card):
+    """Where one fused duet super-iteration's time goes: the async engine's
+    program for kb = 1 and a 256-row chunk (8 decode slots at 1000 tokens
+    of context, the chunk at positions 512..767 of a ninth request; bf16,
+    the engine's tiles of 64 // rep rows), timed on the host clock without
+    the profiler, then traced for the device time by kernel and the duet
+    kernel's share."""
+    from repro_torch.core.lookahead import make_superiter_fn
+    from repro_torch.kernels.ops import build_duet_schedule, duet_block_q
+    from repro_torch.serving.kvcache import PagePoolConfig, init_page_pools
+    cfg, B, P, ps, chunk, steps = model.cfg, 8, 64, 16, 256, 4
+    dev = "cuda"
+    bq = duet_block_q(cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
+    prog = make_superiter_fn(model, 1, paged=True, chunk=chunk,
+                             duet_kernel=True, duet_block_q=bq)
+    pools = init_page_pools(cfg, PagePoolConfig(num_pages=(B + 1) * P + 1,
+                                                page_size=ps),
+                            torch.bfloat16, device=dev)
+    tables = torch.arange(1, B * P + 1, dtype=torch.int32,
+                          device=dev).reshape(B, P)
+    pre_tbl = torch.arange(B * P + 1, (B + 1) * P + 1, dtype=torch.int32,
+                           device=dev)[None]
+    sched = build_duet_schedule([(b, 0) for b in range(B)],
+                                [(B, i) for i in range(chunk)], block_q=bq)
+    order = torch.tensor(sched.row_src, dtype=torch.int32, device=dev)
+    last_tok = torch.zeros((B, 1), dtype=torch.int32, device=dev)
+    pos = torch.full((B,), 1000, dtype=torch.int32, device=dev)
+    pre_toks = torch.zeros((1, chunk), dtype=torch.int32, device=dev)
+    active = torch.ones((B,), dtype=torch.bool, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state = model.init_state_cache(B)
+
+    def run():
+        for _ in range(steps):
+            prog(pools, state, last_tok, pos, tables, gen, active, pre_toks,
+                 pre_tbl, 512, 0, 0, order)
+        torch.cuda.synchronize()
+
+    wall, events = _profile(run, steps)
+    duet = [e for e in events if "duet_attention_paged" in e.key]
+    duet_ms = sum(e.self_device_time_total for e in duet) / steps / 1e3
+    calls = sum(e.count for e in duet) // steps
+    log_profile(f"duet super-iteration, {cfg.num_layers} layers, B={B} at "
+                f"ctx 1000 + a {chunk}-row chunk at 512, kb=1, bq={bq}, "
+                f"bf16", wall, events, steps, card,
+                f"; duet_attention_paged {duet_ms:.3f} ms/step over {calls} "
+                f"calls ({duet_ms / max(calls, 1):.4f} ms a call)")
 
 
 # ---------------------------------------------------------------------------

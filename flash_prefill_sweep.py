@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Rebuild the port's bf16 flash_prefill kernel (``csrc/flash_prefill.cu``)
-with other ring depths, warps a block and blocks an SM, and time it at the
-kernels phase's three prefill shapes, on one NVIDIA card.
+"""Rebuild the port's bf16 flash_prefill kernel (``csrc/flash_prefill.cu``
+on the block of ``csrc/prefill_core.cuh``) with other ring depths, warps a
+block and blocks an SM, and time it at the kernels phase's three prefill
+shapes, on one NVIDIA card.
 
     python3 flash_prefill_sweep.py
 
@@ -23,8 +24,9 @@ import numpy as np
 import torch
 
 HERE = Path(__file__).resolve().parent
-# (variant, {constant: value}) applied to csrc/flash_prefill.cu; a block
-# has 16 query rows per warp
+# (variant, {constant: value}) applied to csrc/prefill_core.cuh (NSTAGE,
+# MMA_WARPS) or csrc/flash_prefill.cu (MMA_BLOCKS); a block has 16 query
+# rows per warp
 VARIANTS = [("as built", {}),
             ("MMA_BLOCKS 3", {"MMA_BLOCKS": 3}),      # 168 registers
             ("NSTAGE 3", {"NSTAGE": 3}),
@@ -35,19 +37,25 @@ SHAPES = [("main Sq 256 @ 512, Sk 768", 256, 768, 512),
 
 
 def build_variant(name: str, consts: dict):
-    """Point the port's builder at a copy of csrc/ with ``consts`` set in
-    flash_prefill.cu and build it."""
+    """Point the port's builder at a copy of csrc/ with ``consts`` set (in
+    prefill_core.cuh, the block's ring and warps, or flash_prefill.cu, the
+    blocks an SM) and build flash_prefill.cu from it."""
     from repro_torch.kernels import _build
     src = HERE / "build" / "sweep" / ("flash_" + re.sub(r"\W+", "_", name))
     shutil.rmtree(src, ignore_errors=True)
     shutil.copytree(HERE / "src/repro_torch/kernels/csrc", src)
-    text = (src / "flash_prefill.cu").read_text()
+    files = {f: (src / f).read_text()
+             for f in ("prefill_core.cuh", "flash_prefill.cu")}
     for const, value in consts.items():
-        text, n = re.subn(rf"constexpr int {const} = \d+;",
-                          f"constexpr int {const} = {value};", text)
-        if n != 1:
-            raise RuntimeError(f"flash_prefill.cu has no constant {const}")
-    (src / "flash_prefill.cu").write_text(text)
+        hits = 0
+        for f, text in files.items():
+            files[f], n = re.subn(rf"constexpr int {const} = \d+;",
+                                  f"constexpr int {const} = {value};", text)
+            hits += n
+        if hits != 1:
+            raise RuntimeError(f"no single constant {const}")
+    for f, text in files.items():
+        (src / f).write_text(text)
     _build.CSRC, _build.BUILD_DIR = src, src / "lib"
     _build._libs.clear()
     for line in _build.build_all(("flash_prefill",))["flash_prefill"] \

@@ -145,7 +145,7 @@ def _set_row(t: torch.Tensor, row: int, value) -> torch.Tensor:
 def make_superiter_fn(model: Model, kb: int, *, paged: bool = True,
                       chunk: int = 0, finish: bool = False,
                       sample: bool = False, temperature: float = 0.0,
-                      duet_kernel: bool = False):
+                      duet_kernel: bool = False, duet_block_q: int = 1):
     """Build one fused duet super-iteration program.
 
     Bucket parameters (the engine's dispatch cache keys on them plus the
@@ -160,6 +160,8 @@ def make_superiter_fn(model: Model, kb: int, *, paged: bool = True,
                 token and passes it as ``override_tok``)
       duet_kernel — decode step 1 and the chunk run as ONE duet attention
                 launch per layer (paged only; needs kb > 0 and chunk > 0)
+      duet_block_q — rows of one tile of that launch; ``order`` is the
+                schedule's ``row_src`` built with it
 
     Signatures (B = engine slot count, W/Wp = block-table width buckets,
     C = chunk):
@@ -167,7 +169,7 @@ def make_superiter_fn(model: Model, kb: int, *, paged: bool = True,
       paged: run(pools, state, last_tok (B,1), pos (B,), tables (B,W), gen,
                  active (B,), pre_toks (1,C), pre_tbl (1,Wp),
                  pre_start: int, pre_slot: int, override_tok: int
-                 [, order (B+C,)])
+                 [, order (T*duet_block_q,)])
                -> (toks (B,kb), sampled, last_tok, pos, pools, state, gen)
       slab:  run(cache, last_tok, pos, gen, active, pre_toks, pre_start,
                  pre_slot, override_tok)
@@ -199,9 +201,9 @@ def make_superiter_fn(model: Model, kb: int, *, paged: bool = True,
     if duet_kernel:
         # Algorithm-1 fused launch: decode step 1 and the whole prefill
         # chunk execute as ONE duet_attention_paged launch per layer
-        # (decode rows + chunk rows, interleaved by the `order` tile
-        # permutation); the remaining kb-1 look-ahead steps run as the
-        # usual k-step decode.
+        # (decode rows + chunk rows in tiles of duet_block_q rows,
+        # interleaved by the `order` schedule); the remaining kb-1
+        # look-ahead steps run as the usual k-step decode.
         def fused(pools, state, last_tok, pos, tables, gen, active,
                   pre_toks, pre_tbl, pre_start, pre_slot, override_tok,
                   order):
@@ -217,7 +219,8 @@ def make_superiter_fn(model: Model, kb: int, *, paged: bool = True,
                 pad(tables, (0, Wm - W)),
                 pad(pre_tbl, (0, Wm - Wp)).expand(chunk, Wm)])
             logits, pools, state = model.duet_step_paged(
-                pools, state, row_tok, row_pos, row_tbl, order)
+                pools, state, row_tok, row_pos, row_tbl, order,
+                block_q=duet_block_q)
             # decode step 1 retires inside the duet launch
             nxt = _sample(logits[:B], gen, temperature)[:, None]
             nxt = torch.where(active[:, None], nxt, last_tok)

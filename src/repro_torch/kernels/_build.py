@@ -42,7 +42,8 @@ SIGNATURES = {
         "paged_decode_occupancy": [_I] * 5 + [_P],
     },
     "duet_attention_paged": {
-        "duet_attention_paged_launch": [_P] * 7 + [_I] * 7 + [_F, _I, _P],
+        "duet_attention_paged_launch": [_P] * 7 + [_I] * 8 + [_F, _I, _P],
+        "duet_attention_paged_occupancy": [_I] * 5 + [_P],
     },
     "duet_attention": {
         "duet_attention_launch": [_P] * 6 + [_I] * 7 + [_F, _I, _P],

@@ -10,12 +10,13 @@
 //   CTAs (grid z, cluster dims (1, 1, C)); the host picks the largest C (at
 //   most 8) whose grid the card runs in one wave (ops.cluster_size). Each
 //   CTA walks one contiguous span of the keys and keeps its partial
-//   (m, l, acc) in its own shared memory. After cluster.sync(),
-//   rank 0 reads the other ranks' partials through distributed shared memory
-//   and does the log-sum-exp combine in rank order (a split whose max is at
-//   or below MASKED_M_THRESHOLD weighs 0), then writes the output. A second
-//   cluster.sync() keeps every CTA's shared memory alive until rank 0 has
-//   read it. One launch, no HBM scratch, a fixed sum order.
+//   (m, l, acc) in its own shared memory. After cluster.sync(), each rank
+//   reads a 1/C share of the rows from every rank's partial through
+//   distributed shared memory and does the log-sum-exp combine in rank
+//   order (a split whose max is at or below MASKED_M_THRESHOLD weighs 0),
+//   then writes those rows. A second cluster.sync() keeps every CTA's
+//   shared memory alive until all have read it. One launch, no HBM
+//   scratch, a fixed sum order.
 // * Loads in flight. K/V rows go to a ring of NSTAGE stages of SK keys with
 //   16-byte cp.async.cg copies (commit_group / wait_group), NSTAGE - 1 stages
 //   ahead of the compute; the stage being computed is the only one waited
@@ -60,7 +61,7 @@ using attn::NEG_INF;
 
 constexpr int NSTAGE = 3;            // ring depth: 2 stages in flight
 constexpr int MAX_CLUSTER = 8;       // the portable cluster size
-constexpr int SPLIT_KEYS = 64;       // the slab split's unit (keys)
+constexpr int SPLIT_KEYS = 64;       // the duet kernels' split unit (keys)
 constexpr int MMA_WARPS = 4;         // bf16: 16 keys a warp, SK = 64
 constexpr int SIMT_WARPS = 4;        // fp32
 constexpr int SIMT_STAGE = 16384;    // fp32: bytes of K + V per stage
@@ -95,7 +96,7 @@ struct Cfg {
   static constexpr int PROB_BYTES =
       WARPS * (MMA ? (NRB / 8) * 256 : STEPS * 32 * 4);
   // after the walk the ring holds the warps' partials, the CTA's, and
-  // rank 0's combine weights
+  // the combine's weights
   static constexpr int PART_BYTES =
       ((WARPS + 1) * NRB * (DH + 2) + NRB * (MAX_CLUSTER + 1)) * 4;
   static constexpr int MAIN_BYTES = cmax(RING_BYTES, PART_BYTES);
@@ -479,9 +480,80 @@ struct SimtState {
 // ---------------------------------------------------------------------------
 // the CTA and the cluster
 // ---------------------------------------------------------------------------
+// The cluster's combine: every CTA holds its partial of ``nrows`` rows at
+// c_m in the layout m[NRB] (log2 units; at or below MASKED_M_THRESHOLD: no
+// valid key), l[NRB], acc[NRB][DH], followed by room for weights
+// [NRB][MAX_CLUSTER] and inverse denominators [NRB]. Rank r combines rows
+// [r * ceil(nrows / C), ...) of every rank's partial in rank order (each
+// rank keeps its rows' weights in its own room), reading (m, l) one thread
+// a row and acc as float4s, one per rank in flight at once, through
+// distributed shared memory, and hands row r, column d of the output to
+// write_out(r, d, value). Every CTA of the cluster must call it.
+template <int NRB, int DH, int THREADS, class Out>
+__device__ __forceinline__ void cluster_combine(float* c_m, int nrows,
+                                                Out write_out) {
+  float* c_l = c_m + NRB;
+  float* c_acc = c_l + NRB;
+  float* wgt = c_acc + NRB * DH;                    // [NRB][MAX_CLUSTER]
+  float* den = wgt + NRB * MAX_CLUSTER;             // [NRB]
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const int C = (int)cluster.num_blocks();
+  const int share = (nrows + C - 1) / C;
+  const int r0 = min((int)cluster.block_rank() * share, nrows);
+  const int r1 = min(r0 + share, nrows);
+  if (threadIdx.x < r1 - r0) {
+    const int r = r0 + threadIdx.x;
+    float mr[MAX_CLUSTER], lr[MAX_CLUSTER];
+#pragma unroll
+    for (int c = 0; c < MAX_CLUSTER; ++c) {
+      mr[c] = c < C ? *cluster.map_shared_rank(c_m + r, c) : NEG_INF;
+      lr[c] = c < C ? *cluster.map_shared_rank(c_l + r, c) : 0.f;
+    }
+    float ms = NEG_INF;
+#pragma unroll
+    for (int c = 0; c < MAX_CLUSTER; ++c) ms = fmaxf(ms, mr[c]);
+    float ls = 0.f;
+#pragma unroll
+    for (int c = 0; c < MAX_CLUSTER; ++c) {
+      const float wt = mr[c] > MASKED_M_THRESHOLD ? exp2f(mr[c] - ms) : 0.f;
+      wgt[r * MAX_CLUSTER + c] = wt;
+      ls += wt * lr[c];
+    }
+    den[r] = 1.f / fmaxf(ls, DENOM_EPS);
+  }
+  __syncthreads();
+  constexpr int V = DH / 4;                         // float4s a row
+#pragma unroll 2
+  for (int i = threadIdx.x; i < (r1 - r0) * V; i += THREADS) {
+    const int r = r0 + i / V, d = (i % V) * 4;
+    float4 x[MAX_CLUSTER];
+#pragma unroll
+    for (int c = 0; c < MAX_CLUSTER; ++c)
+      x[c] = c < C ? *reinterpret_cast<const float4*>(
+                         cluster.map_shared_rank(c_acc + r * DH + d, c))
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int c = 0; c < MAX_CLUSTER; ++c) {
+      const float w = c < C ? wgt[r * MAX_CLUSTER + c] : 0.f;
+      a.x += w * x[c].x;
+      a.y += w * x[c].y;
+      a.z += w * x[c].z;
+      a.w += w * x[c].w;
+    }
+    const float inv = den[r];
+    write_out(r, d, a.x * inv);
+    write_out(r, d + 1, a.y * inv);
+    write_out(r, d + 2, a.z * inv);
+    write_out(r, d + 3, a.w * inv);
+  }
+  cluster.sync();                  // keep every rank's partial alive
+}
+
 // Walk keys k_begin .. k_end - 1 of this CTA's span through the ring for
 // ``nrows`` query rows (row r at qrow(r), seeing keys up to lim_of(r)),
-// combine the warps' partials, then the cluster's, and (rank 0) hand row r,
+// combine the warps' partials, then the cluster's, and hand row r,
 // column d of the output to write_out(r, d, value). Every CTA of the
 // cluster must call it, also with an empty span.
 template <class Cf, class Src, class RowOf, class LimOf, class Out>
@@ -551,55 +623,7 @@ __device__ __forceinline__ void decode_cluster(
     }
   }
 
-  // the cluster's: rank 0 reads every rank's partial in rank order, the
-  // (m, l) of each row first (one thread a row), then acc
-  cg::cluster_group cluster = cg::this_cluster();
-  cluster.sync();
-  if (cluster.block_rank() == 0) {
-    const int C = (int)cluster.num_blocks();
-    float* wgt = c_acc + NRB * DH;                  // [NRB][MAX_CLUSTER]
-    float* den = wgt + NRB * MAX_CLUSTER;           // [NRB]
-    if (threadIdx.x < nrows) {
-      const int r = threadIdx.x;
-      float mr[MAX_CLUSTER], lr[MAX_CLUSTER];
-#pragma unroll
-      for (int c = 0; c < MAX_CLUSTER; ++c) {
-        mr[c] = c < C ? *cluster.map_shared_rank(c_m + r, c) : NEG_INF;
-        lr[c] = c < C ? *cluster.map_shared_rank(c_l + r, c) : 0.f;
-      }
-      float ms = NEG_INF;
-#pragma unroll
-      for (int c = 0; c < MAX_CLUSTER; ++c) ms = fmaxf(ms, mr[c]);
-      float ls = 0.f;
-#pragma unroll
-      for (int c = 0; c < MAX_CLUSTER; ++c) {
-        const float wt = mr[c] > MASKED_M_THRESHOLD ? exp2f(mr[c] - ms) : 0.f;
-        wgt[r * MAX_CLUSTER + c] = wt;
-        ls += wt * lr[c];
-      }
-      den[r] = fmaxf(ls, DENOM_EPS);
-    }
-    __syncthreads();
-    for (int d = threadIdx.x; d < DH; d += THREADS) {
-      float o[NRB];
-#pragma unroll
-      for (int r = 0; r < NRB; ++r) {
-        float as = 0.f;
-        if (r < nrows) {
-#pragma unroll
-          for (int c = 0; c < MAX_CLUSTER; ++c)
-            if (c < C)
-              as += wgt[r * MAX_CLUSTER + c] *
-                    *cluster.map_shared_rank(c_acc + r * DH + d, c);
-        }
-        o[r] = r < nrows ? as / den[r] : 0.f;
-      }
-#pragma unroll
-      for (int r = 0; r < NRB; ++r)
-        if (r < nrows) write_out(r, d, o[r]);
-    }
-  }
-  cluster.sync();                  // keep every rank's partial alive
+  cluster_combine<NRB, DH, THREADS>(c_m, nrows, write_out);
 }
 
 // Launch ``kernel`` (Cf's instantiation) on grid with cluster dims

@@ -18,7 +18,7 @@
 // contiguous spans of whole 64-key units; CTA rank r streams span r's K/V
 // rows of its group through the cp.async ring (key k of the slot sits at
 // (slot * S + k) * G * Dh: no table lookup) and takes each stage against
-// all bq * rep query rows of the (tile, group); rank 0 combines the
+// all bq * rep query rows of the (tile, group); the ranks combine the
 // cluster's partials through distributed shared memory. Pad rows and pad
 // tiles see no valid key; the dead-row guard keeps their l = 0 and acc = 0,
 // so they come out as zeros (the reference kernel leaves the mean of V

@@ -11,159 +11,273 @@
 // k/v pages (N,ps,G,Dh) fp32 or bf16; tables (B,P) int32. Row i of tile t
 // attends causally over its tile's page chain: key position k is valid iff
 // k <= row_pos[i] and the tile and row are live. Decode rows and the
-// prefill chunk's rows run in ONE launch.
+// prefill chunk's rows run in ONE launch. Pad rows and pad tiles come out
+// as zeros (the reference kernel leaves the mean of V there; only unpacked
+// rows are ever read). Tile order is scheduling only: every (tile, group)
+// computes its rows independently, so the numerics do not depend on it.
 //
-// Design: one block per (tile, KV group) holds the tile's bq * rep query
-// rows of that group in shared memory and walks the tile's table row a page
-// at a time (K/V rows of the group staged in shared memory as fp32, online
-// softmax per row in fp32, as in paged_decode.cu). It stops after the page
-// holding the tile's largest row_pos: later keys are masked for every row.
-// Pad rows and pad tiles see no valid key; the dead-row guard keeps their
-// l = 0 and acc = 0, so they come out as zeros (the reference kernel leaves
-// the mean of V there; only unpacked rows are ever read). Tile order is
-// scheduling only: every block computes its rows independently, so the
-// numerics do not depend on it.
+// Bound: memory, the live KV bytes of the tiles (each chain's keys 0 ..
+// the largest row_pos on it, read once: 45 MB at the main shape, 8 decode
+// rows at 256..2048 tokens beside a 256-row chunk at 512..767) at 3.35
+// TB/s.
 //
-// Bound: memory for the unique KV bytes; this simple kernel re-reads a
-// chain once per tile (each prefill row of the engine's bq = 1 layout is
-// its own tile), so it moves more than the bound counts.
-#include "attn_common.cuh"
+// Design: grid (T, G, C) with clusters of C CTAs along z (cudaLaunchKernel
+// Ex); the host picks C (ops.cluster_size: the largest grid the card runs
+// in one wave). Each CTA reads its tile's row_pos on the device: the live
+// rows are the tile's rows up to its last one with row_pos >= 0
+// (build_duet_schedule fills tiles from the front), and the tile's keys
+// are 0 .. its largest row_pos. Those keys split into C contiguous spans
+// of whole 64-key units (ops.cluster_spans); a CTA copies its span's page
+// ids from the table row into shared memory once, and every K/V copy takes
+// its address from the page id of its key (dcore::PagedSrc). Then, by the
+// number of (live row, head) pairs of its group, the CTA takes one of two
+// roles:
+//
+// * Decode role (at most DECODE_ROWS = 16 pairs: a decode row, rep <= 16):
+//   decode_core.cuh's decode_cluster over the span, exactly as
+//   paged_decode runs it: a cp.async ring, mma.sync S^T = K Q^T with the
+//   rows in the n dimension (8- or 16-row buckets), the warps' partials
+//   and then the cluster's combined by the ranks through distributed shared
+//   memory.
+// * Prefill role (more pairs, at most 64: a tile of the prefill chunk):
+//   prefill_core.cuh's block, the one flash_prefill runs, over the span's
+//   keys: 64 (position, head) rows of group g on mma.sync, 64-key K/V
+//   tiles gathered through the page table by cp.async into a swizzled
+//   ring, each row masked at its own row_pos, the walk stopping after the
+//   span's last key (the tile's largest row_pos). With C > 1 each rank
+//   leaves its 64 rows' (m, l, acc) partial in its ring (64 x (Dh + 2) x 4
+//   B = 33 KB at Dh 128) and the ranks combine them through distributed
+//   shared memory in rank order, each rank a 1/C share of the rows
+//   (dcore::cluster_combine, as the decode role).
+//
+// A prefill tile holds 64 / rep chunk positions, so a chunk's chain is read
+// once per 64 / rep rows (16 at qwen3-4b's rep 4) where a tile of one row
+// read it once per row: the engine's 256-row chunk reads its 768-key chain
+// 16 times (per group) instead of 256, and each K/V tile feeds 64 rows of
+// tensor-core products instead of one row of CUDA-core dot products.
+// fp32 serves parity only: its decode role is decode_core's CUDA-core path,
+// its prefill role prefill_core's CUDA-core block. Dh 256 has no prefill
+// role (the block's registers do not fit); its tiles hold at most 16 pairs.
+#include "decode_core.cuh"
+#include "prefill_core.cuh"
 
 using namespace attn;
 
-template <typename T, int DPL>
-__global__ void __launch_bounds__(THREADS) duet_attention_paged_kernel(
-    const T* __restrict__ q, const int* __restrict__ row_pos,
-    const int* __restrict__ tile_slot, const T* __restrict__ k_pages,
-    const T* __restrict__ v_pages, const int* __restrict__ tables,
-    T* __restrict__ out, int H, int G, int ps, int P, int bq, float scale) {
-  constexpr int Dh = DPL * 32;
+namespace {
+
+constexpr int DECODE_ROWS = 16;     // a tile's pairs the decode role takes
+constexpr int TILE_ROWS = pcore::ROWS;   // a tile's pairs at most
+
+template <typename T, int DH>
+struct DuetCfg {
+  static constexpr bool MMA = sizeof(T) == 2;
+  using Small = dcore::Cfg<T, DH, MMA ? 8 : 4>;   // decode buckets
+  using Big = dcore::Cfg<T, DH, DECODE_ROWS>;
+  static constexpr bool PREFILL = DH <= 128;
+  static constexpr int THREADS = Big::THREADS;
+  // the prefill role's ring, and its partial with the combine's room
+  static constexpr int RING_BYTES =
+      !PREFILL ? 0
+      : MMA    ? pcore::MmaCfg<(DH <= 128 ? DH : 128)>::SMEM_BYTES
+               : pcore::simt_smem_bytes(DH);
+  static constexpr int PART_BYTES =
+      PREFILL ? 4 * (TILE_ROWS * (DH + 2) +
+                     TILE_ROWS * (dcore::MAX_CLUSTER + 1))
+              : 0;
+  static constexpr int MAIN_BYTES =
+      dcore::cmax(dcore::cmax(Small::FIXED_BYTES, Big::FIXED_BYTES),
+                  dcore::cmax(RING_BYTES, PART_BYTES));
+  static_assert(Small::THREADS == THREADS &&
+                    (!PREFILL || (MMA ? pcore::MmaCfg<DH <= 128 ? DH : 128>::
+                                            THREADS
+                                      : pcore::SIMT_THREADS) == THREADS),
+                "both roles run the same block");
+  static_assert(pcore::BM == TILE_ROWS, "a prefill block holds a tile");
+};
+
+// most page ids a CTA's span of whole 64-key units touches
+int span_pages(int P, int ps, int C) {
+  const int units = (P * ps + dcore::SPLIT_KEYS - 1) / dcore::SPLIT_KEYS;
+  const int span = (units + C - 1) / C;
+  return (span * dcore::SPLIT_KEYS + ps - 1) / ps + 1;
+}
+
+template <typename T, int DH>
+__global__ void __launch_bounds__(DuetCfg<T, DH>::THREADS, 2)
+    duet_attention_paged_kernel(const T* __restrict__ q,
+                                const int* __restrict__ row_pos,
+                                const int* __restrict__ tile_slot,
+                                const T* __restrict__ k_pages,
+                                const T* __restrict__ v_pages,
+                                const int* __restrict__ tables,
+                                T* __restrict__ out, int H, int G, int ps,
+                                int P, int bq, float scale) {
+  using D = DuetCfg<T, DH>;
+  extern __shared__ __align__(128) char smem[];
   const int t = blockIdx.x, g = blockIdx.y;
+  const int C = gridDim.z;               // the cluster spans z
+  const int rank = blockIdx.z;
   const int rep = H / G;
-  const int nrows = bq * rep;            // block row i: tile row i / rep,
-                                         // head g * rep + i % rep
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-  extern __shared__ float smem[];
-  float* q_s = smem;                     // nrows rows of Dh
-  float* k_s = q_s + nrows * Dh;         // ps rows, stride Dh + 1
-  float* v_s = k_s + ps * (Dh + 1);      // ps rows, stride Dh
-
-  for (int i = threadIdx.x; i < nrows * Dh; i += blockDim.x) {
-    const int row = i / Dh, d = i - row * Dh;
-    const int r = row / rep, j = row - r * rep;
-    q_s[i] = to_f32(q[((size_t)(t * bq + r) * H + g * rep + j) * Dh + d]);
-  }
-
+  // the live rows (a prefix of the tile) and the tile's largest position
   const int slot = tile_slot[t];
-  int maxpos = -1;
+  int nlive = 0, maxpos = -1;
   if (slot >= 0)
-    for (int r = 0; r < bq; ++r) maxpos = max(maxpos, row_pos[t * bq + r]);
+    for (int r = 0; r < bq; ++r) {
+      const int p = row_pos[t * bq + r];
+      if (p >= 0) {
+        nlive = r + 1;
+        maxpos = max(maxpos, p);
+      }
+    }
+  const int nrows = nlive * rep;         // CTA row i: tile row i / rep,
+                                         // head g * rep + i % rep
+  auto row_head = [&](int i) {
+    return ((size_t)t * bq + i / rep) * H + (size_t)g * rep + i % rep;
+  };
+  if (rank == 0)                         // rows past the live ones: zeros
+    for (int i = nrows * DH + threadIdx.x; i < bq * rep * DH;
+         i += D::THREADS)
+      out[row_head(i / DH) * DH + i % DH] = from_f32<T>(0.f);
+  if (nrows == 0) return;                // the whole cluster returns
+  const bool prefill = nrows > DECODE_ROWS;
 
-  int limit[MAX_ROWS_PER_WARP];
-  float m[MAX_ROWS_PER_WARP], l[MAX_ROWS_PER_WARP];
-  float acc[MAX_ROWS_PER_WARP][DPL];
-#pragma unroll
-  for (int ri = 0; ri < MAX_ROWS_PER_WARP; ++ri) {
-    const int row = warp + ri * WARPS;
-    limit[ri] = (slot >= 0 && row < nrows) ? row_pos[t * bq + row / rep] : -1;
-    m[ri] = NEG_INF;
-    l[ri] = 0.f;
-#pragma unroll
-    for (int j = 0; j < DPL; ++j) acc[ri][j] = 0.f;
-  }
+  // this CTA's span of the tile's 64-key units (ops.cluster_spans)
+  const int n_keys = min(P * ps, maxpos + 1);
+  const int units = (n_keys + dcore::SPLIT_KEYS - 1) / dcore::SPLIT_KEYS;
+  const int span = (units + C - 1) / C;
+  const int u0 = min(rank * span, units), u1 = min(u0 + span, units);
+  const int k_begin = u0 * dcore::SPLIT_KEYS;
+  const int k_end = min(u1 * dcore::SPLIT_KEYS, n_keys);
+  const int pg0 = k_begin / ps;
+  const int pg1 = k_end > k_begin ? (k_end + ps - 1) / ps : pg0;
+  int* pid = reinterpret_cast<int*>(smem + D::MAIN_BYTES);
+  for (int i = threadIdx.x; i < pg1 - pg0; i += D::THREADS)
+    pid[i] = tables[(size_t)slot * P + pg0 + i];
+  __syncthreads();                       // page ids in place
 
-  const int n_pages = maxpos < 0 ? 0 : min(P, maxpos / ps + 1);
-  const int* trow = tables + (size_t)max(slot, 0) * P;
-  const size_t row_stride = (size_t)G * Dh;
-  for (int p = 0; p < n_pages; ++p) {
-    const size_t base = ((size_t)trow[p] * ps * G + g) * Dh;
-    __syncthreads();  // q_s written / the previous page consumed
-    load_page<T>(k_s, Dh + 1, k_pages + base, row_stride, ps, Dh);
-    load_page<T>(v_s, Dh, v_pages + base, row_stride, ps, Dh);
-    __syncthreads();
-    attend_page<DPL>(q_s, k_s, v_s, ps, Dh, p * ps, limit, warp, nrows,
-                     scale, m, l, acc);
-  }
-
-#pragma unroll
-  for (int ri = 0; ri < MAX_ROWS_PER_WARP; ++ri) {
-    const int row = warp + ri * WARPS;
-    if (row >= nrows) continue;
-    const int r = row / rep, j = row - r * rep;
-    const float denom = fmaxf(l[ri], DENOM_EPS);
-    T* o = out + ((size_t)(t * bq + r) * H + g * rep + j) * Dh;
-#pragma unroll
-    for (int jj = 0; jj < DPL; ++jj)
-      o[lane + 32 * jj] = from_f32<T>(acc[ri][jj] / denom);
+  const size_t row_elems = (size_t)G * DH;
+  const int ps_shift = (ps & (ps - 1)) ? -1 : __ffs(ps) - 1;
+  const dcore::PagedSrc src{pid, pg0 * ps, ps, ps_shift,
+                            (size_t)ps * row_elems, row_elems,
+                            (size_t)g * DH};
+  auto lim_of = [&](int i) { return row_pos[t * bq + i / rep]; };
+  auto write_out = [&](int i, int d, float x) {
+    out[row_head(i) * DH + d] = from_f32<T>(x);
+  };
+  auto qrow = [&](int i) { return q + row_head(i) * DH; };
+  if (nrows <= D::Small::NRB) {
+    dcore::decode_cluster<typename D::Small>(
+        smem, k_pages, v_pages, src, k_begin, k_end, qrow, lim_of, nrows,
+        scale, write_out);
+  } else if (!prefill) {
+    dcore::decode_cluster<typename D::Big>(
+        smem, k_pages, v_pages, src, k_begin, k_end, qrow, lim_of, nrows,
+        scale, write_out);
+  } else if constexpr (D::PREFILL) {
+    float* part = C > 1 ? reinterpret_cast<float*>(smem) : nullptr;
+    auto row_off = [&](int i) -> long long {
+      return i < nrows ? (long long)(row_head(i) * DH) : -1;
+    };
+    if constexpr (D::MMA)
+      pcore::mma_block<DH>(smem, q, k_pages, v_pages, out, src, k_begin,
+                           k_end, row_off, lim_of, scale, part);
+    else
+      pcore::simt_block<T, DH>(smem, q, k_pages, v_pages, out, src, k_begin,
+                               k_end, row_off, lim_of, scale, part);
+    if (part)
+      dcore::cluster_combine<TILE_ROWS, DH, D::THREADS>(part, nrows,
+                                                        write_out);
   }
 }
 
-template <typename T, int DPL>
-static cudaError_t launch_duet(const void* q, const int* row_pos,
-                               const int* tile_slot, const void* k,
-                               const void* v, const int* tables, void* out,
-                               int T_, int bq, int H, int G, int ps, int P,
-                               float scale, cudaStream_t stream) {
-  constexpr int Dh = DPL * 32;
-  const int nrows = bq * (H / G);
-  const size_t smem = sizeof(float) * (size_t)(nrows * Dh + ps * (Dh + 1) +
-                                               ps * Dh);
-  auto kernel = duet_attention_paged_kernel<T, DPL>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  kernel<<<dim3(T_, G), THREADS, smem, stream>>>(
-      static_cast<const T*>(q), row_pos, tile_slot, static_cast<const T*>(k),
-      static_cast<const T*>(v), tables, static_cast<T*>(out), H, G, ps, P,
-      bq, scale);
-  return cudaGetLastError();
+// dynamic shared memory of one CTA: the larger role's + the span's page ids
+template <typename T, int DH>
+size_t duet_smem(int P, int ps, int C) {
+  return DuetCfg<T, DH>::MAIN_BYTES + sizeof(int) * span_pages(P, ps, C);
 }
 
-template <typename T>
-static cudaError_t dispatch_dh(int Dh, const void* q, const int* row_pos,
-                               const int* tile_slot, const void* k,
-                               const void* v, const int* tables, void* out,
-                               int T_, int bq, int H, int G, int ps, int P,
-                               float scale, cudaStream_t stream) {
-#define DA_CASE(DH)                                                       \
-  case DH:                                                                \
-    return launch_duet<T, DH / 32>(q, row_pos, tile_slot, k, v, tables,   \
-                                   out, T_, bq, H, G, ps, P, scale, stream);
-  switch (Dh) {
-    DA_CASE(32)
-    DA_CASE(64)
-    DA_CASE(128)
-    DA_CASE(256)
+// Calls fn((T*)nullptr, std::integral_constant<int, Dh>{}) for the dtype
+// code and a head dim of 32, 64, 128 or 256.
+template <class Fn>
+cudaError_t dispatch(int dtype, int Dh, Fn fn) {
+#define DUET_CASE(TT, D) \
+  if (Dh == D) return fn((TT*)nullptr, std::integral_constant<int, D>{});
+  if (dtype == DTYPE_F32) {
+    DUET_CASE(float, 32)
+    DUET_CASE(float, 64)
+    DUET_CASE(float, 128)
+    DUET_CASE(float, 256)
+  } else if (dtype == DTYPE_BF16) {
+    DUET_CASE(__nv_bfloat16, 32)
+    DUET_CASE(__nv_bfloat16, 64)
+    DUET_CASE(__nv_bfloat16, 128)
+    DUET_CASE(__nv_bfloat16, 256)
   }
-#undef DA_CASE
+#undef DUET_CASE
   return cudaErrorInvalidValue;
 }
 
+cudaError_t launch_duet(const void* q, const void* row_pos,
+                        const void* tile_slot, const void* k, const void* v,
+                        const void* tables, void* out, int T_, int bq, int H,
+                        int G, int Dh, int ps, int P, int C, float scale,
+                        int dtype, cudaStream_t stream) {
+  if (C < 1 || C > dcore::MAX_CLUSTER || H % G ||
+      bq * (H / G) > (Dh <= 128 ? TILE_ROWS : DECODE_ROWS))
+    return cudaErrorInvalidValue;
+  return dispatch(dtype, Dh, [&](auto tt, auto dh) {
+    using T = std::remove_pointer_t<decltype(tt)>;
+    constexpr int DH = decltype(dh)::value;
+    return dcore::launch_cluster<typename DuetCfg<T, DH>::Big>(
+        duet_attention_paged_kernel<T, DH>, dim3(T_, G, C), C,
+        duet_smem<T, DH>(P, ps, C), stream, static_cast<const T*>(q),
+        static_cast<const int*>(row_pos), static_cast<const int*>(tile_slot),
+        static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const int*>(tables), static_cast<T*>(out), H, G, ps, P,
+        bq, scale);
+  });
+}
+
+cudaError_t duet_occupancy(int Dh, int ps, int P, int C, int dtype,
+                           int* res) {
+  if (C < 1 || C > dcore::MAX_CLUSTER) return cudaErrorInvalidValue;
+  return dispatch(dtype, Dh, [&](auto tt, auto dh) {
+    using T = std::remove_pointer_t<decltype(tt)>;
+    constexpr int DH = decltype(dh)::value;
+    auto kernel = duet_attention_paged_kernel<T, DH>;
+    res[1] = (int)duet_smem<T, DH>(P, ps, C);
+    cudaFuncAttributes attr;
+    cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
+    if (e != cudaSuccess) return e;
+    res[2] = attr.numRegs;
+    return dcore::max_active_clusters<typename DuetCfg<T, DH>::Big>(
+        kernel, C, (size_t)res[1], &res[0]);
+  });
+}
+
+}  // namespace
+
 extern "C" {
 
-// grid (T, G); out (T*bq, H, Dh).
+// grid (T, G, C) in clusters of C CTAs along z (C <= 8); out (T*bq, H, Dh).
 int duet_attention_paged_launch(const void* q, const void* row_pos,
                                 const void* tile_slot, const void* k,
                                 const void* v, const void* tables, void* out,
                                 int T_, int bq, int H, int G, int Dh, int ps,
-                                int P, float scale, int dtype, void* stream) {
-  const int* rp = static_cast<const int*>(row_pos);
-  const int* ts = static_cast<const int*>(tile_slot);
-  const int* tb = static_cast<const int*>(tables);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (dtype == DTYPE_F32)
-    e = dispatch_dh<float>(Dh, q, rp, ts, k, v, tb, out, T_, bq, H, G, ps, P,
-                           scale, st);
-  else if (dtype == DTYPE_BF16)
-    e = dispatch_dh<__nv_bfloat16>(Dh, q, rp, ts, k, v, tb, out, T_, bq, H,
-                                   G, ps, P, scale, st);
-  else
-    e = cudaErrorInvalidValue;
-  return (int)e;
+                                int P, int C, float scale, int dtype,
+                                void* stream) {
+  return (int)launch_duet(q, row_pos, tile_slot, k, v, tables, out, T_, bq,
+                          H, G, Dh, ps, P, C, scale, dtype,
+                          static_cast<cudaStream_t>(stream));
+}
+
+// duet_attention_paged_launch's residency for tables of width P over pages
+// of ps tokens: res = {clusters of C CTAs the card holds at once, dynamic
+// shared memory bytes per CTA, registers per thread}.
+int duet_attention_paged_occupancy(int Dh, int ps, int P, int C, int dtype,
+                                   void* res) {
+  return (int)duet_occupancy(Dh, ps, P, C, dtype, static_cast<int*>(res));
 }
 
 }  // extern "C"

@@ -16,8 +16,8 @@
 // CTA first copies its span's page ids from the block table into shared
 // memory, then streams the pages' K/V rows of its group through the
 // cp.async ring, taking each stage against all rep query rows of the
-// group; rank 0 combines the cluster's partials through distributed
-// shared memory, in rank order, and writes the output. Design notes in
+// group; the ranks combine the cluster's partials through distributed
+// shared memory in rank order, and write the output. Design notes in
 // decode_core.cuh.
 //
 // The two wrappers differ only in C. paged_decode picks it on the host for

@@ -16,15 +16,23 @@ only; the numerics do not depend on it.
 
 Kernel sources: ``csrc/duet_attention.cu`` (slab, on the cluster decode
 core ``csrc/decode_core.cuh``) and ``csrc/duet_attention_paged.cu`` (pages,
-on ``csrc/attn_common.cuh``); design notes there. Bound on an H100: memory
-(the unique live KV bytes of the tiles at 3.35 TB/s). Every tile has its
-own CTAs, so keys shared by a prefill chunk's tiles are read once per tile.
-Both stop after the key of the tile's largest ``row_pos`` (the Pallas
-grids walk all of S, or all P pages). The slab kernel splits a tile's keys
-over a cluster of C CTAs (each a span of whole 64-key units, combined
-through distributed shared memory); C comes from
+on ``decode_core.cuh`` and the prefill core ``csrc/prefill_core.cuh``);
+design notes there. Bound on an H100: memory (the unique live KV bytes of
+the tiles at 3.35 TB/s). Both stop after the key of the tile's largest
+``row_pos`` (the Pallas grids walk all of S, or all P pages) and split a
+tile's keys over a cluster of C CTAs (each a span of whole 64-key units,
+combined through distributed shared memory); C comes from
 :func:`~repro_torch.kernels.ops.cluster_size` on the host: the most CTAs
-the card runs in one wave, capped at 8 and at the slab's 64-key units.
+the card runs in one wave, capped at 8 and at the 64-key units of the
+slab row or the table. The slab kernel runs every tile of up to 16 (row,
+head) pairs on the decode core. The paged kernel takes tiles of up to 64
+pairs (``ops.DUET_TILE_ROWS``) and picks a role per tile on the card: a
+tile of at most 16 live pairs (``ops.DUET_DECODE_ROWS``; a decode row)
+runs on the decode core, a larger one (a tile of the prefill chunk) on
+``flash_prefill``'s tensor-core block with its K/V gathered through the
+page table, so a chunk's chain is read once per tile of 64 / rep
+positions. :func:`duet_attention_paged_tiled_plain` is that schedule in
+plain PyTorch.
 
 Pad rows (``row_pos < 0``) and pad tiles (``tile_slot < 0``) come out as
 zeros here and in the plain versions (the reference kernels leave the mean
@@ -40,14 +48,19 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ops import (NEG_INF, SPLIT_KEYS, cluster_size,
-                                     default_sm_scale, gqa_split_heads)
+from repro_torch.kernels.ops import (DENOM_EPS, DUET_DECODE_ROWS,
+                                     DUET_TILE_ROWS, MASKED_M_THRESHOLD,
+                                     NEG_INF, SPLIT_KEYS, cluster_size,
+                                     cluster_spans, default_sm_scale,
+                                     gqa_split_heads)
 
 launches = {"duet_attention": 0, "duet_attention_paged": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_QUERY_ROWS = 16      # block_q * rep of one block (csrc: 16 at most)
+MAX_QUERY_ROWS = 16      # slab: block_q * rep of one block (csrc)
 _PLAIN_ROWS = 16         # rows per gathered chunk in the plain versions
+LOG2E = 1.4426950408889634
+BLOCK_N = 64             # keys a K/V tile of the paged walk (csrc)
 
 
 def _attend_rows(q, pos, live, k, v):
@@ -105,9 +118,117 @@ def duet_attention_paged_plain(q, row_pos, tile_slot, k_pages, v_pages,
     return _plain(q, row_pos, tile_slot, block_q, gather)
 
 
-def _check_launch(name, q, row_pos, tile_slot, kv, ints, block_q):
+def duet_tile_plan(row_pos, tile_slot, *, block_q: int, rep: int):
+    """What the paged kernel does with each tile, read from its rows as
+    the kernel reads them on the card: (role, live rows, keys) per tile.
+    The live rows are the tile's rows up to its last one with row_pos >= 0,
+    the keys 0 .. the largest row_pos; a tile of at most
+    ``ops.DUET_DECODE_ROWS`` live (row, head) pairs takes the "decode"
+    role, a larger one the "prefill" role; a pad tile (or one without live
+    rows) is (None, 0, 0)."""
+    pos = row_pos.reshape(-1).tolist()
+    plan = []
+    for t, slot in enumerate(tile_slot.tolist()):
+        rows = pos[t * block_q:(t + 1) * block_q]
+        live = [i for i, p in enumerate(rows) if p >= 0]
+        if slot < 0 or not live:
+            plan.append((None, 0, 0))
+            continue
+        nlive = live[-1] + 1
+        role = "decode" if nlive * rep <= DUET_DECODE_ROWS else "prefill"
+        plan.append((role, nlive, max(rows) + 1))
+    return plan
+
+
+def _online(qt, lim, chunks, k_chain, v_chain, qs, dtype):
+    """Online softmax in the log2 domain of rows qt (G,n,Dh) (row i sees
+    keys <= lim[i]) over the key chunks in order (each a (k,) tensor of key
+    positions), P rounded to ``dtype`` before P V. Returns (m in log2
+    units, NEG_INF for a row that saw no valid key; l; acc): (G,n), (G,n),
+    (G,n,Dh)."""
+    G, n, Dh = qt.shape
+    m = torch.full((G, n), NEG_INF, device=qt.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((G, n, Dh), device=qt.device)
+    for keys in chunks:
+        s = torch.einsum("gnd,kgd->gnk", qt, k_chain[keys])
+        valid = keys[None, :] <= lim[:, None]                       # (n,k)
+        s = torch.where(valid[None], s, torch.full_like(s, NEG_INF))
+        mx = torch.maximum(m, s.amax(dim=-1))
+        msc = torch.where(mx > MASKED_M_THRESHOLD, mx * qs,
+                          torch.zeros_like(mx))
+        alpha = torch.exp2(m * qs - msc)
+        p = torch.exp2(s * qs - msc[..., None]).to(dtype).float()
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("gnk,kgd->gnd", p,
+                                                    v_chain[keys])
+        m = mx
+    return (torch.where(m > MASKED_M_THRESHOLD, m * qs,
+                        torch.full_like(m, NEG_INF)), l, acc)
+
+
+def _combine(m, l, acc):
+    """Log-sum-exp combine of (m, l, acc) partials stacked on dim 0, in
+    that order (a partial whose max is at or below MASKED_M_THRESHOLD
+    weighs 0)."""
+    ms = m.amax(dim=0)
+    w = torch.where(m > MASKED_M_THRESHOLD, torch.exp2(m - ms),
+                    torch.zeros_like(m))
+    l_sum = torch.zeros_like(ms)
+    acc_sum = torch.zeros_like(acc[0])
+    for i in range(m.shape[0]):
+        l_sum = l_sum + w[i] * l[i]
+        acc_sum = acc_sum + w[i][..., None] * acc[i]
+    return ms, l_sum, acc_sum
+
+
+def duet_attention_paged_tiled_plain(q, row_pos, tile_slot, k_pages, v_pages,
+                                     tables, *, block_q: int = 8,
+                                     cluster: int = 1):
+    """The paged kernel's schedule in plain PyTorch: each tile's role
+    (:func:`duet_tile_plan`), its keys in ``cluster`` spans of whole 64-key
+    units (:func:`~repro_torch.kernels.ops.cluster_spans`) gathered through
+    its table row, per span one online softmax over 64-key tiles (either
+    role), then the spans' partials combined in rank order, and
+    ``acc / max(l, DENOM_EPS)``. Pad rows and pad tiles give zeros."""
+    R, H, Dh = q.shape
+    N, ps, G, _ = k_pages.shape
+    rep = H // G
+    qs = default_sm_scale(Dh) * LOG2E
+    pos = row_pos.reshape(-1).long()
+    out = torch.zeros_like(q)
+    plan = duet_tile_plan(row_pos, tile_slot, block_q=block_q, rep=rep)
+    for t, (role, nlive, n_keys) in enumerate(plan):
+        if role is None:
+            continue
+        n_keys = min(n_keys, tables.shape[1] * ps)
+        rows = slice(t * block_q, t * block_q + nlive)
+        qt = gqa_split_heads(q[rows].float(), G).permute(1, 0, 2, 3) \
+            .reshape(G, nlive * rep, Dh)
+        lim = pos[rows].repeat_interleave(rep)
+        keys = torch.arange(n_keys, device=q.device)
+        page = tables[int(tile_slot[t])].long()[keys // ps]
+        k_chain = k_pages[page, keys % ps].float()                 # (L,G,D)
+        v_chain = v_pages[page, keys % ps].float()
+        parts = []
+        for u0, u1 in cluster_spans(-(-n_keys // SPLIT_KEYS), cluster):
+            k0, k1 = u0 * SPLIT_KEYS, min(u1 * SPLIT_KEYS, n_keys)
+            chunks = [keys[s:min(s + BLOCK_N, k1)]
+                      for s in range(k0, k1, BLOCK_N)]
+            parts.append(_online(qt, lim, chunks, k_chain, v_chain, qs,
+                                 q.dtype))
+        _, l, acc = _combine(*(torch.stack(x) for x in zip(*parts)))
+        o = acc / l.clamp(min=DENOM_EPS)[..., None]
+        out[rows] = o.reshape(G, nlive, rep, Dh).permute(1, 0, 2, 3) \
+            .reshape(nlive, H, Dh).to(q.dtype)
+    return out
+
+
+def _check_launch(name, q, row_pos, tile_slot, kv, ints, block_q,
+                  max_rows):
     """The checks both CUDA wrappers make before a launch. ``kv``: the two
-    KV tensors, (..., G, Dh); ``ints``: the int32 index tensors."""
+    KV tensors, (..., G, Dh); ``ints``: the int32 index tensors;
+    ``max_rows``: the most (row, head) pairs of a tile."""
     R, H, Dh = q.shape
     G, Dk = kv[0].shape[-2:]
     if q.dtype not in _DTYPES:
@@ -130,9 +251,9 @@ def _check_launch(name, q, row_pos, tile_slot, kv, ints, block_q):
         raise ValueError(f"{name}: rows != tiles * block_q")
     if Dk != Dh or Dh not in (32, 64, 128, 256) or H % G:
         raise ValueError(f"{name}: unsupported H={H} G={G} Dh={Dh}")
-    if block_q * (H // G) > MAX_QUERY_ROWS:
+    if block_q * (H // G) > max_rows:
         raise ValueError(f"{name}: block_q * rep = {block_q * (H // G)} > "
-                         f"{MAX_QUERY_ROWS}")
+                         f"{max_rows} at Dh={Dh}")
     if kv[0].data_ptr() % 16 or kv[1].data_ptr() % 16:
         raise ValueError(f"{name}: k and v must be 16-byte aligned")
 
@@ -167,7 +288,7 @@ def cluster_for(q, tile_slot, k_slab, block_q) -> int:
 def _launch(q, row_pos, tile_slot, k_slab, v_slab, block_q):
     S = k_slab.shape[1]
     _check_launch("duet_attention", q, row_pos, tile_slot, (k_slab, v_slab),
-                  {}, block_q)
+                  {}, block_q, MAX_QUERY_ROWS)
     R, H, Dh = q.shape
     T, G = tile_slot.shape[0], k_slab.shape[2]
     C = cluster_for(q, tile_slot, k_slab, block_q)
@@ -183,18 +304,50 @@ def _launch(q, row_pos, tile_slot, k_slab, v_slab, block_q):
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def paged_occupancy(device: int, dtype, Dh: int, ps: int, P: int, C: int):
+    """(clusters of C CTAs the card runs at once, shared memory bytes per
+    CTA, registers per thread) of the :func:`duet_attention_paged` kernel
+    for tables of width P over pages of ps tokens
+    (cudaOccupancyMaxActiveClusters, cudaFuncGetAttributes; a host query,
+    no device sync)."""
+    res = (ctypes.c_int * 3)()
+    with torch.cuda.device(device):
+        err = _build.load(
+            "duet_attention_paged").duet_attention_paged_occupancy(
+            Dh, ps, P, C, _DTYPES[dtype], ctypes.addressof(res))
+    _build.check(err, "duet_attention_paged occupancy")
+    return tuple(res)
+
+
+def paged_cluster_for(q, tile_slot, k_pages, tables) -> int:
+    """The cluster size :func:`duet_attention_paged` launches these inputs
+    with: one wave of the T * G (tile, group) clusters, at most the
+    table's 64-key units."""
+    H, Dh = q.shape[1:]
+    ps, G = k_pages.shape[1:3]
+    P = tables.shape[1]
+    dev = q.device.index if q.device.index is not None else \
+        torch.cuda.current_device()
+    return cluster_size(
+        tile_slot.shape[0] * G, -(-P * ps // SPLIT_KEYS),
+        lambda C: C * paged_occupancy(dev, q.dtype, Dh, ps, P, C)[0])
+
+
 def _launch_paged(q, row_pos, tile_slot, k_pages, v_pages, tables, block_q):
-    _check_launch("duet_attention_paged", q, row_pos, tile_slot,
-                  (k_pages, v_pages), {"tables": tables}, block_q)
     R, H, Dh = q.shape
+    _check_launch("duet_attention_paged", q, row_pos, tile_slot,
+                  (k_pages, v_pages), {"tables": tables}, block_q,
+                  DUET_TILE_ROWS if Dh <= 128 else DUET_DECODE_ROWS)
     N, ps, G, _ = k_pages.shape
+    C = paged_cluster_for(q, tile_slot, k_pages, tables)
     out = torch.empty_like(q)
     lib = _build.load("duet_attention_paged")
     err = lib.duet_attention_paged_launch(
         q.data_ptr(), row_pos.data_ptr(), tile_slot.data_ptr(),
         k_pages.data_ptr(), v_pages.data_ptr(), tables.data_ptr(),
         out.data_ptr(), tile_slot.shape[0], block_q, H, G, Dh, ps,
-        tables.shape[1], default_sm_scale(Dh), _DTYPES[q.dtype],
+        tables.shape[1], C, default_sm_scale(Dh), _DTYPES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "duet_attention_paged")
     launches["duet_attention_paged"] += 1
@@ -240,7 +393,8 @@ def duet_attention_paged(q, row_pos, tile_slot, k_pages, v_pages, tables, *,
       tables:    (B, P) int32 block tables; row ``tile_slot[t]`` is tile
                  t's page chain. Unused entries must hold a valid (null)
                  page id.
-    Returns (T*block_q, H, Dh).
+    On the card ``block_q * rep`` is at most 64 (16 at Dh 256). Returns
+    (T*block_q, H, Dh).
     """
     if q.device.type == "cpu":
         return duet_attention_paged_plain(q, row_pos, tile_slot, k_pages,

@@ -76,28 +76,46 @@ def num_splits_for(num_pages: int, page_size: int,
     return max(2, min(num_pages, -(-capacity // split_threshold), 8))
 
 
-# The key split of the cluster decode kernels (csrc/decode_core.cuh):
+# The key split of the cluster kernels (csrc/decode_core.cuh):
 # ``paged_decode`` splits a request's live pages, the slab
-# ``duet_attention`` a tile's keys in units of SPLIT_KEYS, over a cluster
-# of C CTAs.
+# ``duet_attention`` and ``duet_attention_paged`` a tile's keys in units of
+# SPLIT_KEYS, over a cluster of C CTAs.
 CLUSTER_MAX = 8          # the portable cluster size
-SPLIT_KEYS = 64          # the slab split's unit (keys)
+SPLIT_KEYS = 64          # the duet kernels' split unit (keys)
 
 
 def cluster_size(ctas: int, max_units: int, holds) -> int:
     """C for a launch of ``ctas`` (request or tile, KV group) clusters: the
     largest power of two, at most :data:`CLUSTER_MAX` and at most
     ``max_units`` (the split units of the longest row; the host passes a
-    bound that needs no device read: the table's width, or the slab's
-    64-key units), whose grid of ``ctas * C`` CTAs the card runs in one
-    wave. ``holds(C)`` is how many CTAs of clusters of C the card runs at
-    once (cudaOccupancyMaxActiveClusters). 1 when the grid already fills
-    the card."""
+    bound that needs no device read: the table's width in pages, or the
+    64-key units of the slab or of the table), whose grid of ``ctas * C``
+    CTAs the card runs in one wave. ``holds(C)`` is how many CTAs of
+    clusters of C the card runs at once (cudaOccupancyMaxActiveClusters).
+    1 when the grid already fills the card."""
     C = 1
     while (2 * C <= min(CLUSTER_MAX, max_units)
            and ctas * 2 * C <= holds(2 * C)):
         C *= 2
     return C
+
+
+# The paged duet kernel's tiles (csrc/duet_attention_paged.cu): a tile of
+# up to DUET_TILE_ROWS (row, head) pairs of one KV group is one CTA (its
+# prefill role: flash_prefill's 64-row tensor-core block); a tile of at
+# most DUET_DECODE_ROWS live pairs takes the decode role (the cluster decode
+# core). Head dims above 128 have no prefill role.
+DUET_TILE_ROWS = 64
+DUET_DECODE_ROWS = 16
+
+
+def duet_block_q(num_heads: int, num_kv_heads: int, head_dim: int) -> int:
+    """Query rows of one tile of the engine's fused duet launch: as many
+    chunk positions as fill one tile of the paged duet kernel (64 // rep at
+    head dims up to 128, e.g. 16 at qwen3-4b's rep 4). Scheduling only: the
+    numerics do not depend on it."""
+    rows = DUET_TILE_ROWS if head_dim <= 128 else DUET_DECODE_ROWS
+    return max(1, rows // (num_heads // num_kv_heads))
 
 
 def cluster_spans(n_units: int, C: int) -> List[Tuple[int, int]]:

@@ -386,10 +386,28 @@ def gqa_prefill_paged(params, cfg: ArchConfig, x: torch.Tensor,
     return out, (k_pages, v_pages)
 
 
+def duet_packing(order: torch.Tensor, pos: torch.Tensor, block_q: int):
+    """The tile layout of a duet schedule, as device index tensors (no host
+    sync): ``order`` (T*block_q,) the schedule's ``row_src`` (-1 = pad),
+    ``pos`` (R,) the rows' positions. Returns (src: the source row of each
+    tile row, pads reading row 0; row_pos (T*block_q, 1) int32, -1 at pads;
+    tile_slot (T,) int32, each tile's first row, whose table row is the
+    tile's chain; dst: where each tile row goes back, pads to a spare row
+    R)."""
+    order = order.long()
+    live = order >= 0
+    src = order.clamp(min=0)
+    row_pos = torch.where(live, pos.index_select(0, src).long(),
+                          torch.full_like(src, -1))
+    tile_slot = order.view(-1, block_q)[:, 0]
+    dst = torch.where(live, order, torch.full_like(order, pos.shape[0]))
+    return (src, row_pos[:, None].to(torch.int32).contiguous(),
+            tile_slot.to(torch.int32).contiguous(), dst)
+
+
 def gqa_duet_paged(params, cfg: ArchConfig, x: torch.Tensor,
                    k_pages: torch.Tensor, v_pages: torch.Tensor,
-                   table: torch.Tensor, pos: torch.Tensor,
-                   order: torch.Tensor):
+                   table: torch.Tensor, pos: torch.Tensor, packing):
     """Mixed-phase duet step over the paged pool (Algorithm 1 on-device).
 
     ``x`` (R,1,D) holds R combined rows — decode rows (one token each, own
@@ -397,20 +415,25 @@ def gqa_duet_paged(params, cfg: ArchConfig, x: torch.Tensor,
     shared table row). All rows' K/V scatter into their pages first, then
     every row attends causally over its chain (``k_pos <= pos``), so chunk
     row i sees rows 0..i — chunked prefill and the decode steps execute as
-    ONE ``duet_attention_paged`` launch. ``order`` (R,) is the Algorithm-1
-    tile permutation from ``ops.build_duet_schedule`` (block_q=1): tile t
-    processes row ``order[t]``; numerics are order-invariant. Both the
-    permutation and its undo are index ops on the device (no host sync).
+    ONE ``duet_attention_paged`` launch. ``packing`` is
+    :func:`duet_packing` of the Algorithm-1 schedule (T tiles of block_q
+    rows); the tile size is its rows over its tiles. The numerics do not
+    depend on the layout. Packing and unpacking are index ops on the device
+    (no host sync); a pad row's query is never read.
     """
     q, k, v = _project_qkv(params, cfg, x, pos[:, None])
     _paged_write(k_pages, k, table, pos[:, None])
     _paged_write(v_pages, v, table, pos[:, None])
-    order = order.long()
+    src, row_pos, tile_slot, dst = packing
     rows = kernel_ops.duet_attention_paged(
-        q[:, 0].index_select(0, order),
-        pos.index_select(0, order)[:, None].to(torch.int32).contiguous(),
-        order.to(torch.int32), k_pages.to(q.dtype), v_pages.to(q.dtype),
-        table.to(torch.int32).contiguous(), block_q=1)
-    rows = torch.empty_like(rows).index_copy_(0, order, rows)  # undo permute
+        q[:, 0].index_select(0, src), row_pos, tile_slot,
+        k_pages.to(q.dtype), v_pages.to(q.dtype),
+        table.to(torch.int32).contiguous(),
+        block_q=src.shape[0] // tile_slot.shape[0])
+    # undo the packing: live rows to their source rows, pads to the spare
+    # row R, dropped
+    R = q.shape[0]
+    rows = rows.new_empty((R + 1,) + rows.shape[1:]).index_copy_(
+        0, dst, rows)[:R]
     out = torch.einsum("bhe,hed->bd", rows, params["w_o"])[:, None, :]
     return out, (k_pages, v_pages)

@@ -222,23 +222,27 @@ class Model(nn.Module):
         logits = self._logits(x)
         return logits[:, 0], pools, state
 
-    def duet_step_paged(self, pools, state, token, pos, tables, order):
+    def duet_step_paged(self, pools, state, token, pos, tables, order, *,
+                        block_q: int = 1):
         """One fused mixed-phase duet step against paged attention KV.
 
         ``token`` (R,1) combined rows — decode rows first (one per engine
         slot, each with its own ``tables`` row), then one prefill chunk's
         rows (successive positions, all sharing the chunk's table row).
-        ``pos`` (R,) absolute positions; ``tables`` (R,P); ``order`` (R,)
-        the Algorithm-1 tile permutation (``ops.build_duet_schedule``).
-        Every layer executes both phases in one ``duet_attention_paged``
-        launch. Returns (logits (R,V), pools, state).
+        ``pos`` (R,) absolute positions; ``tables`` (R,P); ``order``
+        (T*block_q,) the Algorithm-1 schedule's ``row_src``
+        (``ops.build_duet_schedule`` with the same ``block_q``; -1 = pad;
+        a permutation of the rows at ``block_q=1``). Every layer executes
+        both phases in one ``duet_attention_paged`` launch. Returns
+        (logits (R,V), pools, state).
         """
         cfg = self.cfg
         x = self._embed(token)
+        packing = attn_mod.duet_packing(order, pos, block_q)
         for i, p in enumerate(self.params["layers"]):
             h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
             out, pools[i] = attn_mod.gqa_duet_paged(
-                p["attn"], cfg, h, *pools[i], tables, pos, order)
+                p["attn"], cfg, h, *pools[i], tables, pos, packing)
             x = self._mlp_block(p, x + out)
         x = rms_norm(x, self.params["final_norm"], cfg.norm_eps)
         logits = self._logits(x)

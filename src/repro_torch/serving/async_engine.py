@@ -47,7 +47,7 @@ from repro_torch.configs.base import GQA_KINDS
 from repro_torch.core.device import DeviceLike, fetch_to_host
 from repro_torch.core.lookahead import make_superiter_fn
 from repro_torch.core.roofline import HardwareSpec, TPU_V5E
-from repro_torch.kernels import build_duet_schedule
+from repro_torch.kernels.ops import build_duet_schedule, duet_block_q
 from repro_torch.models.transformer import Model
 from repro_torch.serving.engine import DuetEngine, EngineConfig
 from repro_torch.serving.request import Phase, Request, ServingMetrics
@@ -149,6 +149,12 @@ class AsyncDuetEngine(DuetEngine):
             self.model.attn_kernel and self.paged
             and all(k in GQA_KINDS for k in self.cfg.block_pattern))
         self._duet_orders: dict = {}
+        # rows of one duet tile: a chunk tile fills one 64-row block of the
+        # paged kernel (the reference tiles one row at a time; only
+        # scheduling differs)
+        self._duet_bq = duet_block_q(self.cfg.num_heads,
+                                     self.cfg.num_kv_heads,
+                                     self.cfg.head_dim)
         self._duet_safe = True
         self._programs: dict = {}
         self.dstats = DispatchStats()
@@ -415,23 +421,26 @@ class AsyncDuetEngine(DuetEngine):
             prog = make_superiter_fn(
                 self.model, kb, paged=self.paged, chunk=chunk,
                 finish=finish, sample=sample,
-                temperature=self.ec.temperature, duet_kernel=duet)
+                temperature=self.ec.temperature, duet_kernel=duet,
+                duet_block_q=self._duet_bq)
             self._programs[key] = prog
         else:
             self.dstats.cache_hits += 1
         return prog
 
     def _duet_order(self, chunk: int) -> torch.Tensor:
-        """Tile permutation for the fused duet launch: decode rows 0..B-1
-        interleaved among chunk rows B..B+chunk-1 at the Algorithm-1 ratio
-        (block_q=1: one row per tile, so ``row_src`` IS the permutation).
-        Scheduling-only — the kernel's online softmax is order-invariant."""
+        """Tile schedule for the fused duet launch: decode rows 0..B-1 one
+        per tile, interleaved at the Algorithm-1 ratio among the chunk rows
+        B..B+chunk-1 in tiles of ``duet_block_q`` rows; its ``row_src``
+        (-1 = pad) is the program's ``order``. Scheduling only — the
+        numerics do not depend on it. Built once per chunk length and
+        uploaded once (no host read)."""
         order = self._duet_orders.get(chunk)
         if order is None:
             B = self.ec.max_slots
             sched = build_duet_schedule(
                 [(b, 0) for b in range(B)],
-                [(B, i) for i in range(chunk)], block_q=1)
+                [(B, i) for i in range(chunk)], block_q=self._duet_bq)
             order = self._h2d(sched.row_src.astype(np.int32))
             self._duet_orders[chunk] = order
         return order

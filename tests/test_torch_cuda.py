@@ -31,6 +31,9 @@ from repro_torch.serving import (AsyncDuetEngine, DuetEngine, EngineConfig,
 pytestmark = pytest.mark.cuda
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# the paged duet kernel at the engine's tiles, (atol, rtol): the limit
+# chip_smoke.py holds it to (the output's bf16 ulp, P rounded to bf16)
+DUET_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (5e-3, 1e-2)}
 
 
 @pytest.fixture(scope="module")
@@ -138,6 +141,81 @@ def test_duet_attention_kernel_matches_plain(dev, bq, dtype):
     want = unpack_duet_output(
         sched, duet_attention_paged_plain(*args, block_q=bq), n)
     torch.testing.assert_close(got, want, atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bq", [1, 16])
+def test_paged_duet_kernel_matches_plain_at_engine_tiles(dev, bq, dtype):
+    """qwen3-4b's heads (rep 4) at the engine's tiles (bq = 64 // rep = 16:
+    decode rows on the decode core, chunk tiles on the prefill block) and
+    at one row a tile: decode contexts 1, 17, 300 and 2048, a 40-row chunk
+    and a pad tile, against the plain version and the tile schedule at the
+    wrapper's C; pad rows come out as zeros."""
+    from repro_torch.kernels.duet_attention import (
+        duet_attention_paged_tiled_plain, paged_cluster_for)
+    rng = np.random.default_rng(7)
+    H, G, Dh, ps, P = 32, 8, 128, 16, 128
+    decode_rows = [(b, c - 1) for b, c in enumerate((1, 17, 300, 2048))]
+    prefill_rows = [(4, 500 + i) for i in range(40)]
+    N = 5 * P + 1
+    kp = _randn(rng, (N, ps, G, Dh), dtype, dev)
+    vp = _randn(rng, (N, ps, G, Dh), dtype, dev)
+    tables = torch.tensor(1 + rng.permutation(N - 1).reshape(5, P),
+                          dtype=torch.int32, device=dev)
+    sched = build_duet_schedule(decode_rows, prefill_rows, block_q=bq)
+    n = len(decode_rows) + len(prefill_rows)
+    q = pack_duet_queries(sched, _randn(rng, (n, H, Dh), dtype, dev))
+    q = torch.cat([q, torch.ones_like(q[:bq])]).contiguous()   # a pad tile
+    row_pos = torch.tensor(np.concatenate([sched.row_pos, [-1] * bq]),
+                           dtype=torch.int32, device=dev)[:, None]
+    tile_slot = torch.tensor(np.concatenate([sched.tile_slot, [-1]]),
+                             dtype=torch.int32, device=dev)
+    args = (q, row_pos.contiguous(), tile_slot, kp, vp, tables)
+    got = duet_attention_paged(*args, block_q=bq)
+    C = paged_cluster_for(q, tile_slot, kp, tables)
+    for want in (duet_attention_paged_plain(*args, block_q=bq),
+                 duet_attention_paged_tiled_plain(*args, block_q=bq,
+                                                  cluster=C)):
+        torch.testing.assert_close(got, want, atol=DUET_TOL[dtype][0],
+                                   rtol=DUET_TOL[dtype][1])
+    assert torch.count_nonzero(got[row_pos[:, 0] < 0]) == 0
+
+
+def test_async_engine_duet_dispatch_uses_engine_block_q(dev, monkeypatch):
+    """The async engine's fused duet steps launch duet_attention_paged on
+    the card with tiles of bq = 64 // rep rows, and keep the CPU's greedy
+    tokens (fp32)."""
+    from repro_torch.kernels import ops as kernel_ops
+    from repro_torch.kernels.ops import duet_block_q
+    cfg = reduced(get_config("qwen3-4b"))
+    bq = duet_block_q(cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
+    assert bq == 64 // (cfg.num_heads // cfg.num_kv_heads)
+    seen = []
+    kernel = kernel_ops.duet_attention_paged
+
+    def spy(q, *args, block_q):
+        seen.append((block_q, q.device.type))
+        return kernel(q, *args, block_q=block_q)
+    specs = [(i, i * 0.0003, 20 + 7 * i, 6 + i) for i in range(5)]
+    kw = dict(max_slots=3, max_len=128, token_budget=48, page_size=8)
+    toks = {}
+    for device in ("cpu", dev):
+        model = Model.init(cfg, seed=0, device="cpu", attn_kernel=True)
+        eng = AsyncDuetEngine(model.to(device), EngineConfig(**kw),
+                              device=device)
+        eng.submit([Request(rid=r, arrival=a, prompt_len=p, output_len=o)
+                    for r, a, p, o in specs])
+        monkeypatch.setattr(kernel_ops, "duet_attention_paged", spy)
+        before = launch_counts()["duet_attention_paged"]
+        metrics = eng.run()
+        monkeypatch.undo()
+        toks[str(device)] = {r.rid: list(r.output_tokens)
+                             for r in metrics.requests}
+        if device != "cpu":
+            assert launch_counts()["duet_attention_paged"] > before
+    assert seen and {b for b, _ in seen} == {bq}
+    assert {d for _, d in seen} == {"cpu", "cuda"}
+    assert toks["cpu"] == toks[str(dev)]
 
 
 EDGE_ROWS = [(0, 0), (1, 15), (2, 16), (3, 2047)]   # lengths 1, 16, 17, 2048

@@ -33,6 +33,8 @@ from repro.serving.scheduler import QueueState as JQueueState
 from repro_torch.configs import get_config, reduced
 from repro_torch.core.multiplexer import AdaptiveMultiplexer
 from repro_torch.core.roofline import RequestLoad, RooflineModel
+from repro_torch.kernels import ops as kernel_ops
+from repro_torch.kernels.ops import build_duet_schedule, duet_block_q
 from repro_torch.models import Model, params_from_jax
 from repro_torch.serving import (AsyncDuetEngine, DuetEngine, EngineConfig,
                                  FinishEvent, Request, TokenEvent)
@@ -135,6 +137,34 @@ def test_async_engine_matches_sync_and_oracle(setup, oracle):
     assert st.cache_hits + st.cache_misses == st.dispatches
     assert any(key[-1] for key in eng._programs), "no duet dispatch"
     assert eng.kv_mgr.used_pages == 0
+
+
+def test_async_engine_duet_tiles_hold_the_engine_block_q(setup, oracle,
+                                                        monkeypatch):
+    """The async engine's fused duet launch takes its chunk in tiles of
+    ``ops.duet_block_q`` = 64 // rep rows (the reference keeps one row a
+    tile; only scheduling differs): every duet_attention_paged call of the
+    run gets that block_q and a schedule built with it, and the greedy
+    tokens stay the oracle's."""
+    jcfg, forward, tcfg, tmodel = setup
+    bq = duet_block_q(tcfg.num_heads, tcfg.num_kv_heads, tcfg.head_dim)
+    assert bq == 64 // (tcfg.num_heads // tcfg.num_kv_heads) > 1
+    seen = []
+    plain = kernel_ops.duet_attention_paged
+
+    def spy(q, row_pos, tile_slot, *args, block_q):
+        seen.append((block_q, q.shape[0], tile_slot.shape[0]))
+        return plain(q, row_pos, tile_slot, *args, block_q=block_q)
+    monkeypatch.setattr(kernel_ops, "duet_attention_paged", spy)
+    eng, metrics, toks = _serve(AsyncDuetEngine, tmodel, SPECS, **KW)
+    assert toks == oracle
+    assert seen and all(b == bq and R == T * bq for b, R, T in seen)
+    for chunk, order in eng._duet_orders.items():
+        sched = build_duet_schedule(
+            [(b, 0) for b in range(KW["max_slots"])],
+            [(KW["max_slots"], i) for i in range(chunk)], block_q=bq)
+        np.testing.assert_array_equal(order.numpy(), sched.row_src)
+    assert 0 < eng.dstats.host_syncs <= eng.dstats.super_iterations
 
 
 @pytest.mark.parametrize("cls", [DuetEngine, AsyncDuetEngine])

@@ -26,6 +26,7 @@ from repro.serving.kvcache import PagePoolConfig as JPagePoolConfig
 from repro.serving.kvcache import init_page_pools as jinit_page_pools
 from repro_torch.configs import get_config, list_configs, reduced
 from repro_torch.kernels import build_duet_schedule
+from repro_torch.kernels.ops import duet_block_q
 from repro_torch.models import Model, count_params_analytical, layers
 from repro_torch.models.params import layout, params_from_jax
 from repro_torch.serving.kvcache import PagePoolConfig, init_page_pools
@@ -214,9 +215,9 @@ def test_decode_step_paged_matches_jax(models, path):
     _close_pools(tpools, jpools)
 
 
-def _duet_rows(rng, vocab, C=8):
-    """Decode row of request A (pos 12) + an 8-row chunk of a new request
-    (pages 9-12) in the Algorithm-1 tile order."""
+def _duet_rows(rng, vocab, C=8, block_q=1):
+    """Decode row of request A (pos 12) + a C-row chunk of a new request
+    (pages 9-12) in the Algorithm-1 tile order, ``block_q`` rows a tile."""
     tok_dec = rng.integers(0, vocab, (1, 1)).astype(np.int32)
     chunk = rng.integers(0, vocab, (1, C)).astype(np.int32)
     row_tok = np.concatenate([tok_dec[:, 0], chunk[0]])[:, None]
@@ -225,7 +226,7 @@ def _duet_rows(rng, vocab, C=8):
                               np.repeat([[9, 10, 11, 12]], C, axis=0)]
                              ).astype(np.int32)
     sched = build_duet_schedule([(0, 12)], [(1, i) for i in range(C)],
-                                block_q=1)
+                                block_q=block_q)
     return tok_dec, chunk, row_tok, row_pos, row_tbl, sched
 
 
@@ -257,11 +258,19 @@ def test_model_duet_step_matches_sequential(models):
     ``prefill_paged`` pair — logits of both phases and the page pools they
     wrote. The port's pools are updated in place, so each side starts from
     its own copy."""
+    _check_duet_matches_sequential(models, 1)
+
+
+def _engine_block_q(cfg):
+    return duet_block_q(cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
+
+
+def _check_duet_matches_sequential(models, block_q, C=8):
     jcfg, jmodel, jparams, tcfg, tmodel = models
     rng = np.random.default_rng(11)
     _, pools, _ = _prefilled(models, rng)
     tok_dec, chunk, row_tok, row_pos, row_tbl, sched = _duet_rows(
-        rng, tcfg.vocab_size)
+        rng, tcfg.vocab_size, C, block_q)
     state = tmodel.init_state_cache(1)
     pools_seq = [tuple(t.clone() for t in p) for p in pools]
     logits_dec, pools_seq, _ = tmodel.decode_step_paged(
@@ -271,11 +280,46 @@ def test_model_duet_step_matches_sequential(models):
         _t(chunk), pools_seq, state,
         _t(np.asarray([[9, 10, 11, 12]], np.int32)), start_pos=0)
     logits_duet, pools_duet, _ = tmodel.duet_step_paged(
-        pools, tmodel.init_state_cache(9), _t(row_tok), _t(row_pos),
-        _t(row_tbl), _t(sched.row_src))
-    C = chunk.shape[1]
+        pools, tmodel.init_state_cache(C + 1), _t(row_tok), _t(row_pos),
+        _t(row_tbl), _t(sched.row_src), block_q=block_q)
     _close(logits_duet[0], logits_dec[0], 3e-5)
     _close(logits_duet[C], logits_pre[0], 3e-5)
     for ps_seq, ps_duet in zip(pools_seq, pools_duet):
         for a, b in zip(ps_seq, ps_duet):
             _close(b, a, 3e-6)
+
+
+@pytest.mark.parametrize("C", [8, 30])
+def test_model_duet_step_matches_sequential_at_engine_block_q(models, C):
+    """The same pin with the async engine's tiles (``ops.duet_block_q``:
+    64 // rep rows, here 32 at the reduced model's rep 2): a 30-row chunk
+    fills no tile, so the schedule has pad rows."""
+    tcfg = models[3]
+    assert _engine_block_q(tcfg) == 64 // (tcfg.num_heads //
+                                           tcfg.num_kv_heads)
+    _check_duet_matches_sequential(models, _engine_block_q(tcfg), C)
+
+
+def test_duet_step_paged_engine_tiles_match_jax(models):
+    """The port's duet step with the engine's tiles of 64 // rep rows
+    against the JAX duet step with the reference's one row a tile (the
+    Pallas kernel in interpret mode): the tiling is scheduling only, so
+    logits and pools agree within the same fp32 tolerance."""
+    jcfg, jmodel, jparams, tcfg, tmodel = models
+    rng = np.random.default_rng(13)
+    jpools, tpools, _ = _prefilled(models, rng)
+    bq = _engine_block_q(tcfg)
+    _, _, row_tok, row_pos, row_tbl, sched = _duet_rows(
+        rng, tcfg.vocab_size, 8, bq)
+    jsched = jbuild_duet_schedule([(0, 12)], [(1, i) for i in range(8)],
+                                  block_q=1)
+    assert len(sched.row_src) == 2 * bq and (sched.row_src < 0).any()
+    jl, jpools, _ = jmodel.duet_step_paged(
+        jparams, jpools, jmodel.init_state_cache(9), jnp.asarray(row_tok),
+        jnp.asarray(row_pos), jnp.asarray(row_tbl),
+        jnp.asarray(jsched.row_src))
+    tl, tpools, _ = tmodel.duet_step_paged(
+        tpools, tmodel.init_state_cache(9), _t(row_tok), _t(row_pos),
+        _t(row_tbl), _t(sched.row_src), block_q=bq)
+    _close(tl, jl)
+    _close_pools(tpools, jpools)
