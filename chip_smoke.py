@@ -20,7 +20,14 @@ Phases (each raises on failure; nothing is swallowed):
              the last 512-token chunk of one, and at its tile edges;
              duet_attention_paged at the async engine's tiles of 64 // rep
              rows, the main record, and at one row a tile, and at its tile
-             edges, against both its plain versions, pad rows zero).
+             edges, against both its plain versions, pad rows zero);
+             then every GQA head shape of the registered configs
+             (granite-20b's rep 48, yi-9b's rep 8, minicpm-2b's rep 1 at
+             Dh 64, qwen3-14b's rep 5) through paged_decode, split-KV,
+             the slab decode and the paged duet launch at each config's
+             engine tiles, flash_prefill at rep 3, 5, 48, 96 and 128 and
+             at Dh 256, and rep 96 and 128 (head blocks) through the
+             decode and duet kernels.
              Each case prints its max error beside the tolerance, the
              kernel's time with its inputs in L2 (ms, back-to-back calls)
              and with a cold L2 (cold_ms), the plain version's and a
@@ -32,13 +39,17 @@ Phases (each raises on failure; nothing is swallowed):
              inputs need, at the card's published 3.35 TB/s and 989 bf16 /
              67 fp32 TFLOP/s) with its share of cold_ms. Then the cluster
              kernels' and flash_prefill's occupancy at the main shapes
-             (the paged duet kernel's at C = 1, 2, 4, 8 with registers).
-3. parity  — full-width qwen3-4b cut to 4 layers, fp32 with TF32 off: the
-             kernel path's logits against the port's plain path for one
-             paged decode step, one duet step (one row a tile and the
-             engine's tiles), and one slab decode step
-             after a chunked slab prefill; and flash_prefill on the port's
-             gqa_prefill q/K/V against gqa_prefill's own attention.
+             (the paged duet kernel's at C = 1, 2, 4, 8 with registers),
+             with the role each decode kernel's CTAs take (granite-20b's
+             too).
+3. parity  — full-width qwen3-4b cut to 4 layers, then yi-9b, minicpm-2b
+             and granite-20b cut to 2, fp32 with TF32 off: the kernel
+             path's logits against the port's plain path for one paged
+             prefill, one paged decode step, one duet step (the engine's
+             tiles, and one row a tile for qwen3-4b), and one slab decode
+             step after a chunked slab prefill; and, for qwen3-4b,
+             flash_prefill on the port's gqa_prefill q/K/V against
+             gqa_prefill's own attention.
 4. serve   — full qwen3-4b (36 layers, bf16, random weights from a seed)
              serves azure-conv requests on two paths, each with
              attn_kernel=True and strict_kernel=True and the launch counts
@@ -54,7 +65,13 @@ Phases (each raises on failure; nothing is swallowed):
              on it. Wall-clock tokens/s on the card are printed as measured.
              A profile step then times one full-width decode step of each
              path and one fused duet super-iteration (kb 1, a 256-row
-             chunk), with the duet kernel's share.
+             chunk), with the duet kernel's share. Then yi-9b, minicpm-2b
+             and granite-20b, one at a time at full depth (bf16, random
+             weights from seed 0, their measured weight bytes printed),
+             each serve 4 requests of at most 64 output tokens through the
+             async engine on the paged path (the duet kernel on) and on
+             the slab path, each path's launch counts reset just before
+             it and read just after it.
 
 Before the last line it prints the card's name and power limit
 (``nvidia-smi``) and a ``{"kernels": [...]}`` JSON line (flash_prefill
@@ -81,11 +98,14 @@ PHASES = ("build", "kernels", "parity", "serve")
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
-# the paged duet kernel in bf16, (atol, rtol): its errors are the bf16
+# the decode and duet kernels in bf16 (paged_decode, split-KV, both
+# duet_attention kernels), (atol, rtol): their errors are the bf16
 # rounding of the output (an ulp) and of P before P V (about 2^-9 of a
 # key's weight times |v|, at most ~3e-3 on rows of a few keys); the
-# CPU decomposition tests read at most 0.62 of this limit
-DUET_BF16_TOL = (5e-3, 1e-2)
+# paged duet's CPU decomposition tests read at most 0.62 of this limit,
+# and the card's largest error on these kernels is 7.8e-3 at outputs of
+# 1 to 2 (a bf16 ulp there), under its 5e-3 + 1e-2 x |value|
+ATTN_BF16_TOL = (5e-3, 1e-2)
 # logits (and flash_prefill's attention output) of the kernel path vs the
 # plain path, full width, fp32, TF32 off: only the attention reduction
 # order differs
@@ -103,11 +123,26 @@ KERNEL_SOURCES = {
     "flash_prefill": ("src/repro_torch/kernels/csrc/flash_prefill.cu",
                       "src/repro/kernels/flash_prefill.py:78"),
 }
-# the serving path that must launch each kernel; flash_prefill is on none
-# (the reference calls it only from its tests), and its count must read 0
-PATH_OF = {"paged_decode": "paged", "paged_decode_splitkv": "paged",
-           "duet_attention_paged": "paged", "duet_attention": "slab"}
+# the block role (rep > 16: the 64-row tensor-core block) of the kernels
+# that pick their role on the host, a record each at granite-20b's shapes
+for _name in ("paged_decode", "paged_decode_splitkv", "duet_attention"):
+    KERNEL_SOURCES[f"{_name}[block]"] = KERNEL_SOURCES[_name]
+# the serving path that must launch each kernel, of the role the config's
+# rep takes ("[block]" above 16 heads a group: granite-20b); split-KV runs
+# only in qwen3-4b's split_kv_threshold run; flash_prefill is on none (the
+# reference calls it only from its tests), and its count must read 0
+PATH_OF = {"paged_decode": "paged", "paged_decode[block]": "paged",
+           "paged_decode_splitkv": "paged", "duet_attention_paged": "paged",
+           "duet_attention": "slab", "duet_attention[block]": "slab"}
 PAGED_MAX_OUTPUT = 160      # see phase_serve's requests()
+# the registered configs whose GQA head shapes the kernels phase runs at
+# the main path's shapes: granite-20b's MQA (rep 48, every CTA on the
+# 64-row block; its bf16 records are the block roles' in the kernels
+# line), yi-9b's rep 8, minicpm-2b's rep 1 at Dh 64, and qwen3-14b's rep 5
+# (12-position duet tiles)
+HEAD_CONFIGS = ("granite-20b", "yi-9b", "minicpm-2b", "qwen3-14b")
+SERVED_CONFIGS = ("yi-9b", "minicpm-2b", "granite-20b")
+SERVE_REQUESTS, SERVE_MAX_OUTPUT = 4, 64    # each served config's runs
 
 
 def log(msg: str):
@@ -317,7 +352,11 @@ def check_decode(rng, label, dtype, B, H, G, Dh, N, ps, P, splits=None,
     if splits is None:
         from repro_torch.kernels.paged_decode import cluster_for
         label += f" C={cluster_for(q, kp, tables)}"
-    rec = {"name": name, "case": label, "dtype": str(dtype)}
+    from repro_torch.kernels.ops import cta_role
+    role = cta_role(H // G)
+    rec = {"name": name if role == "decode" else f"{name}[{role}]",
+           "case": label, "dtype": str(dtype)}
+    tol = ATTN_BF16_TOL if dtype == torch.bfloat16 else None
     got = kernel()
     torch.cuda.synchronize()
     if splits is not None:
@@ -325,9 +364,9 @@ def check_decode(rng, label, dtype, B, H, G, Dh, N, ps, P, splits=None,
         C = splitkv_spans(P, splits)[0]
         _check(name, got, paged_decode_cluster_plain(
             q, kp, vp, tables, ln, cluster=C), dtype, label + " (spans)",
-            rec)
+            rec, tol)
         span_err = rec["max_abs_err"]
-    _check(name, got, plain(), dtype, label, rec)
+    _check(name, got, plain(), dtype, label, rec, tol)
     if splits is not None:
         rec["max_abs_err"] = max(rec["max_abs_err"], span_err)
     elt = q.element_size()
@@ -343,7 +382,7 @@ def check_decode(rng, label, dtype, B, H, G, Dh, N, ps, P, splits=None,
 
 
 def check_duet(rng, label, dtype, N, ps, G, H, Dh, P, decode_rows,
-               prefill_rows, bq, pad_tile=False):
+               prefill_rows, bq, pad_tile=False, library=True):
     from repro_torch.kernels.duet_attention import (
         duet_attention_paged, duet_attention_paged_plain,
         duet_attention_paged_tiled_plain, paged_cluster_for)
@@ -384,7 +423,7 @@ def check_duet(rng, label, dtype, N, ps, G, H, Dh, P, decode_rows,
     got = unpack_duet_output(sched, out[:len(sched.row_src)], len(rows))
     want = unpack_duet_output(sched, plain()[:len(sched.row_src)],
                               len(rows))
-    tol = DUET_BF16_TOL if dtype == torch.bfloat16 else None
+    tol = ATTN_BF16_TOL if dtype == torch.bfloat16 else None
     _check("duet_attention_paged", got, want, dtype, label, rec, tol)
     # the algorithm the kernel runs: roles, C spans of 64-key units, the
     # rank-order combine
@@ -410,6 +449,9 @@ def check_duet(rng, label, dtype, N, ps, G, H, Dh, P, decode_rows,
     rec["bound_ms"], rec["bound_by"] = _bound(nbytes, ops, dtype)
     _time_kernel(kernel, rec)
     rec["plain_ms"] = time_ms(plain, iters=3)
+    if not library:      # its head-repeated chains would not fit the card
+        rec["library_ms"] = float("nan")
+        return rec
     # library yardstick: SDPA with one query row per batch entry over
     # its gathered, head-repeated chain, masked causally by row position
     R = len(rows)
@@ -452,13 +494,17 @@ def check_duet_slab(rng, label, dtype, Ns, S, G, H, Dh, decode_rows,
         q, row_pos, tile_slot, ks, vs, block_q=bq, block_k=block_k)
     plain = lambda: duet_attention_plain(  # noqa: E731
         q, row_pos, tile_slot, ks, vs, block_q=bq)
-    from repro_torch.kernels.duet_attention import cluster_for
+    from repro_torch.kernels.duet_attention import cluster_for, slab_role
     label += f" C={cluster_for(q, tile_slot, ks, bq)}"
-    rec = {"name": "duet_attention", "case": label, "dtype": str(dtype)}
+    role = slab_role(bq, H // G)
+    rec = {"name": "duet_attention" if role == "decode"
+           else f"duet_attention[{role}]", "case": label,
+           "dtype": str(dtype)}
     got = unpack_duet_output(sched, kernel(), len(rows))
     torch.cuda.synchronize()
     want = unpack_duet_output(sched, plain(), len(rows))
-    _check("duet_attention", got, want, dtype, label, rec)
+    _check("duet_attention", got, want, dtype, label, rec,
+           ATTN_BF16_TOL if dtype == torch.bfloat16 else None)
     elt = q.element_size()
     live = {}
     for s_, p in rows:
@@ -547,6 +593,7 @@ def check_flash(rng, label, dtype, B, Sq, Sk, H, G, Dh, q_offset,
 
 
 def phase_kernels():
+    from repro_torch.configs import get_config
     from repro_torch.kernels.ops import duet_block_q, num_splits_for
     rng = np.random.default_rng(0)
     records = []
@@ -704,9 +751,60 @@ def phase_kernels():
                 (nd + 1) * (2048 // pss) + 1, pss, G, H, Ds, 2048 // pss,
                 drows, [(nd, start + i) for i in range(chunk_rows)],
                 bq=duet_block_q(H, G, Ds), pad_tile=pad))
+    # every GQA head shape of the registered configs at the main path's
+    # shapes: the decode kernels, the slab decode and the paged duet launch
+    # at each config's engine tiles (duet_block_q: 1, 8, 64, 12); then
+    # flash_prefill at reps that do not divide 64, above 64 and at Dh 256,
+    # and the head blocks of rep 96 and 128 through every kernel
+    edge4 = edge_rows(4)
+    chunk20 = [(4, 64 + i) for i in range(20)]
+    for dtype in (torch.bfloat16, torch.float32):
+        bf16 = dtype == torch.bfloat16
+        for cname in HEAD_CONFIGS:
+            cfg = get_config(cname)
+            Hs, Gs, Ds = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+            first = len(records)
+            records.append(check_decode(
+                rng, f"{cname} B=8 ctx 256-2048", dtype, B, Hs, Gs, Ds, N,
+                ps, P, lengths=lens, distinct=True))
+            records.append(check_decode(
+                rng, f"{cname} B=8 ctx 256-2048 S={splits}", dtype, B, Hs,
+                Gs, Ds, N, ps, P, splits=splits, lengths=lens,
+                distinct=True))
+            records.append(check_duet_slab(
+                rng, f"{cname} slab 8 decode ctx 256-1000", dtype, B, 1024,
+                Gs, Hs, Ds, slab_rows, [], bq=1))
+            bq = duet_block_q(Hs, Gs, Ds)
+            records.append(check_duet(
+                rng, f"{cname} 8 decode + 256-row chunk bq={bq}", dtype,
+                (B + 1) * P + 1, ps, Gs, Hs, Ds, P, decode_rows,
+                prefill_rows, bq=bq, library=bf16))
+            for rec in records[first:]:       # the block roles' records
+                if bf16 and rec["name"].endswith("[block]"):
+                    main.setdefault(rec["name"], rec)
+        for (hlabel, Hs, Gs, Ds) in [("rep 3", 24, 8, 64),
+                                     ("rep 5", 40, 8, 128),
+                                     ("rep 48", 48, 1, 128),
+                                     ("Dh 256 rep 8", 8, 1, 256),
+                                     ("rep 96", 96, 1, 64),
+                                     ("rep 128", 128, 1, 64)]:
+            records.append(check_flash(
+                rng, f"{hlabel} Sq 256 @ 512, Sk 768", dtype, 1, 256, 768,
+                Hs, Gs, Ds, 512))
+        for (Hs, Gs, Ds) in [(96, 1, 64), (128, 1, 64)]:
+            records.append(check_decode(
+                rng, f"rep {Hs} B=8 ctx 256-2048", dtype, B, Hs, Gs, Ds, N,
+                ps, P, lengths=lens, distinct=True))
+            records.append(check_duet_slab(
+                rng, f"rep {Hs} slab 4 decode ctx 1-2048", dtype, 4, 2048,
+                Gs, Hs, Ds, edge4, [], bq=1))
+            records.append(check_duet(
+                rng, f"rep {Hs} 4 decode + 20 chunk bq=1", dtype,
+                5 * (2048 // ps) + 1, ps, Gs, Hs, Ds, 2048 // ps, edge4,
+                chunk20, bq=1, pad_tile=True, library=bf16))
     card = card_line()
     for rec in records:
-        log(f"[kernels] {rec['name']:22s} {rec['dtype']:15s} "
+        log(f"[kernels] {rec['name']:27s} {rec['dtype']:15s} "
             f"{rec['case']:44s} max_abs_err={rec['max_abs_err']:.3e} "
             f"tol={rec['tol']:.0e}/{rec['rtol']:.0e} ms={rec['ms']:.4f} "
             f"cold_ms={rec['cold_ms']:.4f} "
@@ -752,14 +850,32 @@ def report_occupancy(card):
     log(f"[kernels] flash_prefill bf16 Dh {Dh}: {blocks} blocks of 4 warps "
         f"(64 rows, {smem / 1024:.0f} KB shared memory each) resident per "
         f"SM [{card}]")
-    for name, (C, occupancy) in picks.items():
+    # granite-20b's heads (rep 48, MQA): both decode kernels' CTAs take the
+    # 64-row block role
+    from repro_torch.kernels.duet_attention import slab_role
+    from repro_torch.kernels.ops import cta_role as paged_role
+    qg = torch.empty((B, 48, Dh), dtype=bf16, device="cuda")
+    kg = torch.empty((1, 16, 1, Dh), dtype=bf16, device="cuda")
+    ksg = torch.empty((B, S, 1, Dh), dtype=bf16, device="cuda")
+    grid = {"paged_decode": B, "duet_attention": B}
+    picks["paged_decode"] += (paged_role(rep), G)
+    picks["duet_attention"] += (slab_role(1, rep), G)
+    picks["paged_decode granite"] = (
+        paged_c(qg, kg, tables),
+        lambda C: paged_occ(dev, bf16, Dh, 48, P, C), paged_role(48), 1)
+    picks["duet_attention granite"] = (
+        slab_c(qg, tiles, ksg, 1),
+        lambda C: slab_occ(dev, bf16, Dh, 48, C), slab_role(1, 48), 1)
+    for name, (C, occupancy, role, groups) in picks.items():
         clusters, smem, ahead = occupancy(C)
         per_sm = clusters * C / sms
-        log(f"[kernels] {name} main bf16: C={C}, grid {B * G * C} CTAs of "
+        ctas = grid[name.split()[0]] * groups * C
+        log(f"[kernels] {name} main bf16, {role} role: C={C}, grid {ctas} "
+            f"CTAs of "
             f"{smem / 1024:.1f} KB shared memory; {clusters} clusters "
             f"({clusters * C} CTAs, {per_sm:.2f} per SM) resident at once; "
             f"{ahead / 1024:.0f} KB of loads ahead per CTA, up to "
-            f"{min(per_sm, B * G * C / sms) * ahead / 1024:.0f} KB in flight "
+            f"{min(per_sm, ctas / sms) * ahead / 1024:.0f} KB in flight "
             f"per SM [{card}]")
     # the paged duet kernel at the engine's main launch: 8 decode tiles and
     # 16 chunk tiles of 16 rows (T = 24)
@@ -782,18 +898,33 @@ def report_occupancy(card):
 # phase 3: logits parity, kernel path vs plain path
 # ---------------------------------------------------------------------------
 def phase_parity():
+    """qwen3-4b cut to 4 layers, then each served config
+    beyond it cut to 2 layers (full width), fp32 with TF32 off."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log("[parity] fp32, TF32 off (matmul and cudnn)")
+    parity_for("qwen3-4b", 4, flash=True)
+    for name in SERVED_CONFIGS:
+        parity_for(name, 2)
+
+
+def parity_for(name, n_layers, flash=False):
+    """The kernel path's logits against the plain path's on one config at
+    full width cut to ``n_layers`` layers: a paged prefill, a paged decode
+    step, a duet step at one row a tile (qwen3-4b) and at the async
+    engine's tiles, and a slab decode step after a chunked slab prefill;
+    with ``flash``, flash_prefill on gqa_prefill's q/K/V against
+    gqa_prefill's own attention."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.kernels import build_duet_schedule
     from repro_torch.kernels.ops import duet_block_q
     from repro_torch.models import Model
     from repro_torch.serving.kvcache import PagePoolConfig, init_page_pools
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    log("[parity] fp32, TF32 off (matmul and cudnn)")
-    full = get_config("qwen3-4b")
-    cfg = dataclasses.replace(full, num_layers=4,
-                              block_pattern=full.block_pattern[:4])
+    t0 = time.time()
+    full = get_config(name)
+    cfg = dataclasses.replace(full, num_layers=n_layers,
+                              block_pattern=full.block_pattern[:n_layers])
     kern = Model.init(cfg, seed=0, dtype=torch.float32, device="cuda",
                       attn_kernel=True)
     plain = copy.copy(kern)          # the same weights, plain attention
@@ -822,7 +953,12 @@ def phase_parity():
         plain.prefill_paged(toksA, pools, state, tblA, start_pos=0)
         return pools
 
+    engine_bq = duet_block_q(cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
     with torch.no_grad():
+        lpk, _, _ = kern.prefill_paged(toksA, fresh(), state, tblA,
+                                       start_pos=0)
+        lpp, _, _ = plain.prefill_paged(toksA, fresh(), state, tblA,
+                                        start_pos=0)
         lk, _, _ = kern.decode_step_paged(prefilled(), state, tok, pos, tblA)
         lp, _, _ = plain.decode_step_paged(prefilled(), state, tok, pos,
                                            tblA)
@@ -832,9 +968,9 @@ def phase_parity():
                                                device=dev)])
         row_tbl = torch.cat([tblA, tblB.expand(C, P)])
         duet = {}
-        # the reference's tiles (one row each) and the async engine's
-        for bq in (1, duet_block_q(cfg.num_heads, cfg.num_kv_heads,
-                                   cfg.head_dim)):
+        # the reference's tiles (one row each; qwen3-4b) and the async
+        # engine's
+        for bq in sorted({engine_bq} | ({1} if flash else set())):
             sched = build_duet_schedule([(0, 200)],
                                         [(1, i) for i in range(C)],
                                         block_q=bq)
@@ -861,36 +997,43 @@ def phase_parity():
         pos2 = torch.full((2,), 200, dtype=torch.int32, device=dev)
         lsk, _ = kern.decode_step(slab_prefilled(), tok2, pos2)
         lsp, _ = plain.decode_step(slab_prefilled(), tok2, pos2)
-        # flash_prefill's contract: on gqa_prefill's own q/K/V it gives
-        # gqa_prefill's attention (the reference's tests/test_kernels.py)
-        from repro_torch.kernels import flash_prefill
-        from repro_torch.models import attention as attn_mod
-        p0 = kern.params["layers"][0]["attn"]
-        x = torch.from_numpy(rng.standard_normal((1, 256, cfg.d_model),
-                                                 np.float32)).to(dev)
-        positions = torch.arange(256, device=dev)[None]
-        out_model, cache = attn_mod.gqa_prefill(p0, cfg, x, positions)
-        q, _, _ = attn_mod._project_qkv(p0, cfg, x, positions)
-        out_kernel = torch.einsum("bshe,hed->bsd", flash_prefill(
-            q.contiguous(), cache.k.contiguous(), cache.v.contiguous()),
-            p0["w_o"])
-    checks = [("decode step", lk, lp)]
-    for bq, ld in duet.items():
-        checks += [(f"duet step bq={bq}, decode row", ld[0], ls_dec[0]),
-                   (f"duet step bq={bq}, last chunk row", ld[C], ls_pre[0])]
-    for name, got, want in checks + [
-                            ("slab decode step", lsk, lsp),
-                            ("flash_prefill on gqa_prefill's q/K/V "
-                             "(attention output)", out_kernel, out_model)]:
+        checks = [("paged prefill", lpk, lpp), ("decode step", lk, lp)]
+        for bq, ld in duet.items():
+            checks += [(f"duet step bq={bq}, decode row", ld[0], ls_dec[0]),
+                       (f"duet step bq={bq}, last chunk row", ld[C],
+                        ls_pre[0])]
+        checks.append(("slab decode step", lsk, lsp))
+        if flash:
+            # flash_prefill's contract: on gqa_prefill's own q/K/V it gives
+            # gqa_prefill's attention (the reference's tests/test_kernels.py)
+            from repro_torch.kernels import flash_prefill
+            from repro_torch.models import attention as attn_mod
+            p0 = kern.params["layers"][0]["attn"]
+            x = torch.from_numpy(rng.standard_normal(
+                (1, 256, cfg.d_model), np.float32)).to(dev)
+            positions = torch.arange(256, device=dev)[None]
+            out_model, cache = attn_mod.gqa_prefill(p0, cfg, x, positions)
+            q, _, _ = attn_mod._project_qkv(p0, cfg, x, positions)
+            out_kernel = torch.einsum("bshe,hed->bsd", flash_prefill(
+                q.contiguous(), cache.k.contiguous(), cache.v.contiguous()),
+                p0["w_o"])
+            checks.append(("flash_prefill on gqa_prefill's q/K/V "
+                           "(attention output)", out_kernel, out_model))
+    for what, got, want in checks:
         V = cfg.vocab_size          # padded logit columns hold finfo.min
         got, want = got[..., :V], want[..., :V]
         scale = max(1.0, want.abs().max().item())
         err = (got - want).abs().max().item()
         if not (torch.isfinite(got).all() and err <= PARITY_TOL * scale):
-            raise AssertionError(f"[parity] {name}: max abs err {err:.3e} > "
-                                 f"{PARITY_TOL:.0e} x {scale:.3g}")
-        log(f"[parity] {name}: max abs err {err:.3e} "
-            f"(tol {PARITY_TOL:.0e} x max|reference| {scale:.3g})")
+            raise AssertionError(f"[parity] {name} {what}: max abs err "
+                                 f"{err:.3e} > {PARITY_TOL:.0e} x "
+                                 f"{scale:.3g}")
+        log(f"[parity] {name} ({n_layers} layers) {what}: max abs err "
+            f"{err:.3e} (tol {PARITY_TOL:.0e} x max|reference| "
+            f"{scale:.3g})")
+    log(f"[parity] {name}: H {cfg.num_heads} G {cfg.num_kv_heads} Dh "
+        f"{cfg.head_dim}, duet tiles of {engine_bq} rows, "
+        f"{time.time() - t0:.1f} s")
     del kern, plain
     torch.cuda.empty_cache()
 
@@ -898,14 +1041,112 @@ def phase_parity():
 # ---------------------------------------------------------------------------
 # phase 4: full-width serving through the engines
 # ---------------------------------------------------------------------------
+def _requests(path, n=None, max_output=None):
+    """The serve phase's azure-conv requests (8, qps 4, seed 0, clamped to
+    max_len 1024). The qwen3-4b paged path's three runs serve those of at
+    most PAGED_MAX_OUTPUT output tokens (4 of the 8), which halves their
+    decode steps, its slab path all 8; a served config's runs take the
+    first ``n`` with outputs cut to ``max_output`` tokens."""
+    from repro_torch.launch.serve import _clamp_lengths
+    from repro_torch.serving.traces import synth_trace
+    reqs = _clamp_lengths(synth_trace("azure-conv", 8, 4.0, seed=0), 1024,
+                          True)
+    if n is not None:
+        reqs = reqs[:n]
+        for r in reqs:
+            r.output_len = min(r.output_len, max_output)
+    elif path == "paged":
+        reqs = [r for r in reqs if r.output_len <= PAGED_MAX_OUTPUT]
+    return reqs
+
+
+def _serve_run(label, cls, model, reqs, card, extra):
+    """One engine run at max_slots 8, max_len 1024, token budget 256, with
+    the kernels on and strict; every request must finish with tokens in the
+    vocabulary, the async engine must keep host_syncs <= super_iterations
+    and, on the paged path, dispatch a fused duet step. Returns the greedy
+    streams."""
+    from repro_torch.kernels import launch_counts
+    from repro_torch.serving import AsyncDuetEngine, EngineConfig
+    cfg = model.cfg
+    ec = EngineConfig(max_slots=8, max_len=1024, token_budget=256,
+                      strict_kernel=True, **extra)
+    engine = cls(model, ec, seed=0, device="cuda")
+    before = launch_counts()
+    engine.submit(reqs)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    metrics = engine.run()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    after = launch_counts()
+    summ = metrics.summary()
+    n_tok = sum(len(r.output_tokens) for r in metrics.requests)
+    if summ["num_finished"] != len(reqs):
+        raise AssertionError(f"[serve] {label}: "
+                             f"{summ['num_finished']}/{len(reqs)} "
+                             "requests finished")
+    for r in metrics.requests:
+        if len(r.output_tokens) != r.output_len or not all(
+                0 <= t < cfg.vocab_size for t in r.output_tokens):
+            raise AssertionError(f"[serve] {label}: request "
+                                 f"{r.rid} produced bad tokens")
+    if engine.kernel_path != "cuda":
+        raise AssertionError(f"[serve] {label}: kernel_path "
+                             f"{engine.kernel_path}")
+    line = (f"[serve] {label}: {len(reqs)} requests, {n_tok} tokens "
+            f"in {wall:.2f} s wall = {n_tok / wall:.1f} tokens/s "
+            f"measured on the card [{card}]; launches "
+            f"{ {k: after[k] - before[k] for k in after} }")
+    if cls is AsyncDuetEngine:
+        st = engine.dstats
+        if not 0 < st.host_syncs <= st.super_iterations:
+            raise AssertionError(
+                f"[serve] {label}: host_syncs {st.host_syncs} > "
+                f"super_iterations {st.super_iterations}")
+        line += (f"; super_iterations {st.super_iterations}, "
+                 f"host_syncs {st.host_syncs}")
+        if ec.paged:
+            duet = sum(1 for k in engine._programs if k[-1])
+            if duet == 0 or after["duet_attention_paged"] == \
+                    before["duet_attention_paged"]:
+                raise AssertionError(f"[serve] {label}: no duet "
+                                     "dispatch")
+            line += f", duet buckets {duet}"
+    log(line)
+    log(f"[serve] {label}: virtual-clock summary (TPU v5e roofline "
+        f"prediction, not a card measurement): mean TTFT "
+        f"{summ['mean_ttft_s']} s, mean TBT {summ['mean_tbt_s']} s")
+    del engine
+    torch.cuda.empty_cache()
+    return {r.rid: list(r.output_tokens) for r in metrics.requests}
+
+
+def _path_counts(path, counts, rep, split_kv=False):
+    """Read a path's launches (reset just before it), add them to
+    ``counts`` and fail if a kernel of the path, of the role the config's
+    ``rep`` takes (split-KV where ``split_kv``), never launched."""
+    from repro_torch.kernels import launch_counts
+    from repro_torch.kernels.ops import cta_role
+    got = launch_counts()
+    log(f"[serve] {path} path launches: {got}")
+    block = cta_role(rep) == "block"
+    for name, n in got.items():
+        counts[name] = counts.get(name, 0) + n
+        needed = (PATH_OF.get(name) == path.split()[-1]
+                  and (name == "duet_attention_paged"
+                       or name.endswith("[block]") == block)
+                  and (split_kv or "splitkv" not in name))
+        if needed and n <= 0:
+            raise AssertionError(f"[serve] kernel {name} was never "
+                                 f"launched on the {path} path")
+
+
 def phase_serve():
     from repro_torch.configs import get_config
-    from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.launch.serve import _clamp_lengths
+    from repro_torch.kernels import reset_launch_counts
     from repro_torch.models import Model
-    from repro_torch.serving import (AsyncDuetEngine, DuetEngine,
-                                     EngineConfig)
-    from repro_torch.serving.traces import synth_trace
+    from repro_torch.serving import AsyncDuetEngine, DuetEngine
     cfg = get_config("qwen3-4b")
     t0 = time.time()
     model = Model.init(cfg, seed=0, dtype=torch.bfloat16, device="cuda",
@@ -916,17 +1157,6 @@ def phase_serve():
         f"{sum(b.numel() for b in model.buffers()) * 2 / 1e9:.2f} GB, "
         f"random from seed 0 in {time.time() - t0:.1f} s")
     card = card_line()
-
-    def requests(path):
-        reqs = _clamp_lengths(synth_trace("azure-conv", 8, 4.0, seed=0),
-                              1024, True)
-        # the paged path's three runs serve the trace's requests of at most
-        # PAGED_MAX_OUTPUT output tokens (4 of the 8), which halves their
-        # decode steps; the slab path serves all 8
-        if path == "paged":
-            reqs = [r for r in reqs if r.output_len <= PAGED_MAX_OUTPUT]
-        return reqs
-
     paths = {
         "paged": [("async", AsyncDuetEngine, {}),
                   ("sync", DuetEngine, {}),
@@ -939,66 +1169,11 @@ def phase_serve():
     for path, runs in paths.items():
         reset_launch_counts()        # this path's launches start here
         for label, cls, extra in runs:
-            ec = EngineConfig(max_slots=8, max_len=1024, token_budget=256,
-                              strict_kernel=True, **extra)
-            engine = cls(model, ec, seed=0, device="cuda")
-            before = launch_counts()
-            reqs = requests(path)
-            engine.submit(reqs)
-            torch.cuda.synchronize()
-            t0 = time.time()
-            metrics = engine.run()
-            torch.cuda.synchronize()
-            wall = time.time() - t0
-            after = launch_counts()
-            summ = metrics.summary()
-            n_tok = sum(len(r.output_tokens) for r in metrics.requests)
-            if summ["num_finished"] != len(reqs):
-                raise AssertionError(f"[serve] {label}: "
-                                     f"{summ['num_finished']}/{len(reqs)} "
-                                     "requests finished")
-            for r in metrics.requests:
-                if len(r.output_tokens) != r.output_len or not all(
-                        0 <= t < cfg.vocab_size for t in r.output_tokens):
-                    raise AssertionError(f"[serve] {label}: request "
-                                         f"{r.rid} produced bad tokens")
-            if engine.kernel_path != "cuda":
-                raise AssertionError(f"[serve] {label}: kernel_path "
-                                     f"{engine.kernel_path}")
-            line = (f"[serve] {label}: {len(reqs)} requests, {n_tok} tokens "
-                    f"in {wall:.2f} s wall = {n_tok / wall:.1f} tokens/s "
-                    f"measured on the card [{card}]; launches "
-                    f"{ {k: after[k] - before[k] for k in after} }")
-            if cls is AsyncDuetEngine:
-                st = engine.dstats
-                if not 0 < st.host_syncs <= st.super_iterations:
-                    raise AssertionError(
-                        f"[serve] {label}: host_syncs {st.host_syncs} > "
-                        f"super_iterations {st.super_iterations}")
-                line += (f"; super_iterations {st.super_iterations}, "
-                         f"host_syncs {st.host_syncs}")
-                if path == "paged":
-                    duet = sum(1 for k in engine._programs if k[-1])
-                    if duet == 0 or after["duet_attention_paged"] == \
-                            before["duet_attention_paged"]:
-                        raise AssertionError(f"[serve] {label}: no duet "
-                                             "dispatch")
-                    line += f", duet buckets {duet}"
-            log(line)
-            outputs[label] = {r.rid: list(r.output_tokens)
-                              for r in metrics.requests}
-            log(f"[serve] {label}: virtual-clock summary (TPU v5e roofline "
-                f"prediction, not a card measurement): mean TTFT "
-                f"{summ['mean_ttft_s']} s, mean TBT {summ['mean_tbt_s']} s")
-            del engine
-            torch.cuda.empty_cache()
-        got = launch_counts()        # this path's launches end here
-        log(f"[serve] {path} path launches: {got}")
-        for name, n in got.items():
-            counts[name] = counts.get(name, 0) + n
-            if PATH_OF.get(name) == path and n <= 0:
-                raise AssertionError(f"[serve] kernel {name} was never "
-                                     f"launched on the {path} path")
+            outputs[label] = _serve_run(label, cls, model, _requests(path),
+                                        card, extra)
+        # this path's launches end here
+        _path_counts(path, counts, cfg.num_heads // cfg.num_kv_heads,
+                     split_kv=path == "paged")
     if counts["flash_prefill"] != 0:
         raise AssertionError("[serve] flash_prefill launched "
                              f"{counts['flash_prefill']} times on a serving "
@@ -1017,7 +1192,52 @@ def phase_serve():
     for slab in (False, True):
         profile_decode(model, card, slab)
     profile_duet(model, card)
+    del model
+    torch.cuda.empty_cache()
+    for name in SERVED_CONFIGS:
+        serve_config(name, counts, card)
+    if counts["flash_prefill"] != 0:
+        raise AssertionError("[serve] flash_prefill launched on a served "
+                             "config's path")
     return counts
+
+
+def serve_config(name, counts, card):
+    """One served config at full depth, bf16, random weights from seed 0
+    (``Model.init`` draws each leaf on the card), alone on the card: a
+    paged run through the async engine (the fused duet kernel on) and a
+    slab run through the async engine, each path's launch counts reset just
+    before it and read just after, SERVE_REQUESTS requests of at most
+    SERVE_MAX_OUTPUT output tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.kernels.ops import duet_block_q
+    from repro_torch.models import Model
+    from repro_torch.serving import AsyncDuetEngine
+    cfg = get_config(name)
+    t0 = time.time()
+    torch.cuda.reset_peak_memory_stats()
+    model = Model.init(cfg, seed=0, dtype=torch.bfloat16, device="cuda",
+                       attn_kernel=True)
+    torch.cuda.synchronize()
+    nbytes = sum(b.numel() * b.element_size() for b in model.buffers())
+    bq = duet_block_q(cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
+    log(f"[serve] {name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"H {cfg.num_heads} G {cfg.num_kv_heads} Dh {cfg.head_dim}, duet "
+        f"tiles of {bq} rows; bf16 weights {nbytes / 1e9:.3f} GB on the card "
+        f"({nbytes} bytes), random from seed 0 in {time.time() - t0:.1f} s, "
+        f"peak allocated {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+        f"[{card}]")
+    for path, extra in (("paged", {}), ("slab", {"paged": False})):
+        reset_launch_counts()        # this path's launches start here
+        label = f"{name} {'slab ' if extra else ''}async"
+        _serve_run(label, AsyncDuetEngine, model,
+                   _requests(path, SERVE_REQUESTS, SERVE_MAX_OUTPUT), card,
+                   extra)
+        _path_counts(f"{name} {path}", counts,
+                     cfg.num_heads // cfg.num_kv_heads)
+    del model
+    torch.cuda.empty_cache()
 
 
 def profile_decode(model, card, slab: bool):

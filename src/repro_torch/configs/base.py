@@ -189,9 +189,11 @@ def list_configs() -> list[str]:
     return sorted(_REGISTRY)
 
 
-# the architectures the port serves: the dense GQA qwen3 family (the
-# paper's own evaluation models, §5.1/§5.3)
-_ARCH_MODULES = ["qwen3_4b", "qwen3_8b", "qwen3_14b"]
+# the architectures the port serves: the dense GQA and MQA configs (the
+# qwen3 family, the paper's own evaluation models, §5.1/§5.3; yi-9b,
+# minicpm-2b with tied embeddings, granite-20b with MQA and a gelu MLP)
+_ARCH_MODULES = ["qwen3_4b", "qwen3_8b", "qwen3_14b", "yi_9b", "minicpm_2b",
+                 "granite_20b"]
 _loaded = False
 
 

@@ -35,7 +35,8 @@ _COUNTERS = (_paged_launches, _duet_launches, _flash_launches)
 
 
 def launch_counts() -> Dict[str, int]:
-    """Kernel launches per wrapper since the last reset."""
+    """Kernel launches per wrapper (and per role where the host picks it:
+    ``"paged_decode[block]"``) since the last reset."""
     return {name: n for counts in _COUNTERS for name, n in counts.items()}
 
 

@@ -25,6 +25,33 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
+// Head blocks of one (tile, KV group) (ops.head_split): a tile of bq
+// query positions of a group of rep heads holds bq * rep (row, head)
+// pairs; where they are more than max_pairs, the rep heads split into hb
+// blocks of at most hpc heads, each a CTA (the last may hold fewer).
+struct HeadSplit {
+  int hb, hpc;
+};
+__host__ __device__ inline HeadSplit head_split(int rep, int bq,
+                                                int max_pairs) {
+  const int fit = bq > 0 ? max_pairs / bq : max_pairs;
+  const int per = fit > 1 ? fit : 1;                // heads beside bq rows
+  const int hb = (rep + per - 1) / per;
+  return {hb, (rep + hb - 1) / hb};
+}
+
+// The (row, head) pairs one CTA holds: pair i is query position i / hc of
+// its tile, head h0 + i % hc, for the hc heads h0 .. of head block hb of
+// group g (grid index g * hb_count + hb).
+struct HeadBlock {
+  int g, h0, hc;
+  __device__ static HeadBlock split(int y, int rep, HeadSplit hs) {
+    const int hb = y % hs.hb;
+    return {y / hs.hb, (y / hs.hb) * rep + hb * hs.hpc,
+            min(hs.hpc, rep - hb * hs.hpc)};
+  }
+};
+
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>

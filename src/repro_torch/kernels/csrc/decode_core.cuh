@@ -61,6 +61,7 @@ using attn::NEG_INF;
 
 constexpr int NSTAGE = 3;            // ring depth: 2 stages in flight
 constexpr int MAX_CLUSTER = 8;       // the portable cluster size
+constexpr int MAX_ROWS = 16;         // query rows of a CTA (the row buckets)
 constexpr int SPLIT_KEYS = 64;       // the duet kernels' split unit (keys)
 constexpr int MMA_WARPS = 4;         // bf16: 16 keys a warp, SK = 64
 constexpr int SIMT_WARPS = 4;        // fp32
@@ -680,7 +681,7 @@ cudaError_t max_active_clusters(void (*kernel)(Params...), int C, size_t smem,
 // of one CTA (bf16: NRB 8 up to 8 rows, else 16; fp32: 4 up to 4, else 16).
 template <class Fn>
 cudaError_t dispatch(int dtype, int Dh, int rows, Fn fn) {
-  if (rows < 1 || rows > 16) return cudaErrorInvalidValue;
+  if (rows < 1 || rows > MAX_ROWS) return cudaErrorInvalidValue;
 #define DCORE_CASE(TT, D, SMALL)                                          \
   if (Dh == D)                                                            \
     return rows <= SMALL ? fn(Cfg<TT, D, SMALL>{}) : fn(Cfg<TT, D, 16>{});

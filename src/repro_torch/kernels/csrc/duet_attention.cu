@@ -24,10 +24,21 @@
 // so they come out as zeros (the reference kernel leaves the mean of V
 // there; only unpacked rows are ever read).
 //
+// A tile of more than 16 (row, head) pairs (block_q * rep > 16: the slab
+// decode's one-row tiles at granite-20b's rep 48, or prefill tiles) runs
+// duet_attention_block_kernel instead: prefill_core.cuh's 64-row block
+// over the same span of the slot's keys, each row masked at its own
+// row_pos, the ranks' partials combined by the same cluster combine; a
+// tile of more than 64 pairs splits its group's heads into head blocks on
+// grid y (attn::head_split). The role follows block_q and rep alone, so
+// the host picks the kernel and prices the one it launches.
+//
 // Bound: memory, the live KV bytes (each tile's keys 0..max row_pos of its
-// group) at 3.35 TB/s. Tiles of one slot re-read its keys once per tile.
+// group) at 3.35 TB/s. Tiles of one slot re-read its keys once per tile
+// (and once per head block).
 #include "attn_common.cuh"
 #include "decode_core.cuh"
+#include "prefill_core.cuh"
 
 using namespace attn;
 
@@ -75,12 +86,71 @@ __global__ void __launch_bounds__(dcore::Cfg<T, DH, NRB>::THREADS)
       });
 }
 
+// the block role: grid (T, G * hb, C), clusters of C along z
+template <typename T, int DH>
+__global__ void __launch_bounds__(pcore::BlockCfg<T, DH>::THREADS, 2)
+    duet_attention_block_kernel(const T* __restrict__ q,
+                                const int* __restrict__ row_pos,
+                                const int* __restrict__ tile_slot,
+                                const T* __restrict__ k_slab,
+                                const T* __restrict__ v_slab,
+                                T* __restrict__ out, int H, int G, int S,
+                                int bq, HeadSplit hs, float scale) {
+  extern __shared__ __align__(128) char block_smem[];
+  const int t = blockIdx.x;
+  const HeadBlock hb = HeadBlock::split(blockIdx.y, H / G, hs);
+  const int C = gridDim.z, rank = blockIdx.z;
+  const int nrows = bq * hb.hc;          // CTA row i: tile row i / hc,
+                                         // head h0 + i % hc
+
+  const int slot = tile_slot[t];
+  int maxpos = -1;
+  if (slot >= 0)
+    for (int r = 0; r < bq; ++r) maxpos = max(maxpos, row_pos[t * bq + r]);
+  const int n_keys = maxpos < 0 ? 0 : min(S, maxpos + 1);
+  const int units = (n_keys + dcore::SPLIT_KEYS - 1) / dcore::SPLIT_KEYS;
+  const int span = (units + C - 1) / C;
+  const int u0 = min(rank * span, units), u1 = min(u0 + span, units);
+
+  auto row_head = [&](int i) {   // (row of q / out, head) of CTA row i
+    return ((size_t)t * bq + i / hb.hc) * H + hb.h0 + i % hb.hc;
+  };
+  const dcore::SlabSrc src{((size_t)max(slot, 0) * S * G + hb.g) * DH,
+                           (size_t)G * DH};
+  pcore::block_cluster<T, DH>(
+      block_smem, q, k_slab, v_slab, out, src, u0 * dcore::SPLIT_KEYS,
+      min(u1 * dcore::SPLIT_KEYS, n_keys),
+      [&](int i) -> long long {
+        return i < nrows ? (long long)(row_head(i) * DH) : -1LL;
+      },
+      [&](int i) { return slot >= 0 ? row_pos[t * bq + i / hb.hc] : -1; },
+      nrows, scale, C, [&](int i, int d, float x) {
+        out[row_head(i) * DH + d] = from_f32<T>(x);
+      });
+}
+
 static cudaError_t launch_slab(const void* q, const void* row_pos,
                                const void* tile_slot, const void* k,
                                const void* v, void* out, int T_, int bq,
                                int H, int G, int Dh, int S, int C,
                                float scale, int dtype, cudaStream_t stream) {
-  if (C < 1 || C > dcore::MAX_CLUSTER) return cudaErrorInvalidValue;
+  if (C < 1 || C > dcore::MAX_CLUSTER || G < 1 || H % G || bq < 1 ||
+      bq > pcore::ROWS)
+    return cudaErrorInvalidValue;
+  const HeadSplit hs = head_split(H / G, bq, pcore::ROWS);
+  if (bq * hs.hpc > dcore::MAX_ROWS)     // the block role
+    return pcore::dispatch_t_dh(dtype, Dh, [&](auto tt, auto dh) {
+      using T = std::remove_pointer_t<decltype(tt)>;
+      constexpr int DH = decltype(dh)::value;
+      using Bc = pcore::BlockCfg<T, DH>;
+      return dcore::launch_cluster<Bc>(
+          duet_attention_block_kernel<T, DH>, dim3(T_, G * hs.hb, C), C,
+          (size_t)Bc::MAIN_BYTES, stream, static_cast<const T*>(q),
+          static_cast<const int*>(row_pos),
+          static_cast<const int*>(tile_slot), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<T*>(out), H, G, S, bq, hs,
+          scale);
+    });
   return dcore::dispatch(dtype, Dh, bq * (H / G), [&](auto cf) {
     using Cf = decltype(cf);
     using T = typename Cf::T;
@@ -95,7 +165,19 @@ static cudaError_t launch_slab(const void* q, const void* row_pos,
 
 static cudaError_t slab_occupancy(int Dh, int rows, int C, int dtype,
                                   int* res) {
-  if (C < 1 || C > dcore::MAX_CLUSTER) return cudaErrorInvalidValue;
+  if (C < 1 || C > dcore::MAX_CLUSTER || rows < 1)
+    return cudaErrorInvalidValue;
+  if (rows > dcore::MAX_ROWS)            // the block role
+    return pcore::dispatch_t_dh(dtype, Dh, [&](auto tt, auto dh) {
+      using T = std::remove_pointer_t<decltype(tt)>;
+      constexpr int DH = decltype(dh)::value;
+      using Bc = pcore::BlockCfg<T, DH>;
+      res[1] = Bc::MAIN_BYTES;
+      res[2] = Bc::MMA ? (pcore::NSTAGE - 1) * pcore::MmaCfg<DH>::STAGE_BYTES
+                       : 0;
+      return dcore::max_active_clusters<Bc>(
+          duet_attention_block_kernel<T, DH>, C, (size_t)res[1], &res[0]);
+    });
   return dcore::dispatch(dtype, Dh, rows, [&](auto cf) {
     using Cf = decltype(cf);
     res[1] = Cf::FIXED_BYTES;
@@ -108,7 +190,8 @@ static cudaError_t slab_occupancy(int Dh, int rows, int C, int dtype,
 
 extern "C" {
 
-// grid (T, G, C) in clusters of C CTAs along z; out (T*bq, H, Dh).
+// grid (T, G, C) (block_q * rep <= 16) or (T, G * head blocks, C) (the
+// block role) in clusters of C CTAs along z; out (T*bq, H, Dh).
 int duet_attention_launch(const void* q, const void* row_pos,
                           const void* tile_slot, const void* k, const void* v,
                           void* out, int T_, int bq, int H, int G, int Dh,
@@ -118,9 +201,10 @@ int duet_attention_launch(const void* q, const void* row_pos,
                           static_cast<cudaStream_t>(stream));
 }
 
-// duet_attention_launch's occupancy for ``rows`` (= bq * rep) query rows
-// per CTA: res = {clusters of C CTAs the card holds at once, dynamic shared
-// memory bytes per CTA, bytes the ring loads ahead}.
+// duet_attention_launch's occupancy for ``rows`` (= bq * heads of a head
+// block) query rows per CTA, of the role it launches (the block role above
+// 16 rows): res = {clusters of C CTAs the card holds at once, dynamic
+// shared memory bytes per CTA, bytes the ring loads ahead}.
 int duet_attention_occupancy(int Dh, int rows, int C, int dtype, void* res) {
   return (int)slab_occupancy(Dh, rows, C, dtype, static_cast<int*>(res));
 }

@@ -21,9 +21,9 @@
 // rows at 256..2048 tokens beside a 256-row chunk at 512..767) at 3.35
 // TB/s.
 //
-// Design: grid (T, G, C) with clusters of C CTAs along z (cudaLaunchKernel
-// Ex); the host picks C (ops.cluster_size: the largest grid the card runs
-// in one wave). Each CTA reads its tile's row_pos on the device: the live
+// Design: grid (T, G x head blocks, C) with clusters of C CTAs along z
+// (cudaLaunchKernelEx); the host picks C (ops.cluster_size: the largest
+// grid the card runs in one wave). Each CTA reads its tile's row_pos on the device: the live
 // rows are the tile's rows up to its last one with row_pos >= 0
 // (build_duet_schedule fills tiles from the front), and the tile's keys
 // are 0 .. its largest row_pos. Those keys split into C contiguous spans
@@ -55,9 +55,19 @@
 // read it once per row: the engine's 256-row chunk reads its 768-key chain
 // 16 times (per group) instead of 256, and each K/V tile feeds 64 rows of
 // tensor-core products instead of one row of CUDA-core dot products.
+// A tile of more than 64 pairs (rep > 64 at one row a tile, or a caller's
+// block_q * rep > 64) splits its group's heads into head blocks on grid y
+// (attn::head_split; one block at every registered config): CTA (t, y)
+// holds the nlive * hc pairs of head block y % hb of group y / hb, and
+// takes the decode role when nlive * hpc <= 16, so every head block of a
+// tile takes the same role (a last, smaller head block of at most 8 pairs
+// takes the decode role too). At granite-20b's rep 48 the engine's tiles
+// hold one position each (48 pairs), decode rows and chunk positions
+// alike, and all take the prefill role; the chunk's chain is then read
+// once per chunk position.
 // fp32 serves parity only: its decode role is decode_core's CUDA-core path,
-// its prefill role prefill_core's CUDA-core block. Dh 256 has no prefill
-// role (the block's registers do not fit); its tiles hold at most 16 pairs.
+// its prefill role prefill_core's CUDA-core block. Dh 256 takes both roles
+// too (the prefill block keeps Q in shared memory there).
 #include "decode_core.cuh"
 #include "prefill_core.cuh"
 
@@ -73,26 +83,15 @@ struct DuetCfg {
   static constexpr bool MMA = sizeof(T) == 2;
   using Small = dcore::Cfg<T, DH, MMA ? 8 : 4>;   // decode buckets
   using Big = dcore::Cfg<T, DH, DECODE_ROWS>;
-  static constexpr bool PREFILL = DH <= 128;
+  using Block = pcore::BlockCfg<T, DH>;            // the prefill role
   static constexpr int THREADS = Big::THREADS;
-  // the prefill role's ring, and its partial with the combine's room
-  static constexpr int RING_BYTES =
-      !PREFILL ? 0
-      : MMA    ? pcore::MmaCfg<(DH <= 128 ? DH : 128)>::SMEM_BYTES
-               : pcore::simt_smem_bytes(DH);
-  static constexpr int PART_BYTES =
-      PREFILL ? 4 * (TILE_ROWS * (DH + 2) +
-                     TILE_ROWS * (dcore::MAX_CLUSTER + 1))
-              : 0;
   static constexpr int MAIN_BYTES =
       dcore::cmax(dcore::cmax(Small::FIXED_BYTES, Big::FIXED_BYTES),
-                  dcore::cmax(RING_BYTES, PART_BYTES));
-  static_assert(Small::THREADS == THREADS &&
-                    (!PREFILL || (MMA ? pcore::MmaCfg<DH <= 128 ? DH : 128>::
-                                            THREADS
-                                      : pcore::SIMT_THREADS) == THREADS),
+                  Block::MAIN_BYTES);
+  static_assert(Small::THREADS == THREADS && Block::THREADS == THREADS,
                 "both roles run the same block");
-  static_assert(pcore::BM == TILE_ROWS, "a prefill block holds a tile");
+  static_assert(pcore::BM == TILE_ROWS && DECODE_ROWS == dcore::MAX_ROWS,
+                "a prefill block holds a tile");
 };
 
 // most page ids a CTA's span of whole 64-key units touches
@@ -111,13 +110,13 @@ __global__ void __launch_bounds__(DuetCfg<T, DH>::THREADS, 2)
                                 const T* __restrict__ v_pages,
                                 const int* __restrict__ tables,
                                 T* __restrict__ out, int H, int G, int ps,
-                                int P, int bq, float scale) {
+                                int P, int bq, HeadSplit hs, float scale) {
   using D = DuetCfg<T, DH>;
   extern __shared__ __align__(128) char smem[];
-  const int t = blockIdx.x, g = blockIdx.y;
+  const int t = blockIdx.x;
+  const HeadBlock hb = HeadBlock::split(blockIdx.y, H / G, hs);
   const int C = gridDim.z;               // the cluster spans z
   const int rank = blockIdx.z;
-  const int rep = H / G;
 
   // the live rows (a prefix of the tile) and the tile's largest position
   const int slot = tile_slot[t];
@@ -130,17 +129,17 @@ __global__ void __launch_bounds__(DuetCfg<T, DH>::THREADS, 2)
         maxpos = max(maxpos, p);
       }
     }
-  const int nrows = nlive * rep;         // CTA row i: tile row i / rep,
-                                         // head g * rep + i % rep
+  const int nrows = nlive * hb.hc;       // CTA row i: tile row i / hc,
+                                         // head h0 + i % hc
   auto row_head = [&](int i) {
-    return ((size_t)t * bq + i / rep) * H + (size_t)g * rep + i % rep;
+    return ((size_t)t * bq + i / hb.hc) * H + hb.h0 + i % hb.hc;
   };
   if (rank == 0)                         // rows past the live ones: zeros
-    for (int i = nrows * DH + threadIdx.x; i < bq * rep * DH;
+    for (int i = nrows * DH + threadIdx.x; i < bq * hb.hc * DH;
          i += D::THREADS)
       out[row_head(i / DH) * DH + i % DH] = from_f32<T>(0.f);
   if (nrows == 0) return;                // the whole cluster returns
-  const bool prefill = nrows > DECODE_ROWS;
+  const bool prefill = nlive * hs.hpc > DECODE_ROWS;
 
   // this CTA's span of the tile's 64-key units (ops.cluster_spans)
   const int n_keys = min(P * ps, maxpos + 1);
@@ -160,12 +159,15 @@ __global__ void __launch_bounds__(DuetCfg<T, DH>::THREADS, 2)
   const int ps_shift = (ps & (ps - 1)) ? -1 : __ffs(ps) - 1;
   const dcore::PagedSrc src{pid, pg0 * ps, ps, ps_shift,
                             (size_t)ps * row_elems, row_elems,
-                            (size_t)g * DH};
-  auto lim_of = [&](int i) { return row_pos[t * bq + i / rep]; };
+                            (size_t)hb.g * DH};
+  auto lim_of = [&](int i) { return row_pos[t * bq + i / hb.hc]; };
   auto write_out = [&](int i, int d, float x) {
     out[row_head(i) * DH + d] = from_f32<T>(x);
   };
   auto qrow = [&](int i) { return q + row_head(i) * DH; };
+  // (written in this order: with "!prefill &&" in the first test the duet
+  // launch at qwen3-4b's main shape measured 7% slower on an H100 80GB
+  // HBM3 at 700 W)
   if (nrows <= D::Small::NRB) {
     dcore::decode_cluster<typename D::Small>(
         smem, k_pages, v_pages, src, k_begin, k_end, qrow, lim_of, nrows,
@@ -174,20 +176,13 @@ __global__ void __launch_bounds__(DuetCfg<T, DH>::THREADS, 2)
     dcore::decode_cluster<typename D::Big>(
         smem, k_pages, v_pages, src, k_begin, k_end, qrow, lim_of, nrows,
         scale, write_out);
-  } else if constexpr (D::PREFILL) {
-    float* part = C > 1 ? reinterpret_cast<float*>(smem) : nullptr;
-    auto row_off = [&](int i) -> long long {
-      return i < nrows ? (long long)(row_head(i) * DH) : -1;
-    };
-    if constexpr (D::MMA)
-      pcore::mma_block<DH>(smem, q, k_pages, v_pages, out, src, k_begin,
-                           k_end, row_off, lim_of, scale, part);
-    else
-      pcore::simt_block<T, DH>(smem, q, k_pages, v_pages, out, src, k_begin,
-                               k_end, row_off, lim_of, scale, part);
-    if (part)
-      dcore::cluster_combine<TILE_ROWS, DH, D::THREADS>(part, nrows,
-                                                        write_out);
+  } else {
+    pcore::block_cluster<T, DH>(
+        smem, q, k_pages, v_pages, out, src, k_begin, k_end,
+        [&](int i) -> long long {
+          return i < nrows ? (long long)(row_head(i) * DH) : -1LL;
+        },
+        lim_of, nrows, scale, C, write_out);
   }
 }
 
@@ -197,52 +192,32 @@ size_t duet_smem(int P, int ps, int C) {
   return DuetCfg<T, DH>::MAIN_BYTES + sizeof(int) * span_pages(P, ps, C);
 }
 
-// Calls fn((T*)nullptr, std::integral_constant<int, Dh>{}) for the dtype
-// code and a head dim of 32, 64, 128 or 256.
-template <class Fn>
-cudaError_t dispatch(int dtype, int Dh, Fn fn) {
-#define DUET_CASE(TT, D) \
-  if (Dh == D) return fn((TT*)nullptr, std::integral_constant<int, D>{});
-  if (dtype == DTYPE_F32) {
-    DUET_CASE(float, 32)
-    DUET_CASE(float, 64)
-    DUET_CASE(float, 128)
-    DUET_CASE(float, 256)
-  } else if (dtype == DTYPE_BF16) {
-    DUET_CASE(__nv_bfloat16, 32)
-    DUET_CASE(__nv_bfloat16, 64)
-    DUET_CASE(__nv_bfloat16, 128)
-    DUET_CASE(__nv_bfloat16, 256)
-  }
-#undef DUET_CASE
-  return cudaErrorInvalidValue;
-}
-
 cudaError_t launch_duet(const void* q, const void* row_pos,
                         const void* tile_slot, const void* k, const void* v,
                         const void* tables, void* out, int T_, int bq, int H,
                         int G, int Dh, int ps, int P, int C, float scale,
                         int dtype, cudaStream_t stream) {
-  if (C < 1 || C > dcore::MAX_CLUSTER || H % G ||
-      bq * (H / G) > (Dh <= 128 ? TILE_ROWS : DECODE_ROWS))
+  if (C < 1 || C > dcore::MAX_CLUSTER || G < 1 || H % G || bq < 1 ||
+      bq > TILE_ROWS)
     return cudaErrorInvalidValue;
-  return dispatch(dtype, Dh, [&](auto tt, auto dh) {
+  const HeadSplit hs = head_split(H / G, bq, TILE_ROWS);
+  return pcore::dispatch_t_dh(dtype, Dh, [&](auto tt, auto dh) {
     using T = std::remove_pointer_t<decltype(tt)>;
     constexpr int DH = decltype(dh)::value;
     return dcore::launch_cluster<typename DuetCfg<T, DH>::Big>(
-        duet_attention_paged_kernel<T, DH>, dim3(T_, G, C), C,
+        duet_attention_paged_kernel<T, DH>, dim3(T_, G * hs.hb, C), C,
         duet_smem<T, DH>(P, ps, C), stream, static_cast<const T*>(q),
         static_cast<const int*>(row_pos), static_cast<const int*>(tile_slot),
         static_cast<const T*>(k), static_cast<const T*>(v),
         static_cast<const int*>(tables), static_cast<T*>(out), H, G, ps, P,
-        bq, scale);
+        bq, hs, scale);
   });
 }
 
 cudaError_t duet_occupancy(int Dh, int ps, int P, int C, int dtype,
                            int* res) {
   if (C < 1 || C > dcore::MAX_CLUSTER) return cudaErrorInvalidValue;
-  return dispatch(dtype, Dh, [&](auto tt, auto dh) {
+  return pcore::dispatch_t_dh(dtype, Dh, [&](auto tt, auto dh) {
     using T = std::remove_pointer_t<decltype(tt)>;
     constexpr int DH = decltype(dh)::value;
     auto kernel = duet_attention_paged_kernel<T, DH>;
@@ -260,7 +235,8 @@ cudaError_t duet_occupancy(int Dh, int ps, int P, int C, int dtype,
 
 extern "C" {
 
-// grid (T, G, C) in clusters of C CTAs along z (C <= 8); out (T*bq, H, Dh).
+// grid (T, G * head blocks, C) in clusters of C CTAs along z (C <= 8);
+// out (T*bq, H, Dh).
 int duet_attention_paged_launch(const void* q, const void* row_pos,
                                 const void* tile_slot, const void* k,
                                 const void* v, const void* tables, void* out,

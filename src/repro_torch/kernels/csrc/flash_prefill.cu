@@ -30,16 +30,21 @@
 // (dcore::SlabSrc). This file lays the rows out and launches it:
 //
 // * Rows and grid. A block owns 64 query rows of one KV group: BQ = 64 /
-//   rep positions times the rep heads of the group, which share every K/V
-//   tile (row r is position q0 + r / rep, head g * rep + r % rep); row r
-//   sees keys up to min(q_offset + its position, kv_len - 1), and the
-//   block walks keys 0 .. the limit of its last position. Grid (ceil(Sq /
-//   BQ), G, B); block x takes row tile gridDim.x - 1 - x, so the tiles
-//   with the most keys (causal: the work grows with the position) start
-//   first and do not form the tail.
+//   hpc positions times the hpc heads of a head block of the group, which
+//   share every K/V tile (row r is position q0 + r / hc, head h0 + r %
+//   hc; attn::head_split gives one head block of hpc = rep heads up to rep
+//   64, so BQ = 64 // rep and rows past BQ * rep are not held: 63 of 64
+//   at rep 3, 60 at rep 5, 48 at rep 48; above rep 64 the heads split into
+//   blocks of one position each); row r sees keys up to min(q_offset + its
+//   position, kv_len - 1), and the block walks keys 0 .. the limit of its
+//   last position. Grid (ceil(Sq / BQ), G x head blocks, B); block x takes
+//   row tile gridDim.x - 1 - x, so the tiles with the most keys (causal:
+//   the work grows with the position) start first and do not form the
+//   tail.
 // * bf16 (flash_prefill_mma_kernel): two blocks an SM
-//   (__launch_bounds__(128, 2); ptxas gives the Dh 128 kernel 195
-//   registers a thread, no spills; 64 KB of shared memory a block). Each
+//   (__launch_bounds__(128, 2); ptxas gives the Dh 128 kernel 198
+//   registers a thread, no spills; 64 KB of shared memory a block; one
+//   block an SM at Dh 256, whose ring and Q take 160 KB). Each
 //   block syncs its 4 warps once a tile, so one block's softmax overlaps
 //   the other's MMAs. Blocks of 128 rows (8 warps, one block an SM by
 //   registers), a third block of 64 rows (168 registers, with spills) and
@@ -57,27 +62,28 @@ namespace {
 using bf16 = __nv_bfloat16;
 constexpr int MMA_BLOCKS = 2;       // resident bf16 blocks an SM
 
-// the keys and rows of one block of ``rows`` rows: row r of the block is
-// position q0 + r / rep of query tile x, head g * rep + r % rep
+// the keys and rows of one block of ROWS rows: row r of the block is
+// position q0 + r / hc of query tile x, head h0 + r % hc of its head block
 struct Rows {
-  int q0, BQ, Sq, H, rep, g, b, q_offset, kv_end, key_end;
-  __device__ Rows(int rows, int Sq_, int H_, int G, int q_offset_,
+  HeadBlock hb;
+  int q0, BQ, Sq, H, b, q_offset, kv_end, key_end;
+  __device__ Rows(int Sq_, int H_, int G, HeadSplit hs, int q_offset_,
                   int kv_end_, int x)
-      : Sq(Sq_), H(H_), rep(H_ / G), g(blockIdx.y), b(blockIdx.z),
-        q_offset(q_offset_), kv_end(kv_end_) {
-    BQ = rows / rep;
+      : hb(HeadBlock::split(blockIdx.y, H_ / G, hs)), Sq(Sq_), H(H_),
+        b(blockIdx.z), q_offset(q_offset_), kv_end(kv_end_) {
+    BQ = pcore::ROWS / hs.hpc;
     q0 = x * BQ;
     const int q_last = min(Sq, q0 + BQ) - 1;
     key_end = max(0, min(kv_end, q_offset + q_last + 1));
   }
   __device__ long long off(int r, int DH) const {
-    const int p = q0 + r / rep;
-    return p < Sq ? (((long long)b * Sq + p) * H + (long long)g * rep +
-                     r % rep) * DH
-                  : -1;
+    const int p = q0 + r / hb.hc;
+    return r < BQ * hb.hc && p < Sq
+               ? (((long long)b * Sq + p) * H + hb.h0 + r % hb.hc) * DH
+               : -1;
   }
   __device__ int lim(int r) const {
-    return min(q_offset + q0 + r / rep, kv_end - 1);
+    return min(q_offset + q0 + r / hb.hc, kv_end - 1);
   }
 };
 
@@ -85,10 +91,10 @@ template <typename T, int Dh>
 __global__ void __launch_bounds__(pcore::SIMT_THREADS) flash_prefill_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, T* __restrict__ out, int Sq, int Sk, int H,
-    int G, int q_offset, int kv_end, float scale) {
+    int G, HeadSplit hs, int q_offset, int kv_end, float scale) {
   extern __shared__ __align__(16) char simt_smem[];
-  const Rows rows(pcore::ROWS, Sq, H, G, q_offset, kv_end, blockIdx.x);
-  const dcore::SlabSrc src{((size_t)rows.b * Sk * G + rows.g) * Dh,
+  const Rows rows(Sq, H, G, hs, q_offset, kv_end, blockIdx.x);
+  const dcore::SlabSrc src{((size_t)rows.b * Sk * G + rows.hb.g) * Dh,
                            (size_t)G * Dh};
   pcore::simt_block<T, Dh>(
       simt_smem, q, k, v, out, src, 0, rows.key_end,
@@ -108,11 +114,12 @@ cudaError_t launch_flash(const void* q, const void* k, const void* v,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
   }
-  const int bq = pcore::ROWS / (H / G);
-  dim3 grid((Sq + bq - 1) / bq, G, B);
+  const HeadSplit hs = head_split(H / G, 1, pcore::ROWS);
+  const int bq = pcore::ROWS / hs.hpc;
+  dim3 grid((Sq + bq - 1) / bq, G * hs.hb, B);
   kernel<<<grid, pcore::SIMT_THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), Sq, Sk, H, G,
+      static_cast<const T*>(v), static_cast<T*>(out), Sq, Sk, H, G, hs,
       q_offset, kv_end, scale);
   return cudaGetLastError();
 }
@@ -122,12 +129,12 @@ __global__ void __launch_bounds__(32 * pcore::MMA_WARPS, MMA_BLOCKS)
     flash_prefill_mma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, bf16* __restrict__ out, int Sq, int Sk,
-    int H, int G, int q_offset, int kv_end, float scale) {
+    int H, int G, HeadSplit hs, int q_offset, int kv_end, float scale) {
   extern __shared__ __align__(128) char mma_smem[];
   // heaviest row tiles first
-  const Rows rows(pcore::BM, Sq, H, G, q_offset, kv_end,
+  const Rows rows(Sq, H, G, hs, q_offset, kv_end,
                   gridDim.x - 1 - blockIdx.x);
-  const dcore::SlabSrc src{((size_t)rows.b * Sk * G + rows.g) * DH,
+  const dcore::SlabSrc src{((size_t)rows.b * Sk * G + rows.hb.g) * DH,
                            (size_t)G * DH};
   pcore::mma_block<DH>(
       mma_smem, q, k, v, out, src, 0, rows.key_end,
@@ -152,11 +159,12 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out,
   using Cf = pcore::MmaCfg<DH>;
   const cudaError_t e = prepare_mma<DH>();
   if (e != cudaSuccess) return e;
-  const int bq = pcore::BM / (H / G);
-  dim3 grid((Sq + bq - 1) / bq, G, B);
+  const HeadSplit hs = head_split(H / G, 1, pcore::BM);
+  const int bq = pcore::BM / hs.hpc;
+  dim3 grid((Sq + bq - 1) / bq, G * hs.hb, B);
   flash_prefill_mma_kernel<DH><<<grid, Cf::THREADS, Cf::SMEM_BYTES, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), Sq, Sk, H, G,
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), Sq, Sk, H, G, hs,
       q_offset, kv_end, scale);
   return cudaGetLastError();
 }
@@ -187,6 +195,9 @@ cudaError_t dispatch_f32(int Dh, const void* q, const void* k, const void* v,
     case 128:
       return launch_flash<float, 128>(q, k, v, out, B, Sq, Sk, H, G,
                                       q_offset, kv_end, scale, stream);
+    case 256:
+      return launch_flash<float, 256>(q, k, v, out, B, Sq, Sk, H, G,
+                                      q_offset, kv_end, scale, stream);
   }
   return cudaErrorInvalidValue;
 }
@@ -196,14 +207,15 @@ cudaError_t dispatch_f32(int Dh, const void* q, const void* k, const void* v,
 extern "C" {
 
 // out (B, Sq, H, Dh); kv_end is min(Sk, kv_len). Grid (ceil(Sq / (64 /
-// rep)), G, B): 64 query rows (positions x heads) a block.
+// hpc)), G x head blocks, B): up to 64 query rows (positions x heads) a
+// block (attn::head_split).
 int flash_prefill_launch(const void* q, const void* k, const void* v,
                          void* out, int B, int Sq, int Sk, int H, int G,
                          int Dh, int q_offset, int kv_end, float scale,
                          int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
-  if (H % G || (pcore::ROWS % (H / G)) != 0)
+  if (G < 1 || H % G)
     e = cudaErrorInvalidValue;
   else if (dtype == DTYPE_F32)
     e = dispatch_f32(Dh, q, k, v, out, B, Sq, Sk, H, G, q_offset, kv_end,

@@ -2,28 +2,39 @@
 // KV group walks a key range in tiles, with the online softmax in
 // registers.
 //
-// Used by flash_prefill.cu (keys of a contiguous (B, Sk, G, Dh) tensor,
-// dcore::SlabSrc) and duet_attention_paged.cu (the prefill role: keys of a
-// page chain, dcore::PagedSrc). The caller says which rows the block holds
-// and how far each may see:
+// Used by every kernel of the port for a CTA that holds more (row, head)
+// pairs than the decode core's 16 (the "block role"): flash_prefill.cu
+// (keys of a contiguous (B, Sk, G, Dh) tensor, dcore::SlabSrc),
+// duet_attention.cu (a slab row, dcore::SlabSrc), and paged_decode.cu and
+// duet_attention_paged.cu (a page chain, dcore::PagedSrc). The caller says
+// which rows the block holds and how far each may see:
 //
 //   row_off(r) : element offset of row r in q and out, or -1 (no row)
 //   lim_of(r)  : the last key row r may see (-1: none); read for rows with
 //                row_off(r) >= 0
 //
-// and the block walks keys k_begin .. k_end - 1 (k_begin a multiple of the
-// tile), every row clamped to k_end - 1. With part == nullptr it writes
-// acc / max(l, DENOM_EPS) to out + row_off(r) (a row with no valid key
-// comes out as zeros); otherwise it leaves each row's partial (m in log2
-// units, or NEG_INF for a row with no valid key; l; acc) in shared memory
-// at ``part`` in the layout dcore::cluster_combine reads (m[ROWS],
-// l[ROWS], acc[ROWS][Dh]), for a cluster's rank-order combine.
+// and the block walks keys k_begin .. k_end - 1, every row clamped to
+// k_end - 1. With part == nullptr it writes acc / max(l, DENOM_EPS) to
+// out + row_off(r) (a row with no valid key comes out as zeros);
+// otherwise it leaves each row's partial (m in log2 units, or NEG_INF for
+// a row with no valid key; l; acc) in shared memory at ``part`` in the
+// layout dcore::cluster_combine reads (m[ROWS], l[ROWS], acc[ROWS][Dh]),
+// for a cluster's rank-order combine (block_cluster does both).
+//
+// Head blocks (attn::head_split): a tile of bq query positions of a group
+// of rep heads holds bq * rep (row, head) pairs; where that is more than
+// the block's 64 rows, the group's heads split into hb blocks of at most
+// ceil(rep / hb) heads (each a CTA of its own on another grid index), so
+// every GQA shape (rep 3, 5, 48, 128 ...) fits, at the cost of re-reading
+// the group's keys once per head block (twice at rep 96 or 128; never for
+// a registered config).
 //
 // bf16 (mma_block), FlashAttention-2 style on mma.sync:
 //
 // * Rows. A block owns ROWS = 64 query rows, 16 a warp, the m of mma.sync
-//   m16n8k16. The caller lays them out (flash_prefill: 64 / rep positions
-//   times the rep heads of the group, which share every K/V tile).
+//   m16n8k16. The caller lays them out (flash_prefill: 64 / hpc positions
+//   times the hpc heads of a head block, which share every K/V tile; rows
+//   past the last whole position are not held).
 // * K/V in flight. K and V tiles of BN = 64 keys go through a ring of
 //   NSTAGE = 2 stages in shared memory (the next tile loads while this one
 //   is computed; a third stage measured no faster) with 16-byte
@@ -35,9 +46,13 @@
 //   ldmatrix addresses are 32-bit shared-window offsets computed once, and
 //   moving to chunk 2x of the same rows is an XOR with x * 32. Keys past
 //   k_end are zero-filled (cp.async with a source size of 0): stale shared
-//   memory could hold NaN, and 0 x NaN is NaN. Q is read once from global
-//   memory straight into its A fragments, which stay in registers for the
-//   whole key loop.
+//   memory could hold NaN, and 0 x NaN is NaN. Up to Dh 128, Q is read
+//   once from global memory straight into its A fragments, which stay in
+//   registers for the whole key loop. At Dh 256 a warp's 16 x 256 fp32
+//   output tile alone is 128 registers a thread, and Q's fragments would
+//   be 64 more: Q goes to shared memory with the first K/V tile (a 32 KB
+//   swizzled tile beside the 128 KB ring, so one block an SM) and each
+//   k-step's A fragment is loaded by ldmatrix inside the key loop.
 // * Tensor-core math. S = Q K^T (mma.sync m16n8k16, bf16 -> fp32, K by
 //   ldmatrix); the online softmax runs in registers in the log2 domain
 //   (ex2 of the scores times scale * log2 e), the row max reduced over the
@@ -62,8 +77,10 @@
 #pragma once
 
 #include <climits>
+#include <type_traits>
 
 #include "attn_common.cuh"
+#include "decode_core.cuh"   // the key sources and the cluster combine
 #include "sm90_mma.cuh"
 
 namespace pcore {
@@ -95,14 +112,19 @@ struct MmaCfg {
   static constexpr int RPL = CPR >= 8 ? 1 : 8 / CPR;  // rows a 128-B line
   static constexpr int SWZ = CPR >= 8 ? 8 : CPR;      // chunk XOR span
   static constexpr int KPP = THREADS / CPR;     // rows a copy pass
+  // a thread copies the same chunk of rows KPP apart; where their swizzle
+  // agrees, one offset serves every pass
+  static constexpr bool SAME_SWZ = KPP % (8 * RPL) == 0;
   static constexpr int TILE_BYTES = BN * ROW_BYTES;   // K (or V) of a tile
   static constexpr int STAGE_BYTES = 2 * TILE_BYTES;
-  static constexpr int SMEM_BYTES = NSTAGE * STAGE_BYTES;
-  // a thread copies the same chunk of rows KPP apart, whose swizzle agrees
-  static_assert(THREADS % CPR == 0 && BN % KPP == 0 && KPP % (8 * RPL) == 0,
+  static constexpr int RING_BYTES = NSTAGE * STAGE_BYTES;
+  // Dh 256: Q in shared memory after the ring (see the header)
+  static constexpr bool Q_SMEM = DH > 128;
+  static constexpr int SMEM_BYTES = RING_BYTES + (Q_SMEM ? BM * ROW_BYTES : 0);
+  static_assert(THREADS % CPR == 0 && BN % KPP == 0 && BM % KPP == 0,
                 "copy split");
 
-  // byte offset of chunk ch of row t in a K (or V) tile
+  // byte offset of chunk ch of row t in a K (or V) tile, or in Q's
   __device__ static unsigned chunk_at(int t, int ch) {
     return t * ROW_BYTES + ((ch ^ ((t / RPL) & (SWZ - 1))) * 16);
   }
@@ -129,15 +151,20 @@ __device__ __forceinline__ void mma_block(
   const int r0 = threadIdx.x / Cf::CPR;
   const int ch = threadIdx.x % Cf::CPR;
   const unsigned cp_dst = Cf::chunk_at(r0, ch);
+  // shared offset of this thread's chunk of row r0 + j * KPP
+  auto dst_at = [&](int j) -> unsigned {
+    if constexpr (Cf::SAME_SWZ) return cp_dst + j * Cf::KPP * RB;
+    else return Cf::chunk_at(r0 + j * Cf::KPP, ch);
+  };
   auto issue = [&](int t) {
-    const unsigned st = ring + (t % NSTAGE) * Cf::STAGE_BYTES + cp_dst;
+    const unsigned st = ring + (t % NSTAGE) * Cf::STAGE_BYTES;
     const int key0 = k_begin + t * BN + r0;
     if (k_begin + (t + 1) * BN <= k_end) {   // a full tile
 #pragma unroll
       for (int j = 0; j < BN / Cf::KPP; ++j) {
         const size_t off = src.offset(key0 + j * Cf::KPP) + ch * 8;
-        cp_async16(st + j * Cf::KPP * RB, k + off);
-        cp_async16(st + j * Cf::KPP * RB + Cf::TILE_BYTES, v + off);
+        cp_async16(st + dst_at(j), k + off);
+        cp_async16(st + dst_at(j) + Cf::TILE_BYTES, v + off);
       }
     } else {                        // the last: keys past k_end get zeros
 #pragma unroll
@@ -145,22 +172,33 @@ __device__ __forceinline__ void mma_block(
         const int key = key0 + j * Cf::KPP;
         const bool live = key < k_end;
         const size_t off = live ? src.offset(key) + ch * 8 : 0;
-        cp_async16(st + j * Cf::KPP * RB, k + off, live ? 16 : 0);
-        cp_async16(st + j * Cf::KPP * RB + Cf::TILE_BYTES, v + off,
-                   live ? 16 : 0);
+        cp_async16(st + dst_at(j), k + off, live ? 16 : 0);
+        cp_async16(st + dst_at(j) + Cf::TILE_BYTES, v + off, live ? 16 : 0);
       }
     }
   };
+  // Dh 256: the block's Q rows into shared memory (rows it does not hold
+  // are zeros), in the first tile's copy group
+  const unsigned q_smem = ring + Cf::RING_BYTES;
+  if constexpr (Cf::Q_SMEM) {
+#pragma unroll
+    for (int j = 0; j < BM / Cf::KPP; ++j) {
+      const long long off = row_off(r0 + j * Cf::KPP);
+      cp_async16(q_smem + dst_at(j), q + (off >= 0 ? off + ch * 8 : 0),
+                 off >= 0 ? 16 : 0);
+    }
+  }
 #pragma unroll
   for (int s = 0; s < NSTAGE - 1; ++s) {
     if (s < n_tiles) issue(s);
     cp_async_commit();
   }
 
-  // this lane's two rows (mma rows gq and gq + 8 of the warp): their A
-  // fragments of Q, read once from global memory, and the last key each
-  // may see (-1: none); rows the block does not hold read no key either
-  uint32_t qa[KT][4];
+  // this lane's two rows (mma rows gq and gq + 8 of the warp): up to Dh
+  // 128 their A fragments of Q, read once from global memory, and the
+  // last key each may see (-1: none); rows the block does not hold read
+  // no key either
+  uint32_t qa[Cf::Q_SMEM ? 1 : KT][4];
   int lim[2];
   long long roff[2];
 #pragma unroll
@@ -168,16 +206,21 @@ __device__ __forceinline__ void mma_block(
     const int r = warp * 16 + gq + 8 * h;
     roff[h] = row_off(r);
     lim[h] = roff[h] >= 0 ? min(lim_of(r), k_end - 1) : -1;
-    const bf16* qr = q + (roff[h] >= 0 ? roff[h] : 0);
+    if constexpr (!Cf::Q_SMEM) {
+      const bf16* qr = q + (roff[h] >= 0 ? roff[h] : 0);
 #pragma unroll
-    for (int kk = 0; kk < KT; ++kk)
+      for (int kk = 0; kk < KT; ++kk)
 #pragma unroll
-      for (int e = 0; e < 2; ++e)
-        qa[kk][h + 2 * e] =
-            roff[h] >= 0 ? *reinterpret_cast<const uint32_t*>(
-                               qr + kk * 16 + 8 * e + 2 * c)
-                         : 0u;
+        for (int e = 0; e < 2; ++e)
+          qa[kk][h + 2 * e] =
+              roff[h] >= 0 ? *reinterpret_cast<const uint32_t*>(
+                                 qr + kk * 16 + 8 * e + 2 * c)
+                           : 0u;
+    }
   }
+  // Dh 256: the ldmatrix lane offset of the warp's Q A fragments: tiles
+  // (rows 0-7, chunk 0), (8-15, 0), (0-7, 1), (8-15, 1) of its 16 rows
+  const unsigned q_lane = Cf::chunk_at(warp * 16 + r8 + 8 * (j8 & 1), j8 >> 1);
   // the warp's rows: keys below w_full are valid for every row it writes,
   // keys above w_last for none
   int w_full = min(roff[0] >= 0 ? lim[0] + 1 : INT_MAX,
@@ -226,13 +269,15 @@ __device__ __forceinline__ void mma_block(
 #pragma unroll
     for (int kk = 0; kk < KT; ++kk) {
       const unsigned kx = ks + (k_lane ^ (kk * 32));
+      const uint32_t(&a)[4] = qa[Cf::Q_SMEM ? 0 : kk];
+      if constexpr (Cf::Q_SMEM) ldsm_x4(qa[0], q_smem + (q_lane ^ (kk * 32)));
 #pragma unroll
       for (int np = 0; np < BN / 16; ++np) {
         uint32_t r[4];
         ldsm_x4(r, kx + np * 16 * RB);
         const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
-        mma_bf16(s[2 * np], qa[kk], b0);
-        mma_bf16(s[2 * np + 1], qa[kk], b1);
+        mma_bf16(s[2 * np], a, b0);
+        mma_bf16(s[2 * np + 1], a, b1);
       }
     }
     if (k0 + BN > w_full) {         // the tile crosses a row's limit
@@ -332,13 +377,14 @@ __device__ __forceinline__ void mma_block(
   }
 }
 
-// Calls fn(MmaCfg<Dh>{}) for a head dim of 32, 64 or 128.
+// Calls fn(MmaCfg<Dh>{}) for a head dim of 32, 64, 128 or 256.
 template <class Fn>
 cudaError_t dispatch_mma(int Dh, Fn fn) {
   switch (Dh) {
     case 32: return fn(MmaCfg<32>{});
     case 64: return fn(MmaCfg<64>{});
     case 128: return fn(MmaCfg<128>{});
+    case 256: return fn(MmaCfg<256>{});
   }
   return cudaErrorInvalidValue;
 }
@@ -546,6 +592,69 @@ __device__ __forceinline__ void simt_block(
           make_float4(acc[i][4 * j], acc[i][4 * j + 1], acc[i][4 * j + 2],
                       acc[i][4 * j + 3]);
   }
+}
+
+// ---------------------------------------------------------------------------
+// a block-role CTA of a cluster
+// ---------------------------------------------------------------------------
+// Dynamic shared memory of a block-role CTA: its ring (bf16) or tiles
+// (fp32), reused after the walk for its partial and the cluster combine's
+// weights (dcore::cluster_combine's layout for ROWS rows).
+template <typename T, int DH>
+struct BlockCfg {
+  static constexpr bool MMA = sizeof(T) == 2;
+  static constexpr int THREADS = 128;
+  static constexpr int TILE_BYTES =
+      MMA ? MmaCfg<DH>::SMEM_BYTES : simt_smem_bytes(DH);
+  static constexpr int PART_BYTES =
+      4 * ROWS * ((DH + 2) + (dcore::MAX_CLUSTER + 1));
+  static constexpr int MAIN_BYTES = dcore::cmax(TILE_BYTES, PART_BYTES);
+  static_assert(THREADS == (MMA ? MmaCfg<DH>::THREADS : SIMT_THREADS),
+                "one block shape");
+};
+
+// The block over this CTA's span k_begin .. k_end - 1 of a cluster of C
+// CTAs (rows and limits as for mma_block), then, with C > 1, the ranks'
+// partials combined in rank order (dcore::cluster_combine) and row r,
+// column d of the output handed to write_out(r, d, value). With C = 1 the
+// block writes its rows itself. Every CTA of the cluster must call it.
+template <typename T, int DH, class Src, class RowOff, class LimOf,
+          class Out>
+__device__ __forceinline__ void block_cluster(
+    char* smem, const T* q, const T* k, const T* v, T* out, const Src& src,
+    int k_begin, int k_end, RowOff row_off, LimOf lim_of, int nrows,
+    float scale, int C, Out write_out) {
+  float* part = C > 1 ? reinterpret_cast<float*>(smem) : nullptr;
+  if constexpr (BlockCfg<T, DH>::MMA)
+    mma_block<DH>(smem, q, k, v, out, src, k_begin, k_end, row_off, lim_of,
+                  scale, part);
+  else
+    simt_block<T, DH>(smem, q, k, v, out, src, k_begin, k_end, row_off,
+                      lim_of, scale, part);
+  if (part)
+    dcore::cluster_combine<ROWS, DH, BlockCfg<T, DH>::THREADS>(part, nrows,
+                                                                write_out);
+}
+
+// Calls fn((T*)nullptr, std::integral_constant<int, Dh>{}) for the dtype
+// code and a head dim of 32, 64, 128 or 256.
+template <class Fn>
+cudaError_t dispatch_t_dh(int dtype, int Dh, Fn fn) {
+#define PCORE_CASE(TT, D) \
+  if (Dh == D) return fn((TT*)nullptr, std::integral_constant<int, D>{});
+  if (dtype == attn::DTYPE_F32) {
+    PCORE_CASE(float, 32)
+    PCORE_CASE(float, 64)
+    PCORE_CASE(float, 128)
+    PCORE_CASE(float, 256)
+  } else if (dtype == attn::DTYPE_BF16) {
+    PCORE_CASE(__nv_bfloat16, 32)
+    PCORE_CASE(__nv_bfloat16, 64)
+    PCORE_CASE(__nv_bfloat16, 128)
+    PCORE_CASE(__nv_bfloat16, 256)
+  }
+#undef PCORE_CASE
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace pcore

@@ -24,21 +24,27 @@ tile's keys over a cluster of C CTAs (each a span of whole 64-key units,
 combined through distributed shared memory); C comes from
 :func:`~repro_torch.kernels.ops.cluster_size` on the host: the most CTAs
 the card runs in one wave, capped at 8 and at the 64-key units of the
-slab row or the table. The slab kernel runs every tile of up to 16 (row,
-head) pairs on the decode core. The paged kernel takes tiles of up to 64
-pairs (``ops.DUET_TILE_ROWS``) and picks a role per tile on the card: a
-tile of at most 16 live pairs (``ops.DUET_DECODE_ROWS``; a decode row)
-runs on the decode core, a larger one (a tile of the prefill chunk) on
-``flash_prefill``'s tensor-core block with its K/V gathered through the
-page table, so a chunk's chain is read once per tile of 64 / rep
-positions. :func:`duet_attention_paged_tiled_plain` is that schedule in
-plain PyTorch.
+slab row or the table. A CTA holds the (row, head) pairs of one (tile, KV
+group); a tile of more than 64 (``ops.DUET_TILE_ROWS``) splits its
+group's heads into head blocks on the grid
+(:func:`~repro_torch.kernels.ops.head_split`). The slab kernel runs a
+launch whose CTAs hold up to 16 pairs on the decode core, and one with
+more (the slab decode's one-row tiles at rep > 16, prefill tiles) on
+``flash_prefill``'s 64-row tensor-core block (the role is picked on the
+host, :func:`slab_role`). The paged kernel picks a role per tile on the
+card: a tile of at most 16 live pairs (``ops.DUET_DECODE_ROWS``; a decode
+row at rep <= 16) runs on the decode core, a larger one (a tile of the
+prefill chunk, or a decode row at rep > 16) on the tensor-core block with
+its K/V gathered through the page table, so a chunk's chain is read once
+per tile of 64 / rep positions. :func:`duet_attention_paged_tiled_plain`
+is that schedule in plain PyTorch.
 
 Pad rows (``row_pos < 0``) and pad tiles (``tile_slot < 0``) come out as
 zeros here and in the plain versions (the reference kernels leave the mean
 of V there); callers read only unpacked rows. On a CPU tensor a wrapper
 runs the plain version; on a CUDA tensor it launches the kernel or raises.
-:data:`launches` counts kernel launches per wrapper.
+:data:`launches` counts kernel launches per wrapper, and the slab
+kernel's per role (``"duet_attention[block]"`` for the block role).
 """
 from __future__ import annotations
 
@@ -51,13 +57,14 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ops import (DENOM_EPS, DUET_DECODE_ROWS,
                                      DUET_TILE_ROWS, MASKED_M_THRESHOLD,
                                      NEG_INF, SPLIT_KEYS, cluster_size,
-                                     cluster_spans, default_sm_scale,
-                                     gqa_split_heads)
+                                     cluster_spans, cta_role,
+                                     default_sm_scale, gqa_split_heads,
+                                     head_split)
 
-launches = {"duet_attention": 0, "duet_attention_paged": 0}
+launches = {"duet_attention": 0, "duet_attention[block]": 0,
+            "duet_attention_paged": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_QUERY_ROWS = 16      # slab: block_q * rep of one block (csrc)
 _PLAIN_ROWS = 16         # rows per gathered chunk in the plain versions
 LOG2E = 1.4426950408889634
 BLOCK_N = 64             # keys a K/V tile of the paged walk (csrc)
@@ -122,11 +129,15 @@ def duet_tile_plan(row_pos, tile_slot, *, block_q: int, rep: int):
     """What the paged kernel does with each tile, read from its rows as
     the kernel reads them on the card: (role, live rows, keys) per tile.
     The live rows are the tile's rows up to its last one with row_pos >= 0,
-    the keys 0 .. the largest row_pos; a tile of at most
-    ``ops.DUET_DECODE_ROWS`` live (row, head) pairs takes the "decode"
-    role, a larger one the "prefill" role; a pad tile (or one without live
-    rows) is (None, 0, 0)."""
+    the keys 0 .. the largest row_pos; a tile whose live rows times the
+    heads of a head block (:func:`~repro_torch.kernels.ops.head_split`)
+    are at most ``ops.DUET_DECODE_ROWS`` (row, head) pairs takes the
+    "decode" role in every head block, a larger one the "prefill" role
+    (where a tile splits into head blocks, a last, smaller block of at most
+    8 pairs still takes the decode role; the numerics do not depend on
+    it); a pad tile (or one without live rows) is (None, 0, 0)."""
     pos = row_pos.reshape(-1).tolist()
+    _, hpc = head_split(rep, block_q)
     plan = []
     for t, slot in enumerate(tile_slot.tolist()):
         rows = pos[t * block_q:(t + 1) * block_q]
@@ -135,7 +146,7 @@ def duet_tile_plan(row_pos, tile_slot, *, block_q: int, rep: int):
             plan.append((None, 0, 0))
             continue
         nlive = live[-1] + 1
-        role = "decode" if nlive * rep <= DUET_DECODE_ROWS else "prefill"
+        role = "decode" if nlive * hpc <= DUET_DECODE_ROWS else "prefill"
         plan.append((role, nlive, max(rows) + 1))
     return plan
 
@@ -224,11 +235,12 @@ def duet_attention_paged_tiled_plain(q, row_pos, tile_slot, k_pages, v_pages,
     return out
 
 
-def _check_launch(name, q, row_pos, tile_slot, kv, ints, block_q,
-                  max_rows):
+def _check_launch(name, q, row_pos, tile_slot, kv, ints, block_q):
     """The checks both CUDA wrappers make before a launch. ``kv``: the two
-    KV tensors, (..., G, Dh); ``ints``: the int32 index tensors;
-    ``max_rows``: the most (row, head) pairs of a tile."""
+    KV tensors, (..., G, Dh); ``ints``: the int32 index tensors. Any GQA
+    head shape is taken (head blocks split a tile of more than 64 (row,
+    head) pairs); a tile of more than 64 rows is a layout the kernels do
+    not take."""
     R, H, Dh = q.shape
     G, Dk = kv[0].shape[-2:]
     if q.dtype not in _DTYPES:
@@ -251,20 +263,27 @@ def _check_launch(name, q, row_pos, tile_slot, kv, ints, block_q,
         raise ValueError(f"{name}: rows != tiles * block_q")
     if Dk != Dh or Dh not in (32, 64, 128, 256) or H % G:
         raise ValueError(f"{name}: unsupported H={H} G={G} Dh={Dh}")
-    if block_q * (H // G) > max_rows:
-        raise ValueError(f"{name}: block_q * rep = {block_q * (H // G)} > "
-                         f"{max_rows} at Dh={Dh}")
+    if not 1 <= block_q <= DUET_TILE_ROWS:
+        raise ValueError(f"{name}: block_q {block_q} is not in 1.."
+                         f"{DUET_TILE_ROWS}")
     if kv[0].data_ptr() % 16 or kv[1].data_ptr() % 16:
         raise ValueError(f"{name}: k and v must be 16-byte aligned")
+
+
+def slab_role(block_q: int, rep: int) -> str:
+    """The role every CTA of a slab :func:`duet_attention` launch takes:
+    "decode" when a CTA holds at most 16 (row, head) pairs (block_q times
+    the heads of a head block), "block" above."""
+    return cta_role(block_q * head_split(rep, block_q)[1])
 
 
 @functools.lru_cache(maxsize=None)
 def occupancy(device: int, dtype, Dh: int, rows: int, C: int):
     """(clusters of C CTAs the card runs at once, shared memory bytes per
     CTA, bytes each CTA's ring loads ahead) of the slab
-    :func:`duet_attention` kernel for ``rows`` (block_q * rep) query rows
-    per CTA (cudaOccupancyMaxActiveClusters; a host query, no device
-    sync)."""
+    :func:`duet_attention` kernel of the role ``rows`` (block_q times the
+    heads of a head block) query rows per CTA take
+    (cudaOccupancyMaxActiveClusters; a host query, no device sync)."""
     res = (ctypes.c_int * 3)()
     with torch.cuda.device(device):
         err = _build.load("duet_attention").duet_attention_occupancy(
@@ -278,17 +297,18 @@ def cluster_for(q, tile_slot, k_slab, block_q) -> int:
     inputs with."""
     H, Dh = q.shape[1:]
     S, G = k_slab.shape[1:3]
+    hb, hpc = head_split(H // G, block_q)
     dev = q.device.index if q.device.index is not None else \
         torch.cuda.current_device()
     return cluster_size(
-        tile_slot.shape[0] * G, -(-S // SPLIT_KEYS),
-        lambda C: C * occupancy(dev, q.dtype, Dh, block_q * (H // G), C)[0])
+        tile_slot.shape[0] * G * hb, -(-S // SPLIT_KEYS),
+        lambda C: C * occupancy(dev, q.dtype, Dh, block_q * hpc, C)[0])
 
 
 def _launch(q, row_pos, tile_slot, k_slab, v_slab, block_q):
     S = k_slab.shape[1]
     _check_launch("duet_attention", q, row_pos, tile_slot, (k_slab, v_slab),
-                  {}, block_q, MAX_QUERY_ROWS)
+                  {}, block_q)
     R, H, Dh = q.shape
     T, G = tile_slot.shape[0], k_slab.shape[2]
     C = cluster_for(q, tile_slot, k_slab, block_q)
@@ -300,7 +320,9 @@ def _launch(q, row_pos, tile_slot, k_slab, v_slab, block_q):
         G, Dh, S, C, default_sm_scale(Dh), _DTYPES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "duet_attention")
-    launches["duet_attention"] += 1
+    role = slab_role(block_q, H // G)
+    launches["duet_attention" if role == "decode"
+             else f"duet_attention[{role}]"] += 1
     return out
 
 
@@ -322,23 +344,24 @@ def paged_occupancy(device: int, dtype, Dh: int, ps: int, P: int, C: int):
 
 def paged_cluster_for(q, tile_slot, k_pages, tables) -> int:
     """The cluster size :func:`duet_attention_paged` launches these inputs
-    with: one wave of the T * G (tile, group) clusters, at most the
+    with: one wave of the T x G x head-block clusters, at most the
     table's 64-key units."""
     H, Dh = q.shape[1:]
     ps, G = k_pages.shape[1:3]
     P = tables.shape[1]
+    T = tile_slot.shape[0]
+    hb, _ = head_split(H // G, q.shape[0] // max(T, 1))
     dev = q.device.index if q.device.index is not None else \
         torch.cuda.current_device()
     return cluster_size(
-        tile_slot.shape[0] * G, -(-P * ps // SPLIT_KEYS),
+        T * G * hb, -(-P * ps // SPLIT_KEYS),
         lambda C: C * paged_occupancy(dev, q.dtype, Dh, ps, P, C)[0])
 
 
 def _launch_paged(q, row_pos, tile_slot, k_pages, v_pages, tables, block_q):
     R, H, Dh = q.shape
     _check_launch("duet_attention_paged", q, row_pos, tile_slot,
-                  (k_pages, v_pages), {"tables": tables}, block_q,
-                  DUET_TILE_ROWS if Dh <= 128 else DUET_DECODE_ROWS)
+                  (k_pages, v_pages), {"tables": tables}, block_q)
     N, ps, G, _ = k_pages.shape
     C = paged_cluster_for(q, tile_slot, k_pages, tables)
     out = torch.empty_like(q)
@@ -393,7 +416,7 @@ def duet_attention_paged(q, row_pos, tile_slot, k_pages, v_pages, tables, *,
       tables:    (B, P) int32 block tables; row ``tile_slot[t]`` is tile
                  t's page chain. Unused entries must hold a valid (null)
                  page id.
-    On the card ``block_q * rep`` is at most 64 (16 at Dh 256). Returns
+    On the card ``block_q`` is at most 64 (any head shape). Returns
     (T*block_q, H, Dh).
     """
     if q.device.type == "cpu":

@@ -11,7 +11,10 @@ Kernel source: ``csrc/flash_prefill.cu`` (design notes there). A block of
 query rows — (position, head) pairs of one KV group, so the rep heads
 share every K/V tile — loops over the KV tiles up to its causal limit, so
 Sq and Sk need not divide by any block size (the Pallas kernel wants
-multiples of 128). Bound on an H100: operations (4 * Dh flops per valid
+multiples of 128). A block holds 64 // rep positions of the rep heads
+(63 rows of 64 at rep 3, 60 at rep 5, one position of 48 at rep 48);
+above rep 64 the group's heads split into head blocks
+(:func:`~repro_torch.kernels.ops.head_split`), one position a block. Bound on an H100: operations (4 * Dh flops per valid
 (query head, key) pair at 989 bf16 TFLOP/s). bf16 runs on the tensor
 cores (``mma.sync``, FlashAttention-2 style: blocks of 64 rows, 64-key
 K/V tiles through a ``cp.async`` ring, the online softmax in registers);
@@ -33,7 +36,8 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ops import (DENOM_EPS, MASKED_M_THRESHOLD, NEG_INF,
-                                     default_sm_scale, gqa_split_heads)
+                                     default_sm_scale, gqa_split_heads,
+                                     head_split)
 
 launches = {"flash_prefill": 0}
 
@@ -67,7 +71,9 @@ def flash_prefill_plain(q, k, v, *, q_offset: int = 0,
 def flash_prefill_tiled_plain(q, k, v, *, q_offset: int = 0,
                               kv_len: Optional[int] = None):
     """The bf16 kernel's schedule in plain PyTorch: each KV group's rows
-    packed as (position, head) pairs, :data:`ROWS` rows a block, each block
+    packed as (position, head) pairs, blocks of :data:`ROWS` // hpc
+    positions (hpc: the heads of a head block, ``ops.head_split``; head
+    blocks walk the same keys, so they share one pass here), each block
     walking :data:`BLOCK_N`-key tiles up to its causal limit (its last
     position's) with the online softmax in the log2 domain, P rounded to
     q's type before P V (fp32 accumulation), ``acc / max(l, DENOM_EPS)``
@@ -76,7 +82,7 @@ def flash_prefill_tiled_plain(q, k, v, *, q_offset: int = 0,
     Sk, G = k.shape[1], k.shape[2]
     rep = H // G
     kv_end = Sk if kv_len is None else max(0, min(Sk, int(kv_len)))
-    bq = ROWS // rep
+    bq = ROWS // head_split(rep, 1, ROWS)[1]
     qs = default_sm_scale(Dh) * LOG2E
     rows = gqa_split_heads(q, G).permute(0, 2, 1, 3, 4).reshape(
         B, G, Sq * rep, Dh).float()
@@ -139,8 +145,7 @@ def _launch(q, k, v, q_offset, kv_len):
             raise ValueError(f"flash_prefill: {name} is not contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"flash_prefill: {name} is not 16-byte aligned")
-    if k.shape[0] != B or Dk != Dh or Dh not in (32, 64, 128) or H % G \
-            or ROWS % (H // G):
+    if k.shape[0] != B or Dk != Dh or Dh not in (32, 64, 128, 256) or H % G:
         raise ValueError(f"flash_prefill: unsupported B={B} H={H} G={G} "
                          f"Dh={Dh}")
     if q_offset < 0:

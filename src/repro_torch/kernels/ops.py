@@ -100,22 +100,45 @@ def cluster_size(ctas: int, max_units: int, holds) -> int:
     return C
 
 
-# The paged duet kernel's tiles (csrc/duet_attention_paged.cu): a tile of
-# up to DUET_TILE_ROWS (row, head) pairs of one KV group is one CTA (its
-# prefill role: flash_prefill's 64-row tensor-core block); a tile of at
-# most DUET_DECODE_ROWS live pairs takes the decode role (the cluster decode
-# core). Head dims above 128 have no prefill role.
+# A CTA of every kernel holds the (row, head) pairs of one (tile, KV
+# group): up to DUET_DECODE_ROWS of them on the cluster decode core
+# (csrc/decode_core.cuh), more (up to DUET_TILE_ROWS) on the 64-row
+# tensor-core block (csrc/prefill_core.cuh, the "block role"; the paged duet
+# kernel's prefill role). A tile with more pairs than that splits its
+# group's heads into head blocks (:func:`head_split`).
 DUET_TILE_ROWS = 64
 DUET_DECODE_ROWS = 16
 
 
+def head_split(rep: int, block_q: int,
+               max_pairs: int = DUET_TILE_ROWS) -> Tuple[int, int]:
+    """(head blocks, heads per block) of one (tile, KV group): a tile of
+    ``block_q`` positions of a group of ``rep`` heads holds block_q * rep
+    (row, head) pairs; where they are more than ``max_pairs``, the heads
+    split into blocks of at most max_pairs // block_q heads, balanced (the
+    last may hold fewer), each a CTA of its own. One block for every
+    registered config at the engine's tiles; 2 at rep 96 or 128. The CUDA
+    sources restate it (``attn::head_split``)."""
+    per = max(1, max_pairs // max(block_q, 1))
+    hb = -(-rep // per)
+    return hb, -(-rep // hb)
+
+
+def cta_role(pairs: int) -> str:
+    """The role a CTA of ``pairs`` (row, head) pairs takes: "decode" (the
+    cluster decode core) up to :data:`DUET_DECODE_ROWS`, "block" (the
+    64-row tensor-core block) above. The paged duet kernel reads each
+    tile's live rows on the card and calls its block role "prefill"."""
+    return "decode" if pairs <= DUET_DECODE_ROWS else "block"
+
+
 def duet_block_q(num_heads: int, num_kv_heads: int, head_dim: int) -> int:
     """Query rows of one tile of the engine's fused duet launch: as many
-    chunk positions as fill one tile of the paged duet kernel (64 // rep at
-    head dims up to 128, e.g. 16 at qwen3-4b's rep 4). Scheduling only: the
+    chunk positions as fill one tile of the paged duet kernel (64 // rep,
+    e.g. 16 at qwen3-4b's rep 4, 12 at qwen3-14b's rep 5, 1 from rep 33 on,
+    as at granite-20b's rep 48), at every head dim. Scheduling only: the
     numerics do not depend on it."""
-    rows = DUET_TILE_ROWS if head_dim <= 128 else DUET_DECODE_ROWS
-    return max(1, rows // (num_heads // num_kv_heads))
+    return max(1, DUET_TILE_ROWS // (num_heads // num_kv_heads))
 
 
 def cluster_spans(n_units: int, C: int) -> List[Tuple[int, int]]:

@@ -28,9 +28,19 @@ never reach HBM. :func:`paged_decode_cluster_plain` is that span split in
 plain PyTorch; :func:`paged_decode_splitkv_plain` is the reference's split
 of the whole table, the CPU path.
 
+A group of more than 16 query heads (rep > 16: granite-20b's 48) does not
+fit the decode core's row buckets; its CTAs take the "block" role
+(:func:`~repro_torch.kernels.ops.cta_role`): the 64-row tensor-core block
+of ``csrc/prefill_core.cuh`` over the same spans, with the same combine,
+and head blocks of at most 64 heads
+(:func:`~repro_torch.kernels.ops.head_split`) above rep 64. The role
+follows rep alone, so the host picks the kernel, and :func:`occupancy` /
+:func:`cluster_for` price the one launched.
+
 On a CPU tensor each wrapper runs its plain PyTorch version; on a CUDA
 tensor it launches the kernel or raises. :data:`launches` counts kernel
-launches per wrapper (one per call).
+launches per wrapper and role (one per call; ``"<wrapper>[block]"`` for
+the block role).
 """
 from __future__ import annotations
 
@@ -43,13 +53,14 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.ops import (CLUSTER_MAX, DENOM_EPS,
                                      MASKED_M_THRESHOLD, NEG_INF,
-                                     cluster_size, cluster_spans,
-                                     default_sm_scale, gqa_repeat_kv)
+                                     cluster_size, cluster_spans, cta_role,
+                                     default_sm_scale, gqa_repeat_kv,
+                                     head_split)
 
-launches = {"paged_decode": 0, "paged_decode_splitkv": 0}
+launches = {"paged_decode": 0, "paged_decode[block]": 0,
+            "paged_decode_splitkv": 0, "paged_decode_splitkv[block]": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_QUERY_ROWS = 16      # query rows (rep) of one block (csrc: 16 at most)
 
 
 # ---------------------------------------------------------------------------
@@ -154,8 +165,6 @@ def _check_inputs(q, k_pages, v_pages, tables, lengths):
         raise TypeError("paged_decode: tables and lengths must be int32")
     if Dk != Dh or Dh not in (32, 64, 128, 256) or H % G:
         raise ValueError(f"paged_decode: unsupported H={H} G={G} Dh={Dh}")
-    if H // G > MAX_QUERY_ROWS:
-        raise ValueError(f"paged_decode: rep={H // G} > {MAX_QUERY_ROWS}")
     if tables.shape[0] != B or lengths.shape != (B,):
         raise ValueError("paged_decode: tables (B,P) / lengths (B,) mismatch")
     if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
@@ -170,7 +179,8 @@ def _stream(t):
 def occupancy(device: int, dtype, Dh: int, rows: int, P: int, C: int):
     """(clusters of C CTAs the card runs at once, shared memory bytes per
     CTA, bytes each CTA's ring loads ahead) of the :func:`paged_decode`
-    kernel for ``rows`` query rows per CTA and tables of width P
+    kernel of the role (``ops.cta_role(rows)``) that ``rows`` = rep query
+    rows of a group take, for tables of width P
     (cudaOccupancyMaxActiveClusters; a host query, no device sync)."""
     res = (ctypes.c_int * 3)()
     with torch.cuda.device(device):
@@ -181,18 +191,20 @@ def occupancy(device: int, dtype, Dh: int, rows: int, P: int, C: int):
 
 
 def cluster_for(q, k_pages, tables) -> int:
-    """The cluster size :func:`paged_decode` launches these inputs with."""
+    """The cluster size :func:`paged_decode` launches these inputs with: one
+    wave of its B x G x head-block clusters of the role it takes."""
     B, H, Dh = q.shape
     G, P = k_pages.shape[2], tables.shape[1]
+    hb, _ = head_split(H // G, 1)
     dev = q.device.index if q.device.index is not None else \
         torch.cuda.current_device()
-    return cluster_size(B * G, P, lambda C: C * occupancy(
+    return cluster_size(B * G * hb, P, lambda C: C * occupancy(
         dev, q.dtype, Dh, H // G, P, C)[0])
 
 
-def _launch(q, k_pages, v_pages, tables, lengths, C):
-    """One launch of the cluster kernel with clusters of C CTAs (inputs
-    checked by the caller)."""
+def _launch(name, q, k_pages, v_pages, tables, lengths, C):
+    """One launch of the kernel of the role rep takes with clusters of C
+    CTAs (inputs checked by the caller), counted as ``name``'s."""
     B, H, Dh = q.shape
     _, ps, G, _ = k_pages.shape
     out = torch.empty_like(q)
@@ -202,15 +214,15 @@ def _launch(q, k_pages, v_pages, tables, lengths, C):
         B, H, G, Dh, ps, tables.shape[1], C, default_sm_scale(Dh),
         _DTYPES[q.dtype], _stream(q))
     _build.check(err, "paged_decode")
+    role = cta_role(H // G)
+    launches[name if role == "decode" else f"{name}[{role}]"] += 1
     return out
 
 
 def _launch_paged_decode(q, k_pages, v_pages, tables, lengths):
     _check_inputs(q, k_pages, v_pages, tables, lengths)
-    out = _launch(q, k_pages, v_pages, tables, lengths,
-                  cluster_for(q, k_pages, tables))
-    launches["paged_decode"] += 1
-    return out
+    return _launch("paged_decode", q, k_pages, v_pages, tables, lengths,
+                   cluster_for(q, k_pages, tables))
 
 
 def _launch_splitkv(q, k_pages, v_pages, tables, lengths, num_splits):
@@ -219,9 +231,8 @@ def _launch_splitkv(q, k_pages, v_pages, tables, lengths, num_splits):
         raise ValueError(f"paged_decode_splitkv: num_splits {num_splits} > "
                          f"{CLUSTER_MAX} (the cluster size limit)")
     S, _, _ = splitkv_spans(tables.shape[1], num_splits)
-    out = _launch(q, k_pages, v_pages, tables, lengths, S)
-    launches["paged_decode_splitkv"] += 1
-    return out
+    return _launch("paged_decode_splitkv", q, k_pages, v_pages, tables,
+                   lengths, S)
 
 
 # ---------------------------------------------------------------------------

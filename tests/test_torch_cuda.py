@@ -31,9 +31,11 @@ from repro_torch.serving import (AsyncDuetEngine, DuetEngine, EngineConfig,
 pytestmark = pytest.mark.cuda
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
-# the paged duet kernel at the engine's tiles, (atol, rtol): the limit
-# chip_smoke.py holds it to (the output's bf16 ulp, P rounded to bf16)
-DUET_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (5e-3, 1e-2)}
+# the decode and duet kernels (paged_decode, split-KV, both
+# duet_attention kernels): the limit chip_smoke.py holds them to (the
+# output's bf16 ulp, P rounded to bf16)
+ATTN_TOL = {"float32": dict(atol=2e-5, rtol=2e-5),
+            "bfloat16": dict(atol=5e-3, rtol=1e-2)}
 
 
 @pytest.fixture(scope="module")
@@ -82,12 +84,12 @@ def test_paged_decode_kernels_match_plain(dev, B, H, G, Dh, N, ps, P, S,
     torch.testing.assert_close(
         paged_decode(q, kp, vp, tables, lengths),
         paged_decode_plain(q, kp, vp, tables, lengths),
-        atol=TOL[dtype], rtol=TOL[dtype])
+        **ATTN_TOL[dtype])
     torch.testing.assert_close(
         paged_decode_splitkv(q, kp, vp, tables, lengths, num_splits=S),
         paged_decode_splitkv_plain(q, kp, vp, tables, lengths,
                                    num_splits=S),
-        atol=TOL[dtype], rtol=TOL[dtype])
+        **ATTN_TOL[dtype])
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -107,7 +109,7 @@ def test_splitkv_kernel_matches_its_span_split(dev, S, lens, dtype):
     torch.testing.assert_close(
         paged_decode_splitkv(q, kp, vp, tables, lengths, num_splits=S),
         paged_decode_cluster_plain(q, kp, vp, tables, lengths, cluster=S),
-        atol=TOL[dtype], rtol=TOL[dtype])
+        **ATTN_TOL[dtype])
 
 
 def test_splitkv_kernel_refuses_more_than_eight_splits(dev):
@@ -140,7 +142,7 @@ def test_duet_attention_kernel_matches_plain(dev, bq, dtype):
         sched, duet_attention_paged(*args, block_q=bq), n)
     want = unpack_duet_output(
         sched, duet_attention_paged_plain(*args, block_q=bq), n)
-    torch.testing.assert_close(got, want, atol=TOL[dtype], rtol=TOL[dtype])
+    torch.testing.assert_close(got, want, **ATTN_TOL[dtype])
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -176,8 +178,7 @@ def test_paged_duet_kernel_matches_plain_at_engine_tiles(dev, bq, dtype):
     for want in (duet_attention_paged_plain(*args, block_q=bq),
                  duet_attention_paged_tiled_plain(*args, block_q=bq,
                                                   cluster=C)):
-        torch.testing.assert_close(got, want, atol=DUET_TOL[dtype][0],
-                                   rtol=DUET_TOL[dtype][1])
+        torch.testing.assert_close(got, want, **ATTN_TOL[dtype])
     assert torch.count_nonzero(got[row_pos[:, 0] < 0]) == 0
 
 
@@ -252,7 +253,7 @@ def test_slab_duet_attention_kernel_matches_plain(dev, bq, decode_rows,
     got = unpack_duet_output(sched, duet_attention(*args, block_q=bq), n)
     want = unpack_duet_output(sched, duet_attention_plain(*args, block_q=bq),
                               n)
-    torch.testing.assert_close(got, want, atol=TOL[dtype], rtol=TOL[dtype])
+    torch.testing.assert_close(got, want, **ATTN_TOL[dtype])
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -371,3 +372,165 @@ def test_slab_engines_on_the_card_match_the_cpu(dev):
             assert 0 < eng.dstats.host_syncs <= eng.dstats.super_iterations
     assert runs["sync"] == runs["cpu"]
     assert runs["async"] == runs["cpu"]
+
+
+# ---------------------------------------------------------------------------
+# every GQA head shape: rep > 16 (the block role), rep > 64 (head blocks),
+# reps that do not divide 64, Dh 256
+# ---------------------------------------------------------------------------
+# (H, G, Dh): granite-20b (MQA, rep 48), yi-9b (rep 8), minicpm-2b (rep 1
+# at Dh 64), qwen3-14b (rep 5), granite-moe (rep 3), rep 96 and 128 (two
+# head blocks), rep 8 and 48 at Dh 256
+HEAD_SHAPES = [(48, 1, 128), (32, 4, 128), (36, 36, 64), (40, 8, 128),
+               (24, 8, 64), (96, 1, 64), (128, 1, 64), (8, 1, 256),
+               (48, 1, 256)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("H,G,Dh", HEAD_SHAPES)
+def test_paged_decode_kernels_take_every_head_shape(dev, H, G, Dh, dtype):
+    """paged_decode and split-KV (S = 4) at each head shape, contexts 1,
+    16, 17 and 2048, against the plain version and the cluster's span
+    split."""
+    rng = np.random.default_rng(11)
+    lens = (1, 16, 17, 2048)
+    B, ps, P = len(lens), 16, 128
+    N = B * P + 1
+    q = _randn(rng, (B, H, Dh), dtype, dev)
+    kp = _randn(rng, (N, ps, G, Dh), dtype, dev)
+    vp = _randn(rng, (N, ps, G, Dh), dtype, dev)
+    tables = torch.tensor(1 + rng.permutation(N - 1)[:B * P].reshape(B, P),
+                          dtype=torch.int32, device=dev)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    want = paged_decode_plain(q, kp, vp, tables, lengths)
+    torch.testing.assert_close(paged_decode(q, kp, vp, tables, lengths),
+                               want, **ATTN_TOL[dtype])
+    got = paged_decode_splitkv(q, kp, vp, tables, lengths, num_splits=4)
+    for ref in (paged_decode_splitkv_plain(q, kp, vp, tables, lengths,
+                                           num_splits=4),
+                paged_decode_cluster_plain(q, kp, vp, tables, lengths,
+                                           cluster=4)):
+        torch.testing.assert_close(got, ref, **ATTN_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("H,G,Dh", HEAD_SHAPES)
+def test_slab_duet_kernel_takes_every_head_shape(dev, H, G, Dh, dtype):
+    """The slab duet_attention at each head shape: the slab decode's
+    one-row tiles (contexts 1, 16, 17, 2048) and a tile of 8 chunk rows
+    beside 3 decode rows."""
+    rng = np.random.default_rng(12)
+    S = 2048
+    for bq, drows, prows in ((1, EDGE_ROWS, []),
+                             (8, EDGE_ROWS[:3], CHUNK)):
+        Ns = max(s for s, _ in drows + prows) + 1
+        ks = _randn(rng, (Ns, S, G, Dh), dtype, dev)
+        vs = _randn(rng, (Ns, S, G, Dh), dtype, dev)
+        sched = build_duet_schedule(drows, prows, block_q=bq)
+        n = len(drows) + len(prows)
+        q = pack_duet_queries(sched, _randn(rng, (n, H, Dh), dtype, dev))
+        args = (q.contiguous(),
+                torch.tensor(sched.row_pos, device=dev)[:, None].contiguous(),
+                torch.tensor(sched.tile_slot, device=dev), ks, vs)
+        got = unpack_duet_output(sched, duet_attention(*args, block_q=bq), n)
+        want = unpack_duet_output(
+            sched, duet_attention_plain(*args, block_q=bq), n)
+        torch.testing.assert_close(got, want, **ATTN_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("H,G,Dh,bq", [
+    # each config's engine tiles (ops.duet_block_q)
+    (48, 1, 128, 1), (32, 4, 128, 8), (36, 36, 64, 64), (40, 8, 128, 12),
+    (24, 8, 64, 21),
+    # rep > 64: head blocks; Dh 256 on both roles
+    (96, 1, 64, 1), (128, 1, 64, 1), (128, 1, 128, 1), (16, 2, 256, 8),
+    (48, 1, 256, 1),
+])
+def test_paged_duet_kernel_takes_every_head_shape(dev, H, G, Dh, bq, dtype):
+    """duet_attention_paged at each head shape's engine tiles: decode
+    contexts 1, 17, 300 and 2048 beside a 40-row chunk and a pad tile,
+    against the plain version and the tile schedule at the wrapper's C;
+    pad rows are zeros."""
+    from repro_torch.kernels.duet_attention import (
+        duet_attention_paged_tiled_plain, paged_cluster_for)
+    rng = np.random.default_rng(13)
+    ps, P = 16, 128
+    decode_rows = [(b, c - 1) for b, c in enumerate((1, 17, 300, 2048))]
+    prefill_rows = [(4, 500 + i) for i in range(40)]
+    N = 5 * P + 1
+    kp = _randn(rng, (N, ps, G, Dh), dtype, dev)
+    vp = _randn(rng, (N, ps, G, Dh), dtype, dev)
+    tables = torch.tensor(1 + rng.permutation(N - 1).reshape(5, P),
+                          dtype=torch.int32, device=dev)
+    sched = build_duet_schedule(decode_rows, prefill_rows, block_q=bq)
+    n = len(decode_rows) + len(prefill_rows)
+    q = pack_duet_queries(sched, _randn(rng, (n, H, Dh), dtype, dev))
+    q = torch.cat([q, torch.ones_like(q[:bq])]).contiguous()   # a pad tile
+    row_pos = torch.tensor(np.concatenate([sched.row_pos, [-1] * bq]),
+                           dtype=torch.int32, device=dev)[:, None]
+    tile_slot = torch.tensor(np.concatenate([sched.tile_slot, [-1]]),
+                             dtype=torch.int32, device=dev)
+    args = (q, row_pos.contiguous(), tile_slot, kp, vp, tables)
+    got = duet_attention_paged(*args, block_q=bq)
+    C = paged_cluster_for(q, tile_slot, kp, tables)
+    for want in (duet_attention_paged_plain(*args, block_q=bq),
+                 duet_attention_paged_tiled_plain(*args, block_q=bq,
+                                                  cluster=C)):
+        torch.testing.assert_close(got, want, **ATTN_TOL[dtype])
+    assert torch.count_nonzero(got[row_pos[:, 0] < 0]) == 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Sq,Sk,H,G,Dh,off,kv_len", [
+    (1, 100, 300, 24, 8, 64, 200, None),     # rep 3: 21 positions a block
+    (2, 45, 130, 40, 8, 128, 85, 100),       # rep 5: 12 positions
+    (1, 67, 129, 48, 1, 128, 62, None),      # rep 48: one position
+    (1, 130, 200, 8, 1, 256, 70, None),      # Dh 256
+    (1, 33, 100, 96, 1, 64, 67, None),       # rep 96: two head blocks
+    (1, 20, 64, 128, 1, 64, 0, 0),           # rep 128, no valid key
+])
+def test_flash_prefill_kernel_takes_every_head_shape(dev, B, Sq, Sk, H, G,
+                                                     Dh, off, kv_len, dtype):
+    """flash_prefill at reps that do not divide 64, above 64, and at Dh
+    256, against the plain version (and, in bf16, its tile schedule)."""
+    from repro_torch.kernels.flash_prefill import flash_prefill_tiled_plain
+    rng = np.random.default_rng(14)
+    q = _randn(rng, (B, Sq, H, Dh), dtype, dev)
+    k = _randn(rng, (B, Sk, G, Dh), dtype, dev)
+    v = _randn(rng, (B, Sk, G, Dh), dtype, dev)
+    got = flash_prefill(q, k, v, q_offset=off, kv_len=kv_len)
+    wants = [flash_prefill_plain(q, k, v, q_offset=off, kv_len=kv_len)]
+    if dtype == "bfloat16":
+        wants.append(flash_prefill_tiled_plain(q, k, v, q_offset=off,
+                                               kv_len=kv_len))
+    for want in wants:
+        torch.testing.assert_close(got, want, atol=TOL[dtype],
+                                   rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("heads", [(48, 1), (40, 8)])
+def test_engines_at_published_head_counts_on_the_card(dev, heads):
+    """A narrow two-layer model at granite-20b's 48 / 1 and qwen3-14b's
+    40 / 8 heads (head dim 16 x 4 = 64), fp32: the async engine (duet tiles
+    of bq 1 and 12) and the slab engine through the kernels give the CPU's
+    greedy tokens."""
+    import dataclasses
+    H, G = heads
+    cfg = dataclasses.replace(reduced(get_config("qwen3-4b")), num_heads=H,
+                              num_kv_heads=G, head_dim=64)
+    specs = [(i, i * 0.0003, 20 + 7 * i, 6 + i) for i in range(5)]
+    for extra in ({}, {"paged": False}):
+        kw = dict(max_slots=3, max_len=128, token_budget=48, page_size=8,
+                  **extra)
+        runs = {}
+        for device in ("cpu", dev):
+            model = Model.init(cfg, seed=0, device="cpu", attn_kernel=True)
+            eng = AsyncDuetEngine(model.to(device), EngineConfig(**kw),
+                                  device=device)
+            eng.submit([Request(rid=r, arrival=a, prompt_len=p,
+                                output_len=o) for r, a, p, o in specs])
+            metrics = eng.run()
+            runs[str(device)] = {r.rid: list(r.output_tokens)
+                                 for r in metrics.requests}
+        assert runs["cpu"] == runs[str(dev)]

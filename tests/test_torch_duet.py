@@ -127,8 +127,16 @@ def test_tiled_plain_at_block_q_1_matches_plain(C):
     (32, 8, 128, 20, ["decode"] * 8 + ["prefill", "decode"]),
     # rep 8, 20 rows: tiles of 8, 8 and 4 positions (64, 64, 32 pairs)
     (64, 8, 128, 20, ["decode"] * 8 + ["prefill"] * 3),
-    # Dh 256: tiles of 16 pairs, all on the decode core
-    (32, 8, 256, 20, ["decode"] * 8 + ["decode"] * 5),
+    # Dh 256 (the prefill block keeps Q in shared memory there): tiles of
+    # 16 and 4 positions, as at Dh 128
+    (32, 8, 256, 20, ["decode"] * 8 + ["prefill", "decode"]),
+    # qwen3-14b's rep 5: tiles of 12 and 8 positions (60 and 40 pairs)
+    (40, 8, 128, 20, ["decode"] * 8 + ["prefill"] * 2),
+    # granite-20b's rep 48: one position a tile, decode rows too, all on
+    # the prefill block
+    (48, 1, 128, 20, ["prefill"] * 8 + ["prefill"] * 20),
+    # minicpm-2b's rep 1: tiles of 64 positions, decode rows of 1 pair
+    (36, 36, 64, 100, ["decode"] * 8 + ["prefill", "prefill"]),
 ])
 def test_engine_schedule_roles(H, G, Dh, chunk, want):
     """The roles the kernel picks for the async engine's schedule (B = 8
@@ -157,12 +165,13 @@ def test_engine_schedule_roles(H, G, Dh, chunk, want):
 
 @pytest.mark.parametrize("H,G,Dh,want", [
     (32, 8, 128, 16), (32, 8, 64, 16), (64, 8, 128, 8), (40, 8, 128, 12),
-    (32, 32, 128, 64), (32, 1, 128, 2), (128, 1, 128, 1), (32, 8, 256, 4),
-    (4, 2, 64, 32),
+    (32, 32, 128, 64), (32, 1, 128, 2), (128, 1, 128, 1), (32, 8, 256, 16),
+    (4, 2, 64, 32), (48, 1, 128, 1), (32, 4, 128, 8), (36, 36, 64, 64),
+    (24, 8, 64, 21),
 ])
 def test_duet_block_q(H, G, Dh, want):
-    """Chunk positions of one engine tile: 64 (row, head) pairs at most (16
-    at Dh 256), at least one position."""
+    """Chunk positions of one engine tile: 64 (row, head) pairs at most at
+    every head dim, at least one position."""
     bq = ops.duet_block_q(H, G, Dh)
     assert bq == want
     assert bq * (H // G) <= 64 or bq == 1

@@ -247,7 +247,8 @@ def _loads(rng, n, cls):
         rng.choice(["prefill", "decode"], n))]
 
 
-@pytest.mark.parametrize("name", ["qwen3-4b", "qwen3-14b"])
+@pytest.mark.parametrize("name", ["qwen3-4b", "qwen3-14b", "yi-9b",
+                                  "minicpm-2b", "granite-20b"])
 def test_roofline_matches_jax(name):
     rng = np.random.default_rng(0)
     for page_size in (1, 16):

@@ -47,7 +47,8 @@ def _t(x):
 # ---------------------------------------------------------------------------
 # configs and params
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("name", ["qwen3-4b", "qwen3-8b", "qwen3-14b"])
+@pytest.mark.parametrize("name", ["qwen3-4b", "qwen3-8b", "qwen3-14b",
+                                  "yi-9b", "minicpm-2b", "granite-20b"])
 def test_configs_and_param_counts_match_jax(name):
     port, ref = get_config(name), jget_config(name)
     assert dataclasses.asdict(port) == dataclasses.asdict(ref)
@@ -59,9 +60,15 @@ def test_configs_and_param_counts_match_jax(name):
 
 
 def test_registry_serves_only_the_qwen3_family():
-    assert list_configs() == ["qwen3-14b", "qwen3-4b", "qwen3-8b"]
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        get_config("deepseek-v2-lite-16b")
+    """The registry holds the six dense configs the port serves (the qwen3
+    family, yi-9b, minicpm-2b, granite-20b); the reference's other
+    families are refused by name."""
+    assert list_configs() == ["granite-20b", "minicpm-2b", "qwen3-14b",
+                              "qwen3-4b", "qwen3-8b", "yi-9b"]
+    for name in ("deepseek-v2-lite-16b", "granite-moe-3b-a800m",
+                 "zamba2-1.2b"):
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            get_config(name)
 
 
 @pytest.fixture(scope="module")
