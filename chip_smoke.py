@@ -23,7 +23,8 @@ Phases (each raises on failure; nothing is swallowed):
              edges, against both its plain versions, pad rows zero);
              then every GQA head shape of the registered configs
              (granite-20b's rep 48, yi-9b's rep 8, minicpm-2b's rep 1 at
-             Dh 64, qwen3-14b's rep 5) through paged_decode, split-KV,
+             Dh 64, qwen3-14b's rep 5, granite-moe-3b-a800m's rep 3 at
+             Dh 64) through paged_decode, split-KV,
              the slab decode and the paged duet launch at each config's
              engine tiles, flash_prefill at rep 3, 5, 48, 96 and 128 and
              at Dh 256, and rep 96 and 128 (head blocks) through the
@@ -42,14 +43,18 @@ Phases (each raises on failure; nothing is swallowed):
              (the paged duet kernel's at C = 1, 2, 4, 8 with registers),
              with the role each decode kernel's CTAs take (granite-20b's
              too).
-3. parity  — full-width qwen3-4b cut to 4 layers, then yi-9b, minicpm-2b
-             and granite-20b cut to 2, fp32 with TF32 off: the kernel
-             path's logits against the port's plain path for one paged
-             prefill, one paged decode step, one duet step (the engine's
-             tiles, and one row a tile for qwen3-4b), and one slab decode
-             step after a chunked slab prefill; and, for qwen3-4b,
-             flash_prefill on the port's gqa_prefill q/K/V against
-             gqa_prefill's own attention.
+3. parity  — full-width qwen3-4b cut to 4 layers, then yi-9b, minicpm-2b,
+             granite-20b and granite-moe-3b-a800m cut to 2, fp32 with
+             TF32 off: the kernel path's logits against the port's plain
+             path for one paged prefill, one paged decode step, one duet
+             step (the engine's tiles, and one row a tile for qwen3-4b),
+             and one slab decode step after a chunked slab prefill; and,
+             for qwen3-4b, flash_prefill on the port's gqa_prefill q/K/V
+             against gqa_prefill's own attention. Then deepseek-v2-lite-16b
+             cut to 2 layers (its dense MLA layer and one MLA + MoE layer;
+             MLA runs no kernel): the paged decode with the latent
+             up-projections absorbed against expanded, and the paged
+             prefill and decode against the slab's.
 4. serve   — full qwen3-4b (36 layers, bf16, random weights from a seed)
              serves azure-conv requests on two paths, each with
              attn_kernel=True and strict_kernel=True and the launch counts
@@ -65,13 +70,16 @@ Phases (each raises on failure; nothing is swallowed):
              on it. Wall-clock tokens/s on the card are printed as measured.
              A profile step then times one full-width decode step of each
              path and one fused duet super-iteration (kb 1, a 256-row
-             chunk), with the duet kernel's share. Then yi-9b, minicpm-2b
-             and granite-20b, one at a time at full depth (bf16, random
-             weights from seed 0, their measured weight bytes printed),
-             each serve 4 requests of at most 64 output tokens through the
-             async engine on the paged path (the duet kernel on) and on
-             the slab path, each path's launch counts reset just before
-             it and read just after it.
+             chunk), with the duet kernel's share. Then yi-9b, minicpm-2b,
+             granite-20b, granite-moe-3b-a800m and deepseek-v2-lite-16b,
+             one at a time at full depth (bf16, random weights from seed 0,
+             their measured weight bytes and peak memory printed), each
+             serve 4 requests of at most 64 output tokens through the
+             async engine on the paged path (the duet kernel on for the
+             GQA configs; deepseek's MLA runs no kernel, and its paths
+             must launch none) and on the slab path, each path's launch
+             counts reset just before it and read just after it; a decode
+             step of granite-moe is profiled as qwen3-4b's.
 
 Before the last line it prints the card's name and power limit
 (``nvidia-smi``) and a ``{"kernels": [...]}`` JSON line (flash_prefill
@@ -139,9 +147,12 @@ PAGED_MAX_OUTPUT = 160      # see phase_serve's requests()
 # the main path's shapes: granite-20b's MQA (rep 48, every CTA on the
 # 64-row block; its bf16 records are the block roles' in the kernels
 # line), yi-9b's rep 8, minicpm-2b's rep 1 at Dh 64, and qwen3-14b's rep 5
-# (12-position duet tiles)
-HEAD_CONFIGS = ("granite-20b", "yi-9b", "minicpm-2b", "qwen3-14b")
-SERVED_CONFIGS = ("yi-9b", "minicpm-2b", "granite-20b")
+# (12-position duet tiles), and granite-moe-3b-a800m's rep 3 at Dh 64
+# (21-position duet tiles)
+HEAD_CONFIGS = ("granite-20b", "yi-9b", "minicpm-2b", "qwen3-14b",
+                "granite-moe-3b-a800m")
+SERVED_CONFIGS = ("yi-9b", "minicpm-2b", "granite-20b",
+                  "granite-moe-3b-a800m", "deepseek-v2-lite-16b")
 SERVE_REQUESTS, SERVE_MAX_OUTPUT = 4, 64    # each served config's runs
 
 
@@ -900,12 +911,95 @@ def report_occupancy(card):
 def phase_parity():
     """qwen3-4b cut to 4 layers, then each served config
     beyond it cut to 2 layers (full width), fp32 with TF32 off."""
+    from repro_torch.configs import get_config
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log("[parity] fp32, TF32 off (matmul and cudnn)")
     parity_for("qwen3-4b", 4, flash=True)
     for name in SERVED_CONFIGS:
-        parity_for(name, 2)
+        if _is_gqa(get_config(name)):
+            parity_for(name, 2)
+        else:
+            parity_mla(name, 2)
+
+
+def _is_gqa(cfg) -> bool:
+    from repro_torch.configs.base import GQA_KINDS
+    return all(k in GQA_KINDS for k in cfg.block_pattern)
+
+
+def _cut(name, n_layers):
+    import dataclasses
+    from repro_torch.configs import get_config
+    full = get_config(name)
+    return dataclasses.replace(full, num_layers=n_layers,
+                               block_pattern=full.block_pattern[:n_layers])
+
+
+def _check_parity(name, n_layers, cfg, checks):
+    for what, got, want in checks:
+        V = cfg.vocab_size          # padded logit columns hold finfo.min
+        got, want = got[..., :V], want[..., :V]
+        scale = max(1.0, want.abs().max().item())
+        err = (got - want).abs().max().item()
+        if not (torch.isfinite(got).all() and err <= PARITY_TOL * scale):
+            raise AssertionError(f"[parity] {name} {what}: max abs err "
+                                 f"{err:.3e} > {PARITY_TOL:.0e} x "
+                                 f"{scale:.3g}")
+        log(f"[parity] {name} ({n_layers} layers) {what}: max abs err "
+            f"{err:.3e} (tol {PARITY_TOL:.0e} x max|reference| "
+            f"{scale:.3g})")
+
+
+def parity_mla(name, n_layers):
+    """An MLA config at full width cut to ``n_layers`` layers (deepseek:
+    its dense MLA layer and one MLA + MoE layer), fp32: a 200-token paged
+    prefill and one paged decode step with the latent up-projections
+    absorbed against expanded, then the same prompt prefilled into the
+    slab and one slab decode step against the paged ones. Both prefill in
+    chunks of 128 + 72, so the MoE routes the same rows together on both
+    layouts."""
+    from repro_torch.models import Model
+    from repro_torch.serving.kvcache import PagePoolConfig, init_page_pools
+    t0 = time.time()
+    cfg = _cut(name, n_layers)
+    expand = Model.init(cfg, seed=0, dtype=torch.float32, device="cuda")
+    absorb = copy.copy(expand)       # the same weights
+    absorb.mla_absorb = True
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(5)
+    ps, P = 16, 16
+    tbl = torch.arange(1, 1 + P, dtype=torch.int32, device=dev)[None]
+    toks = torch.tensor(rng.integers(0, cfg.vocab_size, (1, 201)),
+                        device=dev)
+    pos = torch.tensor([200], dtype=torch.int32, device=dev)
+    state = [None] * cfg.num_layers
+    chunks = ((0, 128), (128, 200))   # the same rows routed on both layouts
+    with torch.no_grad():
+        logits, prefill = {}, {}
+        for label, model in (("expand", expand), ("absorb", absorb)):
+            pools = init_page_pools(cfg, PagePoolConfig(num_pages=32,
+                                                        page_size=ps),
+                                    torch.float32, device=dev)
+            for s0, s1 in chunks:
+                prefill[label], _, _ = model.prefill_paged(
+                    toks[:, s0:s1], pools, state, tbl, start_pos=s0)
+            logits[label], _, _ = model.decode_step_paged(
+                pools, state, toks[:, 200:], pos, tbl)
+        cache = expand.init_cache(1, 256)
+        for s0, s1 in chunks:
+            ls, _ = expand.prefill(toks[:, s0:s1], cache=cache, start_pos=s0)
+        lsd, _ = expand.decode_step(cache, toks[:, 200:], pos)
+    _check_parity(name, n_layers, cfg, [
+        ("paged decode step, absorbed vs expanded", logits["absorb"],
+         logits["expand"]),
+        ("slab chunked prefill vs paged", ls, prefill["expand"]),
+        ("slab decode step vs paged decode step", lsd, logits["expand"])])
+    log(f"[parity] {name}: H {cfg.num_heads}, latent rank "
+        f"{cfg.kv_lora_rank}, rope {cfg.qk_rope_dim}, layers "
+        f"{cfg.block_pattern}, {time.time() - t0:.1f} s")
+    del expand, absorb
+    torch.cuda.empty_cache()
 
 
 def parity_for(name, n_layers, flash=False):
@@ -914,17 +1008,15 @@ def parity_for(name, n_layers, flash=False):
     step, a duet step at one row a tile (qwen3-4b) and at the async
     engine's tiles, and a slab decode step after a chunked slab prefill;
     with ``flash``, flash_prefill on gqa_prefill's q/K/V against
-    gqa_prefill's own attention."""
+    gqa_prefill's own attention. An MoE config's duet checks run at
+    capacity factor 64 (see below); its other checks at its own."""
     import dataclasses
-    from repro_torch.configs import get_config
     from repro_torch.kernels import build_duet_schedule
     from repro_torch.kernels.ops import duet_block_q
     from repro_torch.models import Model
     from repro_torch.serving.kvcache import PagePoolConfig, init_page_pools
     t0 = time.time()
-    full = get_config(name)
-    cfg = dataclasses.replace(full, num_layers=n_layers,
-                              block_pattern=full.block_pattern[:n_layers])
+    cfg = _cut(name, n_layers)
     kern = Model.init(cfg, seed=0, dtype=torch.float32, device="cuda",
                       attn_kernel=True)
     plain = copy.copy(kern)          # the same weights, plain attention
@@ -954,6 +1046,16 @@ def parity_for(name, n_layers, flash=False):
         return pools
 
     engine_bq = duet_block_q(cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
+    # the duet step against the sequential decode + prefill pair: a duet
+    # step routes its decode and chunk rows through the MoE together, the
+    # pair apart, so the two agree only where the capacity drops nothing
+    dkern, dplain, dnote = kern, plain, ""
+    if cfg.is_moe:
+        wide = dataclasses.replace(cfg, capacity_factor=64.0)
+        dkern, dplain = copy.copy(kern), copy.copy(plain)
+        dkern.cfg = dplain.cfg = wide
+        dnote = " (MoE capacity factor 64)"
+    own = {}                # an MoE's duet step and pair at its capacity
     with torch.no_grad():
         lpk, _, _ = kern.prefill_paged(toksA, fresh(), state, tblA,
                                        start_pos=0)
@@ -975,14 +1077,24 @@ def parity_for(name, n_layers, flash=False):
                                         [(1, i) for i in range(C)],
                                         block_q=bq)
             order = torch.tensor(sched.row_src, device=dev)
-            duet[bq], _, _ = kern.duet_step_paged(
+            duet[bq], _, _ = dkern.duet_step_paged(
                 prefilled(), state, row_tok, row_pos, row_tbl, order,
                 block_q=bq)
+            if cfg.is_moe:
+                own["duet"], _, _ = kern.duet_step_paged(
+                    prefilled(), state, row_tok, row_pos, row_tbl, order,
+                    block_q=bq)
         seq_pools = prefilled()
-        ls_dec, _, _ = plain.decode_step_paged(seq_pools, state, tok, pos,
-                                               tblA)
-        ls_pre, _, _ = plain.prefill_paged(toksB, seq_pools, state, tblB,
-                                           start_pos=0)
+        ls_dec, _, _ = dplain.decode_step_paged(seq_pools, state, tok, pos,
+                                                tblA)
+        ls_pre, _, _ = dplain.prefill_paged(toksB, seq_pools, state, tblB,
+                                            start_pos=0)
+        if cfg.is_moe:
+            seq_pools = prefilled()
+            own["dec"], _, _ = plain.decode_step_paged(seq_pools, state, tok,
+                                                       pos, tblA)
+            own["pre"], _, _ = plain.prefill_paged(toksB, seq_pools, state,
+                                                   tblB, start_pos=0)
         # slab: two slots, 200-token prompts prefilled in chunks of 128 +
         # 72, then one decode step of both
         toks2 = torch.tensor(rng.integers(0, cfg.vocab_size, (2, 201)),
@@ -999,8 +1111,9 @@ def parity_for(name, n_layers, flash=False):
         lsp, _ = plain.decode_step(slab_prefilled(), tok2, pos2)
         checks = [("paged prefill", lpk, lpp), ("decode step", lk, lp)]
         for bq, ld in duet.items():
-            checks += [(f"duet step bq={bq}, decode row", ld[0], ls_dec[0]),
-                       (f"duet step bq={bq}, last chunk row", ld[C],
+            checks += [(f"duet step bq={bq}, decode row{dnote}", ld[0],
+                        ls_dec[0]),
+                       (f"duet step bq={bq}, last chunk row{dnote}", ld[C],
                         ls_pre[0])]
         checks.append(("slab decode step", lsk, lsp))
         if flash:
@@ -1019,18 +1132,18 @@ def parity_for(name, n_layers, flash=False):
                 p0["w_o"])
             checks.append(("flash_prefill on gqa_prefill's q/K/V "
                            "(attention output)", out_kernel, out_model))
-    for what, got, want in checks:
-        V = cfg.vocab_size          # padded logit columns hold finfo.min
-        got, want = got[..., :V], want[..., :V]
-        scale = max(1.0, want.abs().max().item())
-        err = (got - want).abs().max().item()
-        if not (torch.isfinite(got).all() and err <= PARITY_TOL * scale):
-            raise AssertionError(f"[parity] {name} {what}: max abs err "
-                                 f"{err:.3e} > {PARITY_TOL:.0e} x "
-                                 f"{scale:.3g}")
-        log(f"[parity] {name} ({n_layers} layers) {what}: max abs err "
-            f"{err:.3e} (tol {PARITY_TOL:.0e} x max|reference| "
-            f"{scale:.3g})")
+    _check_parity(name, n_layers, cfg, checks)
+    if cfg.is_moe:
+        # not held: at the config's own capacity the two route other rows
+        # together, so their drops differ (as in the reference)
+        V = cfg.vocab_size
+        for what, got, want in (("decode row", own["duet"][0], own["dec"][0]),
+                                ("last chunk row", own["duet"][C],
+                                 own["pre"][0])):
+            log(f"[parity] {name}: duet step vs the sequential pair at "
+                f"capacity factor {cfg.capacity_factor}, {what}: max abs "
+                f"diff {(got[:V] - want[:V]).abs().max().item():.3e} "
+                "(not held: the MoE routes other rows together)")
     log(f"[parity] {name}: H {cfg.num_heads} G {cfg.num_kv_heads} Dh "
         f"{cfg.head_dim}, duet tiles of {engine_bq} rows, "
         f"{time.time() - t0:.1f} s")
@@ -1064,8 +1177,9 @@ def _serve_run(label, cls, model, reqs, card, extra):
     """One engine run at max_slots 8, max_len 1024, token budget 256, with
     the kernels on and strict; every request must finish with tokens in the
     vocabulary, the async engine must keep host_syncs <= super_iterations
-    and, on the paged path, dispatch a fused duet step. Returns the greedy
-    streams."""
+    and, on the paged path, dispatch a fused duet step where the engine
+    fuses them (GQA blocks) and none where it does not (MLA). Returns the
+    greedy streams."""
     from repro_torch.kernels import launch_counts
     from repro_torch.serving import AsyncDuetEngine, EngineConfig
     cfg = model.cfg
@@ -1108,10 +1222,15 @@ def _serve_run(label, cls, model, reqs, card, extra):
                  f"host_syncs {st.host_syncs}")
         if ec.paged:
             duet = sum(1 for k in engine._programs if k[-1])
-            if duet == 0 or after["duet_attention_paged"] == \
-                    before["duet_attention_paged"]:
+            launched = after["duet_attention_paged"] - \
+                before["duet_attention_paged"]
+            if engine._duet_kernel and (duet == 0 or launched == 0):
                 raise AssertionError(f"[serve] {label}: no duet "
                                      "dispatch")
+            if not engine._duet_kernel and (duet or launched):
+                raise AssertionError(f"[serve] {label}: a duet dispatch "
+                                     "on a config the engine does not "
+                                     "fuse")
             line += f", duet buckets {duet}"
     log(line)
     log(f"[serve] {label}: virtual-clock summary (TPU v5e roofline "
@@ -1122,10 +1241,12 @@ def _serve_run(label, cls, model, reqs, card, extra):
     return {r.rid: list(r.output_tokens) for r in metrics.requests}
 
 
-def _path_counts(path, counts, rep, split_kv=False):
+def _path_counts(path, counts, rep, split_kv=False, gqa=True):
     """Read a path's launches (reset just before it), add them to
     ``counts`` and fail if a kernel of the path, of the role the config's
-    ``rep`` takes (split-KV where ``split_kv``), never launched."""
+    ``rep`` takes (split-KV where ``split_kv``), never launched; on an
+    MLA config's path (``gqa`` False), which runs no kernel, fail if any
+    launched."""
     from repro_torch.kernels import launch_counts
     from repro_torch.kernels.ops import cta_role
     got = launch_counts()
@@ -1133,13 +1254,16 @@ def _path_counts(path, counts, rep, split_kv=False):
     block = cta_role(rep) == "block"
     for name, n in got.items():
         counts[name] = counts.get(name, 0) + n
-        needed = (PATH_OF.get(name) == path.split()[-1]
+        needed = (gqa and PATH_OF.get(name) == path.split()[-1]
                   and (name == "duet_attention_paged"
                        or name.endswith("[block]") == block)
                   and (split_kv or "splitkv" not in name))
         if needed and n <= 0:
             raise AssertionError(f"[serve] kernel {name} was never "
                                  f"launched on the {path} path")
+        if not gqa and n != 0:
+            raise AssertionError(f"[serve] kernel {name} launched {n} "
+                                 f"times on the MLA path {path}")
 
 
 def phase_serve():
@@ -1204,11 +1328,14 @@ def phase_serve():
 
 def serve_config(name, counts, card):
     """One served config at full depth, bf16, random weights from seed 0
-    (``Model.init`` draws each leaf on the card), alone on the card: a
-    paged run through the async engine (the fused duet kernel on) and a
-    slab run through the async engine, each path's launch counts reset just
-    before it and read just after, SERVE_REQUESTS requests of at most
-    SERVE_MAX_OUTPUT output tokens."""
+    (``Model.init`` draws each leaf on the card, in fp32, and casts it
+    before the next, so the peak stays near the weights' own bytes), alone
+    on the card: a paged run through the async engine (the fused duet
+    kernel on for GQA configs) and a slab run through the async engine,
+    each path's launch counts reset just before it and read just after,
+    SERVE_REQUESTS requests of at most SERVE_MAX_OUTPUT output tokens; the
+    peak allocated memory after both runs; an MoE config with GQA blocks
+    (granite-moe) then profiles one paged decode step."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import reset_launch_counts
     from repro_torch.kernels.ops import duet_block_q
@@ -1221,13 +1348,20 @@ def serve_config(name, counts, card):
                        attn_kernel=True)
     torch.cuda.synchronize()
     nbytes = sum(b.numel() * b.element_size() for b in model.buffers())
-    bq = duet_block_q(cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
+    gqa = _is_gqa(cfg)
+    heads = (f"G {cfg.num_kv_heads} Dh {cfg.head_dim}, duet tiles of "
+             f"{duet_block_q(cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)}"
+             " rows" if gqa else
+             f"MLA latent rank {cfg.kv_lora_rank} + rope "
+             f"{cfg.qk_rope_dim}, no duet kernel")
+    moe = (f"; MoE {cfg.num_experts} experts top-{cfg.moe_top_k} width "
+           f"{cfg.moe_d_ff}, {cfg.num_shared_experts} shared"
+           if cfg.is_moe else "")
     log(f"[serve] {name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
-        f"H {cfg.num_heads} G {cfg.num_kv_heads} Dh {cfg.head_dim}, duet "
-        f"tiles of {bq} rows; bf16 weights {nbytes / 1e9:.3f} GB on the card "
-        f"({nbytes} bytes), random from seed 0 in {time.time() - t0:.1f} s, "
-        f"peak allocated {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
-        f"[{card}]")
+        f"H {cfg.num_heads} {heads}{moe}; bf16 weights {nbytes / 1e9:.3f} "
+        f"GB on the card ({nbytes} bytes), random from seed 0 in "
+        f"{time.time() - t0:.1f} s, peak allocated "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB [{card}]")
     for path, extra in (("paged", {}), ("slab", {"paged": False})):
         reset_launch_counts()        # this path's launches start here
         label = f"{name} {'slab ' if extra else ''}async"
@@ -1235,12 +1369,17 @@ def serve_config(name, counts, card):
                    _requests(path, SERVE_REQUESTS, SERVE_MAX_OUTPUT), card,
                    extra)
         _path_counts(f"{name} {path}", counts,
-                     cfg.num_heads // cfg.num_kv_heads)
+                     cfg.num_heads // cfg.num_kv_heads, gqa=gqa)
+    log(f"[serve] {name}: peak allocated "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB over the weights "
+        f"and both runs (max_slots 8, max_len 1024) [{card}]")
+    if cfg.is_moe and gqa:
+        profile_decode(model, card, slab=False, top=14)
     del model
     torch.cuda.empty_cache()
 
 
-def profile_decode(model, card, slab: bool):
+def profile_decode(model, card, slab: bool, top: int = 8):
     """Where one full-width decode step's time goes: 8 slots at 1000 tokens
     of context through the kernel path (paged pool, or slab cache with the
     engine's 1024-token rows), timed on the host clock without the
@@ -1275,21 +1414,21 @@ def profile_decode(model, card, slab: bool):
         torch.cuda.synchronize()
 
     wall, events = _profile(run, steps)
-    log_profile(f"{'slab' if slab else 'paged'} decode step, "
+    log_profile(f"{cfg.name} {'slab' if slab else 'paged'} decode step, "
                 f"{cfg.num_layers} layers, B={B}, ctx 1000, bf16", wall,
-                events, steps, card)
+                events, steps, card, top=top)
 
 
-def log_profile(what, wall, events, steps, card, extra=""):
+def log_profile(what, wall, events, steps, card, extra="", top=8):
     """Print a profiled step: wall ms, device kernel ms and busy share, and
-    the 8 kernels with the most device time."""
+    the ``top`` kernels with the most device time."""
     dev = sum(e.self_device_time_total for e in events) / steps / 1e3
     busy = (f"{dev:.2f} ms/step (torch.profiler); device busy "
             f"{100 * dev / wall:.1f}%" if dev > 0 else
             "not measured (the profiler recorded no device time)")
     log(f"[profile] {what}: wall {wall:.2f} ms/step (host clock, no "
         f"profiler); device kernel time {busy}{extra} [{card}]")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"[profile]   {e.self_device_time_total / steps / 1e3:8.3f} "
             f"ms/step  {e.count // steps:5d} calls/step  {e.key[:70]}")
 

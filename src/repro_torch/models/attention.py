@@ -1,7 +1,7 @@
-"""GQA attention over the slab cache and the paged KV pool — the serving
-engine's paths.
+"""GQA and MLA attention over the slab cache and the paged KV pool — the
+serving engine's paths.
 
-Ports the GQA subset of the reference's ``repro.models.attention``:
+Ports the reference's ``repro.models.attention``:
 
 * slab cache (:class:`AttnCache`, one (B, S_max|W, G, Dh) row per slot):
   full-sequence prefill (:func:`gqa_prefill`), chunked prefill into the
@@ -10,7 +10,15 @@ Ports the GQA subset of the reference's ``repro.models.attention``:
   (:func:`gqa_decode_kernel`, the slab ``duet_attention`` kernel);
 * paged pool: chunked prefill (:func:`gqa_prefill_paged`), one-token
   decode with the kernel hook (:func:`gqa_decode_paged`) and the fused
-  mixed-phase duet step (:func:`gqa_duet_paged`).
+  mixed-phase duet step (:func:`gqa_duet_paged`);
+* MLA (DeepSeek-V2 multi-head latent attention), whose cache holds the
+  compressed latent and the shared rope key (:class:`MLACache`):
+  full-sequence, slab-chunked and paged prefill (:func:`mla_prefill`,
+  :func:`mla_prefill_cached`, :func:`mla_prefill_paged`) and one-token
+  decode over the slab and the pool (:func:`mla_decode`,
+  :func:`mla_decode_paged`), each with the up-projections expanded per
+  step or absorbed into the query and output (``absorb``). The reference
+  has no kernel for MLA; neither has the port.
 
 The attention math stays plain tensor math as in the reference (einsum +
 softmax); the decode and duet reads may go through the CUDA kernels in
@@ -20,7 +28,8 @@ Caches and page pools are updated IN PLACE (the reference is functional):
 each function writes the new K/V into the tensors it is given and returns
 the same tensors. Scores and probabilities are fp32.
 
-Shapes: x (B, S, D); q (B, S, H, Dh); kv (B, S, G, Dh); positions (B, S).
+Shapes: x (B, S, D); q (B, S, H, Dh); kv (B, S, G, Dh); positions (B, S);
+MLA latents (B, S, r) and rope keys (B, S, rope).
 """
 from __future__ import annotations
 
@@ -41,11 +50,20 @@ class AttnCache(NamedTuple):
     v: torch.Tensor
 
 
+class MLACache(NamedTuple):
+    ckv: torch.Tensor    # (B, S_max, r)
+    krope: torch.Tensor  # (B, S_max, rope_dim)
+
+
 def slot_views(cache, slot: int):
-    """Slot ``slot``'s rows of every layer's AttnCache as (1, S, G, Dh)
-    views: a prefill into them writes the slab in place."""
-    return [AttnCache(c.k[slot:slot + 1], c.v[slot:slot + 1])
-            for c in cache]
+    """Slot ``slot``'s rows of every layer's cache (AttnCache or MLACache)
+    as views of batch 1: a prefill into them writes the slab in place."""
+    return [type(c)(*(t[slot:slot + 1] for t in c)) for c in cache]
+
+
+def prefix_views(c, n: int):
+    """The first ``n`` positions of one layer's slab cache as views."""
+    return type(c)(*(t[:, :n] for t in c))
 
 
 # ---------------------------------------------------------------------------
@@ -437,3 +455,181 @@ def gqa_duet_paged(params, cfg: ArchConfig, x: torch.Tensor,
         0, dst, rows)[:R]
     out = torch.einsum("bhe,hed->bd", rows, params["w_o"])[:, None, :]
     return out, (k_pages, v_pages)
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2 multi-head latent attention)
+# ---------------------------------------------------------------------------
+def _mla_scale(cfg: ArchConfig) -> float:
+    return 1.0 / (cfg.qk_nope_dim + cfg.qk_rope_dim) ** 0.5
+
+
+def _mla_qkv_prefill(params, cfg: ArchConfig, x, positions):
+    """x (B,S,D) -> q_nope (B,S,H,nope), q_rope (B,S,H,rope) with RoPE, the
+    normalised latent ckv (B,S,r) and the one-head rope key krope
+    (B,S,rope) with RoPE."""
+    nope = cfg.qk_nope_dim
+    q = torch.einsum("bsd,dhe->bshe", x, params["w_q"])
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    ckv = rms_norm(x @ params["w_dkv"], params["kv_norm"], cfg.norm_eps)
+    krope = apply_rope((x @ params["w_krope"])[:, :, None, :], positions,
+                       cfg.rope_theta)[:, :, 0, :]
+    return q_nope, q_rope, ckv, krope
+
+
+def _mla_attend(cfg: ArchConfig, q_nope, q_rope, k_nope, v, krope,
+                positions):
+    """MLA attention of q (B,Sq,H,·) over the expanded k_nope / v
+    (B,Sk,H,·) and the shared krope (B,Sk,rope), causal on ``positions``
+    (B,Sq) (a row at position -1 sees nothing), in query blocks of
+    ATTN_BLOCK_Q when Sq is larger. fp32 scores; out in q's dtype."""
+    Sq, Sk = q_nope.shape[1], k_nope.shape[1]
+    scale = _mla_scale(cfg)
+    kpos = torch.arange(Sk, device=q_nope.device)
+    kn, kr, vf = k_nope.float(), krope.float(), v.float()
+
+    def core(qn, qr, px):
+        scores = (torch.einsum("bshe,bthe->bhst", qn.float(), kn)
+                  + torch.einsum("bshe,bte->bhst", qr.float(), kr)) * scale
+        mask = (kpos[None, None, :] <= px[:, :, None]) \
+            & (px[:, :, None] >= 0)
+        probs = _softmax(scores, mask[:, None, :, :])
+        return torch.einsum("bhst,bthe->bshe", probs, vf).to(q_nope.dtype)
+
+    return torch.cat([core(q_nope[:, s0:s0 + ATTN_BLOCK_Q],
+                           q_rope[:, s0:s0 + ATTN_BLOCK_Q],
+                           positions[:, s0:s0 + ATTN_BLOCK_Q])
+                      for s0 in range(0, Sq, ATTN_BLOCK_Q)], dim=1)
+
+
+def _mla_expand_attend(params, cfg: ArchConfig, x, q_nope, q_rope, ckv,
+                       krope, positions):
+    """Expand the latents (B,Sk,r) to per-head K/V and attend: the prefill
+    paths' shared tail, through the output projection."""
+    B, L = x.shape[:2]
+    k_nope = torch.einsum("btr,rhe->bthe", ckv, params["w_uk"])
+    v = torch.einsum("btr,rhe->bthe", ckv, params["w_uv"])
+    out = _mla_attend(cfg, q_nope, q_rope, k_nope, v, krope, positions)
+    return out.reshape(B, L, -1) @ params["w_o"]
+
+
+def mla_prefill(params, cfg: ArchConfig, x: torch.Tensor,
+                positions: torch.Tensor):
+    """Full-sequence MLA. Returns (out, MLACache of the new latents)."""
+    q_nope, q_rope, ckv, krope = _mla_qkv_prefill(params, cfg, x, positions)
+    out = _mla_expand_attend(params, cfg, x, q_nope, q_rope, ckv, krope,
+                             positions)
+    return out, MLACache(ckv=ckv, krope=krope)
+
+
+def mla_prefill_cached(params, cfg: ArchConfig, x: torch.Tensor,
+                       positions: torch.Tensor, cache: MLACache):
+    """Chunked MLA prefill: write the chunk's latents into the slab (in
+    place), then attend the chunk's queries over the slab."""
+    B = x.shape[0]
+    q_nope, q_rope, ckv_new, krope_new = _mla_qkv_prefill(params, cfg, x,
+                                                          positions)
+    bidx = torch.arange(B, device=x.device)[:, None]
+    positions = positions.long()
+    cache.ckv[bidx, positions] = ckv_new.to(cache.ckv.dtype)
+    cache.krope[bidx, positions] = krope_new.to(cache.krope.dtype)
+    out = _mla_expand_attend(params, cfg, x, q_nope, q_rope,
+                             cache.ckv.to(x.dtype), cache.krope.to(x.dtype),
+                             positions)
+    return out, cache
+
+
+def _mla_decode_core(params, cfg: ArchConfig, x, q_nope, q_rope, ckv,
+                     krope, valid, absorb: bool):
+    """One-token MLA attention over (gathered) latents ckv (B,S,r) and
+    krope (B,S,rope); ``valid`` (B,1,1,S). ``absorb`` folds W_uk into the
+    query and W_uv into the output, so the scores and the context stay in
+    the r-dim latent space; otherwise every cached latent is expanded to
+    per-head K/V."""
+    B = x.shape[0]
+    scale = _mla_scale(cfg)
+    rope_scores = torch.einsum("bshe,bte->bhst", q_rope.float(),
+                               krope.float())
+    if absorb:
+        q_lat = torch.einsum("bshe,rhe->bshr", q_nope, params["w_uk"])
+        scores = (torch.einsum("bshr,btr->bhst", q_lat.float(), ckv.float())
+                  + rope_scores) * scale
+        probs = _softmax(scores, valid)
+        ctx = torch.einsum("bhst,btr->bshr", probs, ckv.float())
+        out = torch.einsum("bshr,rhe->bshe", ctx.to(x.dtype),
+                           params["w_uv"])
+    else:
+        k_nope = torch.einsum("btr,rhe->bthe", ckv, params["w_uk"])
+        v = torch.einsum("btr,rhe->bthe", ckv, params["w_uv"])
+        scores = (torch.einsum("bshe,bthe->bhst", q_nope.float(),
+                               k_nope.float()) + rope_scores) * scale
+        probs = _softmax(scores, valid)
+        out = torch.einsum("bhst,bthe->bshe", probs,
+                           v.float()).to(x.dtype)
+    return out.reshape(B, 1, -1) @ params["w_o"]
+
+
+def mla_decode(params, cfg: ArchConfig, x: torch.Tensor, cache: MLACache,
+               pos: torch.Tensor, *, absorb: bool = False,
+               active_mask: Optional[torch.Tensor] = None):
+    """One-token MLA decode against the slab latents. x (B,1,D); pos (B,).
+    The new latent is written at ``pos`` in place, except for rows off
+    ``active_mask`` (see :func:`_slab_write`)."""
+    B = x.shape[0]
+    q_nope, q_rope, ckv_new, krope_new = _mla_qkv_prefill(
+        params, cfg, x, pos[:, None])
+    pos = pos.long()
+    bidx = torch.arange(B, device=x.device)
+    ckv_new = ckv_new[:, 0].to(cache.ckv.dtype)
+    krope_new = krope_new[:, 0].to(cache.krope.dtype)
+    if active_mask is not None:
+        keep = active_mask[:, None]
+        ckv_new = torch.where(keep, ckv_new, cache.ckv[bidx, pos])
+        krope_new = torch.where(keep, krope_new, cache.krope[bidx, pos])
+    cache.ckv[bidx, pos] = ckv_new
+    cache.krope[bidx, pos] = krope_new
+    S = cache.ckv.shape[1]
+    valid = (torch.arange(S, device=x.device)[None, :]
+             <= pos[:, None])[:, None, None, :]
+    out = _mla_decode_core(params, cfg, x, q_nope, q_rope,
+                           cache.ckv.to(x.dtype), cache.krope.to(x.dtype),
+                           valid, absorb)
+    return out, cache
+
+
+def mla_decode_paged(params, cfg: ArchConfig, x: torch.Tensor,
+                     ckv_pages: torch.Tensor, krope_pages: torch.Tensor,
+                     table: torch.Tensor, pos: torch.Tensor, *,
+                     absorb: bool = False):
+    """One-token MLA decode against the paged latent pools
+    (ckv_pages (N,ps,r), krope_pages (N,ps,rope)), written in place."""
+    q_nope, q_rope, ckv_new, krope_new = _mla_qkv_prefill(
+        params, cfg, x, pos[:, None])
+    _paged_write(ckv_pages, ckv_new, table, pos[:, None])
+    _paged_write(krope_pages, krope_new, table, pos[:, None])
+    ckv = _paged_gather(ckv_pages, table).to(x.dtype)
+    krope = _paged_gather(krope_pages, table).to(x.dtype)
+    S = ckv.shape[1]
+    valid = (torch.arange(S, device=x.device)[None, :]
+             <= pos.long()[:, None])[:, None, None, :]
+    out = _mla_decode_core(params, cfg, x, q_nope, q_rope, ckv, krope,
+                           valid, absorb)
+    return out, (ckv_pages, krope_pages)
+
+
+def mla_prefill_paged(params, cfg: ArchConfig, x: torch.Tensor,
+                      positions: torch.Tensor, ckv_pages: torch.Tensor,
+                      krope_pages: torch.Tensor, table: torch.Tensor):
+    """Chunked MLA prefill against the paged latent pools: write the
+    chunk's latents into the request's pages, attend over the gathered
+    table. x (B,L,D); positions (B,L) absolute."""
+    q_nope, q_rope, ckv_new, krope_new = _mla_qkv_prefill(params, cfg, x,
+                                                          positions)
+    _paged_write(ckv_pages, ckv_new, table, positions)
+    _paged_write(krope_pages, krope_new, table, positions)
+    ckv = _paged_gather(ckv_pages, table).to(x.dtype)
+    krope = _paged_gather(krope_pages, table).to(x.dtype)
+    out = _mla_expand_attend(params, cfg, x, q_nope, q_rope, ckv, krope,
+                             positions.long())
+    return out, (ckv_pages, krope_pages)

@@ -1,9 +1,11 @@
 """Parameter layout, initialisation and the weight bridge from the JAX
-reference — dense GQA blocks only.
+reference — attention blocks (GQA and MLA) with a dense or MoE FFN.
 
 ``layout(cfg)`` builds a tree of :class:`ParamDef` leaves (shape + init
-kind) with the reference's layouts, e.g. ``w_q (D,H,Dh)`` and
-``w_o (H,Dh,D)``, so both packages compute the same einsums term for term.
+kind) with the reference's layouts, e.g. GQA's ``w_q (D,H,Dh)`` and
+``w_o (H,Dh,D)``, MLA's flat ``w_o (H*vd, D)`` and the experts'
+``w_gate (E,D,F)``, so both packages compute the same einsums term for
+term.
 ``init_params`` materialises it from a ``torch.Generator``;
 ``params_from_jax`` turns the reference's parameter tree (nested dict of
 numpy arrays, as ``jax.tree.map(np.asarray, params)`` gives it) into the
@@ -26,6 +28,7 @@ class ParamDef:
     shape: Tuple[int, ...]
     init: str                    # normal | ones
     fan_in: Optional[int] = None
+    expert: bool = False         # leading axis is the routed-expert axis
 
 
 # ---------------------------------------------------------------------------
@@ -45,6 +48,21 @@ def _attn_layout(cfg: ArchConfig) -> dict:
     return p
 
 
+def _mla_layout(cfg: ArchConfig) -> dict:
+    D, H = cfg.d_model, cfg.num_heads
+    r, nope, rope, vd = (cfg.kv_lora_rank, cfg.qk_nope_dim, cfg.qk_rope_dim,
+                         cfg.v_head_dim)
+    return {
+        "w_q": ParamDef((D, H, nope + rope), "normal", D),
+        "w_dkv": ParamDef((D, r), "normal", D),
+        "kv_norm": ParamDef((r,), "ones"),
+        "w_krope": ParamDef((D, rope), "normal", D),
+        "w_uk": ParamDef((r, H, nope), "normal", r),
+        "w_uv": ParamDef((r, H, vd), "normal", r),
+        "w_o": ParamDef((H * vd, D), "normal", H * vd),
+    }
+
+
 def _mlp_layout(cfg: ArchConfig, d_ff: int) -> dict:
     D = cfg.d_model
     p = {
@@ -56,14 +74,31 @@ def _mlp_layout(cfg: ArchConfig, d_ff: int) -> dict:
     return p
 
 
+def _moe_layout(cfg: ArchConfig) -> dict:
+    D, E, F = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
+    p = {
+        "router": ParamDef((D, E), "normal", D),
+        "w_gate": ParamDef((E, D, F), "normal", D, expert=True),
+        "w_up": ParamDef((E, D, F), "normal", D, expert=True),
+        "w_down": ParamDef((E, F, D), "normal", F, expert=True),
+    }
+    if cfg.num_shared_experts:
+        p["shared"] = _mlp_layout(cfg, cfg.num_shared_experts * cfg.moe_d_ff)
+    return p
+
+
 def _block_layout(cfg: ArchConfig, kind: str) -> dict:
-    if kind != "attn":
-        raise NotImplementedError(
-            f"block kind {kind!r} is not yet ported (dense GQA only)")
     D = cfg.d_model
-    return {"attn_norm": ParamDef((D,), "ones"), "attn": _attn_layout(cfg),
-            "mlp_norm": ParamDef((D,), "ones"),
-            "mlp": _mlp_layout(cfg, cfg.d_ff)}
+    attn = {"attn": _attn_layout, "attn_moe": _attn_layout,
+            "mla": _mla_layout, "mla_moe": _mla_layout}.get(kind)
+    if attn is None:
+        raise NotImplementedError(
+            f"block kind {kind!r} is not yet ported (GQA and MLA "
+            "attention blocks only)")
+    ffn = ({"moe": _moe_layout(cfg)} if kind.endswith("_moe")
+           else {"mlp": _mlp_layout(cfg, cfg.d_ff)})
+    return {"attn_norm": ParamDef((D,), "ones"), "attn": attn(cfg),
+            "mlp_norm": ParamDef((D,), "ones"), **ffn}
 
 
 def layout(cfg: ArchConfig) -> dict:
@@ -126,9 +161,15 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
 
 def count_params_analytical(cfg: ArchConfig,
                             active_only: bool = False) -> int:
-    """Parameter count from the layout. Dense layouts have no expert axis,
-    so ``active_only`` counts the same."""
-    return sum(int(math.prod(d.shape)) for _, d in _leaves(layout(cfg)))
+    """Parameter count from the layout; ``active_only`` counts a routed
+    expert tensor at top_k / num_experts of its size, as the reference."""
+    total = 0
+    for _, d in _leaves(layout(cfg)):
+        n = math.prod(d.shape)
+        if active_only and d.expert:
+            n = n * (cfg.moe_top_k / cfg.num_experts)
+        total += int(n)
+    return total
 
 
 def params_from_jax(cfg: ArchConfig, tree: dict, *, dtype=torch.float32,

@@ -15,23 +15,29 @@ Paged KV pool:
   * ``duet_step_paged``   — decode rows + one prefill chunk in one fused
                             attention launch per layer
 
-Only all-GQA dense block patterns (the qwen3 family) are ported; MLA, MoE,
-recurrent blocks and frontends are not yet. Weights keep the reference's
-layouts and names (``params_from_jax`` carries a JAX tree over unchanged),
-and the weight methods take no ``params`` argument: the module owns them.
-Slab caches and page pools are updated in place.
+Attention blocks are ported — GQA (``attn``, ``attn_moe``) and MLA
+(``mla``, ``mla_moe``), each with a dense MLP or the MoE FFN; recurrent
+blocks and frontends are not yet. A GQA layer's cache is an AttnCache (or a
+(k_pages, v_pages) pool pair), an MLA layer's an MLACache of latents (or a
+(ckv_pages, krope_pages) pair). MLA runs no kernel (the reference has
+none), and the fused duet step takes GQA blocks only, as the reference's.
+Weights keep the reference's layouts and names (``params_from_jax``
+carries a JAX tree over unchanged), and the weight methods take no
+``params`` argument: the module owns them. Slab caches and page pools are
+updated in place.
 """
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Optional
 
 import torch
 from torch import nn
 
-from repro_torch.configs.base import GQA_KINDS, ArchConfig
+from repro_torch.configs.base import GQA_KINDS, MLA_KINDS, ArchConfig
 from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.layers import embed, gated_mlp, rms_norm, unembed
+from repro_torch.models.moe import moe_ffn
 from repro_torch.models.params import init_params, layout
 
 ATTN_KINDS = GQA_KINDS
@@ -62,11 +68,15 @@ class ParamTree(nn.Module):
 
 class Model(nn.Module):
     def __init__(self, cfg: ArchConfig, params: dict, *,
-                 attn_kernel: bool = False, split_kv_threshold: int = 0):
+                 mla_absorb: bool = False, attn_kernel: bool = False,
+                 split_kv_threshold: int = 0):
         super().__init__()
         layout(cfg)              # raises for block kinds not yet ported
         self.cfg = cfg
         self.params = ParamTree(params)
+        # MLA decode: fold the latent up-projections into the query and
+        # the output instead of expanding every cached latent each step
+        self.mla_absorb = mla_absorb
         # route decode attention through the kernel dispatcher (the CUDA
         # kernels on the card, their plain versions on the CPU); the plain
         # attention math is the default oracle
@@ -103,25 +113,39 @@ class Model(nn.Module):
         return unembed(self.params, x, self.cfg.vocab_size)
 
     # ---------------------------------------------------------------- blocks
-    def _mlp_block(self, p, x):
-        """Post-attention MLP residual shared by every paged path."""
+    def _mlp_block(self, p, kind, x):
+        """Post-attention MLP / MoE residual shared by every path. The MoE
+        routes all of ``x``'s rows together, in row order."""
         h = rms_norm(x, p["mlp_norm"], self.cfg.norm_eps)
+        if kind in ("attn_moe", "mla_moe"):
+            return x + moe_ffn(p["moe"], self.cfg, h)
         return x + gated_mlp(p["mlp"], h, self.cfg.activation)
 
+    def _layers(self):
+        """(layer params, block kind) of every layer."""
+        return zip(self.params["layers"], self.cfg.block_pattern)
+
     def _run_block_prefill(self, i, x, positions, cache_in, *, window=None):
-        """One GQA block (the only kind ``layout`` admits) of a
-        full-sequence (``cache_in`` None) or chunked prefill. Returns
-        (x, the layer's AttnCache)."""
+        """One attention block (GQA or MLA, the kinds ``layout`` admits) of
+        a full-sequence (``cache_in`` None) or chunked prefill. Returns
+        (x, the layer's AttnCache or MLACache)."""
         cfg = self.cfg
-        p = self.params["layers"][i]
+        p, kind = self.params["layers"][i], cfg.block_pattern[i]
         h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
-        if cache_in is not None:
+        if kind in MLA_KINDS:
+            if cache_in is not None:
+                out, new_cache = attn_mod.mla_prefill_cached(
+                    p["attn"], cfg, h, positions, cache_in)
+            else:
+                out, new_cache = attn_mod.mla_prefill(p["attn"], cfg, h,
+                                                      positions)
+        elif cache_in is not None:
             out, new_cache = attn_mod.gqa_prefill_cached(
                 p["attn"], cfg, h, positions, cache_in, window=window)
         else:
             out, new_cache = attn_mod.gqa_prefill(p["attn"], cfg, h,
                                                   positions, window=window)
-        return self._mlp_block(p, x + out), new_cache
+        return self._mlp_block(p, kind, x + out), new_cache
 
     # ------------------------------------------------------------- slab serve
     def prefill(self, tokens, *, cache=None,
@@ -129,10 +153,10 @@ class Model(nn.Module):
         """Prefill (optionally a chunk continuing an existing cache).
 
         Returns (last_position_logits, cache). With ``cache`` given (one
-        AttnCache per layer, e.g. slot views of the engine's slab), the new
-        chunk K/V is written into it in place; without it, the cache of the
-        new K/V is returned. ``start_pos``: the chunk's first absolute
-        position (default 0).
+        AttnCache or MLACache per layer, e.g. slot views of the engine's
+        slab), the chunk's K/V or latents are written into it in place;
+        without it, the cache of the new ones is returned. ``start_pos``:
+        the chunk's first absolute position (default 0).
         """
         cfg = self.cfg
         x = self._embed(tokens)
@@ -148,7 +172,7 @@ class Model(nn.Module):
                 # keys past the chunk are all masked: views of the slab cut
                 # at the chunk's end keep the attention off its unwritten
                 # tail (the writes still land in the slab)
-                c = attn_mod.AttnCache(c.k[:, :start + S], c.v[:, :start + S])
+                c = attn_mod.prefix_views(c, start + S)
             x, c = self._run_block_prefill(i, x, positions, c, window=window)
             new_cache.append(c)
         x = rms_norm(x, self.params["final_norm"], cfg.norm_eps)
@@ -165,9 +189,13 @@ class Model(nn.Module):
         Returns (logits (B, V), cache)."""
         cfg = self.cfg
         x = self._embed(token)
-        for i, p in enumerate(self.params["layers"]):
+        for i, (p, kind) in enumerate(self._layers()):
             h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
-            if self.attn_kernel and not sliding:
+            if kind in MLA_KINDS:
+                out, cache[i] = attn_mod.mla_decode(
+                    p["attn"], cfg, h, cache[i], pos,
+                    absorb=self.mla_absorb, active_mask=active_mask)
+            elif self.attn_kernel and not sliding:
                 out, cache[i] = attn_mod.gqa_decode_kernel(
                     p["attn"], cfg, h, cache[i], pos,
                     active_mask=active_mask)
@@ -175,7 +203,7 @@ class Model(nn.Module):
                 out, cache[i] = attn_mod.gqa_decode(
                     p["attn"], cfg, h, cache[i], pos, sliding=sliding,
                     active_mask=active_mask)
-            x = self._mlp_block(p, x + out)
+            x = self._mlp_block(p, kind, x + out)
         x = rms_norm(x, self.params["final_norm"], cfg.norm_eps)
         logits = self._logits(x)
         return logits[:, 0], cache
@@ -185,7 +213,8 @@ class Model(nn.Module):
                       start_pos: Optional[int] = None):
         """Chunked prefill with paged attention KV (PagedAttention layout).
 
-        ``tokens`` (B, S); ``pools``: per-layer (k_pages, v_pages);
+        ``tokens`` (B, S); ``pools``: per-layer (k_pages, v_pages), or
+        (ckv_pages, krope_pages) for an MLA layer;
         ``state``: per-slot cache for recurrent layers (all None here);
         ``tables`` (B, P) int32 block tables covering the chunk's
         positions; ``start_pos`` the chunk's first absolute position.
@@ -197,11 +226,13 @@ class Model(nn.Module):
         start = 0 if start_pos is None else int(start_pos)
         positions = (start + torch.arange(S, device=x.device))[None, :] \
             .expand(B, S)
-        for i, p in enumerate(self.params["layers"]):
+        for i, (p, kind) in enumerate(self._layers()):
             h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
-            out, pools[i] = attn_mod.gqa_prefill_paged(
-                p["attn"], cfg, h, positions, *pools[i], tables)
-            x = self._mlp_block(p, x + out)
+            prefill = (attn_mod.mla_prefill_paged if kind in MLA_KINDS
+                       else attn_mod.gqa_prefill_paged)
+            out, pools[i] = prefill(p["attn"], cfg, h, positions, *pools[i],
+                                    tables)
+            x = self._mlp_block(p, kind, x + out)
         x = rms_norm(x, self.params["final_norm"], cfg.norm_eps)
         logits = self._logits(x[:, -1:])
         return logits[:, 0], pools, state
@@ -211,13 +242,18 @@ class Model(nn.Module):
         pos (B,) int; tables (B,P). Returns (logits, pools, state)."""
         cfg = self.cfg
         x = self._embed(token)
-        for i, p in enumerate(self.params["layers"]):
+        for i, (p, kind) in enumerate(self._layers()):
             h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
-            out, pools[i] = attn_mod.gqa_decode_paged(
-                p["attn"], cfg, h, *pools[i], tables, pos,
-                use_kernel=self.attn_kernel,
-                split_kv_threshold=self.split_kv_threshold)
-            x = self._mlp_block(p, x + out)
+            if kind in MLA_KINDS:
+                out, pools[i] = attn_mod.mla_decode_paged(
+                    p["attn"], cfg, h, *pools[i], tables, pos,
+                    absorb=self.mla_absorb)
+            else:
+                out, pools[i] = attn_mod.gqa_decode_paged(
+                    p["attn"], cfg, h, *pools[i], tables, pos,
+                    use_kernel=self.attn_kernel,
+                    split_kv_threshold=self.split_kv_threshold)
+            x = self._mlp_block(p, kind, x + out)
         x = rms_norm(x, self.params["final_norm"], cfg.norm_eps)
         logits = self._logits(x)
         return logits[:, 0], pools, state
@@ -233,17 +269,24 @@ class Model(nn.Module):
         (T*block_q,) the Algorithm-1 schedule's ``row_src``
         (``ops.build_duet_schedule`` with the same ``block_q``; -1 = pad;
         a permutation of the rows at ``block_q=1``). Every layer executes
-        both phases in one ``duet_attention_paged`` launch. Returns
-        (logits (R,V), pools, state).
+        both phases in one ``duet_attention_paged`` launch; the tiles'
+        packing stays inside attention, so an MoE routes the R rows in row
+        order. Requires GQA attention blocks (the engine's capability
+        probe gates dispatch). Returns (logits (R,V), pools, state).
         """
         cfg = self.cfg
+        for kind in cfg.block_pattern:
+            if kind not in ATTN_KINDS:
+                raise ValueError(
+                    f"duet kernel path requires GQA attention blocks, "
+                    f"got {kind!r}")
         x = self._embed(token)
         packing = attn_mod.duet_packing(order, pos, block_q)
-        for i, p in enumerate(self.params["layers"]):
+        for i, (p, kind) in enumerate(self._layers()):
             h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
             out, pools[i] = attn_mod.gqa_duet_paged(
                 p["attn"], cfg, h, *pools[i], tables, pos, packing)
-            x = self._mlp_block(p, x + out)
+            x = self._mlp_block(p, kind, x + out)
         x = rms_norm(x, self.params["final_norm"], cfg.norm_eps)
         logits = self._logits(x)
         return logits[:, 0], pools, state
@@ -251,27 +294,32 @@ class Model(nn.Module):
     # ---------------------------------------------------------------- cache
     def init_cache(self, batch: int, max_len: int,
                    dtype: Optional[torch.dtype] = None, *,
-                   sliding: bool = False) -> List[attn_mod.AttnCache]:
+                   sliding: bool = False) -> list:
         """Zeroed slab cache on the model's device, one AttnCache
-        (batch, S, G, Dh) per layer, S = max_len (min(max_len,
-        sliding_window) with ``sliding``). ``dtype`` defaults to the
+        (batch, S, G, Dh) per GQA layer, S = max_len (min(max_len,
+        sliding_window) with ``sliding``), and one MLACache (batch,
+        max_len, r | rope) per MLA layer. ``dtype`` defaults to the
         model's."""
         return _build_cache(self.cfg, batch, max_len,
                             dtype or self.dtype, sliding, self.device)
 
     def init_state_cache(self, batch: int):
-        """Per-slot cache for paged serving: every layer of an all-GQA
-        pattern keeps its KV in the page pools, so every entry is None."""
+        """Per-slot cache for paged serving: every attention layer keeps
+        its KV (or latents) in the page pools, so every entry is None."""
         return [None for _ in self.cfg.block_pattern]
 
 
 def _build_cache(cfg: ArchConfig, batch: int, max_len: int, dtype, sliding,
-                 device) -> List[attn_mod.AttnCache]:
-    """One zeroed AttnCache per layer (every layer is GQA: ``layout``
-    refuses other kinds)."""
+                 device) -> list:
+    """One zeroed AttnCache per GQA layer, one MLACache per MLA layer
+    (``layout`` refuses other kinds)."""
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
     S = min(max_len, cfg.sliding_window) if sliding else max_len
-    shape = (batch, S, cfg.num_kv_heads, cfg.head_dim)
-    return [attn_mod.AttnCache(
-        k=torch.zeros(shape, dtype=dtype, device=device),
-        v=torch.zeros(shape, dtype=dtype, device=device))
-        for _ in cfg.block_pattern]
+    G, dh = cfg.num_kv_heads, cfg.head_dim
+    return [attn_mod.MLACache(ckv=zeros(batch, max_len, cfg.kv_lora_rank),
+                              krope=zeros(batch, max_len, cfg.qk_rope_dim))
+            if kind in MLA_KINDS else
+            attn_mod.AttnCache(k=zeros(batch, S, G, dh),
+                               v=zeros(batch, S, G, dh))
+            for kind in cfg.block_pattern]

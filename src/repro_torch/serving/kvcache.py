@@ -702,8 +702,9 @@ class PagedKVCacheManager:
 # ---------------------------------------------------------------------------
 def init_page_pools(cfg: ArchConfig, pool: PagePoolConfig,
                     dtype=torch.float32, *, device="cpu"):
-    """Per-attention-layer (k_pages, v_pages) tensors on ``device``.
-    Recurrent layers (SSM/xLSTM) hold None — their state is O(1) and lives
+    """Per-attention-layer (k_pages, v_pages) tensors on ``device``, or
+    (ckv_pages (N, ps, r), krope_pages (N, ps, rope)) latent pools for an
+    MLA layer. Recurrent layers (SSM/xLSTM) hold None — their state is O(1) and lives
     in the per-slot cache. Page 0 is the reserved null page: block tables
     pad with it and inactive slots write into it. An unknown kind is an
     error, not a silent stateless layer."""
@@ -715,8 +716,10 @@ def init_page_pools(cfg: ArchConfig, pool: PagePoolConfig,
             pools.append((torch.zeros(shape, dtype=dtype, device=device),
                           torch.zeros(shape, dtype=dtype, device=device)))
         elif kind in MLA_KINDS:
-            raise NotImplementedError(
-                f"init_page_pools: {kind!r} latent pools are not yet ported")
+            shape_c = (pool.num_pages, pool.page_size, cfg.kv_lora_rank)
+            shape_r = (pool.num_pages, pool.page_size, cfg.qk_rope_dim)
+            pools.append((torch.zeros(shape_c, dtype=dtype, device=device),
+                          torch.zeros(shape_r, dtype=dtype, device=device)))
         elif kind in RECURRENT_KINDS:
             pools.append(None)
         else:

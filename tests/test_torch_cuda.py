@@ -534,3 +534,38 @@ def test_engines_at_published_head_counts_on_the_card(dev, heads):
             runs[str(device)] = {r.rid: list(r.output_tokens)
                                  for r in metrics.requests}
         assert runs["cpu"] == runs[str(dev)]
+
+
+@pytest.mark.parametrize("name", ["granite-moe-3b-a800m",
+                                  "deepseek-v2-lite-16b"])
+def test_moe_engines_on_the_card_match_the_cpu(dev, name):
+    """Reduced granite-moe (GQA at rep 2 with an MoE FFN) and deepseek
+    (MLA, MoE with a shared expert), fp32, at the default capacity: the
+    async engine on paged KV (granite-moe's fused duet steps through
+    duet_attention_paged, its decode through paged_decode) and on the slab
+    (granite-moe's decode through the slab duet_attention) gives the CPU's
+    greedy tokens. deepseek's MLA runs no kernel."""
+    cfg = reduced(get_config(name))
+    gqa = name.startswith("granite")
+    specs = [(i, i * 0.0003, 20 + 7 * i, 6 + i) for i in range(5)]
+    for extra, kernels in (({}, ("paged_decode", "duet_attention_paged")),
+                           ({"paged": False}, ("duet_attention",))):
+        kw = dict(max_slots=3, max_len=128, token_budget=48, page_size=8,
+                  **extra)
+        runs = {}
+        for device in ("cpu", dev):
+            model = Model.init(cfg, seed=0, device="cpu", attn_kernel=True)
+            before = launch_counts()
+            eng = AsyncDuetEngine(model.to(device), EngineConfig(**kw),
+                                  device=device)
+            eng.submit([Request(rid=r, arrival=a, prompt_len=p,
+                                output_len=o) for r, a, p, o in specs])
+            metrics = eng.run()
+            after = launch_counts()
+            assert 0 < eng.dstats.host_syncs <= eng.dstats.super_iterations
+            runs[str(device)] = {r.rid: list(r.output_tokens)
+                                 for r in metrics.requests}
+            if device != "cpu":
+                for k in kernels:
+                    assert (after[k] > before[k]) == gqa, k
+        assert runs["cpu"] == runs[str(dev)]

@@ -48,7 +48,9 @@ def _t(x):
 # configs and params
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("name", ["qwen3-4b", "qwen3-8b", "qwen3-14b",
-                                  "yi-9b", "minicpm-2b", "granite-20b"])
+                                  "yi-9b", "minicpm-2b", "granite-20b",
+                                  "granite-moe-3b-a800m",
+                                  "deepseek-v2-lite-16b"])
 def test_configs_and_param_counts_match_jax(name):
     port, ref = get_config(name), jget_config(name)
     assert dataclasses.asdict(port) == dataclasses.asdict(ref)
@@ -60,13 +62,15 @@ def test_configs_and_param_counts_match_jax(name):
 
 
 def test_registry_serves_only_the_qwen3_family():
-    """The registry holds the six dense configs the port serves (the qwen3
-    family, yi-9b, minicpm-2b, granite-20b); the reference's other
-    families are refused by name."""
-    assert list_configs() == ["granite-20b", "minicpm-2b", "qwen3-14b",
-                              "qwen3-4b", "qwen3-8b", "yi-9b"]
-    for name in ("deepseek-v2-lite-16b", "granite-moe-3b-a800m",
-                 "zamba2-1.2b"):
+    """The registry holds the eight configs the port serves (the qwen3
+    family, yi-9b, minicpm-2b, granite-20b, and the MoE configs
+    granite-moe-3b-a800m and deepseek-v2-lite-16b); the reference's other
+    families (hybrid, recurrent, frontends) are refused by name."""
+    assert list_configs() == ["deepseek-v2-lite-16b", "granite-20b",
+                              "granite-moe-3b-a800m", "minicpm-2b",
+                              "qwen3-14b", "qwen3-4b", "qwen3-8b", "yi-9b"]
+    for name in ("zamba2-1.2b", "xlstm-350m", "musicgen-medium",
+                 "paligemma-3b"):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             get_config(name)
 
