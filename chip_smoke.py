@@ -54,7 +54,13 @@ Phases (each raises on failure; nothing is swallowed):
              cut to 2 layers (its dense MLA layer and one MLA + MoE layer;
              MLA runs no kernel): the paged decode with the latent
              up-projections absorbed against expanded, and the paged
-             prefill and decode against the slab's.
+             prefill and decode against the slab's. Then zamba2-1.2b cut
+             to 6 layers (5 mamba2 + 1 shared_attn): its kernel path
+             against its plain path (paged prefill and decode, slab
+             decode); and zamba2 and xlstm-350m cut to 4 layers (3 mlstm
+             + 1 slstm): a 600-token prompt prefilled in chunks of 256 and
+             8 decode steps, paged and slab, each step's logits against
+             one whole prefill of the same tokens.
 4. serve   — full qwen3-4b (36 layers, bf16, random weights from a seed)
              serves azure-conv requests on two paths, each with
              attn_kernel=True and strict_kernel=True and the launch counts
@@ -79,7 +85,16 @@ Phases (each raises on failure; nothing is swallowed):
              GQA configs; deepseek's MLA runs no kernel, and its paths
              must launch none) and on the slab path, each path's launch
              counts reset just before it and read just after it; a decode
-             step of granite-moe is profiled as qwen3-4b's.
+             step of granite-moe is profiled as qwen3-4b's. zamba2-1.2b
+             (Mamba2 + a shared attention block) and xlstm-350m (mLSTM +
+             sLSTM) serve the same way, their per-slot state bytes
+             printed: zamba2's paths must launch paged_decode (paged) and
+             the slab duet_attention (slab) and no duet_attention_paged
+             (the engines fuse duet steps for all-GQA configs only),
+             xlstm's none; a paged decode step of each is profiled. Last,
+             slot reuse: zamba2 cut to 12 layers, fp32, the sync engine at
+             2 slots serves 4 requests, and each stream must equal the
+             request's stream served alone.
 
 Before the last line it prints the card's name and power limit
 (``nvidia-smi``) and a ``{"kernels": [...]}`` JSON line (flash_prefill
@@ -152,8 +167,18 @@ PAGED_MAX_OUTPUT = 160      # see phase_serve's requests()
 HEAD_CONFIGS = ("granite-20b", "yi-9b", "minicpm-2b", "qwen3-14b",
                 "granite-moe-3b-a800m")
 SERVED_CONFIGS = ("yi-9b", "minicpm-2b", "granite-20b",
-                  "granite-moe-3b-a800m", "deepseek-v2-lite-16b")
+                  "granite-moe-3b-a800m", "deepseek-v2-lite-16b",
+                  "zamba2-1.2b", "xlstm-350m")
 SERVE_REQUESTS, SERVE_MAX_OUTPUT = 4, 64    # each served config's runs
+# the recurrent configs' parity depth: zamba2's first 6 layers (5 mamba2
+# + 1 shared_attn), xlstm's first 4 (3 mlstm + 1 slstm)
+RECURRENT_PARITY_LAYERS = {"zamba2-1.2b": 6, "xlstm-350m": 4}
+# the chunked-versus-whole check: a prompt of CHUNKED_PROMPT tokens
+# prefilled in chunks of CHUNKED_CHUNK, then CHUNKED_DECODE decode steps
+CHUNKED_PROMPT, CHUNKED_CHUNK, CHUNKED_DECODE = 600, 256, 8
+# the slot-reuse run: zamba2 cut to its first 12 layers (2 shared_attn),
+# fp32, 2 slots, 4 requests of at most 32 output tokens
+REUSE_LAYERS, REUSE_SLOTS, REUSE_MAX_OUTPUT = 12, 2, 32
 
 
 def log(msg: str):
@@ -910,17 +935,21 @@ def report_occupancy(card):
 # ---------------------------------------------------------------------------
 def phase_parity():
     """qwen3-4b cut to 4 layers, then each served config
-    beyond it cut to 2 layers (full width), fp32 with TF32 off."""
+    beyond it cut to 2 layers (full width; the recurrent ones to
+    RECURRENT_PARITY_LAYERS), fp32 with TF32 off."""
     from repro_torch.configs import get_config
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log("[parity] fp32, TF32 off (matmul and cudnn)")
     parity_for("qwen3-4b", 4, flash=True)
     for name in SERVED_CONFIGS:
-        if _is_gqa(get_config(name)):
+        cfg = get_config(name)
+        if _is_gqa(cfg):
             parity_for(name, 2)
-        else:
+        elif cfg.kv_lora_rank:
             parity_mla(name, 2)
+        else:
+            parity_recurrent(name, RECURRENT_PARITY_LAYERS[name])
 
 
 def _is_gqa(cfg) -> bool:
@@ -999,6 +1028,98 @@ def parity_mla(name, n_layers):
         f"{cfg.kv_lora_rank}, rope {cfg.qk_rope_dim}, layers "
         f"{cfg.block_pattern}, {time.time() - t0:.1f} s")
     del expand, absorb
+    torch.cuda.empty_cache()
+
+
+def parity_recurrent(name, n_layers):
+    """A recurrent config at full width cut to ``n_layers`` layers, fp32,
+    every recurrent state starting where the engines start it
+    (``init_state_cache`` / ``init_cache``). With GQA layers among them
+    (zamba2's shared_attn), the kernel path against the plain path: a
+    200-token paged prefill, one paged decode step, and one slab decode
+    step after a slab prefill in chunks of 128 + 72. Then, on the kernel
+    path, a CHUNKED_PROMPT-token prompt prefilled in chunks of
+    CHUNKED_CHUNK and CHUNKED_DECODE decode steps, paged and slab, each
+    step's logits (and the prefill's last) against one whole prefill (no
+    cache) of the same tokens: the chunked SSD and chunkwise mLSTM forms
+    and the one-step recurrences across chunk edges at full width."""
+    from repro_torch.configs.base import GQA_KINDS
+    from repro_torch.models import Model
+    from repro_torch.serving.kvcache import PagePoolConfig, init_page_pools
+    t0 = time.time()
+    cfg = _cut(name, n_layers)
+    kern = Model.init(cfg, seed=0, dtype=torch.float32, device="cuda",
+                      attn_kernel=True)
+    plain = copy.copy(kern)          # the same weights, plain attention
+    plain.attn_kernel = False
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(5)
+    n = CHUNKED_PROMPT + CHUNKED_DECODE
+    ps, P = 16, -(-n // 16)
+    tbl = torch.arange(1, 1 + P, dtype=torch.int32, device=dev)[None]
+    toks = torch.tensor(rng.integers(0, cfg.vocab_size, (1, n)), device=dev)
+
+    def pools():
+        return init_page_pools(cfg, PagePoolConfig(num_pages=P + 1,
+                                                   page_size=ps),
+                               torch.float32, device=dev)
+
+    def at(p):
+        return torch.tensor([p], dtype=torch.int32, device=dev)
+
+    checks = []
+    with torch.no_grad():
+        if any(k in GQA_KINDS for k in cfg.block_pattern):
+            got = {}
+            for label, model in (("kernel", kern), ("plain", plain)):
+                pl, st = pools(), model.init_state_cache(1)
+                lp, _, _ = model.prefill_paged(toks[:, :200], pl, st, tbl,
+                                               start_pos=0)
+                ld, _, _ = model.decode_step_paged(pl, st, toks[:, 200:201],
+                                                   at(200), tbl)
+                cache = model.init_cache(1, 256)
+                for s0, s1 in ((0, 128), (128, 200)):
+                    model.prefill(toks[:, s0:s1], cache=cache, start_pos=s0)
+                ls, _ = model.decode_step(cache, toks[:, 200:201], at(200))
+                got[label] = (lp, ld, ls)
+            checks += [(f"kernel vs plain path, {what}", k, p)
+                       for what, k, p in zip(
+                           ("paged prefill", "paged decode step",
+                            "slab decode step"), got["kernel"],
+                           got["plain"])]
+        # one whole prefill (no cache) per position checked
+        whole = torch.stack([kern.prefill(toks[:, :t + 1])[0][0]
+                             for t in range(CHUNKED_PROMPT - 1, n)])
+        chunks = [(s0, min(s0 + CHUNKED_CHUNK, CHUNKED_PROMPT))
+                  for s0 in range(0, CHUNKED_PROMPT, CHUNKED_CHUNK)]
+        for path in ("paged", "slab"):
+            if path == "paged":
+                pl, st = pools(), kern.init_state_cache(1)
+                for s0, s1 in chunks:
+                    last, _, _ = kern.prefill_paged(toks[:, s0:s1], pl, st,
+                                                    tbl, start_pos=s0)
+            else:
+                cache = kern.init_cache(1, 1024)    # the engines' rows
+                for s0, s1 in chunks:
+                    last, _ = kern.prefill(toks[:, s0:s1], cache=cache,
+                                           start_pos=s0)
+            steps = [last[0]]
+            for t in range(CHUNKED_PROMPT, n):
+                if path == "paged":
+                    lg, _, _ = kern.decode_step_paged(
+                        pl, st, toks[:, t:t + 1], at(t), tbl)
+                else:
+                    lg, _ = kern.decode_step(cache, toks[:, t:t + 1], at(t))
+                steps.append(lg[0])
+            checks.append((
+                f"{path}: chunks {[s1 - s0 for s0, s1 in chunks]} + "
+                f"{len(steps) - 1} decode steps vs whole prefills "
+                f"(positions {CHUNKED_PROMPT - 1}..{n - 1})",
+                torch.stack(steps), whole))
+    _check_parity(name, n_layers, cfg, checks)
+    log(f"[parity] {name}: layers {cfg.block_pattern}, "
+        f"{time.time() - t0:.1f} s")
+    del kern, plain
     torch.cuda.empty_cache()
 
 
@@ -1241,29 +1362,36 @@ def _serve_run(label, cls, model, reqs, card, extra):
     return {r.rid: list(r.output_tokens) for r in metrics.requests}
 
 
-def _path_counts(path, counts, rep, split_kv=False, gqa=True):
+def _path_counts(path, counts, cfg, split_kv=False):
     """Read a path's launches (reset just before it), add them to
     ``counts`` and fail if a kernel of the path, of the role the config's
-    ``rep`` takes (split-KV where ``split_kv``), never launched; on an
-    MLA config's path (``gqa`` False), which runs no kernel, fail if any
-    launched."""
+    rep takes (split-KV where ``split_kv``), never launched. A config
+    with GQA layers among others (zamba2's shared_attn beside Mamba2)
+    runs the decode kernels but no fused duet step, so its paths must not
+    launch ``duet_attention_paged``; a config without GQA layers (MLA,
+    xLSTM) runs no kernel, so its paths must launch none."""
+    from repro_torch.configs.base import GQA_KINDS
     from repro_torch.kernels import launch_counts
     from repro_torch.kernels.ops import cta_role
     got = launch_counts()
     log(f"[serve] {path} path launches: {got}")
-    block = cta_role(rep) == "block"
+    gqa = any(k in GQA_KINDS for k in cfg.block_pattern)
+    fused = _is_gqa(cfg)
+    block = cta_role(cfg.num_heads // cfg.num_kv_heads) == "block"
     for name, n in got.items():
         counts[name] = counts.get(name, 0) + n
         needed = (gqa and PATH_OF.get(name) == path.split()[-1]
-                  and (name == "duet_attention_paged"
-                       or name.endswith("[block]") == block)
+                  and (fused if name == "duet_attention_paged"
+                       else name.endswith("[block]") == block)
                   and (split_kv or "splitkv" not in name))
         if needed and n <= 0:
             raise AssertionError(f"[serve] kernel {name} was never "
                                  f"launched on the {path} path")
-        if not gqa and n != 0:
+        if n and (not gqa or (name == "duet_attention_paged"
+                              and not fused)):
             raise AssertionError(f"[serve] kernel {name} launched {n} "
-                                 f"times on the MLA path {path}")
+                                 f"times on the path {path}, which must "
+                                 "not launch it")
 
 
 def phase_serve():
@@ -1296,8 +1424,7 @@ def phase_serve():
             outputs[label] = _serve_run(label, cls, model, _requests(path),
                                         card, extra)
         # this path's launches end here
-        _path_counts(path, counts, cfg.num_heads // cfg.num_kv_heads,
-                     split_kv=path == "paged")
+        _path_counts(path, counts, cfg, split_kv=path == "paged")
     if counts["flash_prefill"] != 0:
         raise AssertionError("[serve] flash_prefill launched "
                              f"{counts['flash_prefill']} times on a serving "
@@ -1323,7 +1450,63 @@ def phase_serve():
     if counts["flash_prefill"] != 0:
         raise AssertionError("[serve] flash_prefill launched on a served "
                              "config's path")
+    serve_slot_reuse(card)
     return counts
+
+
+def serve_slot_reuse(card):
+    """Slot reuse on the card: zamba2 at full width cut to its first
+    REUSE_LAYERS layers, fp32 with TF32 off, the sync engine on the paged
+    path (kernels on, strict) at REUSE_SLOTS slots serves SERVE_REQUESTS
+    requests of at most REUSE_MAX_OUTPUT output tokens, so later requests
+    take slots that earlier ones left; each request's greedy stream must
+    equal the same request served alone on a fresh engine of the same
+    geometry (the chunk boundaries may differ between the two, which is
+    why this runs in fp32). The engines reset a slot's recurrent state
+    when a prefill starts at position 0; without it a request would start
+    from its slot's last occupant's state. Launches here come after the
+    main path's counts were read."""
+    from repro_torch.models import Model
+    from repro_torch.serving import DuetEngine, EngineConfig
+    t0 = time.time()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = _cut("zamba2-1.2b", REUSE_LAYERS)
+    model = Model.init(cfg, seed=0, dtype=torch.float32, device="cuda",
+                       attn_kernel=True)
+    ec = EngineConfig(max_slots=REUSE_SLOTS, max_len=1024, token_budget=256,
+                      strict_kernel=True)
+
+    def serve(reqs):
+        engine = DuetEngine(model, ec, seed=0, device="cuda")
+        engine.submit(reqs)
+        metrics = engine.run()
+        if metrics.summary()["num_finished"] != len(reqs):
+            raise AssertionError("[serve] slot reuse: a request did not "
+                                 "finish")
+        return {r.rid: list(r.output_tokens) for r in metrics.requests}
+
+    def reqs():
+        return _requests("paged", SERVE_REQUESTS, REUSE_MAX_OUTPUT)
+
+    together = serve(reqs())
+    alone = {}
+    for i in range(SERVE_REQUESTS):
+        alone.update(serve(reqs()[i:i + 1]))
+    first = {r: next((i for i, (x, y) in enumerate(zip(together[r],
+                                                        alone[r]))
+                      if x != y), None) for r in alone}
+    log(f"[serve] slot reuse: zamba2 cut to {REUSE_LAYERS} layers "
+        f"({cfg.block_pattern.count('shared_attn')} shared_attn), fp32, "
+        f"sync paged, {SERVE_REQUESTS} requests on {REUSE_SLOTS} slots "
+        f"(outputs {[len(t) for t in together.values()]}) against each "
+        f"served alone: first differing token index per request {first} "
+        f"[{card}], {time.time() - t0:.1f} s")
+    if together != alone:
+        raise AssertionError("[serve] slot reuse: a request's greedy stream "
+                             "differs from the one it gives alone")
+    del model
+    torch.cuda.empty_cache()
 
 
 def serve_config(name, counts, card):
@@ -1335,8 +1518,10 @@ def serve_config(name, counts, card):
     each path's launch counts reset just before it and read just after,
     SERVE_REQUESTS requests of at most SERVE_MAX_OUTPUT output tokens; the
     peak allocated memory after both runs; an MoE config with GQA blocks
-    (granite-moe) then profiles one paged decode step."""
+    (granite-moe) and the recurrent configs then profile one paged decode
+    step. A recurrent config also prints its per-slot state bytes."""
     from repro_torch.configs import get_config
+    from repro_torch.configs.base import RECURRENT_KINDS
     from repro_torch.kernels import reset_launch_counts
     from repro_torch.kernels.ops import duet_block_q
     from repro_torch.models import Model
@@ -1349,11 +1534,27 @@ def serve_config(name, counts, card):
     torch.cuda.synchronize()
     nbytes = sum(b.numel() * b.element_size() for b in model.buffers())
     gqa = _is_gqa(cfg)
-    heads = (f"G {cfg.num_kv_heads} Dh {cfg.head_dim}, duet tiles of "
-             f"{duet_block_q(cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)}"
-             " rows" if gqa else
-             f"MLA latent rank {cfg.kv_lora_rank} + rope "
-             f"{cfg.qk_rope_dim}, no duet kernel")
+    recurrent = [k for k in cfg.block_pattern if k in RECURRENT_KINDS]
+    if gqa:
+        bq = duet_block_q(cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
+        heads = (f"G {cfg.num_kv_heads} Dh {cfg.head_dim}, duet tiles of "
+                 f"{bq} rows")
+    elif cfg.kv_lora_rank:
+        heads = (f"MLA latent rank {cfg.kv_lora_rank} + rope "
+                 f"{cfg.qk_rope_dim}, no duet kernel")
+    else:
+        state = sum(t.numel() * t.element_size()
+                    for c in model.init_state_cache(1) if c is not None
+                    for t in c)
+        kinds = {k: cfg.block_pattern.count(k)
+                 for k in dict.fromkeys(cfg.block_pattern)}
+        heads = (f"G {cfg.num_kv_heads} Dh {cfg.head_dim}; layers {kinds}"
+                 f" (SSM heads {cfg.ssm_heads} x {cfg.ssm_head_dim}, state "
+                 f"{cfg.ssm_state})" if "mamba2" in kinds else
+                 f"G {cfg.num_kv_heads}; layers {kinds}")
+        heads += (f"; recurrent state {state} bytes a slot ({state / 1e6:.2f}"
+                  f" MB over {len(recurrent)} layers, "
+                  f"{8 * state / 1e6:.1f} MB for 8 slots); no duet kernel")
     moe = (f"; MoE {cfg.num_experts} experts top-{cfg.moe_top_k} width "
            f"{cfg.moe_d_ff}, {cfg.num_shared_experts} shared"
            if cfg.is_moe else "")
@@ -1368,12 +1569,11 @@ def serve_config(name, counts, card):
         _serve_run(label, AsyncDuetEngine, model,
                    _requests(path, SERVE_REQUESTS, SERVE_MAX_OUTPUT), card,
                    extra)
-        _path_counts(f"{name} {path}", counts,
-                     cfg.num_heads // cfg.num_kv_heads, gqa=gqa)
+        _path_counts(f"{name} {path}", counts, cfg)
     log(f"[serve] {name}: peak allocated "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB over the weights "
         f"and both runs (max_slots 8, max_len 1024) [{card}]")
-    if cfg.is_moe and gqa:
+    if (cfg.is_moe and gqa) or recurrent:
         profile_decode(model, card, slab=False, top=14)
     del model
     torch.cuda.empty_cache()
@@ -1384,9 +1584,14 @@ def profile_decode(model, card, slab: bool, top: int = 8):
     of context through the kernel path (paged pool, or slab cache with the
     engine's 1024-token rows), timed on the host clock without the
     profiler, then traced with torch.profiler for the device time by
-    kernel. Device busy share = summed kernel time / wall time. Launches
-    made here come after the main path's counts were read."""
+    kernel. Device busy share = summed kernel time / wall time. A config
+    with recurrent layers also lists the top aten ops by device time and
+    profiles the step again without the inactive-slot freeze (no
+    ``active_mask``: no ``where`` over the recurrent state), to read what
+    the freeze costs. Launches made here come after the main path's counts
+    were read."""
     from repro_torch.core.lookahead import lookahead_decode
+    from repro_torch.models.transformer import RECURRENT
     from repro_torch.serving.kvcache import PagePoolConfig, init_page_pools
     cfg, B, P, ps, steps = model.cfg, 8, 64, 16, 4
     pos = torch.full((B,), 1000, dtype=torch.int32, device="cuda")
@@ -1404,28 +1609,45 @@ def profile_decode(model, card, slab: bool, top: int = 8):
         tables = torch.arange(1, B * P + 1, dtype=torch.int32,
                               device="cuda").reshape(B, P)
         state = model.init_state_cache(B)
+        active = torch.ones((B,), dtype=torch.bool, device="cuda")
 
-        def step():
-            model.decode_step_paged(pools, state, tok, pos, tables)
+        def step(mask=active):   # the engine's paged step: decode + freeze
+            model.decode_step_paged(pools, state, tok, pos, tables,
+                                    active_mask=mask)
 
-    def run():
+    def run(**kw):
         for _ in range(steps):
-            step()
+            step(**kw)
         torch.cuda.synchronize()
 
-    wall, events = _profile(run, steps)
-    log_profile(f"{cfg.name} {'slab' if slab else 'paged'} decode step, "
-                f"{cfg.num_layers} layers, B={B}, ctx 1000, bf16", wall,
-                events, steps, card, top=top)
+    what = (f"{cfg.name} {'slab' if slab else 'paged'} decode step, "
+            f"{cfg.num_layers} layers, B={B}, ctx 1000, bf16")
+    wall, events, ops = _profile(run, steps)
+    log_profile(what, wall, events, steps, card, top=top)
+    if slab or not any(k in RECURRENT for k in cfg.block_pattern):
+        return
+    for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:top]:
+        log(f"[profile]   {e.self_device_time_total / steps / 1e3:8.3f} "
+            f"ms/step  {e.count // steps:5d} calls/step  {e.key} (aten op)")
+    wall0, events0, _ = _profile(lambda: run(mask=None), steps)
+    dev = sum(e.self_device_time_total for e in events) / steps / 1e3
+    dev0 = sum(e.self_device_time_total for e in events0) / steps / 1e3
+    log(f"[profile] {what}: the inactive-slot freeze of the recurrent "
+        f"state (its torch.where) adds {dev - dev0:.3f} ms of device time a "
+        f"step ({dev:.3f} with it, {dev0:.3f} without) and "
+        f"{wall - wall0:.2f} ms of wall ({wall:.2f} / {wall0:.2f}) "
+        f"[{card}]")
 
 
 def log_profile(what, wall, events, steps, card, extra="", top=8):
-    """Print a profiled step: wall ms, device kernel ms and busy share, and
-    the ``top`` kernels with the most device time."""
+    """Print a profiled step: wall ms, device kernel ms and busy share, the
+    kernels (and copies) launched a step, and the ``top`` kernels with the
+    most device time."""
     dev = sum(e.self_device_time_total for e in events) / steps / 1e3
+    launched = sum(e.count for e in events) // steps
     busy = (f"{dev:.2f} ms/step (torch.profiler); device busy "
-            f"{100 * dev / wall:.1f}%" if dev > 0 else
-            "not measured (the profiler recorded no device time)")
+            f"{100 * dev / wall:.1f}%; {launched} kernels a step" if dev > 0
+            else "not measured (the profiler recorded no device time)")
     log(f"[profile] {what}: wall {wall:.2f} ms/step (host clock, no "
         f"profiler); device kernel time {busy}{extra} [{card}]")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
@@ -1435,8 +1657,9 @@ def log_profile(what, wall, events, steps, card, extra="", top=8):
 
 def _profile(run, steps):
     """(wall ms per step on the host clock without the profiler, device
-    kernel events of a traced run) of ``run``, which does ``steps`` steps
-    and synchronises."""
+    kernel events of a traced run, the run's aten ops that launched
+    device work) of ``run``, which does ``steps`` steps and
+    synchronises."""
     from torch.profiler import ProfilerActivity, profile
     run()
     t0 = time.time()
@@ -1445,8 +1668,11 @@ def _profile(run, steps):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         run()
-    return wall, [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    cuda = torch.autograd.DeviceType.CUDA
+    averages = prof.key_averages()
+    return wall, [e for e in averages if e.device_type == cuda], [
+        e for e in averages if e.device_type != cuda
+        and e.key.startswith("aten::") and e.self_device_time_total > 0]
 
 
 def profile_duet(model, card):
@@ -1487,7 +1713,7 @@ def profile_duet(model, card):
                  pre_tbl, 512, 0, 0, order)
         torch.cuda.synchronize()
 
-    wall, events = _profile(run, steps)
+    wall, events, _ = _profile(run, steps)
     duet = [e for e in events if "duet_attention_paged" in e.key]
     duet_ms = sum(e.self_device_time_total for e in duet) / steps / 1e3
     calls = sum(e.count for e in duet) // steps

@@ -191,11 +191,13 @@ def list_configs() -> list[str]:
 
 # the architectures the port serves: the dense GQA and MQA configs (the
 # qwen3 family, the paper's own evaluation models, §5.1/§5.3; yi-9b,
-# minicpm-2b with tied embeddings, granite-20b with MQA and a gelu MLP)
-# and the MoE ones (granite-moe on GQA, deepseek-v2-lite on MLA)
+# minicpm-2b with tied embeddings, granite-20b with MQA and a gelu MLP),
+# the MoE ones (granite-moe on GQA, deepseek-v2-lite on MLA) and the
+# recurrent ones (zamba2: Mamba2 + a shared attention block; xlstm: mLSTM
+# + sLSTM)
 _ARCH_MODULES = ["qwen3_4b", "qwen3_8b", "qwen3_14b", "yi_9b", "minicpm_2b",
                  "granite_20b", "granite_moe_3b_a800m",
-                 "deepseek_v2_lite_16b"]
+                 "deepseek_v2_lite_16b", "zamba2_1_2b", "xlstm_350m"]
 _loaded = False
 
 

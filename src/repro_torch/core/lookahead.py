@@ -48,8 +48,9 @@ def lookahead_decode(model: Model, cache, first_token: torch.Tensor,
       first_token: (B, 1) int32 — token to feed at the first step.
       start_pos: (B,) int32 — cache position of the first step per request
         (continuous batching: requests sit at different depths).
-      active_mask: (B,) bool — inactive slots keep their token, position
-        and slab row (retired slots must not corrupt the cache).
+      active_mask: (B,) bool — inactive slots keep their token, position,
+        slab row and recurrent state (retired slots must not corrupt the
+        cache).
 
     Returns (tokens (B, k), cache, new_pos (B,)).
     """
@@ -94,8 +95,9 @@ def lookahead_decode_paged(model: Model, pools, state,
     Args:
       first_token: (B, 1) int32 — token to feed at the first step.
       start_pos: (B,) int32 — cache position of the first step per request.
-      active_mask: (B,) bool — inactive slots keep their token and position
-        (their writes land in the null page through all-zero table rows).
+      active_mask: (B,) bool — inactive slots keep their token, position
+        and recurrent state (their attention writes land in the null page
+        through all-zero table rows).
 
     Returns (tokens (B, k), pools, state, new_pos (B,)).
     """
@@ -106,8 +108,8 @@ def lookahead_decode_paged(model: Model, pools, state,
     tok, pos = first_token, start_pos
     toks = []
     for _ in range(k):
-        logits, pools, state = model.decode_step_paged(pools, state, tok,
-                                                       pos, tables)
+        logits, pools, state = model.decode_step_paged(
+            pools, state, tok, pos, tables, active_mask=active_mask)
         nxt = _sample(logits, gen, temperature)[:, None]
         tok = torch.where(active_mask[:, None], nxt, tok)
         pos = torch.where(active_mask, pos + 1, pos)
@@ -177,7 +179,8 @@ def make_superiter_fn(model: Model, kb: int, *, paged: bool = True,
 
     ``sampled`` is the finishing prefill's next token (a 0-d device tensor)
     or None: the host fetches it together with ``toks`` in the single
-    per-iteration sync.
+    per-iteration sync. The chunk reads and writes only slot
+    ``pre_slot``'s row of the recurrent state (``slot_views``).
     """
     if kb == 0 and chunk == 0:
         raise ValueError("empty super-iteration")
@@ -275,8 +278,9 @@ def make_superiter_fn(model: Model, kb: int, *, paged: bool = True,
             # member, so the final step is always a live token
             last_tok = torch.where(active[:, None], toks[:, -1:], last_tok)
         if chunk > 0:
-            logits, pools, state = model.prefill_paged(
-                pre_toks, pools, state, pre_tbl, start_pos=pre_start)
+            logits, pools, _ = model.prefill_paged(
+                pre_toks, pools, slot_views(state, pre_slot), pre_tbl,
+                start_pos=pre_start)
             sampled, last_tok, pos = _finish(
                 logits[0], last_tok, pos, pre_start, pre_slot, override_tok)
         return toks, sampled, last_tok, pos, pools, state, gen

@@ -56,9 +56,11 @@ class MLACache(NamedTuple):
 
 
 def slot_views(cache, slot: int):
-    """Slot ``slot``'s rows of every layer's cache (AttnCache or MLACache)
-    as views of batch 1: a prefill into them writes the slab in place."""
-    return [type(c)(*(t[slot:slot + 1] for t in c)) for c in cache]
+    """Slot ``slot``'s rows of every layer's cache (AttnCache, MLACache or
+    recurrent state; None stays None) as views of batch 1: a prefill into
+    them writes the slab or the per-slot state in place."""
+    return [None if c is None else type(c)(*(t[slot:slot + 1] for t in c))
+            for c in cache]
 
 
 def prefix_views(c, n: int):

@@ -24,6 +24,19 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     return (y * scale.float()).to(dtype)
 
 
+def group_norm(x: torch.Tensor, scale: torch.Tensor, num_groups: int,
+               eps: float = 1e-6) -> torch.Tensor:
+    """GroupNorm over the last dim, in fp32 (the SSM / xLSTM cell
+    outputs)."""
+    dtype = x.dtype
+    *lead, d = x.shape
+    x32 = x.float().reshape(*lead, num_groups, d // num_groups)
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mean).square().mean(dim=-1, keepdim=True)
+    y = (x32 - mean) * torch.rsqrt(var + eps)
+    return (y.reshape(*lead, d) * scale.float()).to(dtype)
+
+
 # ---------------------------------------------------------------------------
 # Rotary position embedding (half-split / llama convention)
 # ---------------------------------------------------------------------------
@@ -84,3 +97,26 @@ def unembed(params, x: torch.Tensor, true_vocab: int) -> torch.Tensor:
         mask = torch.arange(padded, device=logits.device) < true_vocab
         logits = logits.masked_fill(~mask, torch.finfo(logits.dtype).min)
     return logits
+
+
+# ---------------------------------------------------------------------------
+# Causal conv1d (SSM / mLSTM front conv); channels-last (B, S, C)
+# ---------------------------------------------------------------------------
+def causal_conv1d(x: torch.Tensor, weight: torch.Tensor,
+                  bias: torch.Tensor | None,
+                  prev: torch.Tensor | None = None):
+    """Depthwise causal conv. weight: (W, C). prev: (B, W-1, C) carried
+    state (zeros when None).
+
+    Returns (y, new_prev) where new_prev is the last W-1 inputs (for
+    decode).
+    """
+    w = weight.shape[0]
+    if prev is None:
+        prev = x.new_zeros((x.shape[0], w - 1, x.shape[-1]))
+    xp = torch.cat([prev, x], dim=1)                  # (B, S+W-1, C)
+    y = sum(xp[:, i:i + x.shape[1], :] * weight[i] for i in range(w))
+    if bias is not None:
+        y = y + bias
+    new_prev = xp[:, -(w - 1):, :] if w > 1 else prev
+    return y, new_prev

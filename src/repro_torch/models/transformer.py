@@ -15,16 +15,26 @@ Paged KV pool:
   * ``duet_step_paged``   — decode rows + one prefill chunk in one fused
                             attention launch per layer
 
-Attention blocks are ported — GQA (``attn``, ``attn_moe``) and MLA
-(``mla``, ``mla_moe``), each with a dense MLP or the MoE FFN; recurrent
-blocks and frontends are not yet. A GQA layer's cache is an AttnCache (or a
-(k_pages, v_pages) pool pair), an MLA layer's an MLACache of latents (or a
-(ckv_pages, krope_pages) pair). MLA runs no kernel (the reference has
-none), and the fused duet step takes GQA blocks only, as the reference's.
-Weights keep the reference's layouts and names (``params_from_jax``
-carries a JAX tree over unchanged), and the weight methods take no
-``params`` argument: the module owns them. Slab caches and page pools are
-updated in place.
+Every block kind of the reference is ported: GQA (``attn``, ``attn_moe``,
+and Zamba2's ``shared_attn``, whose one set of weights sits at the
+top-level ``shared_attn`` slot) and MLA (``mla``, ``mla_moe``), each with a
+dense MLP or the MoE FFN, and the recurrent blocks ``mamba2``, ``mlstm``
+and ``slstm``; frontends are not yet. Cache layout per layer:
+
+  attn / shared_attn -> AttnCache(k, v) (or a (k_pages, v_pages) pool pair)
+  mla                -> MLACache(ckv, krope) (or (ckv_pages, krope_pages))
+  mamba2             -> MambaCache(conv, ssm)
+  mlstm              -> MLSTMCache(conv, C, n, m)
+  slstm              -> SLSTMCache(c, n, m, h)
+
+A recurrent layer keeps its state in the slab cache on the slab path and
+in the per-slot ``state`` list (``init_state_cache``) on the paged path;
+its pool entry is None. MLA and the recurrent blocks run no kernel (the
+reference has none), and the fused duet step takes GQA blocks only, as
+the reference's. Weights keep the reference's layouts and names
+(``params_from_jax`` carries a JAX tree over unchanged), and the weight
+methods take no ``params`` argument: the module owns them. Slab caches,
+page pools and recurrent state are updated in place.
 """
 from __future__ import annotations
 
@@ -36,11 +46,47 @@ from torch import nn
 from repro_torch.configs.base import GQA_KINDS, MLA_KINDS, ArchConfig
 from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import embed, gated_mlp, rms_norm, unembed
 from repro_torch.models.moe import moe_ffn
-from repro_torch.models.params import init_params, layout
+from repro_torch.models.params import _mlstm_inner, init_params, layout
+from repro_torch.models.ssm import MambaCache
+from repro_torch.models.xlstm import MLSTMCache, SLSTMCache
 
 ATTN_KINDS = GQA_KINDS
+# recurrent kind -> (its params key, prefill, decode step)
+RECURRENT = {
+    "mamba2": ("mamba", ssm_mod.mamba2_prefill, ssm_mod.mamba2_decode),
+    "mlstm": ("mlstm", xlstm_mod.mlstm_prefill, xlstm_mod.mlstm_decode),
+    "slstm": ("slstm", xlstm_mod.slstm_forward, xlstm_mod.slstm_forward),
+}
+STATE_TYPES = (MambaCache, MLSTMCache, SLSTMCache)
+
+
+def write_state(dst, new, active_mask: Optional[torch.Tensor] = None):
+    """Write a recurrent layer's new state ``new`` into ``dst`` in place,
+    each leaf cast to ``dst``'s dtype; rows off ``active_mask`` (B,) bool
+    keep theirs (the recurrent half of the reference's
+    ``_freeze_inactive``)."""
+    for d, n in zip(dst, new):
+        n = n.to(d.dtype)
+        if active_mask is not None:
+            m = active_mask.reshape((-1,) + (1,) * (n.ndim - 1))
+            n = torch.where(m, n, d)
+        d.copy_(n)
+
+
+def reset_slot_state(cache, slot: int):
+    """Put slot ``slot``'s recurrent state (slab cache or paged ``state``
+    list) back to the value ``init_state_cache`` and ``init_cache`` give it
+    (zeros), in place; attention entries are left alone. The engines call
+    this when a prefill starts at position 0 (a new occupant, or a re-prefill
+    after preemption), so no request starts from an earlier one's state."""
+    for c in cache:
+        if isinstance(c, STATE_TYPES):
+            for t in c:
+                t[slot].zero_()
 
 
 class ParamTree(nn.Module):
@@ -71,7 +117,7 @@ class Model(nn.Module):
                  mla_absorb: bool = False, attn_kernel: bool = False,
                  split_kv_threshold: int = 0):
         super().__init__()
-        layout(cfg)              # raises for block kinds not yet ported
+        layout(cfg)              # raises for frontends not yet ported
         self.cfg = cfg
         self.params = ParamTree(params)
         # MLA decode: fold the latent up-projections into the query and
@@ -121,16 +167,35 @@ class Model(nn.Module):
             return x + moe_ffn(p["moe"], self.cfg, h)
         return x + gated_mlp(p["mlp"], h, self.cfg.activation)
 
+    def _block_params(self, i: int):
+        """(layer ``i``'s params, its kind): a ``shared_attn`` layer reads
+        the one shared block's weights."""
+        kind = self.cfg.block_pattern[i]
+        if kind == "shared_attn":
+            return self.params["shared_attn"], kind
+        return self.params["layers"][i], kind
+
     def _layers(self):
         """(layer params, block kind) of every layer."""
-        return zip(self.params["layers"], self.cfg.block_pattern)
+        return (self._block_params(i) for i in range(self.cfg.num_layers))
+
+    def _recurrent(self, p, kind, x, cache_in, *, decode: bool):
+        """One recurrent block (pre-norm, residual). Returns (x, the
+        layer's new state)."""
+        key, prefill, step = RECURRENT[kind]
+        h = rms_norm(x, p["norm"], self.cfg.norm_eps)
+        out, new = (step if decode else prefill)(p[key], self.cfg, h,
+                                                 cache_in)
+        return x + out, new
 
     def _run_block_prefill(self, i, x, positions, cache_in, *, window=None):
-        """One attention block (GQA or MLA, the kinds ``layout`` admits) of
-        a full-sequence (``cache_in`` None) or chunked prefill. Returns
-        (x, the layer's AttnCache or MLACache)."""
+        """One block of a full-sequence (``cache_in`` None) or chunked
+        prefill. Returns (x, the layer's AttnCache, MLACache or recurrent
+        state)."""
         cfg = self.cfg
-        p, kind = self.params["layers"][i], cfg.block_pattern[i]
+        p, kind = self._block_params(i)
+        if kind in RECURRENT:
+            return self._recurrent(p, kind, x, cache_in, decode=False)
         h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
         if kind in MLA_KINDS:
             if cache_in is not None:
@@ -153,10 +218,11 @@ class Model(nn.Module):
         """Prefill (optionally a chunk continuing an existing cache).
 
         Returns (last_position_logits, cache). With ``cache`` given (one
-        AttnCache or MLACache per layer, e.g. slot views of the engine's
-        slab), the chunk's K/V or latents are written into it in place;
-        without it, the cache of the new ones is returned. ``start_pos``:
-        the chunk's first absolute position (default 0).
+        entry per layer, e.g. slot views of the engine's slab), the chunk's
+        K/V or latents are written into it in place and recurrent state
+        carries forward from it and is written back in place; without it,
+        the cache of the new ones is returned. ``start_pos``: the chunk's
+        first absolute position (default 0).
         """
         cfg = self.cfg
         x = self._embed(tokens)
@@ -166,15 +232,19 @@ class Model(nn.Module):
             .expand(B, S)
         window = cfg.sliding_window if sliding else None
         new_cache = []
-        for i in range(cfg.num_layers):
+        for i, kind in enumerate(cfg.block_pattern):
             c = None if cache is None else cache[i]
-            if c is not None and window is None:
+            recurrent = kind in RECURRENT
+            if c is not None and window is None and not recurrent:
                 # keys past the chunk are all masked: views of the slab cut
                 # at the chunk's end keep the attention off its unwritten
                 # tail (the writes still land in the slab)
                 c = attn_mod.prefix_views(c, start + S)
-            x, c = self._run_block_prefill(i, x, positions, c, window=window)
-            new_cache.append(c)
+            x, new = self._run_block_prefill(i, x, positions, c,
+                                             window=window)
+            if recurrent and c is not None:
+                write_state(c, new)
+            new_cache.append(new)
         x = rms_norm(x, self.params["final_norm"], cfg.norm_eps)
         logits = self._logits(x[:, -1:])
         return logits[:, 0], (new_cache if cache is None else cache)
@@ -184,12 +254,16 @@ class Model(nn.Module):
         """One decode step against the slab cache. token (B,1); pos (B,)
         int. The kernel hook (``attn_kernel``) takes the slab
         ``duet_attention`` kernel unless ``sliding``. ``active_mask`` (B,)
-        bool, the port's argument: rows off it keep their slab entry (the
-        reference's look-ahead loop restores them after the step).
-        Returns (logits (B, V), cache)."""
+        bool, the port's argument: rows off it keep their slab entry and
+        recurrent state (the reference's look-ahead loop restores them
+        after the step). Returns (logits (B, V), cache)."""
         cfg = self.cfg
         x = self._embed(token)
         for i, (p, kind) in enumerate(self._layers()):
+            if kind in RECURRENT:
+                x, new = self._recurrent(p, kind, x, cache[i], decode=True)
+                write_state(cache[i], new, active_mask)
+                continue
             h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
             if kind in MLA_KINDS:
                 out, cache[i] = attn_mod.mla_decode(
@@ -214,8 +288,10 @@ class Model(nn.Module):
         """Chunked prefill with paged attention KV (PagedAttention layout).
 
         ``tokens`` (B, S); ``pools``: per-layer (k_pages, v_pages), or
-        (ckv_pages, krope_pages) for an MLA layer;
-        ``state``: per-slot cache for recurrent layers (all None here);
+        (ckv_pages, krope_pages) for an MLA layer, None for a recurrent
+        one; ``state``: per-layer recurrent state of the B rows (None for
+        attention layers; e.g. ``slot_views`` of the engine's per-slot
+        state), carried forward and written back in place;
         ``tables`` (B, P) int32 block tables covering the chunk's
         positions; ``start_pos`` the chunk's first absolute position.
         Returns (last_position_logits, pools, state).
@@ -227,6 +303,10 @@ class Model(nn.Module):
         positions = (start + torch.arange(S, device=x.device))[None, :] \
             .expand(B, S)
         for i, (p, kind) in enumerate(self._layers()):
+            if kind in RECURRENT:
+                x, new = self._recurrent(p, kind, x, state[i], decode=False)
+                write_state(state[i], new)
+                continue
             h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
             prefill = (attn_mod.mla_prefill_paged if kind in MLA_KINDS
                        else attn_mod.gqa_prefill_paged)
@@ -237,12 +317,20 @@ class Model(nn.Module):
         logits = self._logits(x[:, -1:])
         return logits[:, 0], pools, state
 
-    def decode_step_paged(self, pools, state, token, pos, tables):
+    def decode_step_paged(self, pools, state, token, pos, tables, *,
+                          active_mask: Optional[torch.Tensor] = None):
         """One decode step against paged attention KV. token (B,1);
-        pos (B,) int; tables (B,P). Returns (logits, pools, state)."""
+        pos (B,) int; tables (B,P). ``active_mask`` (B,) bool, the port's
+        argument: rows off it keep their recurrent state (their attention
+        writes land in the null page through all-zero table rows).
+        Returns (logits, pools, state)."""
         cfg = self.cfg
         x = self._embed(token)
         for i, (p, kind) in enumerate(self._layers()):
+            if kind in RECURRENT:
+                x, new = self._recurrent(p, kind, x, state[i], decode=True)
+                write_state(state[i], new, active_mask)
+                continue
             h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
             if kind in MLA_KINDS:
                 out, pools[i] = attn_mod.mla_decode_paged(
@@ -295,31 +383,62 @@ class Model(nn.Module):
     def init_cache(self, batch: int, max_len: int,
                    dtype: Optional[torch.dtype] = None, *,
                    sliding: bool = False) -> list:
-        """Zeroed slab cache on the model's device, one AttnCache
+        """Zeroed slab cache on the model's device: one AttnCache
         (batch, S, G, Dh) per GQA layer, S = max_len (min(max_len,
-        sliding_window) with ``sliding``), and one MLACache (batch,
-        max_len, r | rope) per MLA layer. ``dtype`` defaults to the
-        model's."""
+        sliding_window) with ``sliding``), one MLACache (batch, max_len,
+        r | rope) per MLA layer, and one recurrent state per recurrent
+        layer (its conv tail in ``dtype``, the rest fp32). ``dtype``
+        defaults to the model's."""
         return _build_cache(self.cfg, batch, max_len,
                             dtype or self.dtype, sliding, self.device)
 
-    def init_state_cache(self, batch: int):
-        """Per-slot cache for paged serving: every attention layer keeps
-        its KV (or latents) in the page pools, so every entry is None."""
-        return [None for _ in self.cfg.block_pattern]
+    def init_state_cache(self, batch: int) -> list:
+        """Per-slot cache for paged serving: attention entries are None
+        (their KV lives in the page pools); recurrent layers keep their
+        O(1) per-slot state, zeroed, as ``init_cache`` builds it."""
+        return _build_cache(self.cfg, batch, 1, self.dtype, False,
+                            self.device, attention=False)
 
 
 def _build_cache(cfg: ArchConfig, batch: int, max_len: int, dtype, sliding,
-                 device) -> list:
-    """One zeroed AttnCache per GQA layer, one MLACache per MLA layer
-    (``layout`` refuses other kinds)."""
-    def zeros(*shape):
-        return torch.zeros(shape, dtype=dtype, device=device)
+                 device, *, attention: bool = True) -> list:
+    """One zeroed entry per layer: AttnCache (GQA), MLACache (MLA),
+    MambaCache / MLSTMCache / SLSTMCache (recurrent; fp32 but for the conv
+    tails, as the reference's). With ``attention`` False the attention
+    entries are None (the paged path's per-slot state)."""
+    def zeros(*shape, dt=None):
+        return torch.zeros(shape, dtype=dt or dtype, device=device)
+    f32 = torch.float32
     S = min(max_len, cfg.sliding_window) if sliding else max_len
     G, dh = cfg.num_kv_heads, cfg.head_dim
-    return [attn_mod.MLACache(ckv=zeros(batch, max_len, cfg.kv_lora_rank),
-                              krope=zeros(batch, max_len, cfg.qk_rope_dim))
-            if kind in MLA_KINDS else
-            attn_mod.AttnCache(k=zeros(batch, S, G, dh),
-                               v=zeros(batch, S, G, dh))
-            for kind in cfg.block_pattern]
+    cache = []
+    for kind in cfg.block_pattern:
+        if kind in ATTN_KINDS:
+            cache.append(attn_mod.AttnCache(k=zeros(batch, S, G, dh),
+                                            v=zeros(batch, S, G, dh))
+                         if attention else None)
+        elif kind in MLA_KINDS:
+            cache.append(attn_mod.MLACache(
+                ckv=zeros(batch, max_len, cfg.kv_lora_rank),
+                krope=zeros(batch, max_len, cfg.qk_rope_dim))
+                if attention else None)
+        elif kind == "mamba2":
+            conv_ch = cfg.d_inner + 2 * cfg.ssm_state
+            cache.append(MambaCache(
+                conv=zeros(batch, cfg.ssm_conv - 1, conv_ch),
+                ssm=zeros(batch, cfg.ssm_heads, cfg.ssm_head_dim,
+                          cfg.ssm_state, dt=f32)))
+        elif kind == "mlstm":
+            di = _mlstm_inner(cfg)
+            h, hd = cfg.num_heads, di // cfg.num_heads
+            cache.append(MLSTMCache(conv=zeros(batch, cfg.ssm_conv - 1, di),
+                                    C=zeros(batch, h, hd, hd, dt=f32),
+                                    n=zeros(batch, h, hd, dt=f32),
+                                    m=zeros(batch, h, dt=f32)))
+        elif kind == "slstm":
+            D = cfg.d_model
+            cache.append(SLSTMCache(*(zeros(batch, D, dt=f32)
+                                      for _ in range(4))))
+        else:
+            raise ValueError(kind)
+    return cache

@@ -363,6 +363,7 @@ class AsyncDuetEngine(DuetEngine):
                 self._cow_copy(
                     self.kv_mgr.ensure_writable(r.rid, r.prefilled))
             self.kv_mgr.allocate(r.rid, chunk)
+            self._reset_if_new(r)
             start = r.prefilled
             toks_np = r.prefill_token_ids()[start:start + chunk]
             # a short slice means a resume replay ran ahead of the drain
@@ -386,8 +387,9 @@ class AsyncDuetEngine(DuetEngine):
                 ptbl = self.kv_mgr.padded_tables([r.rid], pwidth)
             else:
                 pwidth, ptbl = 1, None
+            # the slot too: a request finishing below gives it back
             pre_items.append((r, chunk, start, toks_np, status, ptbl,
-                              pwidth))
+                              pwidth, r.slot))
             if status in ("first", "resumed"):
                 self.state.prefilling.remove(r)
                 r.phase = Phase.DECODE
@@ -459,12 +461,12 @@ class AsyncDuetEngine(DuetEngine):
         active, tbl, width = dec_args
 
         if pre_item is not None:
-            r, chunk, start, toks_np, status, ptbl, pwidth = pre_item
+            r, chunk, start, toks_np, status, ptbl, pwidth, pre_slot = \
+                pre_item
             finish = status in ("first", "resumed")
             sample = status == "first"
             pre_toks = self._h2d(np.asarray(toks_np)[None, :])
             pre_tbl = None if ptbl is None else self._h2d(ptbl)
-            pre_slot = r.slot
             if finish and not sample:
                 # resume finish: the pre-preemption next token becomes the
                 # decode input — the _step drain gate must have caught us up

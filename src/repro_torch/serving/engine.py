@@ -44,7 +44,7 @@ from repro_torch.core.lookahead import (make_lookahead_fn,
 from repro_torch.core.multiplexer import AdaptiveMultiplexer
 from repro_torch.core.roofline import HardwareSpec, RooflineModel, TPU_V5E
 from repro_torch.models.attention import slot_views
-from repro_torch.models.transformer import Model
+from repro_torch.models.transformer import Model, reset_slot_state
 from repro_torch.serving.kvcache import (DEFAULT_PAGE_SIZE, HostPoolConfig,
                                          PagedKVCacheManager, PagePoolConfig,
                                          copy_pool_pages, init_page_pools)
@@ -395,13 +395,15 @@ class DuetEngine:
         self.kv_mgr.allocate(r.rid, chunk)
         toks = self._h2d(
             r.prefill_token_ids()[r.prefilled:r.prefilled + chunk][None, :])
+        self._reset_if_new(r)
         if self.paged:
             # flush tier migrations before the program touches the pools
             self._service_tiers()
             tbl = self._h2d(self.kv_mgr.padded_tables(
                 [r.rid], self._table_width([r.rid])))
-            logits, self.pools, self.cache = self.model.prefill_paged(
-                toks, self.pools, self.cache, tbl, start_pos=r.prefilled)
+            logits, self.pools, _ = self.model.prefill_paged(
+                toks, self.pools, slot_views(self.cache, r.slot), tbl,
+                start_pos=r.prefilled)
         else:
             logits, _ = self.model.prefill(
                 toks, cache=slot_views(self.cache, r.slot),
@@ -421,6 +423,14 @@ class DuetEngine:
         self.slot_last_token[r.slot] = tok
         r.output_tokens.append(tok)
         return "first"
+
+    def _reset_if_new(self, r: Request):
+        """A chunk at position 0 (a new occupant of the slot, or a
+        re-prefill after preemption) starts from the initial recurrent
+        state, not from what the slot's last occupant left (the
+        reference's engines keep it). A device write, no read."""
+        if r.prefilled == 0:
+            reset_slot_state(self.cache, r.slot)
 
     def _reserve_for(self, reqs: List[Request], kb: int) -> int:
         """Shrink kb down the bucket ladder until the look-ahead reservation

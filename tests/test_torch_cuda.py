@@ -569,3 +569,42 @@ def test_moe_engines_on_the_card_match_the_cpu(dev, name):
                 for k in kernels:
                     assert (after[k] > before[k]) == gqa, k
         assert runs["cpu"] == runs[str(dev)]
+
+
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "slab"])
+@pytest.mark.parametrize("name", ["zamba2-1.2b", "xlstm-350m"])
+def test_recurrent_engines_on_the_card_match_the_cpu(dev, name, paged):
+    """Reduced zamba2 (Mamba2 + the shared attention block) and xlstm
+    (mLSTM + sLSTM), fp32, five requests on three slots (slots reused):
+    the sync and async engines on the card give the CPU's greedy tokens.
+    zamba2's decode runs paged_decode (paged) or the slab duet_attention
+    (slab) and never duet_attention_paged (no fused duet step beside
+    recurrent blocks); xlstm launches no kernel."""
+    cfg = reduced(get_config(name), num_layers=4)
+    specs = [(0, 0.0, 20, 6), (1, 0.0003, 27, 1), (2, 0.0006, 34, 8),
+             (3, 0.0009, 41, 9), (4, 0.0012, 30, 10)]
+    kw = dict(max_slots=3, max_len=128, token_budget=48, page_size=8,
+              paged=paged)
+    kernel = "paged_decode" if paged else "duet_attention"
+    runs = {}
+    for label, cls, device in (("cpu", DuetEngine, "cpu"),
+                               ("sync", DuetEngine, dev),
+                               ("async", AsyncDuetEngine, dev)):
+        model = Model.init(cfg, seed=0, device="cpu", attn_kernel=True)
+        before = launch_counts()
+        eng = cls(model.to(device), EngineConfig(**kw), device=device)
+        eng.submit([Request(rid=r, arrival=a, prompt_len=p, output_len=o)
+                    for r, a, p, o in specs])
+        metrics = eng.run()
+        after = launch_counts()
+        runs[label] = {r.rid: list(r.output_tokens)
+                       for r in metrics.requests}
+        if device != "cpu":
+            assert (after[kernel] > before[kernel]) == \
+                (name == "zamba2-1.2b")
+            assert after["duet_attention_paged"] == \
+                before["duet_attention_paged"]
+        if cls is AsyncDuetEngine:
+            assert 0 < eng.dstats.host_syncs <= eng.dstats.super_iterations
+    assert runs["sync"] == runs["cpu"]
+    assert runs["async"] == runs["cpu"]

@@ -62,15 +62,16 @@ def test_configs_and_param_counts_match_jax(name):
 
 
 def test_registry_serves_only_the_qwen3_family():
-    """The registry holds the eight configs the port serves (the qwen3
-    family, yi-9b, minicpm-2b, granite-20b, and the MoE configs
-    granite-moe-3b-a800m and deepseek-v2-lite-16b); the reference's other
-    families (hybrid, recurrent, frontends) are refused by name."""
+    """The registry holds the ten configs the port serves (the qwen3
+    family, yi-9b, minicpm-2b, granite-20b, the MoE configs
+    granite-moe-3b-a800m and deepseek-v2-lite-16b, and the recurrent
+    zamba2-1.2b and xlstm-350m); the reference's configs with frontends
+    are refused by name."""
     assert list_configs() == ["deepseek-v2-lite-16b", "granite-20b",
                               "granite-moe-3b-a800m", "minicpm-2b",
-                              "qwen3-14b", "qwen3-4b", "qwen3-8b", "yi-9b"]
-    for name in ("zamba2-1.2b", "xlstm-350m", "musicgen-medium",
-                 "paligemma-3b"):
+                              "qwen3-14b", "qwen3-4b", "qwen3-8b",
+                              "xlstm-350m", "yi-9b", "zamba2-1.2b"]
+    for name in ("musicgen-medium", "paligemma-3b"):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             get_config(name)
 
