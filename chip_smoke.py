@@ -95,6 +95,30 @@ Phases (each raises on failure; nothing is swallowed):
              slot reuse: zamba2 cut to 12 layers, fp32, the sync engine at
              2 slots serves 4 requests, and each stream must equal the
              request's stream served alone.
+5. tp      — tensor parallelism at TP = 2: two ranks (one process each,
+             spawned) share the one card over gloo (its collectives copy
+             CUDA tensors through host memory and block the host, so the
+             TP step is slower than TP 1 by construction: no TP speed is
+             claimed). Each rank draws the same full bf16 (fp32 for parity)
+             weights from seed 0 leaf by leaf and keeps its slice. (a)
+             paged_decode_sharded on each rank's qwen3-4b shard (B=8, 16 /
+             4 heads at Dh 128, pages of 16, contexts 256..2048) at S = 1
+             and 8, fp32 and bf16, against the plain paged decode over the
+             full heads sliced to the rank's, timed on rank 0 alone (ms,
+             cold_ms, bound, plain, SDPA at the rank-local shape). (b)
+             full-width qwen3-4b cut to 4 layers, fp32, TF32 off: the TP 2
+             kernel path's logits (paged prefill, paged decode, duet step
+             at the engine's tiles) against TP 1's within 1e-4 x
+             max|logit|, both ranks' bitwise equal. (c) full qwen3-4b
+             (36 layers, bf16) serves the paged path's 4 requests, outputs
+             cut to 64 tokens, through the async and then the sync engine
+             (kernels on, strict), the
+             launch counts reset just before and read just after: every
+             request finishes, kernel_path is cuda_sharded, both ranks'
+             streams are equal, host_syncs <= super_iterations, a duet
+             dispatch happened, and paged_decode_sharded launched, as
+             often as the inner decode kernels; then one decode step is
+             profiled on rank 0 with the all-reduces it made.
 
 Before the last line it prints the card's name and power limit
 (``nvidia-smi``) and a ``{"kernels": [...]}`` JSON line (flash_prefill
@@ -117,7 +141,7 @@ import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("build", "kernels", "parity", "serve")
+PHASES = ("build", "kernels", "parity", "serve", "tp")
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -150,6 +174,10 @@ KERNEL_SOURCES = {
 # that pick their role on the host, a record each at granite-20b's shapes
 for _name in ("paged_decode", "paged_decode_splitkv", "duet_attention"):
     KERNEL_SOURCES[f"{_name}[block]"] = KERNEL_SOURCES[_name]
+# the TP route: paged_decode.cu's kernels on each rank's head shard
+KERNEL_SOURCES["paged_decode_sharded"] = (
+    "src/repro_torch/kernels/csrc/paged_decode.cu",
+    "src/repro/kernels/ops.py:115")
 # the serving path that must launch each kernel, of the role the config's
 # rep takes ("[block]" above 16 heads a group: granite-20b); split-KV runs
 # only in qwen3-4b's split_kv_threshold run; flash_prefill is on none (the
@@ -1655,16 +1683,21 @@ def log_profile(what, wall, events, steps, card, extra="", top=8):
             f"ms/step  {e.count // steps:5d} calls/step  {e.key[:70]}")
 
 
-def _profile(run, steps):
+def _profile(run, steps, trace=True):
     """(wall ms per step on the host clock without the profiler, device
     kernel events of a traced run, the run's aten ops that launched
     device work) of ``run``, which does ``steps`` steps and
-    synchronises."""
+    synchronises. With ``trace`` False it makes the same calls of ``run``
+    untraced and returns None: a TP rank that does not profile keeps its
+    collectives in step with the rank that does."""
     from torch.profiler import ProfilerActivity, profile
     run()
     t0 = time.time()
     run()
     wall = (time.time() - t0) / steps * 1e3
+    if not trace:
+        run()
+        return None
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         run()
@@ -1725,6 +1758,350 @@ def profile_duet(model, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 5: tensor parallelism, two ranks on the one card over gloo
+# ---------------------------------------------------------------------------
+TP = 2
+TP_PARITY_LAYERS = 4
+# the TP serve runs' outputs are cut to this many tokens: gloo's host
+# round trips on one card make a TP step about 4x a TP 1 step's wall
+TP_MAX_OUTPUT = 64
+
+
+def phase_tp():
+    """Spawn the TP ranks (the kernels are built first, here, so the ranks
+    do not build them twice), then check and print what they return.
+    Returns (the bf16 S = 1 record of paged_decode_sharded on rank 0, the
+    TP path's launch counts on rank 0)."""
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import run_ranks
+    _build.build_all()
+    torch.cuda.empty_cache()
+    card = card_line()
+    log(f"[tp] {TP} ranks, one process each, on cuda:0 over gloo "
+        "(share_card): every all_reduce copies its CUDA tensor through host "
+        "memory and blocks the host; NCCL refuses two ranks of one "
+        "communicator on one card. The TP step is slower than TP 1 by "
+        f"construction here; no TP speed is claimed [{card}]")
+    t0 = time.time()
+    ranks = run_ranks(tp_rank, TP, device="cuda", share_card=True,
+                      args=(card,))
+    log(f"[tp] {TP} ranks done in {time.time() - t0:.1f} s")
+    r0 = ranks[0]
+    # (a) the sharded route on each rank's shard
+    for r, res in enumerate(ranks):
+        for rec in res["kernels"]:
+            log(f"[tp] rank {r} {rec['name']} {rec['dtype']:15s} "
+                f"{rec['case']:34s} max_abs_err={rec['max_abs_err']:.3e} "
+                f"tol={rec['tol']:.0e}/{rec['rtol']:.0e}"
+                + ("" if "ms" not in rec else
+                   f" ms={rec['ms']:.4f} cold_ms={rec['cold_ms']:.4f} "
+                   f"plain_ms={rec['plain_ms']:.4f} "
+                   f"library_ms={rec['library_ms']:.4f} "
+                   f"bound_ms={rec['bound_ms']:.3g} ({rec['bound_by']}, "
+                   f"{rec['bound_ms'] / rec['cold_ms']:.1%} of cold_ms) "
+                   f"[{card}]"))
+    # (b) parity: TP 2 against TP 1, and rank against rank
+    cfg = _cut("qwen3-4b", TP_PARITY_LAYERS)
+    for what, want in r0["tp1_logits"].items():
+        got = r0["logits"][what]
+        if not np.array_equal(got, ranks[1]["logits"][what]):
+            raise AssertionError(f"[tp] {what}: the ranks' logits differ")
+        _check_parity(f"qwen3-4b TP {TP} vs TP 1", TP_PARITY_LAYERS, cfg,
+                      [(what + " (both ranks bitwise equal)",
+                        torch.from_numpy(got), torch.from_numpy(want))])
+    # (c) serving
+    for label in ("async", "sync"):
+        a, b = (res["serve"][label] for res in ranks)
+        if a["streams"] != b["streams"]:
+            raise AssertionError(f"[tp] serve {label}: the ranks' token "
+                                 "streams differ")
+        log(f"[tp] serve {label}: {a['line']}; both ranks' streams equal "
+            f"[{card}]")
+    log(f"[tp] TP path launches (rank 0): {r0['counts']}; rank 1: "
+        f"{ranks[1]['counts']}")
+    log(f"[tp] {r0['profile']}")
+    for line in r0["profile_top"]:
+        log(f"[tp]   {line}")
+    main = next(rec for rec in r0["kernels"] if rec.get("main"))
+    return main, r0["counts"]
+
+
+def tp_rank(rank, card):
+    """One rank of the tp phase (a spawned process; see phase_tp)."""
+    import torch.distributed as dist
+    res = {"kernels": tp_kernels(rank)}
+    dist.barrier()
+    res.update(tp_parity(rank))
+    dist.barrier()
+    res.update(tp_serve(rank))
+    return res
+
+
+def tp_kernels(rank):
+    """paged_decode_sharded on this rank's qwen3-4b TP shard against the
+    plain paged decode over the full heads, sliced; rank 0 times each case
+    while the other ranks wait."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ops import paged_decode_sharded
+    from repro_torch.kernels.paged_decode import (paged_decode_plain,
+                                                  paged_decode_splitkv_plain)
+    cfg = get_config("qwen3-4b")
+    ctx = rank.context(cfg)
+    B, H, G, Dh, ps, P = 8, cfg.num_heads, cfg.num_kv_heads, \
+        cfg.head_dim, 16, 128
+    Hl, Gl = H // TP, G // TP
+    heads = slice(rank.rank * Hl, (rank.rank + 1) * Hl)
+    kvh = slice(rank.rank * Gl, (rank.rank + 1) * Gl)
+    lens = np.linspace(256, 2048, B).astype(np.int64)
+    records = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for S in (1, 8):
+            rng = np.random.default_rng(0)      # the same on every rank
+            q, kp, vp, tables, ln = _decode_inputs(
+                rng, B, H, G, Dh, B * P + 1 + 64, ps, P, dtype, lens,
+                distinct=True)
+            want = paged_decode_plain(q, kp, vp, tables, ln)[:, heads]
+            q, kp, vp = (q[:, heads].contiguous(),
+                         kp[:, :, kvh].contiguous(),
+                         vp[:, :, kvh].contiguous())
+            kernel = lambda: paged_decode_sharded(  # noqa: E731
+                q, kp, vp, tables, ln, ctx=ctx, num_splits=S)
+            if S == 1:
+                plain = lambda: paged_decode_plain(  # noqa: E731
+                    q, kp, vp, tables, ln)
+            else:
+                plain = lambda: paged_decode_splitkv_plain(  # noqa: E731
+                    q, kp, vp, tables, ln, num_splits=S)
+            label = (f"TP {TP} rank {rank.rank}: B=8 {Hl}/{Gl}/{Dh} ctx "
+                     f"256-2048 S={S}")
+            rec = {"name": "paged_decode_sharded", "case": label,
+                   "dtype": str(dtype),
+                   "main": S == 1 and dtype == torch.bfloat16}
+            got = kernel()
+            torch.cuda.synchronize()
+            _check("paged_decode_sharded", got, want, dtype, label, rec,
+                   ATTN_BF16_TOL if dtype == torch.bfloat16 else None)
+            if rank.rank == 0:
+                elt = q.element_size()
+                live = int(ln.long().sum().item())
+                nbytes = (2 * q.numel() * elt + tables.numel() * 4 + B * 4
+                          + 2 * live * Gl * Dh * elt)
+                rec["bound_ms"], rec["bound_by"] = _bound(
+                    nbytes, 4.0 * live * Hl * Dh, dtype)
+                _time_kernel(kernel, rec)
+                rec["plain_ms"] = time_ms(plain, iters=5)
+                rec["library_ms"] = time_ms(_sdpa_decode(q, kp, vp, tables,
+                                                         ln))
+            records.append(rec)
+            dist.barrier()
+    return records
+
+
+def _tp_step_logits(model):
+    """A 200-token paged prefill, one paged decode step and one duet step
+    at the async engine's tiles (the decode row beside a 64-row chunk), on
+    ``model``'s context (pools of its KV heads); fp32 logits on the host:
+    the prefill's, the decode row's and the chunk's last row's."""
+    from repro_torch.kernels import build_duet_schedule
+    from repro_torch.kernels.ops import duet_block_q
+    from repro_torch.serving.kvcache import PagePoolConfig, init_page_pools
+    cfg, dev, ps, P = model.cfg, model.device, 16, 16
+    pool = PagePoolConfig(num_pages=2 * P + 1, page_size=ps)
+    rng = np.random.default_rng(5)
+    toksA = torch.tensor(rng.integers(0, cfg.vocab_size, (1, 200)),
+                         device=dev)
+    toksB = torch.tensor(rng.integers(0, cfg.vocab_size, (1, 64)),
+                         device=dev)
+    tok = torch.tensor(rng.integers(0, cfg.vocab_size, (1, 1)), device=dev)
+    tblA = torch.arange(1, 1 + P, dtype=torch.int32, device=dev)[None]
+    tblB = torch.arange(1 + P, 1 + 2 * P, dtype=torch.int32,
+                        device=dev)[None]
+    pos = torch.tensor([200], dtype=torch.int32, device=dev)
+    state = [None] * cfg.num_layers
+
+    def fresh():
+        return init_page_pools(cfg, pool, torch.float32, device=dev,
+                               kv_heads=model.ctx.local_kv_heads)
+
+    def prefilled():
+        pools = fresh()
+        model.prefill_paged(toksA, pools, state, tblA, start_pos=0)
+        return pools
+
+    C = toksB.shape[1]
+    bq = duet_block_q(cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
+    sched = build_duet_schedule([(0, 200)], [(1, i) for i in range(C)],
+                                block_q=bq)
+    with torch.no_grad():
+        pre = model.prefill_paged(toksA, fresh(), state, tblA,
+                                  start_pos=0)[0]
+        dec = model.decode_step_paged(prefilled(), state, tok, pos, tblA)[0]
+        duet = model.duet_step_paged(
+            prefilled(), state, torch.cat([tok[:, 0], toksB[0]])[:, None],
+            torch.cat([pos, torch.arange(C, dtype=torch.int32,
+                                         device=dev)]),
+            torch.cat([tblA, tblB.expand(C, P)]),
+            torch.tensor(sched.row_src, device=dev), block_q=bq)[0]
+    # numpy: a rank's results cross to the parent by value
+    return {"paged prefill": pre.cpu().numpy(),
+            "decode step": dec.cpu().numpy(),
+            f"duet step bq={bq}, decode row": duet[:1].cpu().numpy(),
+            f"duet step bq={bq}, last chunk row":
+                duet[C:C + 1].cpu().numpy()}
+
+
+def tp_parity(rank):
+    """The TP kernel path's logits at full width cut to
+    TP_PARITY_LAYERS layers, fp32 with TF32 off; rank 0 also computes TP
+    1's (the same draws from seed 0) while the other ranks wait."""
+    import torch.distributed as dist
+    from repro_torch.models import Model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = _cut("qwen3-4b", TP_PARITY_LAYERS)
+    model = Model.init(cfg, seed=0, dtype=torch.float32,
+                       ctx=rank.context(cfg), attn_kernel=True)
+    out = {"logits": _tp_step_logits(model)}
+    del model
+    torch.cuda.empty_cache()
+    if rank.rank == 0:
+        one = Model.init(cfg, seed=0, dtype=torch.float32, device="cuda",
+                         attn_kernel=True)
+        out["tp1_logits"] = _tp_step_logits(one)
+        del one
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def tp_serve(rank):
+    """Full qwen3-4b at TP (36 layers, bf16, kernels on, strict): the
+    paged path's requests through the async and then the sync engine, the
+    launch counts reset just before and read just after; then one decode
+    step profiled on rank 0 (every rank runs it)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import Model
+    from repro_torch.serving import AsyncDuetEngine, DuetEngine, \
+        EngineConfig
+    cfg = get_config("qwen3-4b")
+    ctx = rank.context(cfg)
+    model = Model.init(cfg, seed=0, dtype=torch.bfloat16, ctx=ctx,
+                       attn_kernel=True)
+    torch.cuda.synchronize()
+    gb = sum(b.numel() for b in model.buffers()) * 2 / 1e9
+    serve = {}
+    reset_launch_counts()        # the TP path's launches start here
+    for label, cls in (("async", AsyncDuetEngine), ("sync", DuetEngine)):
+        reqs = _requests("paged")
+        for r in reqs:
+            r.output_len = min(r.output_len, TP_MAX_OUTPUT)
+        eng = cls(model, EngineConfig(max_slots=8, max_len=1024,
+                                      token_budget=256, strict_kernel=True),
+                  seed=0, device=ctx.device)
+        if eng.kernel_path != "cuda_sharded":
+            raise AssertionError(f"[tp] {label}: kernel_path "
+                                 f"{eng.kernel_path}")
+        eng.submit(reqs)
+        reduces = ctx.all_reduces
+        torch.cuda.synchronize()
+        t0 = time.time()
+        metrics = eng.run()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        summ = metrics.summary()
+        n_tok = sum(len(r.output_tokens) for r in metrics.requests)
+        if summ["num_finished"] != len(reqs) or any(
+                len(r.output_tokens) != r.output_len
+                for r in metrics.requests):
+            raise AssertionError(f"[tp] {label}: {summ['num_finished']}/"
+                                 f"{len(reqs)} requests finished")
+        line = (f"rank {rank.rank}, {len(reqs)} requests, {n_tok} tokens in "
+                f"{wall:.2f} s wall = {n_tok / wall:.1f} tokens/s at TP "
+                f"{TP} over gloo on one card ({gb:.2f} GB of bf16 weights a "
+                f"rank); {ctx.all_reduces - reduces} all-reduces")
+        if cls is AsyncDuetEngine:
+            st = eng.dstats
+            duet = sum(1 for k in eng._programs if k[-1])
+            if not 0 < st.host_syncs <= st.super_iterations:
+                raise AssertionError(f"[tp] {label}: host_syncs "
+                                     f"{st.host_syncs} > super_iterations "
+                                     f"{st.super_iterations}")
+            if duet == 0:
+                raise AssertionError(f"[tp] {label}: no duet dispatch")
+            line += (f"; super_iterations {st.super_iterations}, engine "
+                     f"host_syncs {st.host_syncs} (gloo's waits, one an "
+                     "all-reduce, are apart), duet buckets "
+                     f"{duet}")
+        serve[label] = {"line": line, "streams": {
+            r.rid: list(r.output_tokens) for r in metrics.requests}}
+        del eng
+        torch.cuda.empty_cache()
+    counts = launch_counts()     # the TP path's launches end here
+    inner = sum(n for k, n in counts.items()
+                if k.startswith("paged_decode") and k != "paged_decode_sharded")
+    if not 0 < counts["paged_decode_sharded"] == inner:
+        raise AssertionError(f"[tp] paged_decode_sharded launched "
+                             f"{counts['paged_decode_sharded']} times, the "
+                             f"inner decode kernels {inner}")
+    if counts["duet_attention_paged"] <= 0:
+        raise AssertionError("[tp] duet_attention_paged never launched")
+    out = {"serve": serve, "counts": counts}
+    out.update(tp_profile(rank, model, ctx))
+    return out
+
+
+def tp_profile(rank, model, ctx):
+    """One full-width TP decode step (B=8 at 1000 tokens of context, bf16,
+    kernel path): wall on the host clock, device time and busy share from
+    torch.profiler on rank 0 (where gloo's host copies show among the top
+    ops), and the all-reduces one step makes."""
+    from repro_torch.serving.kvcache import PagePoolConfig, init_page_pools
+    cfg, B, P, ps, steps = model.cfg, 8, 64, 16, 4
+    pools = init_page_pools(cfg, PagePoolConfig(num_pages=B * P + 1,
+                                                page_size=ps),
+                            torch.bfloat16, device=ctx.device,
+                            kv_heads=ctx.local_kv_heads)
+    tables = torch.arange(1, B * P + 1, dtype=torch.int32,
+                          device=ctx.device).reshape(B, P)
+    state = model.init_state_cache(B)
+    pos = torch.full((B,), 1000, dtype=torch.int32, device=ctx.device)
+    tok = torch.zeros((B, 1), dtype=torch.int32, device=ctx.device)
+    active = torch.ones((B,), dtype=torch.bool, device=ctx.device)
+
+    def run():
+        for _ in range(steps):
+            model.decode_step_paged(pools, state, tok, pos, tables,
+                                    active_mask=active)
+        torch.cuda.synchronize()
+
+    before = ctx.all_reduces
+    run()
+    per_step = (ctx.all_reduces - before) // steps
+    if rank.rank != 0:
+        _profile(run, steps, trace=False)
+        return {}
+    wall, events, _ = _profile(run, steps)
+    dev = sum(e.self_device_time_total for e in events) / steps / 1e3
+    launched = sum(e.count for e in events) // steps
+    busy = (f"{dev:.2f} ms/step (torch.profiler); device busy "
+            f"{100 * dev / wall:.1f}%; {launched} kernels and copies a step"
+            if dev > 0 else "not measured (no device time recorded)")
+    top = [f"{e.self_device_time_total / steps / 1e3:8.3f} ms/step  "
+           f"{e.count // steps:5d} calls/step  {e.key[:70]}"
+           for e in sorted(events,
+                           key=lambda e: -e.self_device_time_total)[:8]]
+    return {"profile": (
+        f"{cfg.name} TP {TP} paged decode step on rank 0, "
+        f"{cfg.num_layers} layers, B={B}, ctx 1000, bf16: wall {wall:.2f} "
+        f"ms/step (host clock, no profiler); device time {busy}; "
+        f"{per_step} all-reduces a step (collectives_per_iteration "
+        f"{ctx.collectives_per_iteration()}, plus the vocab-parallel "
+        "embedding's)"), "profile_top": top}
+
+
+# ---------------------------------------------------------------------------
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -1754,6 +2131,10 @@ def main(argv=None) -> int:
             phase_parity()
         elif phase == "serve":
             counts = phase_serve()
+        elif phase == "tp":
+            main_rec["paged_decode_sharded"], tp_counts = phase_tp()
+            for name, n in tp_counts.items():
+                counts[name] = counts.get(name, 0) + n
         log(f"[time] {phase} phase {time.time() - t_phase:.1f} s")
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
@@ -1761,7 +2142,7 @@ def main(argv=None) -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": counts[name] if counts else None,
+            "launches": counts.get(name) if counts else None,
             "max_abs_err": rec.get("max_abs_err"), "ms": rec.get("ms"),
             "cold_ms": rec.get("cold_ms"), "plain_ms": rec.get("plain_ms"),
             "bound_ms": rec.get("bound_ms"),

@@ -1,8 +1,20 @@
-"""Single-device placement for the port.
+"""Device placement for the port: the device an entry point runs on, the
+host <-> device copies of the engines, and the tensor-parallel context.
 
-The reference's ``DeviceContext`` (mesh, TP/DP shardings) is not yet
-ported; the port serves on exactly one device. This module holds what
-every entry point needs instead:
+* :class:`DeviceContext` — the counterpart of the reference's
+  ``repro.core.device.DeviceContext`` over ``torch.distributed`` instead
+  of a jax ``Mesh``: the TP degree and this process's rank, the process
+  group and its backend, the per-arch axis rules, the rank's slice of the
+  weights and its KV heads, and the one collective the model makes
+  (:meth:`DeviceContext.all_reduce`). One process runs one rank (SPMD):
+  every rank runs the same engine on the same requests with its own
+  slices of the weights and page pools, and the all-reduces leave the
+  residual stream and the logits identical on every rank, so every rank
+  samples the same tokens. Tables, lengths and positions stay
+  rank-global, as the reference replicates them. Single-device serving is
+  ``DeviceContext.single`` (tp 1, no group: ``all_reduce`` is the
+  identity). The DP half of the reference (``split_replicas``, ``dp``) is
+  not ported.
 
 * :func:`resolve_device` — ``None`` means the card. Without CUDA that is an
   error, never a quiet move to the CPU; the CPU runs only when asked for.
@@ -19,7 +31,112 @@ from typing import List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from repro_torch.configs.base import GQA_KINDS, MLA_KINDS, ArchConfig
+
 DeviceLike = Union[None, str, torch.device]
+
+
+class DeviceContext:
+    """One rank of a tensor-parallel group (or the single device).
+
+    ``shape`` is ``{"model": tp}``, so the roofline and the multiplexer
+    take a context where the reference passes its ``Mesh``. The group's
+    process group must be initialised before a context with ``tp`` > 1 is
+    used (``repro_torch.launch.mesh`` does it)."""
+
+    def __init__(self, cfg: ArchConfig, device: torch.device, *,
+                 tp: int = 1, rank: int = 0, group=None,
+                 backend: Optional[str] = None):
+        # the models package imports this module
+        from repro_torch.models.params import axis_rules
+        if tp < 1 or not 0 <= rank < tp:
+            raise ValueError(f"DeviceContext: rank {rank} of tp {tp}")
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.tp = tp
+        self.rank = rank
+        self.group = group
+        self.backend = backend
+        self._rules = axis_rules(cfg, tp)
+        # all-reduces made since construction (the model's collectives)
+        self.all_reduces = 0
+
+    @classmethod
+    def single(cls, cfg: ArchConfig,
+               device: DeviceLike = None) -> "DeviceContext":
+        """The default context: one device, no collectives."""
+        return cls(cfg, resolve_device(device))
+
+    # ------------------------------------------------------------- geometry
+    @property
+    def shape(self) -> dict:
+        return {"model": self.tp}
+
+    def rules(self) -> dict:
+        return dict(self._rules)
+
+    def sharded(self, axis: str) -> bool:
+        """Whether the logical axis ``axis`` is cut across the ranks."""
+        return self.tp > 1 and self._rules.get(axis) == "model"
+
+    @property
+    def local_kv_heads(self) -> int:
+        """KV heads a rank holds in its pools: its shard where KV heads
+        shard, all of them where attention stays whole on every rank."""
+        return self.cfg.num_kv_heads // (self.tp if self.sharded("kv_heads")
+                                         else 1)
+
+    # ------------------------------------------------------------ placement
+    def place_params(self, tree: dict) -> dict:
+        """This rank's slices of a full parameter tree."""
+        from repro_torch.models.params import shard_params
+        return shard_params(tree, self.cfg, self.tp, self.rank)
+
+    # ---------------------------------------------------------- collective
+    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum ``x`` over the ranks, in place, and return it; ``x``
+        untouched at tp 1. Every rank gets the same bits."""
+        if self.tp == 1:
+            return x
+        x = x.contiguous()
+        torch.distributed.all_reduce(x, group=self.group)
+        self.all_reduces += 1
+        return x
+
+    # ---------------------------------------------------------- diagnostics
+    def describe(self) -> dict:
+        """The reference's geometry keys, plus the collective backend."""
+        return {"devices": self.tp, "axes": {"model": self.tp},
+                "tp": self.tp, "dp": 1, "platform": self.device.type,
+                "backend": self.backend}
+
+    def collectives_per_iteration(self) -> int:
+        """The reference's predicted count of all-reduces in one forward
+        pass: one per sharded attention out-projection and per sharded
+        FFN / MoE down-projection, plus the vocab-sharded classifier; 0 at
+        tp 1. (The port's vocab-parallel embedding adds one more.)"""
+        if self.tp <= 1:
+            return 0
+        rules = self._rules
+        n = 0
+        for kind in self.cfg.block_pattern:
+            if kind in GQA_KINDS or kind in MLA_KINDS:
+                if rules["heads"]:
+                    n += 1
+                if kind in ("attn_moe", "mla_moe"):
+                    if rules["experts"] or rules["moe_ffn"]:
+                        n += 1
+                elif rules["ffn"]:
+                    n += 1
+            elif kind == "mamba2":
+                if rules["ssm_inner"] or rules["ssm_heads"]:
+                    n += 1
+            elif kind == "mlstm":
+                if rules["mlstm_inner"]:
+                    n += 1
+        if rules["vocab"]:
+            n += 1
+        return n
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:

@@ -14,8 +14,10 @@ and a public dispatcher in ops.py:
                          for chunked prefill
 
 ``paged_decode_auto`` picks the plain or split-KV decode kernel from the
-table capacity. Sources are in ``csrc/``; ``_build`` compiles them with
-nvcc at first use.
+table capacity; where tensor parallelism cuts the KV heads it routes
+through ``paged_decode_sharded``, which runs them on the rank's head
+shard. Sources are in ``csrc/``; ``_build`` compiles them with nvcc at
+first use.
 """
 from typing import Dict
 
@@ -23,15 +25,18 @@ from repro_torch.kernels.ops import (DuetSchedule, build_duet_schedule,
                                      duet_attention, duet_attention_paged,
                                      flash_prefill, pack_duet_queries,
                                      paged_decode, paged_decode_auto,
+                                     paged_decode_sharded,
                                      paged_decode_splitkv,
                                      unpack_duet_output)
 # the submodules share names with the dispatchers above, so their launch
 # counters are imported by full module path
 from repro_torch.kernels.duet_attention import launches as _duet_launches
 from repro_torch.kernels.flash_prefill import launches as _flash_launches
+from repro_torch.kernels.ops import launches as _sharded_launches
 from repro_torch.kernels.paged_decode import launches as _paged_launches
 
-_COUNTERS = (_paged_launches, _duet_launches, _flash_launches)
+_COUNTERS = (_paged_launches, _duet_launches, _flash_launches,
+             _sharded_launches)
 
 
 def launch_counts() -> Dict[str, int]:
@@ -49,6 +54,7 @@ def reset_launch_counts():
 __all__ = [
     "DuetSchedule", "build_duet_schedule", "duet_attention",
     "duet_attention_paged", "flash_prefill", "pack_duet_queries",
-    "paged_decode", "paged_decode_auto", "paged_decode_splitkv",
+    "paged_decode", "paged_decode_auto", "paged_decode_sharded",
+    "paged_decode_splitkv",
     "unpack_duet_output", "launch_counts", "reset_launch_counts",
 ]

@@ -159,14 +159,61 @@ from repro_torch.kernels.paged_decode import (  # noqa: E402
     paged_decode, paged_decode_splitkv)
 
 
-def paged_decode_auto(q, k_pages, v_pages, tables, lengths, *,
+# launches of the sharded route (each also counts under the inner
+# kernel's own name in kernels/paged_decode.py)
+launches = {"paged_decode_sharded": 0}
+
+
+def paged_decode_sharded(q, k_pages, v_pages, tables, lengths, *, ctx,
+                         num_splits: int = 1):
+    """The TP > 1 decode route: this rank's head shard through
+    :func:`paged_decode` (``num_splits`` 1) or
+    :func:`paged_decode_splitkv`, the reference's ``shard_map`` over the
+    KV-head axis (``src/repro/kernels/ops.py:115``) with one process a
+    rank. q (B, H/tp, Dh) and the pools (N, ps, G/tp, Dh) are the rank's
+    shards, allocated at that width (the kernels need contiguous,
+    16-byte-aligned pools); tables (B, P) and lengths (B,) are whole.
+    Softmax is per head and the heads are partitioned, so no reduction
+    crosses ranks. Raises on a shape that is not the rank's shard of
+    ``ctx.cfg``; counts a launch where the kernel launches (CUDA)."""
+    cfg, tp = ctx.cfg, ctx.tp
+    if not ctx.sharded("kv_heads"):
+        raise ValueError(
+            f"paged_decode_sharded: kv heads ({cfg.num_kv_heads}) of "
+            f"{cfg.name} do not shard over tp={tp}")
+    B, H, Dh = q.shape
+    _, _, G, Dk = k_pages.shape
+    want = (cfg.num_heads // tp, cfg.num_kv_heads // tp, cfg.head_dim)
+    if (H, G, Dh) != want or Dk != Dh or v_pages.shape != k_pages.shape:
+        raise ValueError(
+            f"paged_decode_sharded: q heads {H}, pool kv heads {G}, Dh "
+            f"{Dh} (v {tuple(v_pages.shape)}); rank {ctx.rank} of tp={tp} "
+            f"holds {want[0]} / {want[1]} at Dh {want[2]}")
+    if tables.shape[0] != B or tuple(lengths.shape) != (B,):
+        raise ValueError("paged_decode_sharded: tables (B,P) / lengths (B,) "
+                         "must be whole (rank-global)")
+    if num_splits > 1:
+        out = paged_decode_splitkv(q, k_pages, v_pages, tables, lengths,
+                                   num_splits=num_splits)
+    else:
+        out = paged_decode(q, k_pages, v_pages, tables, lengths)
+    if q.is_cuda:
+        launches["paged_decode_sharded"] += 1
+    return out
+
+
+def paged_decode_auto(q, k_pages, v_pages, tables, lengths, *, ctx=None,
                       split_threshold: Optional[int] = 0):
-    """Kernel-path dispatcher used by the model's decode step: the
-    split-KV kernel when the table capacity crosses the (roofline-priced)
-    threshold, the plain page walk otherwise. The TP (shard_map) branch of
-    the reference is not yet ported."""
+    """Kernel-path dispatcher used by the model's decode step: the sharded
+    route when ``ctx`` cuts the KV heads across TP ranks, and there or
+    elsewhere (one device, or KV heads every rank holds whole) the split-KV
+    kernel when the table capacity crosses the (roofline-priced)
+    threshold, the plain page walk otherwise."""
     splits = num_splits_for(tables.shape[1], k_pages.shape[1],
                             split_threshold)
+    if ctx is not None and ctx.sharded("kv_heads"):
+        return paged_decode_sharded(q, k_pages, v_pages, tables, lengths,
+                                    ctx=ctx, num_splits=splits)
     if splits > 1:
         return paged_decode_splitkv(q, k_pages, v_pages, tables, lengths,
                                     num_splits=splits)

@@ -1,0 +1,175 @@
+"""Bring-up of a tensor-parallel group: ``tp`` processes, one a rank.
+
+The reference builds a jax ``Mesh`` over the devices of one process
+(``repro.launch.mesh``); the port runs one process per rank (SPMD) over
+``torch.distributed``. :func:`run_ranks` spawns the ranks (the ``spawn``
+start method: CUDA cannot fork), joins them into one process group and
+calls ``fn(rank, *args)`` in each, where ``rank`` is a :class:`Rank`; it
+returns what each rank's ``fn`` returned, in rank order, and raises if
+any rank failed (the other ranks are stopped).
+
+* Rendezvous goes through a ``FileStore`` in a temporary directory, so no
+  TCP port is chosen and parallel test workers cannot collide; gloo binds
+  to the loopback interface.
+* The placement the caller asks for fixes the collective backend
+  (:func:`check_geometry`): ``gloo`` on the CPU; ``nccl`` with one CUDA
+  card a rank; ``gloo`` with every rank on one card, which only
+  ``share_card=True`` asks for (NCCL refuses two ranks of one
+  communicator on one card; gloo copies CUDA tensors through host memory
+  for its collectives). More ranks than cards without ``share_card``, or
+  CUDA where there is none, raise with a message that names the fix.
+
+The DP and duet sub-mesh splits of the reference (``split_data_axis``,
+``split_duet_submeshes``) belong to the DP slice and are not ported.
+
+Usage::
+
+    def body(rank, cfg):
+        ctx = rank.context(cfg)
+        ...
+    outs = run_ranks(body, 2, device="cpu", args=(cfg,))
+"""
+from __future__ import annotations
+
+import datetime
+import os
+import queue
+import tempfile
+import time
+import traceback
+from dataclasses import dataclass
+from typing import Callable, List, Sequence
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core.device import DeviceContext
+
+# a group not done in this time is stopped (the collectives' own timeout
+# too): the card's longest TP run takes a few minutes
+TIMEOUT_S = 900.0
+
+
+@dataclass(frozen=True)
+class Rank:
+    """What one rank's body is given: its place in the group."""
+    tp: int
+    rank: int
+    backend: str
+    device: torch.device
+
+    def context(self, cfg: ArchConfig) -> DeviceContext:
+        """This rank's :class:`DeviceContext` for ``cfg`` over the group's
+        default process group."""
+        return DeviceContext(cfg, self.device, tp=self.tp, rank=self.rank,
+                             backend=self.backend)
+
+
+def check_geometry(tp: int, device: str, share_card: bool = False) -> str:
+    """The collective backend of ``tp`` ranks placed as asked: ``gloo`` on
+    the CPU or with ``share_card`` (every rank on card 0), ``nccl`` with a
+    card a rank. Raises for more ranks than cards without ``share_card``,
+    and for CUDA where there is none (never a quiet move to the CPU)."""
+    if tp < 1:
+        raise ValueError(f"tp must be >= 1, got {tp}")
+    if device == "cpu":
+        return "gloo"
+    if device != "cuda":
+        raise ValueError(f"device must be 'cpu' or 'cuda', got {device!r}")
+    if not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' "
+                           "(--device cpu) to run the ranks on the CPU")
+    if share_card:
+        return "gloo"
+    have = torch.cuda.device_count()
+    if tp > have:
+        raise ValueError(
+            f"tp={tp} ranks need {tp} CUDA cards (one a rank, over nccl) "
+            f"but only {have} are visible; pass share_card=True "
+            "(--share-card) to run every rank on one card over gloo, or "
+            "reduce tp")
+    return "nccl"
+
+
+def rank_device(device: str, rank: int, share_card: bool) -> torch.device:
+    if device == "cpu":
+        return torch.device("cpu")
+    return torch.device("cuda", 0 if share_card else rank)
+
+
+def _rank_main(rank: int, fn: Callable, tp: int, backend: str, device: str,
+               share_card: bool, store_path: str, results,
+               args: Sequence):
+    """One rank's process: join the group, run ``fn``, report."""
+    import torch.distributed as dist
+    os.environ["GLOO_SOCKET_IFNAME"] = "lo"      # loopback, no hostname
+    torch.set_num_threads(1)                     # tp processes share cores
+    dev = rank_device(device, rank, share_card)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    try:
+        dist.init_process_group(
+            backend, store=dist.FileStore(store_path, tp), rank=rank,
+            world_size=tp, timeout=datetime.timedelta(seconds=TIMEOUT_S))
+        out = fn(Rank(tp, rank, backend, dev), *args)
+        results.put((rank, True, out))
+    except BaseException:
+        results.put((rank, False, traceback.format_exc()))
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def run_ranks(fn: Callable, tp: int, *, device: str,
+              share_card: bool = False, args: Sequence = ()) -> List:
+    """Spawn ``tp`` ranks, each running ``fn(rank, *args)`` in one process
+    group (``fn`` and ``args`` must pickle: a module-level function), and
+    return their results in rank order. Raises, after stopping every rank,
+    if a rank raised or died, or if the group is not done in
+    :data:`TIMEOUT_S`."""
+    import torch.multiprocessing as mp
+    backend = check_geometry(tp, device, share_card)
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    with tempfile.TemporaryDirectory(prefix="tp_store_") as tmp:
+        store = os.path.join(tmp, "store")
+        procs = [ctx.Process(target=_rank_main,
+                             args=(r, fn, tp, backend, device, share_card,
+                                   store, results, tuple(args)))
+                 for r in range(tp)]
+        for p in procs:
+            p.start()
+        done, deadline = {}, time.time() + TIMEOUT_S
+        try:
+            while len(done) < tp:
+                try:
+                    rank, ok, val = results.get(timeout=1.0)
+                except queue.Empty:
+                    dead = [(r, p.exitcode) for r, p in enumerate(procs)
+                            if p.exitcode not in (None, 0)
+                            and r not in done]
+                    if dead:
+                        raise RuntimeError(
+                            f"rank {dead[0][0]} exited with code "
+                            f"{dead[0][1]} before reporting")
+                    if time.time() > deadline:
+                        raise TimeoutError(
+                            f"the {tp} ranks did not finish in "
+                            f"{TIMEOUT_S:.0f} s")
+                    continue
+                if not ok:
+                    raise RuntimeError(f"rank {rank} of {tp} failed:\n{val}")
+                done[rank] = val
+            for p in procs:
+                p.join()
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.terminate()
+                    p.join(10)
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+            results.close()
+    return [done[r] for r in range(tp)]

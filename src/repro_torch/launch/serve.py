@@ -1,9 +1,15 @@
 """Serving launcher: run the port's DuetServe engine on a trace (CLI).
 
 One process drives one replica on one device — the CUDA card by default,
-the CPU with ``--device cpu``. The flags are the reference's
-(``repro.launch.serve``); the ones of features not yet ported (``--tp > 1``,
-``--dp > 1``, ``--elastic``, and the stochastic load generator's
+the CPU with ``--device cpu`` — or, with ``--tp N``, N processes (one a
+tensor-parallel rank, ``launch/mesh.py``) drive one replica together:
+each holds its slices of the weights and KV heads, every rank runs the
+same engine on the same requests, rank 0 prints, and the run fails unless
+every rank produced the same token streams. The ranks talk over gloo on
+the CPU, over nccl with a card a rank, and over gloo with ``--share-card``,
+which puts every rank on card 0. The flags
+are the reference's (``repro.launch.serve``); the ones of features not yet
+ported (``--dp > 1``, ``--elastic``, and the stochastic load generator's
 ``--arrival``, ``--service-mix`` and ``--rho``) exit with "not yet
 ported". ``--no-paged`` serves from the slab KV cache (the reference's
 equivalence oracle for the paged path). Weights are random, from
@@ -26,6 +32,8 @@ Usage:
       --device cpu --stream --num-requests 4
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced \\
       --device cpu --no-paged --stream --num-requests 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --reduced \\
+      --device cpu --tp 2 --num-requests 4 --attn-kernel
 """
 from __future__ import annotations
 
@@ -38,7 +46,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config, list_configs, reduced
-from repro_torch.core.device import resolve_device
+from repro_torch.core.device import DeviceContext
+from repro_torch.launch.mesh import run_ranks
 from repro_torch.models.transformer import Model
 from repro_torch.serving.async_engine import (AsyncDuetEngine, FinishEvent,
                                               TokenEvent)
@@ -96,7 +105,11 @@ def build_parser() -> argparse.ArgumentParser:
                          "splitting)")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--tp", type=int, default=1,
-                    help="tensor-parallel degree (not yet ported: 1 only)")
+                    help="tensor-parallel degree: one process a rank (dense "
+                         "GQA configs)")
+    ap.add_argument("--share-card", action="store_true",
+                    help="--tp > 1 on CUDA: every rank on card 0, over "
+                         "gloo (its collectives copy through host memory)")
     ap.add_argument("--dp", type=int, default=1,
                     help="data-parallel replicas (not yet ported: 1 only)")
     ap.add_argument("--elastic", action="store_true",
@@ -164,7 +177,7 @@ def build_parser() -> argparse.ArgumentParser:
 def _not_yet_ported(args):
     """Exit for flags whose features the port does not have yet."""
     unported = {
-        "--tp > 1": args.tp > 1, "--dp > 1": args.dp > 1,
+        "--dp > 1": args.dp > 1,
         "--elastic": args.elastic,
         "--arrival": args.arrival != "poisson",
         "--service-mix": args.service_mix != "lognormal",
@@ -218,7 +231,7 @@ def _clamp_lengths(reqs, max_len: int, clamp: bool):
 
 
 def describe_device(device: torch.device) -> dict:
-    """The one device a replica runs on (the reference's ``mesh`` entry)."""
+    """The device a rank runs on."""
     out = {"type": device.type, "count": 1}
     if device.type == "cuda":
         out["name"] = torch.cuda.get_device_name(device)
@@ -228,14 +241,40 @@ def describe_device(device: torch.device) -> dict:
 def main(argv=None):
     args = build_parser().parse_args(argv)
     _not_yet_ported(args)
-    device = resolve_device(args.device)
+    if args.tp <= 1:
+        serve(None, args)
+        return
+    if args.device not in (None, "cpu", "cuda"):
+        raise SystemExit("--tp > 1 places its ranks itself; pass --device "
+                         "cpu or cuda")
+    streams = run_ranks(serve, args.tp, device=args.device or "cuda",
+                        share_card=args.share_card, args=(args,))
+    if any(s != streams[0] for s in streams[1:]):
+        raise SystemExit(f"the {args.tp} ranks produced different token "
+                         "streams")
 
+
+def serve(rank, args):
+    """Serve the trace on one device (``rank`` None) or as one rank of a
+    TP group (``launch.mesh.Rank``); only rank 0 prints. Returns the
+    token streams."""
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
+    if rank is None:
+        ctx = DeviceContext.single(cfg, args.device)
+    else:
+        ctx = rank.context(cfg)
+    device = ctx.device
+    out_rank = ctx.rank == 0
+
+    def emit(obj, **kw):
+        if out_rank:
+            print(json.dumps(obj, **kw), flush=True)
+
     # weights and KV in bf16 on the card, fp32 on the CPU
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
-    model = Model.init(cfg, seed=args.seed, dtype=dtype, device=device,
+    model = Model.init(cfg, seed=args.seed, dtype=dtype, ctx=ctx,
                        attn_kernel=args.attn_kernel)
 
     reqs = synth_trace(args.trace, args.num_requests, args.qps,
@@ -245,12 +284,13 @@ def main(argv=None):
                                 every=args.shared_prefix_every)
     reqs = _clamp_lengths(reqs, args.max_len, args.clamp)
 
-    if args.prefix_cache and not args.paged:
+    if args.prefix_cache and not args.paged and out_rank:
         # only reachable when --prefix-cache was passed explicitly
         _warn("--prefix-cache requires paged KV; running without it")
     prefix_cache = args.paged if args.prefix_cache is None \
         else args.prefix_cache
-    if args.host_kv_tokens > 0 and not (args.paged and prefix_cache):
+    if args.host_kv_tokens > 0 and not (args.paged and prefix_cache) \
+            and out_rank:
         _warn("--host-kv-tokens requires paged KV with the prefix cache; "
               "running without the host tier")
     ec = EngineConfig(
@@ -263,33 +303,32 @@ def main(argv=None):
         temperature=args.temperature,
         split_kv_threshold=args.split_kv_threshold,
         strict_kernel=args.attn_kernel and not args.clamp)
-    if args.split_kv_threshold is not None and not (args.attn_kernel
-                                                    and args.paged):
+    if args.split_kv_threshold is not None and not (
+            args.attn_kernel and args.paged) and out_rank:
         _warn("--split-kv-threshold only applies to paged serving with "
               "--attn-kernel; ignored")
 
     def print_event(ev):
         if isinstance(ev, TokenEvent):
-            print(json.dumps({"event": "token", "rid": ev.rid,
-                              "index": ev.index, "token": ev.token,
-                              "t": round(ev.t, 6)}))
+            emit({"event": "token", "rid": ev.rid, "index": ev.index,
+                  "token": ev.token, "t": round(ev.t, 6)})
         elif isinstance(ev, FinishEvent):
-            print(json.dumps({"event": "finish", "rid": ev.rid,
-                              "reason": ev.reason,
-                              "n_tokens": ev.n_tokens,
-                              "t": round(ev.t, 6)}))
+            emit({"event": "finish", "rid": ev.rid, "reason": ev.reason,
+                  "n_tokens": ev.n_tokens, "t": round(ev.t, 6)})
 
     if args.stream:
         engine = AsyncDuetEngine(model, ec, seed=args.seed, device=device)
         engine.submit(reqs)   # open-loop: arrivals replay on the inbox
         for ev in engine.events():
             print_event(ev)
-        print(json.dumps({"event": "device", **describe_device(device),
-                          "kernel_path": engine.kernel_path,
-                          "collectives_per_iteration": 0}))
+        # the executed geometry and the predicted collective count ride the
+        # stream next to the prefix-cache outcome
+        emit({"event": "mesh", **ctx.describe(),
+              "device": describe_device(device),
+              "kernel_path": engine.kernel_path,
+              "collectives_per_iteration": ctx.collectives_per_iteration()})
         if args.paged:
-            print(json.dumps({"event": "prefix_cache",
-                              **engine.kv_mgr.prefix_stats()}))
+            emit({"event": "prefix_cache", **engine.kv_mgr.prefix_stats()})
         metrics = engine.run()   # drained: collects metrics only
         out = metrics.summary()
         out["dispatch_stats"] = dataclasses.asdict(engine.dstats)
@@ -302,11 +341,13 @@ def main(argv=None):
     out["duet_fraction"] = engine.mux.stats.duet_fraction
     out["iterations"] = engine.mux.stats.iterations
     out["device"] = describe_device(device)
+    out["mesh"] = ctx.describe()
     out["kernel_path"] = engine.kernel_path
-    out["collectives_per_iteration"] = 0
+    out["collectives_per_iteration"] = ctx.collectives_per_iteration()
     if args.paged:
         out["prefix_cache"] = engine.kv_mgr.prefix_stats()
-    print(json.dumps(out, indent=2))
+    emit(out, indent=2)
+    return {r.rid: list(r.output_tokens) for r in metrics.requests}
 
 
 if __name__ == "__main__":

@@ -24,6 +24,13 @@ The attention math stays plain tensor math as in the reference (einsum +
 softmax); the decode and duet reads may go through the CUDA kernels in
 ``repro_torch.kernels``.
 
+Tensor parallelism: every GQA function runs on the heads its weights
+hold (H and G come from the weights' shapes), so under TP a rank computes
+its head shard against its KV-head shard of the cache or pool, and the
+out-projection's partial sums are added over the ranks (``ctx``, a
+``DeviceContext``; None on one device) when the ``heads`` axis is sharded.
+Softmax is per head, so no other step crosses ranks.
+
 Caches and page pools are updated IN PLACE (the reference is functional):
 each function writes the new K/V into the tensors it is given and returns
 the same tensors. Scores and probabilities are fp32.
@@ -71,6 +78,13 @@ def prefix_views(c, n: int):
 # ---------------------------------------------------------------------------
 # helpers
 # ---------------------------------------------------------------------------
+def _reduce_heads(out, ctx):
+    """Sum a head-sharded out-projection over the tensor-parallel ranks."""
+    if ctx is not None and ctx.sharded("heads"):
+        return ctx.all_reduce(out)
+    return out
+
+
 def _qk_norm(q, k, params, eps):
     if "q_norm" in params:
         q = rms_norm(q, params["q_norm"], eps)
@@ -157,7 +171,7 @@ def _attend(q, k, v, positions, mask_fn, out_dtype):
 # ---------------------------------------------------------------------------
 def gqa_prefill(params, cfg: ArchConfig, x: torch.Tensor,
                 positions: torch.Tensor, *, prefix_len: int = 0,
-                window: Optional[int] = None):
+                window: Optional[int] = None, ctx=None):
     """Full-sequence attention. Returns (out, AttnCache of the new K/V)."""
     q, k, v = _project_qkv(params, cfg, x, positions)
     Sq, Sk = q.shape[1], k.shape[1]
@@ -180,7 +194,7 @@ def gqa_prefill(params, cfg: ArchConfig, x: torch.Tensor,
 
     out = _attend(q, k, v, positions, mask_fn, x.dtype)
     out = torch.einsum("bshe,hed->bsd", out, params["w_o"])
-    return out, AttnCache(k=k, v=v)
+    return _reduce_heads(out, ctx), AttnCache(k=k, v=v)
 
 
 def _slab_write(cache: AttnCache, slot: torch.Tensor, k: torch.Tensor,
@@ -203,7 +217,7 @@ def _slab_write(cache: AttnCache, slot: torch.Tensor, k: torch.Tensor,
 
 def gqa_decode(params, cfg: ArchConfig, x: torch.Tensor, cache: AttnCache,
                pos: torch.Tensor, *, sliding: bool = False,
-               active_mask: Optional[torch.Tensor] = None):
+               active_mask: Optional[torch.Tensor] = None, ctx=None):
     """One-token decode. x (B,1,D); pos (B,) = index of the new token.
 
     Full cache: write at ``pos``, attend over 0..pos.
@@ -230,12 +244,13 @@ def gqa_decode(params, cfg: ArchConfig, x: torch.Tensor, cache: AttnCache,
     probs = _softmax(scores, valid[:, None, None, None, :])
     out = _gqa_combine(probs, v_read).to(x.dtype)
     out = torch.einsum("bshe,hed->bsd", out, params["w_o"])
-    return out, cache
+    return _reduce_heads(out, ctx), cache
 
 
 def gqa_prefill_cached(params, cfg: ArchConfig, x: torch.Tensor,
                        positions: torch.Tensor, cache: AttnCache, *,
-                       window: Optional[int] = None, prefix_len: int = 0):
+                       window: Optional[int] = None, prefix_len: int = 0,
+                       ctx=None):
     """Chunked prefill: write this chunk's K/V into the cache slab, then
     attend chunk queries against the slab (previous chunks + chunk).
 
@@ -289,13 +304,14 @@ def gqa_prefill_cached(params, cfg: ArchConfig, x: torch.Tensor,
         out = _attend(q, cache.k.to(q.dtype), cache.v.to(q.dtype),
                       positions, mask_fn, x.dtype)
     out = torch.einsum("bshe,hed->bsd", out, params["w_o"])
-    return out, cache
+    return _reduce_heads(out, ctx), cache
 
 
 def gqa_decode_kernel(params, cfg: ArchConfig, x: torch.Tensor,
                       cache: AttnCache, pos: torch.Tensor, *,
                       block_k: int = 128,
-                      active_mask: Optional[torch.Tensor] = None):
+                      active_mask: Optional[torch.Tensor] = None,
+                      ctx=None):
     """Decode attention routed through the fused duet-attention kernel
     (``kernels.duet_attention``, the CUDA kernel on the card and its plain
     version on the CPU): each active request is one decode row over its
@@ -312,7 +328,7 @@ def gqa_decode_kernel(params, cfg: ArchConfig, x: torch.Tensor,
         bidx.to(torch.int32), cache.k.to(q.dtype), cache.v.to(q.dtype),
         block_q=1, block_k=min(block_k, W))
     out = torch.einsum("bhe,hed->bd", rows, params["w_o"])[:, None, :]
-    return out, cache
+    return _reduce_heads(out, ctx), cache
 
 
 # ---------------------------------------------------------------------------
@@ -351,7 +367,8 @@ def _paged_gather(pages: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
 def gqa_decode_paged(params, cfg: ArchConfig, x: torch.Tensor,
                      k_pages: torch.Tensor, v_pages: torch.Tensor,
                      table: torch.Tensor, pos: torch.Tensor, *,
-                     use_kernel: bool = False, split_kv_threshold: int = 0):
+                     use_kernel: bool = False, split_kv_threshold: int = 0,
+                     ctx=None):
     """One-token decode against the paged KV pool.
 
     x (B,1,D); table (B,P) int32 page ids; pos (B,) absolute write position.
@@ -361,7 +378,8 @@ def gqa_decode_paged(params, cfg: ArchConfig, x: torch.Tensor,
     routes the read through the kernel dispatcher (``ops.paged_decode_auto``
     — the CUDA kernels on the card, their plain versions on the CPU);
     ``split_kv_threshold`` (tokens of table capacity) selects the split-KV
-    kernel above it.
+    kernel above it; where TP cuts the KV heads the dispatcher runs the
+    sharded route on this rank's heads.
     """
     q, k, v = _project_qkv(params, cfg, x, pos[:, None])
     _paged_write(k_pages, k, table, pos[:, None])
@@ -370,7 +388,7 @@ def gqa_decode_paged(params, cfg: ArchConfig, x: torch.Tensor,
     if use_kernel:
         rows = kernel_ops.paged_decode_auto(
             q[:, 0].contiguous(), k_pages.to(q.dtype), v_pages.to(q.dtype),
-            table.to(torch.int32).contiguous(), lengths,
+            table.to(torch.int32).contiguous(), lengths, ctx=ctx,
             split_threshold=split_kv_threshold)
     else:
         kg = _paged_gather(k_pages, table).to(q.dtype)
@@ -381,12 +399,13 @@ def gqa_decode_paged(params, cfg: ArchConfig, x: torch.Tensor,
         probs = _softmax(scores, valid[:, None, None, None, :])
         rows = _gqa_combine(probs, vg).to(x.dtype)[:, 0]
     out = torch.einsum("bhe,hed->bd", rows, params["w_o"])[:, None, :]
-    return out, (k_pages, v_pages)
+    return _reduce_heads(out, ctx), (k_pages, v_pages)
 
 
 def gqa_prefill_paged(params, cfg: ArchConfig, x: torch.Tensor,
                       positions: torch.Tensor, k_pages: torch.Tensor,
-                      v_pages: torch.Tensor, table: torch.Tensor):
+                      v_pages: torch.Tensor, table: torch.Tensor, *,
+                      ctx=None):
     """Chunked prefill against the paged pool: write the chunk's K/V into
     the request's pages, attend chunk queries over the gathered table
     (previous chunks + this chunk). x (B,L,D); positions (B,L) absolute."""
@@ -403,7 +422,7 @@ def gqa_prefill_paged(params, cfg: ArchConfig, x: torch.Tensor,
 
     out = _attend(q, kg, vg, positions, mask_fn, x.dtype)
     out = torch.einsum("bshe,hed->bsd", out, params["w_o"])
-    return out, (k_pages, v_pages)
+    return _reduce_heads(out, ctx), (k_pages, v_pages)
 
 
 def duet_packing(order: torch.Tensor, pos: torch.Tensor, block_q: int):
@@ -427,7 +446,8 @@ def duet_packing(order: torch.Tensor, pos: torch.Tensor, block_q: int):
 
 def gqa_duet_paged(params, cfg: ArchConfig, x: torch.Tensor,
                    k_pages: torch.Tensor, v_pages: torch.Tensor,
-                   table: torch.Tensor, pos: torch.Tensor, packing):
+                   table: torch.Tensor, pos: torch.Tensor, packing, *,
+                   ctx=None):
     """Mixed-phase duet step over the paged pool (Algorithm 1 on-device).
 
     ``x`` (R,1,D) holds R combined rows — decode rows (one token each, own
@@ -456,7 +476,7 @@ def gqa_duet_paged(params, cfg: ArchConfig, x: torch.Tensor,
     rows = rows.new_empty((R + 1,) + rows.shape[1:]).index_copy_(
         0, dst, rows)[:R]
     out = torch.einsum("bhe,hed->bd", rows, params["w_o"])[:, None, :]
-    return out, (k_pages, v_pages)
+    return _reduce_heads(out, ctx), (k_pages, v_pages)
 
 
 # ---------------------------------------------------------------------------

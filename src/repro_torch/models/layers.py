@@ -5,6 +5,9 @@ Conventions (as the reference's ``repro.models.layers``):
   * weights come as mappings of tensors (a ``ParamTree`` or a dict); every
     function takes its own sub-mapping
   * compute dtype follows the input; norms and RoPE compute in fp32
+  * ``ctx`` (a ``DeviceContext``; None on one device) makes the embedding
+    vocab-parallel and sums a sharded FFN's down-projection over the
+    tensor-parallel ranks; the weights are then the rank's slices
 """
 from __future__ import annotations
 
@@ -69,34 +72,70 @@ def activation_fn(name: str):
             "gelu": lambda x: F.gelu(x, approximate="tanh")}[name]
 
 
-def gated_mlp(params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+def gated_mlp(params, x: torch.Tensor, act: str = "silu",
+              ctx=None) -> torch.Tensor:
     """SwiGLU / GeGLU when a gate matrix is present, else plain 2-matrix FFN
-    (act(x W_up) W_down)."""
+    (act(x W_up) W_down). With the ``ffn`` dim sharded each rank holds its
+    columns of W_up / W_gate and rows of W_down, and the partial outputs
+    are summed over the ranks."""
     u = x @ params["w_up"]
     if "w_gate" in params:
         u = activation_fn(act)(x @ params["w_gate"]) * u
     else:
         u = activation_fn(act)(u)
-    return u @ params["w_down"]
+    out = u @ params["w_down"]
+    if ctx is not None and ctx.sharded("ffn"):
+        out = ctx.all_reduce(out)
+    return out
 
 
 # ---------------------------------------------------------------------------
 # Embedding / unembedding with vocab padding
 # ---------------------------------------------------------------------------
-def embed(params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embedding"][tokens.long()]
+def _vocab_shard(ctx, rows: int) -> int:
+    """First vocab row of this rank's shard of ``rows`` rows."""
+    if rows * ctx.tp != ctx.cfg.padded_vocab:
+        raise ValueError(f"padded vocab {ctx.cfg.padded_vocab} does not "
+                         f"divide over tp={ctx.tp}")
+    return ctx.rank * rows
 
 
-def unembed(params, x: torch.Tensor, true_vocab: int) -> torch.Tensor:
+def embed(params, tokens: torch.Tensor, ctx=None) -> torch.Tensor:
+    """Embedding rows of ``tokens``. Vocab-parallel with a sharded vocab:
+    each rank gathers the rows of its shard (zeros for the others) and
+    the ranks' rows are summed, which is exact (a row plus zeros)."""
+    table = params["embedding"]
+    if ctx is None or not ctx.sharded("vocab"):
+        return table[tokens.long()]
+    Vl = table.shape[0]
+    local = tokens.long() - _vocab_shard(ctx, Vl)
+    hit = (local >= 0) & (local < Vl)
+    rows = table[local.clamp(0, Vl - 1)]
+    return ctx.all_reduce(torch.where(hit[..., None], rows,
+                                      torch.zeros_like(rows)))
+
+
+def unembed(params, x: torch.Tensor, true_vocab: int,
+            ctx=None) -> torch.Tensor:
     """Project to (padded) vocab logits; pad columns are masked to the
-    dtype's minimum."""
+    dtype's minimum. With a sharded vocab each rank computes its logit
+    columns (tied embeddings: from its embedding rows), masks pad columns
+    by their global index, and the full width is summed over the ranks
+    from zeroed buffers, so every rank holds the same bits."""
     w = params["w_out"] if "w_out" in params else params["embedding"]
     logits = x @ w.T
-    padded = logits.shape[-1]
-    if padded > true_vocab:
-        mask = torch.arange(padded, device=logits.device) < true_vocab
-        logits = logits.masked_fill(~mask, torch.finfo(logits.dtype).min)
-    return logits
+    sharded = ctx is not None and ctx.sharded("vocab")
+    Vl = logits.shape[-1]
+    lo = _vocab_shard(ctx, Vl) if sharded else 0
+    cols = lo + torch.arange(Vl, device=logits.device)
+    if lo + Vl > true_vocab:
+        logits = logits.masked_fill(cols >= true_vocab,
+                                    torch.finfo(logits.dtype).min)
+    if not sharded:
+        return logits
+    full = logits.new_zeros(logits.shape[:-1] + (Vl * ctx.tp,))
+    full[..., lo:lo + Vl] = logits
+    return ctx.all_reduce(full)
 
 
 # ---------------------------------------------------------------------------

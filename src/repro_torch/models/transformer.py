@@ -35,6 +35,14 @@ the reference's. Weights keep the reference's layouts and names
 (``params_from_jax`` carries a JAX tree over unchanged), and the weight
 methods take no ``params`` argument: the module owns them. Slab caches,
 page pools and recurrent state are updated in place.
+
+Tensor parallelism (``ctx``, a ``DeviceContext`` with tp > 1): the model
+holds the rank's slices of the weights (``ctx.place_params``, or
+``Model.init`` with the context) and sizes its caches by the rank's KV
+heads; the embedding and the logits are vocab-parallel and the attention
+and MLP outputs are summed over the ranks (``models/layers.py``,
+``models/attention.py``), so every rank computes the same logits. It
+serves dense GQA blocks (``attn``) only.
 """
 from __future__ import annotations
 
@@ -44,13 +52,15 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import GQA_KINDS, MLA_KINDS, ArchConfig
-from repro_torch.core.device import DeviceLike, resolve_device
+from repro_torch.core.device import (DeviceContext, DeviceLike,
+                                     resolve_device)
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import embed, gated_mlp, rms_norm, unembed
 from repro_torch.models.moe import moe_ffn
-from repro_torch.models.params import _mlstm_inner, init_params, layout
+from repro_torch.models.params import (_leaves, _mlstm_inner, _shard_leaf,
+                                       init_params, layout, param_specs)
 from repro_torch.models.ssm import MambaCache
 from repro_torch.models.xlstm import MLSTMCache, SLSTMCache
 
@@ -112,13 +122,43 @@ class ParamTree(nn.Module):
         return key in self._buffers or key in self._modules
 
 
+def _check_tp(cfg: ArchConfig, params: dict, ctx: DeviceContext):
+    """Refuse what tensor parallelism does not serve yet, and a tree that is
+    not this rank's slices."""
+    other = sorted(set(cfg.block_pattern) - {"attn"})
+    if other:
+        raise NotImplementedError(
+            f"tensor parallelism for {cfg.name}'s {other} blocks is not yet "
+            "ported (only dense GQA 'attn' blocks; ROADMAP.md Queue 1 item "
+            "7); serve it at tp=1")
+    specs = dict(_leaves(param_specs(cfg, ctx.tp)))
+    have = dict(_leaves(params))
+    for path, d in _leaves(layout(cfg)):
+        want = tuple(_shard_leaf(torch.empty(d.shape, device="meta"),
+                                 specs[path], ctx.tp, 0).shape)
+        got = tuple(have[path].shape)
+        if got != want:
+            raise ValueError(
+                f"Model: {'/'.join(map(str, path))} has shape {got}, rank "
+                f"{ctx.rank} of tp={ctx.tp} holds {want}; pass "
+                "ctx.place_params(tree)")
+
+
 class Model(nn.Module):
     def __init__(self, cfg: ArchConfig, params: dict, *,
                  mla_absorb: bool = False, attn_kernel: bool = False,
-                 split_kv_threshold: int = 0):
+                 split_kv_threshold: int = 0,
+                 ctx: Optional[DeviceContext] = None):
         super().__init__()
         layout(cfg)              # raises for frontends not yet ported
         self.cfg = cfg
+        # the device context: one device by default; with tp > 1 ``params``
+        # are this rank's slices
+        if ctx is None:
+            ctx = DeviceContext(cfg, params["embedding"].device)
+        elif ctx.tp > 1:
+            _check_tp(cfg, params, ctx)
+        self.ctx = ctx
         self.params = ParamTree(params)
         # MLA decode: fold the latent up-projections into the query and
         # the output instead of expanding every cached latent each step
@@ -134,12 +174,16 @@ class Model(nn.Module):
     @classmethod
     def init(cls, cfg: ArchConfig, *, seed: int = 0,
              dtype=torch.float32, device: DeviceLike = None,
-             **kw) -> "Model":
+             ctx: Optional[DeviceContext] = None, **kw) -> "Model":
         """Random weights from ``torch.Generator(device).manual_seed(seed)``
-        on ``device`` (default: the card; raises without CUDA)."""
-        dev = resolve_device(device)
+        on ``device`` (default: the card; raises without CUDA; a context
+        brings its own device). With a TP context every rank draws the same
+        full leaves and keeps its slice of each before drawing the next."""
+        dev = ctx.device if ctx is not None else resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(seed)
-        return cls(cfg, init_params(cfg, gen, dtype, dev), **kw)
+        tp, rank = (ctx.tp, ctx.rank) if ctx is not None else (1, 0)
+        return cls(cfg, init_params(cfg, gen, dtype, dev, tp=tp, rank=rank),
+                   ctx=ctx, **kw)
 
     @property
     def device(self) -> torch.device:
@@ -151,12 +195,12 @@ class Model(nn.Module):
 
     # ----------------------------------------------------------------- embed
     def _embed(self, tokens):
-        return embed(self.params, tokens)
+        return embed(self.params, tokens, self.ctx)
 
     def _logits(self, x):
         # tied embeddings have no w_out in the layout, so unembed reads
         # the embedding table
-        return unembed(self.params, x, self.cfg.vocab_size)
+        return unembed(self.params, x, self.cfg.vocab_size, self.ctx)
 
     # ---------------------------------------------------------------- blocks
     def _mlp_block(self, p, kind, x):
@@ -165,7 +209,7 @@ class Model(nn.Module):
         h = rms_norm(x, p["mlp_norm"], self.cfg.norm_eps)
         if kind in ("attn_moe", "mla_moe"):
             return x + moe_ffn(p["moe"], self.cfg, h)
-        return x + gated_mlp(p["mlp"], h, self.cfg.activation)
+        return x + gated_mlp(p["mlp"], h, self.cfg.activation, self.ctx)
 
     def _block_params(self, i: int):
         """(layer ``i``'s params, its kind): a ``shared_attn`` layer reads
@@ -206,10 +250,12 @@ class Model(nn.Module):
                                                       positions)
         elif cache_in is not None:
             out, new_cache = attn_mod.gqa_prefill_cached(
-                p["attn"], cfg, h, positions, cache_in, window=window)
+                p["attn"], cfg, h, positions, cache_in, window=window,
+                ctx=self.ctx)
         else:
             out, new_cache = attn_mod.gqa_prefill(p["attn"], cfg, h,
-                                                  positions, window=window)
+                                                  positions, window=window,
+                                                  ctx=self.ctx)
         return self._mlp_block(p, kind, x + out), new_cache
 
     # ------------------------------------------------------------- slab serve
@@ -272,11 +318,11 @@ class Model(nn.Module):
             elif self.attn_kernel and not sliding:
                 out, cache[i] = attn_mod.gqa_decode_kernel(
                     p["attn"], cfg, h, cache[i], pos,
-                    active_mask=active_mask)
+                    active_mask=active_mask, ctx=self.ctx)
             else:
                 out, cache[i] = attn_mod.gqa_decode(
                     p["attn"], cfg, h, cache[i], pos, sliding=sliding,
-                    active_mask=active_mask)
+                    active_mask=active_mask, ctx=self.ctx)
             x = self._mlp_block(p, kind, x + out)
         x = rms_norm(x, self.params["final_norm"], cfg.norm_eps)
         logits = self._logits(x)
@@ -308,10 +354,13 @@ class Model(nn.Module):
                 write_state(state[i], new)
                 continue
             h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
-            prefill = (attn_mod.mla_prefill_paged if kind in MLA_KINDS
-                       else attn_mod.gqa_prefill_paged)
-            out, pools[i] = prefill(p["attn"], cfg, h, positions, *pools[i],
-                                    tables)
+            if kind in MLA_KINDS:
+                out, pools[i] = attn_mod.mla_prefill_paged(
+                    p["attn"], cfg, h, positions, *pools[i], tables)
+            else:
+                out, pools[i] = attn_mod.gqa_prefill_paged(
+                    p["attn"], cfg, h, positions, *pools[i], tables,
+                    ctx=self.ctx)
             x = self._mlp_block(p, kind, x + out)
         x = rms_norm(x, self.params["final_norm"], cfg.norm_eps)
         logits = self._logits(x[:, -1:])
@@ -340,7 +389,8 @@ class Model(nn.Module):
                 out, pools[i] = attn_mod.gqa_decode_paged(
                     p["attn"], cfg, h, *pools[i], tables, pos,
                     use_kernel=self.attn_kernel,
-                    split_kv_threshold=self.split_kv_threshold)
+                    split_kv_threshold=self.split_kv_threshold,
+                    ctx=self.ctx)
             x = self._mlp_block(p, kind, x + out)
         x = rms_norm(x, self.params["final_norm"], cfg.norm_eps)
         logits = self._logits(x)
@@ -373,7 +423,8 @@ class Model(nn.Module):
         for i, (p, kind) in enumerate(self._layers()):
             h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
             out, pools[i] = attn_mod.gqa_duet_paged(
-                p["attn"], cfg, h, *pools[i], tables, pos, packing)
+                p["attn"], cfg, h, *pools[i], tables, pos, packing,
+                ctx=self.ctx)
             x = self._mlp_block(p, kind, x + out)
         x = rms_norm(x, self.params["final_norm"], cfg.norm_eps)
         logits = self._logits(x)
@@ -384,24 +435,27 @@ class Model(nn.Module):
                    dtype: Optional[torch.dtype] = None, *,
                    sliding: bool = False) -> list:
         """Zeroed slab cache on the model's device: one AttnCache
-        (batch, S, G, Dh) per GQA layer, S = max_len (min(max_len,
+        (batch, S, G, Dh) per GQA layer (G: the rank's KV heads), S = max_len (min(max_len,
         sliding_window) with ``sliding``), one MLACache (batch, max_len,
         r | rope) per MLA layer, and one recurrent state per recurrent
         layer (its conv tail in ``dtype``, the rest fp32). ``dtype``
         defaults to the model's."""
         return _build_cache(self.cfg, batch, max_len,
-                            dtype or self.dtype, sliding, self.device)
+                            dtype or self.dtype, sliding, self.device,
+                            kv_heads=self.ctx.local_kv_heads)
 
     def init_state_cache(self, batch: int) -> list:
         """Per-slot cache for paged serving: attention entries are None
         (their KV lives in the page pools); recurrent layers keep their
         O(1) per-slot state, zeroed, as ``init_cache`` builds it."""
         return _build_cache(self.cfg, batch, 1, self.dtype, False,
-                            self.device, attention=False)
+                            self.device, attention=False,
+                            kv_heads=self.ctx.local_kv_heads)
 
 
 def _build_cache(cfg: ArchConfig, batch: int, max_len: int, dtype, sliding,
-                 device, *, attention: bool = True) -> list:
+                 device, *, attention: bool = True,
+                 kv_heads: Optional[int] = None) -> list:
     """One zeroed entry per layer: AttnCache (GQA), MLACache (MLA),
     MambaCache / MLSTMCache / SLSTMCache (recurrent; fp32 but for the conv
     tails, as the reference's). With ``attention`` False the attention
@@ -410,7 +464,7 @@ def _build_cache(cfg: ArchConfig, batch: int, max_len: int, dtype, sliding,
         return torch.zeros(shape, dtype=dt or dtype, device=device)
     f32 = torch.float32
     S = min(max_len, cfg.sliding_window) if sliding else max_len
-    G, dh = cfg.num_kv_heads, cfg.head_dim
+    G, dh = kv_heads or cfg.num_kv_heads, cfg.head_dim
     cache = []
     for kind in cfg.block_pattern:
         if kind in ATTN_KINDS:

@@ -79,7 +79,11 @@ Event = Union[TokenEvent, FinishEvent]
 
 @dataclass
 class DispatchStats:
-    """Dispatch-cache and host-sync accounting for the async engine."""
+    """Dispatch-cache and host-sync accounting for the async engine.
+    ``host_syncs`` counts the engine's own fetches; under tensor
+    parallelism a collective backend may wait on the device inside its
+    all-reduces (gloo does), which ``DeviceContext.all_reduces`` counts
+    apart."""
     super_iterations: int = 0
     dispatches: int = 0          # device programs launched
     host_syncs: int = 0          # blocking device->host fetches

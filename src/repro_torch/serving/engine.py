@@ -24,7 +24,13 @@ KV memory (``EngineConfig.paged``):
   pool sized max_slots rows; the model reads and writes the slab rows in
   place. No prefix cache.
 
-TP/DP meshes are not yet ported.
+Tensor parallelism: the engine runs the model's device context
+(``Model.ctx``; one device by default). Under TP every rank runs this
+engine, with the same host scheduler, on the same requests: its pools hold
+the rank's KV heads, the host state (tables, positions, page manager) is
+rank-global, and the model's all-reduces leave every rank the same logits,
+so every rank plans and samples alike. The DP half of the reference is
+not yet ported.
 """
 from __future__ import annotations
 
@@ -38,7 +44,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core.device import DeviceLike, resolve_device, to_device
+from repro_torch.core.device import (DeviceContext, DeviceLike,
+                                     resolve_device, to_device)
 from repro_torch.core.lookahead import (make_lookahead_fn,
                                         make_paged_lookahead_fn)
 from repro_torch.core.multiplexer import AdaptiveMultiplexer
@@ -91,7 +98,9 @@ class EngineConfig:
     host_kv_tokens: int = 0
     kv_quant: str = "none"
     # kernel path (Model.attn_kernel engines): ``DuetEngine.kernel_path``
-    # reports "cuda" when the CUDA kernels launch and "torch" otherwise.
+    # reports "cuda" when the CUDA kernels launch, "cuda_sharded" when the
+    # paged decode launches them on each TP rank's KV-head shard, and
+    # "torch" on the CPU (the kernels' plain versions).
     # ``split_kv_threshold`` (paged only): table capacity in tokens above
     # which decode uses the split-KV kernel — None prices the threshold
     # from the roofline, 0 disables splitting. ``strict_kernel`` makes a
@@ -99,19 +108,27 @@ class EngineConfig:
     split_kv_threshold: Optional[int] = None
     strict_kernel: bool = False
 
-    KERNEL_PATHS = ("torch", "cuda")
+    KERNEL_PATHS = ("torch", "cuda", "cuda_sharded")
 
 
 class DuetEngine:
     def __init__(self, model: Model, engine_cfg: EngineConfig,
                  hw: HardwareSpec = TPU_V5E, seed: int = 0,
                  device: DeviceLike = None):
-        if engine_cfg.tp > 1:
-            raise NotImplementedError("tensor parallelism is not yet ported")
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model weights live on {model.device}, the "
                              f"engine was asked for {self.device}")
+        # the device context is the model's: its weights are the rank's
+        # slices
+        self.ctx: DeviceContext = model.ctx
+        if engine_cfg.tp not in (1, self.ctx.tp) and self.ctx.tp != 1:
+            raise ValueError(
+                f"EngineConfig.tp={engine_cfg.tp} contradicts the device "
+                f"context's model axis ({self.ctx.tp}); pass one geometry")
+        # tp for planning: the executed context wins; EngineConfig.tp stays
+        # the modelling-only knob of single-device what-if runs
+        self._tp = self.ctx.tp if self.ctx.tp > 1 else engine_cfg.tp
         self.cfg: ArchConfig = model.cfg
         self.ec = engine_cfg
         self.hw = hw
@@ -125,12 +142,18 @@ class DuetEngine:
         self.kernel_path = "torch"
         if model.attn_kernel:
             if self.device.type == "cuda":
-                self.kernel_path = "cuda"
-            if self.paged:   # split-KV is a paged-decode kernel
+                # under TP each rank's kernels run on its local tensors:
+                # "cuda_sharded" where the paged decode reads the rank's
+                # KV-head shard of the pools (tables stay rank-global),
+                # "cuda" for the slab and for KV heads every rank holds
+                sharded = self.ctx.tp > 1 and self.paged \
+                    and self.ctx.sharded("kv_heads")
+                self.kernel_path = "cuda_sharded" if sharded else "cuda"
+            if self.paged:   # a paged-decode kernel
                 thr = engine_cfg.split_kv_threshold
                 if thr is None:  # roofline-priced default; 0 disables
                     thr = RooflineModel(
-                        self.cfg, hw,
+                        self.cfg, hw, tp=self._tp,
                         page_size=engine_cfg.page_size).split_kv_threshold()
                 model.split_kv_threshold = int(thr)
         elif engine_cfg.strict_kernel:
@@ -169,7 +192,8 @@ class DuetEngine:
             # they are
             self.pools = init_page_pools(self.cfg, self.kv_mgr.pool,
                                          dtype=model.dtype,
-                                         device=self.device)
+                                         device=self.device,
+                                         kv_heads=self.ctx.local_kv_heads)
             self.cache = model.init_state_cache(engine_cfg.max_slots)
         else:
             # the page manager only accounts: one max_len row per slot
@@ -181,10 +205,15 @@ class DuetEngine:
             self.pools = None
             self.cache = model.init_cache(engine_cfg.max_slots,
                                           engine_cfg.max_len)
+        # the multiplexer plans with the geometry the ranks execute: the
+        # context sets the communication term's TP degree, and a TP replica
+        # spans tp devices
         self.mux = AdaptiveMultiplexer(
             self.cfg, hw=hw,
-            total_units=engine_cfg.units, tbt_slo=engine_cfg.tbt_slo,
-            page_size=ps if self.paged else 1)
+            total_units=max(engine_cfg.units, self._tp),
+            tbt_slo=engine_cfg.tbt_slo, tp=self._tp,
+            page_size=ps if self.paged else 1,
+            mesh=self.ctx if self.ctx.tp > 1 else None)
         self.policy = DuetPolicy(self.mux,
                                  token_budget=engine_cfg.token_budget,
                                  max_batch=engine_cfg.max_slots,

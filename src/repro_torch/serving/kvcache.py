@@ -701,8 +701,11 @@ class PagedKVCacheManager:
 # Device pools + plain read/write (the CUDA kernels read the same layout)
 # ---------------------------------------------------------------------------
 def init_page_pools(cfg: ArchConfig, pool: PagePoolConfig,
-                    dtype=torch.float32, *, device="cpu"):
-    """Per-attention-layer (k_pages, v_pages) tensors on ``device``, or
+                    dtype=torch.float32, *, device="cpu",
+                    kv_heads: Optional[int] = None):
+    """Per-attention-layer (k_pages, v_pages) tensors on ``device`` of
+    ``kv_heads`` heads (default all; under tensor parallelism the rank's
+    shard, ``DeviceContext.local_kv_heads``, allocated at that width), or
     (ckv_pages (N, ps, r), krope_pages (N, ps, rope)) latent pools for an
     MLA layer. Recurrent layers (SSM/xLSTM) hold None — their state is O(1) and lives
     in the per-slot cache. Page 0 is the reserved null page: block tables
@@ -711,8 +714,8 @@ def init_page_pools(cfg: ArchConfig, pool: PagePoolConfig,
     pools = []
     for kind in cfg.block_pattern:
         if kind in GQA_KINDS:
-            shape = (pool.num_pages, pool.page_size, cfg.num_kv_heads,
-                     cfg.head_dim)
+            shape = (pool.num_pages, pool.page_size,
+                     kv_heads or cfg.num_kv_heads, cfg.head_dim)
             pools.append((torch.zeros(shape, dtype=dtype, device=device),
                           torch.zeros(shape, dtype=dtype, device=device)))
         elif kind in MLA_KINDS:

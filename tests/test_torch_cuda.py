@@ -24,6 +24,7 @@ from repro_torch.kernels.paged_decode import (paged_decode,
                                               paged_decode_plain,
                                               paged_decode_splitkv,
                                               paged_decode_splitkv_plain)
+from repro_torch.launch.mesh import run_ranks
 from repro_torch.models import Model
 from repro_torch.serving import (AsyncDuetEngine, DuetEngine, EngineConfig,
                                  Request)
@@ -608,3 +609,113 @@ def test_recurrent_engines_on_the_card_match_the_cpu(dev, name, paged):
             assert 0 < eng.dstats.host_syncs <= eng.dstats.super_iterations
     assert runs["sync"] == runs["cpu"]
     assert runs["async"] == runs["cpu"]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("splits", [1, 8])
+@pytest.mark.parametrize("name", ["qwen3-4b", "yi-9b"])
+def test_paged_decode_sharded_matches_plain_on_tp2_shards(dev, name, splits,
+                                                          dtype):
+    """The sharded route on each rank's TP 2 head shard (qwen3-4b: 16 / 4
+    heads, yi-9b: 16 / 2; Dh 128), pools allocated at the rank's width,
+    against the plain paged decode over the full heads sliced to that
+    rank; one counted launch a call, beside the inner kernel's."""
+    from repro_torch.core.device import DeviceContext
+    from repro_torch.kernels.ops import paged_decode_sharded
+    cfg = get_config(name)
+    tp, B, ps, P = 2, 8, 16, 128
+    H, G, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    rng = np.random.default_rng(0)
+    N = B * P + 1
+    q = _randn(rng, (B, H, Dh), dtype, dev)
+    kp = _randn(rng, (N, ps, G, Dh), dtype, dev)
+    vp = _randn(rng, (N, ps, G, Dh), dtype, dev)
+    tables = torch.tensor(1 + rng.permutation(N - 1).reshape(B, P),
+                          dtype=torch.int32, device=dev)
+    lengths = torch.tensor(np.linspace(256, 2048, B).astype(np.int64),
+                           dtype=torch.int32, device=dev)
+    want = paged_decode_plain(q, kp, vp, tables, lengths)
+    Hl, Gl = H // tp, G // tp
+    for r in range(tp):
+        ctx = DeviceContext(cfg, dev, tp=tp, rank=r)
+        heads = slice(r * Hl, (r + 1) * Hl)
+        kv = slice(r * Gl, (r + 1) * Gl)
+        before = launch_counts()
+        got = paged_decode_sharded(
+            q[:, heads].contiguous(), kp[:, :, kv].contiguous(),
+            vp[:, :, kv].contiguous(), tables, lengths, ctx=ctx,
+            num_splits=splits)
+        after = launch_counts()
+        torch.testing.assert_close(got.float(), want[:, heads].float(),
+                                   **ATTN_TOL[dtype])
+        inner = "paged_decode" if splits == 1 else "paged_decode_splitkv"
+        assert after["paged_decode_sharded"] - \
+            before["paged_decode_sharded"] == 1
+        assert after[inner] - before[inner] == 1
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism: two ranks on card 0 over gloo
+# ---------------------------------------------------------------------------
+TP_SPECS = [(i, i * 0.0003, 20 + 7 * i, 6 + i) for i in range(5)]
+TP_KW = dict(max_slots=3, max_len=128, token_budget=48, page_size=8)
+
+
+def _tp_serve(cls, model, device, paged):
+    """Serve TP_SPECS with strict_kernel on: (kernel path, tokens, kernel
+    launches of the run)."""
+    eng = cls(model, EngineConfig(paged=paged, strict_kernel=True, **TP_KW),
+              device=device)
+    eng.submit([Request(rid=r, arrival=a, prompt_len=p, output_len=o)
+                for r, a, p, o in TP_SPECS])
+    before = launch_counts()
+    metrics = eng.run()
+    after = launch_counts()
+    return (eng.kernel_path,
+            {r.rid: list(r.output_tokens) for r in metrics.requests},
+            {k: after[k] - before[k] for k in after})
+
+
+def tp2_card_rank(rank, name, paged):
+    """One rank of the TP 2 card tests (a spawned process): reduced
+    ``name`` in fp32 from seed 0, its slices on card 0, through both
+    engines."""
+    cfg = reduced(get_config(name))
+    model = Model.init(cfg, seed=0, ctx=rank.context(cfg), attn_kernel=True)
+    return {label: _tp_serve(cls, model, rank.device, paged)
+            for label, cls in (("sync", DuetEngine),
+                               ("async", AsyncDuetEngine))}
+
+
+@pytest.mark.parametrize("name,paged,path", [
+    ("qwen3-4b", True, "cuda_sharded"),     # KV heads shard
+    ("qwen3-4b", False, "cuda"),            # the slab kernel on the shard
+    ("granite-20b", True, "cuda"),          # one KV head: whole per rank
+    ("granite-20b", False, "cuda"),
+])
+def test_tp2_kernels_run_on_rank_local_tensors(dev, name, paged, path):
+    """At TP 2 every attention path launches its kernels on the rank's
+    local tensors, none falls back to the plain version: the sharded decode
+    route only where the KV heads shard, the ordinary decode kernels where
+    every rank holds the heads whole, the slab kernel on the rank's slab.
+    Both ranks give TP 1's greedy tokens on the card (the same draws from
+    the card's generator: each rank keeps its slices of the full leaves)."""
+    cfg = reduced(get_config(name))
+    one = Model.init(cfg, seed=0, device=dev, attn_kernel=True)
+    want = _tp_serve(DuetEngine, one, dev, paged)[1]
+    del one
+    ranks = run_ranks(tp2_card_rank, 2, device="cuda", share_card=True,
+                      args=(name, paged))
+    for res in ranks:
+        for label, (kernel_path, tokens, n) in res.items():
+            assert kernel_path == path, label
+            assert tokens == want, label
+            if not paged:
+                assert n["duet_attention"] > 0, (label, n)
+                continue
+            inner = n["paged_decode"] + n["paged_decode_splitkv"]
+            assert inner > 0, (label, n)
+            sharded = n["paged_decode_sharded"]
+            assert sharded == (inner if path == "cuda_sharded" else 0), n
+            if label == "async":
+                assert n["duet_attention_paged"] > 0, n

@@ -31,6 +31,7 @@ from repro.serving.request import synth_prompt_tokens as jsynth
 from repro.serving.scheduler import DuetPolicy as JDuetPolicy
 from repro.serving.scheduler import QueueState as JQueueState
 from repro_torch.configs import get_config, reduced
+from repro_torch.core.device import DeviceContext
 from repro_torch.core.multiplexer import AdaptiveMultiplexer
 from repro_torch.core.roofline import RequestLoad, RooflineModel
 from repro_torch.kernels import ops as kernel_ops
@@ -233,9 +234,16 @@ def test_host_tier_round_trip_keeps_tokens(setup, cls):
 
 
 def test_engine_rejects_unported_modes(setup):
+    """EngineConfig.tp on a single-device model is the reference's
+    modelling-only knob (the planner prices TP 2, one device runs); tensor
+    parallelism over blocks other than dense GQA is not yet ported."""
     jcfg, forward, tcfg, tmodel = setup
+    eng = DuetEngine(tmodel, EngineConfig(tp=2), device="cpu")
+    assert eng.mux.model.tp == 2 and eng.ctx.tp == 1
+    moe = reduced(get_config("granite-moe-3b-a800m"))
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        DuetEngine(tmodel, EngineConfig(tp=2), device="cpu")
+        Model.init(moe, device="cpu",
+                   ctx=DeviceContext(moe, "cpu", tp=2, rank=0))
 
 
 # ---------------------------------------------------------------------------

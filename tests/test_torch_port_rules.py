@@ -95,7 +95,8 @@ def test_entry_points_without_device_raise_without_cuda(no_cuda):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--tp", "2"], ["--dp", "2"], ["--elastic"], ["--arrival", "mmpp"],
+    ["--tp", "2", "--dp", "2"], ["--dp", "2"], ["--elastic"],
+    ["--arrival", "mmpp"],
     ["--service-mix", "mixture"], ["--rho", "0.5"],
 ])
 def test_unported_flags_exit(flags):
