@@ -24,7 +24,9 @@ Phases (each raises on failure; nothing is swallowed):
              then every GQA head shape of the registered configs
              (granite-20b's rep 48, yi-9b's rep 8, minicpm-2b's rep 1 at
              Dh 64, qwen3-14b's rep 5, granite-moe-3b-a800m's rep 3 at
-             Dh 64) through paged_decode, split-KV,
+             Dh 64, and the frontends': paligemma-3b's rep 8 at Dh 256
+             and musicgen-medium's rep 1 at Dh 64) through paged_decode,
+             split-KV,
              the slab decode and the paged duet launch at each config's
              engine tiles, flash_prefill at rep 3, 5, 48, 96 and 128 and
              at Dh 256, and rep 96 and 128 (head blocks) through the
@@ -60,7 +62,15 @@ Phases (each raises on failure; nothing is swallowed):
              decode); and zamba2 and xlstm-350m cut to 4 layers (3 mlstm
              + 1 slstm): a 600-token prompt prefilled in chunks of 256 and
              8 decode steps, paged and slab, each step's logits against
-             one whole prefill of the same tokens.
+             one whole prefill of the same tokens. paligemma-3b cut to 2
+             layers takes the GQA checks above; then both frontends at
+             full depth and width: a slab prefill of 2 rows (paligemma:
+             256 patch embeddings under the prefix-LM mask and 64 text
+             tokens; musicgen: a 4-codebook grid of 64 positions) and 4
+             slab decode steps through gqa_decode_kernel (the slab
+             duet_attention kernel, which must launch once a layer a
+             step) against the plain path on a copy of the cache
+             (musicgen's logits (B, K, V)).
 4. serve   — full qwen3-4b (36 layers, bf16, random weights from a seed)
              serves azure-conv requests on two paths, each with
              attn_kernel=True and strict_kernel=True and the launch counts
@@ -91,7 +101,10 @@ Phases (each raises on failure; nothing is swallowed):
              printed: zamba2's paths must launch paged_decode (paged) and
              the slab duet_attention (slab) and no duet_attention_paged
              (the engines fuse duet steps for all-GQA configs only),
-             xlstm's none; a paged decode step of each is profiled. Last,
+             xlstm's none; a paged decode step of each is profiled.
+             paligemma-3b serves text-only (as the reference's engines
+             take it) through the async and the sync engine on both
+             paths. Last,
              slot reuse: zamba2 cut to 12 layers, fp32, the sync engine at
              2 slots serves 4 requests, and each stream must equal the
              request's stream served alone.
@@ -119,6 +132,22 @@ Phases (each raises on failure; nothing is swallowed):
              dispatch happened, and paged_decode_sharded launched, as
              often as the inner decode kernels; then one decode step is
              profiled on rank 0 with the all-reduces it made.
+6. train   — fp32 with TF32 off. First reduced minicpm-2b, 3 train steps
+             (make_train_step: the loss, autograd, AdamW on its WSD
+             schedule) on the card and on the CPU from the same weights
+             and batches: losses, lr and grad norms within 1e-4, the
+             parameters within a tenth of the learning rate. Then
+             minicpm-2b at full width and depth (40 layers, 2.72 B
+             parameters; fp32 weights, gradients and AdamW moments,
+             16 bytes a parameter; each block checkpointed) takes 8 steps
+             on its WSD schedule at batch 2 x 512 tokens from the data
+             pipeline: each step's loss, lr, grad norm and wall ms, the
+             peak memory and training tokens/s; every loss finite and the
+             last below the first. One more step is split by CUDA events
+             into the loss with its gradients and the AdamW update, and
+             one is traced by torch.profiler. No kernel of the port runs
+             here: the training forward is the plain blockwise attention,
+             as the reference's.
 
 Before the last line it prints the card's name and power limit
 (``nvidia-smi``) and a ``{"kernels": [...]}`` JSON line (flash_prefill
@@ -141,7 +170,7 @@ import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("build", "kernels", "parity", "serve", "tp")
+PHASES = ("build", "kernels", "parity", "serve", "tp", "train")
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -191,12 +220,32 @@ PAGED_MAX_OUTPUT = 160      # see phase_serve's requests()
 # 64-row block; its bf16 records are the block roles' in the kernels
 # line), yi-9b's rep 8, minicpm-2b's rep 1 at Dh 64, and qwen3-14b's rep 5
 # (12-position duet tiles), and granite-moe-3b-a800m's rep 3 at Dh 64
-# (21-position duet tiles)
+# (21-position duet tiles); then the frontends' shapes: paligemma-3b's
+# MQA at Dh 256 (rep 8) and musicgen-medium's MHA at Dh 64 (rep 1)
 HEAD_CONFIGS = ("granite-20b", "yi-9b", "minicpm-2b", "qwen3-14b",
-                "granite-moe-3b-a800m")
+                "granite-moe-3b-a800m", "paligemma-3b", "musicgen-medium")
 SERVED_CONFIGS = ("yi-9b", "minicpm-2b", "granite-20b",
                   "granite-moe-3b-a800m", "deepseek-v2-lite-16b",
-                  "zamba2-1.2b", "xlstm-350m")
+                  "zamba2-1.2b", "xlstm-350m", "paligemma-3b")
+# served through both engines (sync too) on both paths: paligemma-3b,
+# text-only, as the reference's engines take it
+BOTH_ENGINES = ("paligemma-3b",)
+# the frontends' parity at full depth and width (fp32): a slab prefill of
+# FRONTEND_PROMPT text tokens after paligemma's 256 patch embeddings, or of
+# a codebook grid of FRONTEND_PROMPT positions, then FRONTEND_DECODE decode
+# steps, 2 rows
+FRONTEND_PROMPT, FRONTEND_DECODE = 64, 4
+# the train phase: minicpm-2b at full width and depth, fp32 weights and
+# moments, remat, TRAIN_STEPS AdamW steps on its WSD schedule at
+# TRAIN_BATCH x TRAIN_SEQ from the data pipeline; first the reduced config
+# on the card against the CPU for TRAIN_CHECK_STEPS steps (fp32, TF32 off;
+# losses, lr and grad norms within TRAIN_TOL, parameters within a tenth
+# of the learning rate: Adam's m / sqrt(v) has no scale, so an entry whose
+# gradient is at the rounding noise moves by another fraction of lr)
+TRAIN_ARCH = "minicpm-2b"
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 8, 2, 512, 3e-4
+TRAIN_CHECK_STEPS, TRAIN_CHECK_SEQ, TRAIN_CHECK_LR = 3, 64, 1e-3
+TRAIN_TOL, TRAIN_PARAM_TOL_LR = 1e-4, 0.1
 SERVE_REQUESTS, SERVE_MAX_OUTPUT = 4, 64    # each served config's runs
 # the recurrent configs' parity depth: zamba2's first 6 layers (5 mamba2
 # + 1 shared_attn), xlstm's first 4 (3 mlstm + 1 slstm)
@@ -978,6 +1027,8 @@ def phase_parity():
             parity_mla(name, 2)
         else:
             parity_recurrent(name, RECURRENT_PARITY_LAYERS[name])
+    for name in ("paligemma-3b", "musicgen-medium"):
+        parity_frontend(name)
 
 
 def _is_gqa(cfg) -> bool:
@@ -1006,6 +1057,71 @@ def _check_parity(name, n_layers, cfg, checks):
         log(f"[parity] {name} ({n_layers} layers) {what}: max abs err "
             f"{err:.3e} (tol {PARITY_TOL:.0e} x max|reference| "
             f"{scale:.3g})")
+
+
+def parity_frontend(name):
+    """A frontend at full depth and width, fp32: a slab prefill of 2 rows
+    (paligemma: 256 patch embeddings under the prefix-LM mask, then
+    FRONTEND_PROMPT text tokens; musicgen: a (2, 4, FRONTEND_PROMPT)
+    codebook grid), then FRONTEND_DECODE slab decode steps through
+    ``gqa_decode_kernel`` (the slab duet_attention kernel) against the
+    plain path's on a copy of the same cache, each step fed the plain
+    path's greedy tokens; musicgen's logits are (B, K, V). The kernel must
+    launch on every decode step."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts
+    from repro_torch.models import Model
+    t0 = time.time()
+    cfg = get_config(name)
+    kern = Model.init(cfg, seed=0, dtype=torch.float32, device="cuda",
+                      attn_kernel=True)
+    plain = copy.copy(kern)          # the same weights, plain attention
+    plain.attn_kernel = False
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(6)
+    B, S = 2, FRONTEND_PROMPT
+    audio = cfg.frontend == "audio"
+    K = cfg.num_codebooks
+    shape = (B, K, S) if audio else (B, S)
+    toks = torch.tensor(rng.integers(0, cfg.vocab_size, shape), device=dev)
+    kw, P = {}, 0
+    if not audio:
+        P = cfg.num_prefix_tokens
+        kw["patch_embeds"] = torch.from_numpy(0.02 * rng.standard_normal(
+            (B, P, cfg.d_model), np.float32)).to(dev)
+    checks = []
+    with torch.no_grad():
+        # the slab's rows in whole 128-key tiles, as the kernel takes them
+        cache = plain.init_cache(B, -(-(P + S + FRONTEND_DECODE) // 128)
+                                 * 128)
+        first, _ = plain.prefill(toks, cache=cache, **kw)
+        kcache = [type(c)(*(t.clone() for t in c)) for c in cache]
+        tok = first.argmax(-1)[..., None]       # (B, 1) or (B, K, 1)
+        before = launch_counts()["duet_attention"]
+        for i in range(FRONTEND_DECODE):
+            pos = torch.full((B,), P + S + i, dtype=torch.int32, device=dev)
+            lk, _ = kern.decode_step(kcache, tok, pos)
+            lp, _ = plain.decode_step(cache, tok, pos)
+            checks.append((f"slab decode step {i} after the "
+                           f"{'codebook' if audio else 'patch + text'} "
+                           f"prefill{' (B, K, V)' if audio else ''}", lk,
+                           lp))
+            tok = lp.argmax(-1)[..., None]
+        launched = launch_counts()["duet_attention"] - before
+    if not torch.isfinite(first).all():
+        raise AssertionError(f"[parity] {name}: prefill logits not finite")
+    if launched != FRONTEND_DECODE * cfg.num_layers:
+        raise AssertionError(f"[parity] {name}: duet_attention launched "
+                             f"{launched} times over {FRONTEND_DECODE} "
+                             f"steps of {cfg.num_layers} layers")
+    _check_parity(name, cfg.num_layers, cfg, checks)
+    log(f"[parity] {name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"H {cfg.num_heads} G {cfg.num_kv_heads} Dh {cfg.head_dim}, "
+        + (f"{K} codebooks" if audio else f"{P} patch embeddings, prefix-LM")
+        + f", prefill logits {tuple(first.shape)}; duet_attention launched "
+        f"{launched} times; {time.time() - t0:.1f} s")
+    del kern, plain, cache, kcache
+    torch.cuda.empty_cache()
 
 
 def parity_mla(name, n_layers):
@@ -1542,7 +1658,8 @@ def serve_config(name, counts, card):
     (``Model.init`` draws each leaf on the card, in fp32, and casts it
     before the next, so the peak stays near the weights' own bytes), alone
     on the card: a paged run through the async engine (the fused duet
-    kernel on for GQA configs) and a slab run through the async engine,
+    kernel on for GQA configs) and a slab run through the async engine
+    (and each through the sync engine too for BOTH_ENGINES),
     each path's launch counts reset just before it and read just after,
     SERVE_REQUESTS requests of at most SERVE_MAX_OUTPUT output tokens; the
     peak allocated memory after both runs; an MoE config with GQA blocks
@@ -1553,7 +1670,7 @@ def serve_config(name, counts, card):
     from repro_torch.kernels import reset_launch_counts
     from repro_torch.kernels.ops import duet_block_q
     from repro_torch.models import Model
-    from repro_torch.serving import AsyncDuetEngine
+    from repro_torch.serving import AsyncDuetEngine, DuetEngine
     cfg = get_config(name)
     t0 = time.time()
     torch.cuda.reset_peak_memory_stats()
@@ -1591,12 +1708,16 @@ def serve_config(name, counts, card):
         f"GB on the card ({nbytes} bytes), random from seed 0 in "
         f"{time.time() - t0:.1f} s, peak allocated "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB [{card}]")
+    engines = [("async", AsyncDuetEngine)]
+    if name in BOTH_ENGINES:
+        engines.append(("sync", DuetEngine))
     for path, extra in (("paged", {}), ("slab", {"paged": False})):
         reset_launch_counts()        # this path's launches start here
-        label = f"{name} {'slab ' if extra else ''}async"
-        _serve_run(label, AsyncDuetEngine, model,
-                   _requests(path, SERVE_REQUESTS, SERVE_MAX_OUTPUT), card,
-                   extra)
+        for ename, cls in engines:
+            label = f"{name} {'slab ' if extra else ''}{ename}"
+            _serve_run(label, cls, model,
+                       _requests(path, SERVE_REQUESTS, SERVE_MAX_OUTPUT),
+                       card, extra)
         _path_counts(f"{name} {path}", counts, cfg)
     log(f"[serve] {name}: peak allocated "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB over the weights "
@@ -2102,6 +2223,175 @@ def tp_profile(rank, model, ctx):
 
 
 # ---------------------------------------------------------------------------
+# phase 6: training
+# ---------------------------------------------------------------------------
+def phase_train():
+    """The reduced train step on the card against the CPU, then
+    TRAIN_ARCH at full width trained for TRAIN_STEPS steps, fp32 with TF32
+    off."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    train_check(card)
+    train_full(card)
+
+
+def _train_run(model, opt_cfg, data, steps, sync=False):
+    """``steps`` train steps from ``make_train_step``; returns the final
+    params and the per-step metrics (host floats) and wall ms (host clock,
+    each step synchronised)."""
+    from repro_torch.training import init_adamw, make_train_step
+    params = model.param_tree()
+    state = init_adamw(params)
+    step_fn = make_train_step(model, opt_cfg)
+    rows = []
+    for _ in range(steps):
+        batch = next(data)
+        t0 = time.time()
+        params, state, m = step_fn(params, state, batch)
+        if sync:
+            torch.cuda.synchronize()
+        rows.append({k: float(v) for k, v in m.items()}
+                    | {"ms": (time.time() - t0) * 1e3})
+    return params, state, rows
+
+
+def train_check(card):
+    """TRAIN_ARCH reduced, fp32, TF32 off: TRAIN_CHECK_STEPS train steps on
+    the card and on the CPU from the same weights and batches; the losses,
+    learning rates and grad norms within TRAIN_TOL of the CPU's, the
+    parameters within TRAIN_PARAM_TOL_LR x lr."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data import data_iterator
+    from repro_torch.models import Model, trainable
+    from repro_torch.models.params import _leaves, _map
+    from repro_torch.training import AdamWConfig
+    t0 = time.time()
+    cfg = reduced(get_config(TRAIN_ARCH))
+    cpu = Model.init(cfg, seed=0, device="cpu", requires_grad=True,
+                     remat=True)
+    gpu = Model(cfg, trainable(_map(
+        lambda _, t: t.detach().to("cuda", copy=True), cpu.param_tree())),
+        remat=True)
+    opt = AdamWConfig(lr=TRAIN_CHECK_LR, schedule=cfg.lr_schedule,
+                      warmup_steps=2, total_steps=TRAIN_CHECK_STEPS)
+    out = {}
+    for label, model in (("cpu", cpu), ("card", gpu)):
+        out[label] = _train_run(model, opt, data_iterator(
+            cfg, TRAIN_CHECK_SEQ, 2, seed=0), TRAIN_CHECK_STEPS)
+    (pc, _, rc), (pg, _, rg) = out["cpu"], out["card"]
+    worst = {}
+    for key in ("loss", "lr", "grad_norm"):
+        worst[key] = max(abs(g[key] - c[key]) / abs(c[key])
+                         for c, g in zip(rc, rg))
+    want = dict(_leaves(pc))
+    worst["params"] = max((t.detach().cpu() - want[path].detach())
+                          .abs().max().item() for path, t in _leaves(pg))
+    log(f"[train] {cfg.name} ({cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, lr_schedule {cfg.lr_schedule}), "
+        f"{TRAIN_CHECK_STEPS} steps at 2 x {TRAIN_CHECK_SEQ}, fp32, TF32 "
+        f"off: card losses {[round(r['loss'], 6) for r in rg]} vs CPU "
+        f"{[round(r['loss'], 6) for r in rc]}; largest relative "
+        f"difference loss {worst['loss']:.2e}, lr {worst['lr']:.2e}, grad "
+        f"norm {worst['grad_norm']:.2e} (tol {TRAIN_TOL:.0e}); parameters "
+        f"{worst['params']:.2e} (tol {TRAIN_PARAM_TOL_LR} x lr "
+        f"{TRAIN_CHECK_LR:.0e}) [{card}], {time.time() - t0:.1f} s")
+    if max(worst[k] for k in ("loss", "lr", "grad_norm")) > TRAIN_TOL or \
+            worst["params"] > TRAIN_PARAM_TOL_LR * TRAIN_CHECK_LR:
+        raise AssertionError("[train] the card's train steps differ from "
+                             "the CPU's")
+
+
+def train_full(card):
+    """TRAIN_ARCH at full width and depth: fp32 weights and AdamW moments,
+    remat on, TRAIN_STEPS steps on its WSD schedule (warmup max(2, steps //
+    10), as launch/train.py) at TRAIN_BATCH x TRAIN_SEQ from the data
+    pipeline, each step synchronised and timed on the host clock; every
+    loss must be finite and the last below the first. Then the peak memory,
+    training tokens/s at the median wall of steps 1.. (B x S tokens a
+    step), and one step
+    split by CUDA events into the loss with its gradients and the AdamW
+    update, and traced by torch.profiler."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import data_iterator
+    from repro_torch.models import Model, count_params_analytical
+    from repro_torch.models.params import _leaves, _map
+    from repro_torch.training import (AdamWConfig, adamw_update,
+                                      make_train_step)
+    from repro_torch.training.train_loop import batch_to
+    t0 = time.time()
+    cfg = get_config(TRAIN_ARCH)
+    n = count_params_analytical(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    model = Model.init(cfg, seed=0, dtype=torch.float32, device="cuda",
+                       requires_grad=True, remat=True)
+    torch.cuda.synchronize()
+    log(f"[train] {cfg.name}: {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {n} parameters ({n * 4 / 1e9:.2f} GB fp32; with "
+        f"their gradients and two fp32 moments {n * 16 / 1e9:.2f} GB), "
+        f"random from seed 0 in {time.time() - t0:.1f} s [{card}]")
+    opt = AdamWConfig(lr=TRAIN_LR, schedule=cfg.lr_schedule,
+                      warmup_steps=max(2, TRAIN_STEPS // 10),
+                      total_steps=TRAIN_STEPS)
+    data = data_iterator(cfg, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    params, state, rows = _train_run(model, opt, data, TRAIN_STEPS,
+                                     sync=True)
+    peak = torch.cuda.max_memory_allocated()
+    for i, r in enumerate(rows):
+        log(f"[train] {cfg.name} step {i}: loss {r['loss']:.4f} lr "
+            f"{r['lr']:.3e} grad_norm {r['grad_norm']:.4f} wall "
+            f"{r['ms']:.1f} ms [{card}]")
+    losses = [r["loss"] for r in rows]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    # steps 1.. (step 0 pays the first calls' set-up); the median, since
+    # one step can wait on the shared host
+    steady = float(np.median([r["ms"] for r in rows[1:]]))
+    total = torch.cuda.get_device_properties(0).total_memory
+    log(f"[train] {cfg.name}: {TRAIN_STEPS} steps at {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} on {cfg.lr_schedule}, fp32, remat, TF32 off: loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; steps 1-{TRAIN_STEPS - 1} "
+        f"median {steady:.1f} ms wall = {tokens / steady * 1e3:.1f} "
+        f"training tokens/s measured on the card; peak allocated "
+        f"{peak / 1e9:.2f} GB of {total / 1e9:.1f} [{card}]")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"[train] losses {losses}: not all finite, or "
+                             "the last is not below the first")
+    # one more step split by CUDA events (loss + gradients, AdamW), then
+    # traced; these steps come after the checked run
+    batch = batch_to(next(data), torch.device("cuda"))
+    leaves = list(_leaves(params))
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    loss = model.loss(batch)
+    grads = dict(zip((p for p, _ in leaves), torch.autograd.grad(
+        loss, [t for _, t in leaves])))
+    ev[1].record()
+    params, state, _ = adamw_update(opt, _map(lambda p, _: grads[p], params),
+                                    state, params)
+    ev[2].record()
+    torch.cuda.synchronize()
+    del grads, loss
+    fwd_bwd, upd = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+    log(f"[profile] {cfg.name} train step (CUDA events): loss with its "
+        f"gradients {fwd_bwd:.1f} ms, AdamW update over {len(leaves)} "
+        f"leaves {upd:.1f} ms ({100 * upd / (fwd_bwd + upd):.1f}%) [{card}]")
+    step_fn, box = make_train_step(model, opt), [params, state]
+
+    def run():                # one synchronised step, for _profile
+        box[0], box[1], _ = step_fn(box[0], box[1], batch)
+        torch.cuda.synchronize()
+    wall, events, ops = _profile(run, 1)
+    log_profile(f"{cfg.name} train step, {TRAIN_BATCH} x {TRAIN_SEQ}, fp32",
+                wall, events, 1, card, top=10)
+    for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:10]:
+        log(f"[profile]   {e.self_device_time_total / 1e3:8.3f} "
+            f"ms/step  {e.count:5d} calls/step  {e.key} (aten op)")
+    del model, params, state, box
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -2135,6 +2425,8 @@ def main(argv=None) -> int:
             main_rec["paged_decode_sharded"], tp_counts = phase_tp()
             for name, n in tp_counts.items():
                 counts[name] = counts.get(name, 0) + n
+        elif phase == "train":
+            phase_train()
         log(f"[time] {phase} phase {time.time() - t_phase:.1f} s")
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():

@@ -3,8 +3,8 @@
 Every assigned architecture is expressed as an :class:`ArchConfig` — a frozen,
 declarative description consumed by ``repro_torch.models.transformer.Model`` (layer
 stack), ``repro_torch.models.params`` (init) and ``repro_torch.core.roofline``
-(operator census). The port registers only the architectures it serves;
-``get_config`` of any other name raises "not yet ported".
+(operator census). The port registers every architecture of the
+reference; ``get_config`` of any other name raises "not yet ported".
 
 Block types (``block_pattern`` entries):
   ``attn``    self-attention + MLP (dense transformer block)
@@ -189,15 +189,17 @@ def list_configs() -> list[str]:
     return sorted(_REGISTRY)
 
 
-# the architectures the port serves: the dense GQA and MQA configs (the
+# every architecture of the reference: the dense GQA and MQA configs (the
 # qwen3 family, the paper's own evaluation models, §5.1/§5.3; yi-9b,
 # minicpm-2b with tied embeddings, granite-20b with MQA and a gelu MLP),
-# the MoE ones (granite-moe on GQA, deepseek-v2-lite on MLA) and the
+# the MoE ones (granite-moe on GQA, deepseek-v2-lite on MLA), the
 # recurrent ones (zamba2: Mamba2 + a shared attention block; xlstm: mLSTM
-# + sLSTM)
+# + sLSTM) and the two frontends (paligemma: a vision prefix under the
+# prefix-LM mask; musicgen: summed audio codebooks and one head each)
 _ARCH_MODULES = ["qwen3_4b", "qwen3_8b", "qwen3_14b", "yi_9b", "minicpm_2b",
                  "granite_20b", "granite_moe_3b_a800m",
-                 "deepseek_v2_lite_16b", "zamba2_1_2b", "xlstm_350m"]
+                 "deepseek_v2_lite_16b", "zamba2_1_2b", "xlstm_350m",
+                 "paligemma_3b", "musicgen_medium"]
 _loaded = False
 
 

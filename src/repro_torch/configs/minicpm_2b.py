@@ -1,8 +1,8 @@
 """minicpm-2b [dense] — 40L d_model=2304 36H (kv=36) d_ff=5760 vocab=122753.
 
 Llama-like architecture trained with the WSD (warmup-stable-decay) schedule
-[arXiv:2404.06395], selected via ``lr_schedule="wsd"`` (training is not yet
-ported; serving ignores it).
+[arXiv:2404.06395]. The WSD schedule is implemented in
+``repro_torch.training.optimizer`` and selected via ``lr_schedule="wsd"``.
 """
 from repro_torch.configs.base import ArchConfig, register
 

@@ -138,6 +138,18 @@ def unembed(params, x: torch.Tensor, true_vocab: int,
     return ctx.all_reduce(full)
 
 
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  true_vocab: int) -> torch.Tensor:
+    """Mean token-level CE in fp32: logsumexp minus the gold logit.
+    logits (..., V_pad), labels (...,) int. The pad columns hold the
+    dtype's minimum (``unembed``), so they add nothing to the logsumexp;
+    ``true_vocab`` is kept for the reference's signature."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    return (logz - gold).mean()
+
+
 # ---------------------------------------------------------------------------
 # Causal conv1d (SSM / mLSTM front conv); channels-last (B, S, C)
 # ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """Parameter layout, initialisation and the weight bridge from the JAX
-reference — attention blocks (GQA and MLA) with a dense or MoE FFN, and
-the recurrent blocks (Mamba2, mLSTM, sLSTM) with Zamba2's one shared
-attention block at the top-level ``shared_attn`` slot.
+reference — attention blocks (GQA and MLA) with a dense or MoE FFN, the
+recurrent blocks (Mamba2, mLSTM, sLSTM) with Zamba2's one shared
+attention block at the top-level ``shared_attn`` slot, and the audio
+frontend's codebook tables and heads.
 
 ``layout(cfg)`` builds a tree of :class:`ParamDef` leaves (shape + init
 kind) with the reference's layouts, e.g. GQA's ``w_q (D,H,Dh)`` and
@@ -13,6 +14,7 @@ term.
 numpy arrays, as ``jax.tree.map(np.asarray, params)`` gives it) into the
 port's tensors. The ``uniform_log`` leaves (Mamba2's ``dt_bias`` and
 ``A_log``) stay fp32 in a bf16 model, as the reference keeps them.
+``trainable`` makes a tree's leaves require grad, for training.
 
 Tensor parallelism: :func:`axis_rules` maps each logical axis name of the
 layout onto the ``model`` axis (the reference's per-arch divisibility
@@ -208,16 +210,25 @@ def _block_layout(cfg: ArchConfig, kind: str) -> dict:
 
 
 def layout(cfg: ArchConfig) -> dict:
-    if cfg.frontend is not None:
-        raise NotImplementedError(
-            f"{cfg.frontend} frontends are not yet ported")
+    """The parameter tree of ``cfg``. The audio frontend replaces the
+    embedding with one table a codebook, ``codebook_embeddings (K, Vp, D)``,
+    and the output projection with one head a codebook, ``w_heads (K, Vp,
+    D)``; the vision frontend's patch embeddings come precomputed, so it
+    adds no weight."""
     Vp, D = cfg.padded_vocab, cfg.d_model
     tree: dict = {
         "embedding": ParamDef((Vp, D), "normal", ("vocab", "embed"), D),
         "final_norm": ParamDef((D,), "ones", (None,)),
         "layers": [_block_layout(cfg, kind) for kind in cfg.block_pattern],
     }
-    if not cfg.tie_embeddings:
+    if cfg.frontend == "audio":
+        K = cfg.num_codebooks
+        tree["codebook_embeddings"] = ParamDef((K, Vp, D), "normal",
+                                               (None, "vocab", "embed"), D)
+        tree["w_heads"] = ParamDef((K, Vp, D), "normal",
+                                   (None, "vocab", "embed"), D)
+        del tree["embedding"]
+    elif not cfg.tie_embeddings:
         tree["w_out"] = ParamDef((Vp, D), "normal", ("vocab", "embed"), D)
     if "shared_attn" in cfg.block_pattern:
         tree["shared_attn"] = _block_layout(cfg, "attn")
@@ -377,6 +388,13 @@ def count_params_analytical(cfg: ArchConfig,
             n = n * (cfg.moe_top_k / cfg.num_experts)
         total += int(n)
     return total
+
+
+def trainable(tree: dict) -> dict:
+    """``tree`` with every leaf a new autograd leaf that requires grad (the
+    same storage, detached from any graph): the weights of a training run,
+    which ``Model`` holds as they are, so a loss's gradients land on them."""
+    return _map(lambda _, t: t.detach().requires_grad_(True), tree)
 
 
 def params_from_jax(cfg: ArchConfig, tree: dict, *, dtype=torch.float32,

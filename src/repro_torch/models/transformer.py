@@ -1,5 +1,15 @@
-"""The served model: an ``nn.Module`` that holds its weights and runs the
-serving steps of the reference's ``repro.models.transformer.Model``.
+"""The model: an ``nn.Module`` that holds its weights and runs the
+training forward and loss and the serving steps of the reference's
+``repro.models.transformer.Model``.
+
+Training (no cache is touched; every block's plain prefill path, so
+autograd reaches every weight):
+
+  * ``forward``           — full-sequence logits; with ``remat`` each block
+                            is checkpointed (recomputed in the backward)
+  * ``loss``              — next-token cross-entropy: causal LM (text), the
+                            mean over the codebooks (audio), the text
+                            suffix after the patch prefix (vision)
 
 Slab cache (one contiguous KV row per slot, ``init_cache``):
 
@@ -19,7 +29,11 @@ Every block kind of the reference is ported: GQA (``attn``, ``attn_moe``,
 and Zamba2's ``shared_attn``, whose one set of weights sits at the
 top-level ``shared_attn`` slot) and MLA (``mla``, ``mla_moe``), each with a
 dense MLP or the MoE FFN, and the recurrent blocks ``mamba2``, ``mlstm``
-and ``slstm``; frontends are not yet. Cache layout per layer:
+and ``slstm``; and both frontends: audio (``tokens`` (B, K, S), the K
+codebook embeddings summed, K heads giving (B, S, K, V) logits; slab
+serving only, as the reference's paged steps raise for it) and vision
+(``patch_embeds`` (B, P, D) prepended to the text embeddings, attended
+bidirectionally under the prefix-LM mask). Cache layout per layer:
 
   attn / shared_attn -> AttnCache(k, v) (or a (k_pages, v_pages) pool pair)
   mla                -> MLACache(ckv, krope) (or (ckv_pages, krope_pages))
@@ -50,6 +64,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import GQA_KINDS, MLA_KINDS, ArchConfig
 from repro_torch.core.device import (DeviceContext, DeviceLike,
@@ -57,10 +72,12 @@ from repro_torch.core.device import (DeviceContext, DeviceLike,
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import xlstm as xlstm_mod
-from repro_torch.models.layers import embed, gated_mlp, rms_norm, unembed
+from repro_torch.models.layers import (cross_entropy, embed, gated_mlp,
+                                      rms_norm, unembed)
 from repro_torch.models.moe import moe_ffn
 from repro_torch.models.params import (_leaves, _mlstm_inner, _shard_leaf,
-                                       init_params, layout, param_specs)
+                                       init_params, layout, param_specs,
+                                       trainable)
 from repro_torch.models.ssm import MambaCache
 from repro_torch.models.xlstm import MLSTMCache, SLSTMCache
 
@@ -100,8 +117,9 @@ def reset_slot_state(cache, slot: int):
 
 
 class ParamTree(nn.Module):
-    """One node of the weight tree. Tensors are registered as buffers
-    (inference only, no autograd) and sub-trees as modules, and the node
+    """One node of the weight tree. Tensors are registered as buffers, held
+    as they are given (a training run gives leaves that require grad,
+    ``models.params.trainable``), and sub-trees as modules; the node
     indexes like the reference's dicts: ``p["w_q"]``, ``"q_norm" in p``."""
 
     def __init__(self, tree: dict):
@@ -125,12 +143,16 @@ class ParamTree(nn.Module):
 def _check_tp(cfg: ArchConfig, params: dict, ctx: DeviceContext):
     """Refuse what tensor parallelism does not serve yet, and a tree that is
     not this rank's slices."""
+    if cfg.frontend is not None:
+        raise NotImplementedError(
+            f"tensor parallelism for the {cfg.frontend} frontend is not yet "
+            "ported (ROADMAP.md Queue 1 item 9); serve it at tp=1")
     other = sorted(set(cfg.block_pattern) - {"attn"})
     if other:
         raise NotImplementedError(
             f"tensor parallelism for {cfg.name}'s {other} blocks is not yet "
             "ported (only dense GQA 'attn' blocks; ROADMAP.md Queue 1 item "
-            "7); serve it at tp=1")
+            "9); serve it at tp=1")
     specs = dict(_leaves(param_specs(cfg, ctx.tp)))
     have = dict(_leaves(params))
     for path, d in _leaves(layout(cfg)):
@@ -147,15 +169,14 @@ def _check_tp(cfg: ArchConfig, params: dict, ctx: DeviceContext):
 class Model(nn.Module):
     def __init__(self, cfg: ArchConfig, params: dict, *,
                  mla_absorb: bool = False, attn_kernel: bool = False,
-                 split_kv_threshold: int = 0,
+                 split_kv_threshold: int = 0, remat: bool = False,
                  ctx: Optional[DeviceContext] = None):
         super().__init__()
-        layout(cfg)              # raises for frontends not yet ported
         self.cfg = cfg
         # the device context: one device by default; with tp > 1 ``params``
         # are this rank's slices
         if ctx is None:
-            ctx = DeviceContext(cfg, params["embedding"].device)
+            ctx = DeviceContext(cfg, params["final_norm"].device)
         elif ctx.tp > 1:
             _check_tp(cfg, params, ctx)
         self.ctx = ctx
@@ -170,37 +191,74 @@ class Model(nn.Module):
         # a positive threshold (tokens of table capacity) selects the
         # split-KV flash-decoding kernel above it
         self.split_kv_threshold = split_kv_threshold
+        # checkpoint each block in the training forward (its activations
+        # are recomputed in the backward), as the reference's remat
+        self.remat = remat
 
     @classmethod
     def init(cls, cfg: ArchConfig, *, seed: int = 0,
              dtype=torch.float32, device: DeviceLike = None,
-             ctx: Optional[DeviceContext] = None, **kw) -> "Model":
+             ctx: Optional[DeviceContext] = None,
+             requires_grad: bool = False, **kw) -> "Model":
         """Random weights from ``torch.Generator(device).manual_seed(seed)``
         on ``device`` (default: the card; raises without CUDA; a context
         brings its own device). With a TP context every rank draws the same
-        full leaves and keeps its slice of each before drawing the next."""
+        full leaves and keeps its slice of each before drawing the next.
+        With ``requires_grad`` the leaves require grad, for training."""
         dev = ctx.device if ctx is not None else resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(seed)
         tp, rank = (ctx.tp, ctx.rank) if ctx is not None else (1, 0)
-        return cls(cfg, init_params(cfg, gen, dtype, dev, tp=tp, rank=rank),
+        params = init_params(cfg, gen, dtype, dev, tp=tp, rank=rank)
+        return cls(cfg, trainable(params) if requires_grad else params,
                    ctx=ctx, **kw)
 
     @property
     def device(self) -> torch.device:
-        return self.params["embedding"].device
+        return self.params["final_norm"].device
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.params["embedding"].dtype
+        return self.params["final_norm"].dtype
+
+    def param_tree(self) -> dict:
+        """The model's own weight tensors as a nested dict (lists for
+        ``layers``), in the layout of ``models.params.layout``: what the
+        optimizer updates in place and a checkpoint saves."""
+        def walk(node):
+            if isinstance(node, nn.ModuleList):
+                return [walk(m) for m in node]
+            return {**dict(node._buffers),
+                    **{k: walk(m) for k, m in node._modules.items()}}
+        return walk(self.params)
 
     # ----------------------------------------------------------------- embed
-    def _embed(self, tokens):
-        return embed(self.params, tokens, self.ctx)
+    def _embed(self, tokens, patch_embeds=None):
+        """(x, prefix_len). Audio: ``tokens`` (B, K, S), the K codebooks'
+        embeddings summed. Vision: ``patch_embeds`` (B, P, D), when given,
+        go before the text embeddings and ``prefix_len`` is P."""
+        cfg = self.cfg
+        if cfg.frontend == "audio":
+            table = self.params["codebook_embeddings"]
+            tokens = tokens.long()
+            x = sum(table[k][tokens[:, k]] for k in range(cfg.num_codebooks))
+            return x, 0
+        x = embed(self.params, tokens, self.ctx)
+        if patch_embeds is None:
+            return x, 0
+        return (torch.cat([patch_embeds.to(x.dtype), x], dim=1),
+                patch_embeds.shape[1])
 
     def _logits(self, x):
-        # tied embeddings have no w_out in the layout, so unembed reads
-        # the embedding table
+        """Logits (B, S, V), or (B, S, K, V) from the audio heads. Tied
+        embeddings have no w_out in the layout, so unembed reads the
+        embedding table."""
+        if self.cfg.frontend == "audio":
+            return torch.einsum("bsd,kvd->bskv", x, self.params["w_heads"])
         return unembed(self.params, x, self.cfg.vocab_size, self.ctx)
+
+    def _text_only(self):
+        if self.cfg.frontend == "audio":
+            raise NotImplementedError("paged serving covers text frontends")
 
     # ---------------------------------------------------------------- blocks
     def _mlp_block(self, p, kind, x):
@@ -232,10 +290,13 @@ class Model(nn.Module):
                                                  cache_in)
         return x + out, new
 
-    def _run_block_prefill(self, i, x, positions, cache_in, *, window=None):
+    def _run_block_prefill(self, i, x, positions, cache_in, *,
+                           prefix_len: int = 0, window=None):
         """One block of a full-sequence (``cache_in`` None) or chunked
-        prefill. Returns (x, the layer's AttnCache, MLACache or recurrent
-        state)."""
+        prefill; a GQA block attends the first ``prefix_len`` positions
+        bidirectionally. Returns (x, the layer's AttnCache, MLACache or
+        recurrent state). Without a cache nothing is written in place, so
+        autograd runs through it."""
         cfg = self.cfg
         p, kind = self._block_params(i)
         if kind in RECURRENT:
@@ -251,16 +312,70 @@ class Model(nn.Module):
         elif cache_in is not None:
             out, new_cache = attn_mod.gqa_prefill_cached(
                 p["attn"], cfg, h, positions, cache_in, window=window,
-                ctx=self.ctx)
+                prefix_len=prefix_len, ctx=self.ctx)
         else:
             out, new_cache = attn_mod.gqa_prefill(p["attn"], cfg, h,
-                                                  positions, window=window,
+                                                  positions,
+                                                  prefix_len=prefix_len,
+                                                  window=window,
                                                   ctx=self.ctx)
         return self._mlp_block(p, kind, x + out), new_cache
 
+    # --------------------------------------------------------------- training
+    def forward(self, tokens, *, patch_embeds=None, sliding: bool = False):
+        """Full-sequence forward -> logits at every position: (B, S, V);
+        audio (B, S, K, V); vision over the P patch positions and the
+        text's, (B, P + S, V). With ``remat`` and autograd on, each block
+        is checkpointed (``torch.utils.checkpoint``, non-reentrant): only
+        its input is kept and its activations are recomputed in the
+        backward."""
+        cfg = self.cfg
+        x, prefix_len = self._embed(tokens, patch_embeds)
+        B, S = x.shape[:2]
+        positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+        window = cfg.sliding_window if sliding else None
+        prefix_len = prefix_len if cfg.prefix_lm else 0
+
+        def block(i, h):
+            return self._run_block_prefill(i, h, positions, None,
+                                           prefix_len=prefix_len,
+                                           window=window)[0]
+
+        for i in range(cfg.num_layers):
+            if self.remat and torch.is_grad_enabled():
+                x = checkpoint(block, i, x, use_reentrant=False)
+            else:
+                x = block(i, x)
+        x = rms_norm(x, self.params["final_norm"], cfg.norm_eps)
+        return self._logits(x)
+
+    def loss(self, batch: dict) -> torch.Tensor:
+        """Mean next-token cross-entropy of a batch of tensors on the
+        model's device (``data.pipeline``'s keys): text ``tokens`` /
+        ``labels`` (B, S), each position predicting the next; audio (B, K,
+        S), over every codebook; vision the text suffix after the
+        ``patch_embeds`` prefix, the logit at position P - 1 + t predicting
+        text token t."""
+        cfg = self.cfg
+        if cfg.frontend == "audio":
+            logits = self.forward(batch["tokens"][:, :, :-1])
+            # logits (B,S,K,V) -> (B,K,S,V), aligned with the labels
+            return cross_entropy(logits.transpose(1, 2),
+                                 batch["labels"][:, :, 1:], cfg.vocab_size)
+        if cfg.frontend == "vision":
+            logits = self.forward(batch["tokens"],
+                                  patch_embeds=batch["patch_embeds"])
+            P = batch["patch_embeds"].shape[1]
+            St = batch["tokens"].shape[1]
+            return cross_entropy(logits[:, P - 1:P + St - 1],
+                                 batch["labels"], cfg.vocab_size)
+        logits = self.forward(batch["tokens"][:, :-1])
+        return cross_entropy(logits, batch["labels"][:, 1:], cfg.vocab_size)
+
     # ------------------------------------------------------------- slab serve
     def prefill(self, tokens, *, cache=None,
-                start_pos: Optional[int] = None, sliding: bool = False):
+                start_pos: Optional[int] = None, patch_embeds=None,
+                sliding: bool = False):
         """Prefill (optionally a chunk continuing an existing cache).
 
         Returns (last_position_logits, cache). With ``cache`` given (one
@@ -268,10 +383,14 @@ class Model(nn.Module):
         K/V or latents are written into it in place and recurrent state
         carries forward from it and is written back in place; without it,
         the cache of the new ones is returned. ``start_pos``: the chunk's
-        first absolute position (default 0).
+        first absolute position (default 0). Audio: ``tokens`` (B, K, S)
+        and (B, K, V) logits. Vision: ``patch_embeds`` (B, P, D) take
+        positions 0..P-1 before the text, attended bidirectionally under
+        the prefix-LM mask.
         """
         cfg = self.cfg
-        x = self._embed(tokens)
+        x, prefix_len = self._embed(tokens, patch_embeds)
+        prefix_len = prefix_len if cfg.prefix_lm else 0
         B, S = x.shape[:2]
         start = 0 if start_pos is None else int(start_pos)
         positions = (start + torch.arange(S, device=x.device))[None, :] \
@@ -287,6 +406,7 @@ class Model(nn.Module):
                 # tail (the writes still land in the slab)
                 c = attn_mod.prefix_views(c, start + S)
             x, new = self._run_block_prefill(i, x, positions, c,
+                                             prefix_len=prefix_len,
                                              window=window)
             if recurrent and c is not None:
                 write_state(c, new)
@@ -302,9 +422,10 @@ class Model(nn.Module):
         ``duet_attention`` kernel unless ``sliding``. ``active_mask`` (B,)
         bool, the port's argument: rows off it keep their slab entry and
         recurrent state (the reference's look-ahead loop restores them
-        after the step). Returns (logits (B, V), cache)."""
+        after the step). Audio: token (B, K, 1), the codebooks summed.
+        Returns (logits (B, V), or (B, K, V) for audio, cache)."""
         cfg = self.cfg
-        x = self._embed(token)
+        x, _ = self._embed(token)
         for i, (p, kind) in enumerate(self._layers()):
             if kind in RECURRENT:
                 x, new = self._recurrent(p, kind, x, cache[i], decode=True)
@@ -343,7 +464,8 @@ class Model(nn.Module):
         Returns (last_position_logits, pools, state).
         """
         cfg = self.cfg
-        x = self._embed(tokens)
+        self._text_only()
+        x, _ = self._embed(tokens)
         B, S = x.shape[:2]
         start = 0 if start_pos is None else int(start_pos)
         positions = (start + torch.arange(S, device=x.device))[None, :] \
@@ -374,7 +496,8 @@ class Model(nn.Module):
         writes land in the null page through all-zero table rows).
         Returns (logits, pools, state)."""
         cfg = self.cfg
-        x = self._embed(token)
+        self._text_only()
+        x, _ = self._embed(token)
         for i, (p, kind) in enumerate(self._layers()):
             if kind in RECURRENT:
                 x, new = self._recurrent(p, kind, x, state[i], decode=True)
@@ -413,12 +536,13 @@ class Model(nn.Module):
         probe gates dispatch). Returns (logits (R,V), pools, state).
         """
         cfg = self.cfg
+        self._text_only()
         for kind in cfg.block_pattern:
             if kind not in ATTN_KINDS:
                 raise ValueError(
                     f"duet kernel path requires GQA attention blocks, "
                     f"got {kind!r}")
-        x = self._embed(token)
+        x, _ = self._embed(token)
         packing = attn_mod.duet_packing(order, pos, block_q)
         for i, (p, kind) in enumerate(self._layers()):
             h = rms_norm(x, p["attn_norm"], cfg.norm_eps)

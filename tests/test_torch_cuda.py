@@ -719,3 +719,84 @@ def test_tp2_kernels_run_on_rank_local_tensors(dev, name, paged, path):
             assert sharded == (inner if path == "cuda_sharded" else 0), n
             if label == "async":
                 assert n["duet_attention_paged"] > 0, n
+
+
+# ---------------------------------------------------------------------------
+# training and the frontends
+# ---------------------------------------------------------------------------
+def test_train_step_on_the_card_matches_the_cpu(dev):
+    """Reduced minicpm-2b on its WSD schedule, fp32 with TF32 off: three
+    ``make_train_step`` steps on the card and on the CPU from the same
+    weights and batches give losses, learning rates and grad norms within
+    1e-4 (relative) and parameters within a tenth of the learning rate
+    (Adam's m / sqrt(v) has no scale: an entry whose gradient is at the
+    rounding noise moves by another fraction of lr on each device)."""
+    from repro_torch.data import data_iterator
+    from repro_torch.models import trainable
+    from repro_torch.models.params import _leaves, _map
+    from repro_torch.training import (AdamWConfig, init_adamw,
+                                      make_train_step)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced(get_config("minicpm-2b"))
+    cpu = Model.init(cfg, seed=0, device="cpu", requires_grad=True,
+                     remat=True)
+    card = Model(cfg, trainable(_map(lambda _, t: t.detach().to(
+        dev, copy=True), cpu.param_tree())), remat=True)
+    opt = AdamWConfig(lr=1e-3, schedule=cfg.lr_schedule, warmup_steps=2,
+                      total_steps=3)
+    runs = {}
+    for label, model in (("cpu", cpu), ("card", card)):
+        step = make_train_step(model, opt)
+        params = model.param_tree()
+        state = init_adamw(params)
+        data = data_iterator(cfg, 64, 2, seed=0)
+        rows = []
+        for _ in range(3):
+            params, state, m = step(params, state, next(data))
+            rows.append({k: float(v) for k, v in m.items()})
+        runs[label] = (params, rows)
+    for c, g in zip(runs["cpu"][1], runs["card"][1]):
+        for key in ("loss", "lr", "grad_norm"):
+            assert abs(g[key] - c[key]) <= 1e-4 * abs(c[key]), (key, g, c)
+    want = dict(_leaves(runs["cpu"][0]))
+    for path, t in _leaves(runs["card"][0]):
+        err = (t.detach().cpu() - want[path].detach()).abs().max().item()
+        assert err <= 0.1 * opt.lr, (path, err)
+
+
+@pytest.mark.parametrize("name", ["paligemma-3b", "musicgen-medium"])
+def test_frontend_kernel_path_matches_plain_on_the_card(dev, name):
+    """Reduced paligemma (a patch prefix under the prefix-LM mask, MQA)
+    and musicgen (a codebook grid, (B, K, V) logits), fp32 with TF32 off:
+    a slab prefill, then three slab decode steps through the slab
+    duet_attention kernel against the plain path on a copy of the cache,
+    within 1e-4 x max|logit|; the kernel launches once a layer a step."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced(get_config(name))
+    kern = Model.init(cfg, seed=0, device=dev, attn_kernel=True)
+    plain = Model(cfg, kern.param_tree())
+    rng = np.random.default_rng(0)
+    B, S = 2, 12
+    audio = cfg.frontend == "audio"
+    shape = (B, cfg.num_codebooks, S) if audio else (B, S)
+    toks = torch.tensor(rng.integers(0, cfg.vocab_size, shape), device=dev)
+    kw, P = {}, 0
+    if not audio:
+        P = cfg.num_prefix_tokens
+        kw["patch_embeds"] = _randn(rng, (B, P, cfg.d_model), "float32", dev)
+    with torch.no_grad():
+        cache = plain.init_cache(B, 128)
+        first, _ = plain.prefill(toks, cache=cache, **kw)
+        kcache = [type(c)(*(t.clone() for t in c)) for c in cache]
+        tok = first.argmax(-1)[..., None]
+        before = launch_counts()["duet_attention"]
+        for i in range(3):
+            pos = torch.full((B,), P + S + i, dtype=torch.int32, device=dev)
+            lk, _ = kern.decode_step(kcache, tok, pos)
+            lp, _ = plain.decode_step(cache, tok, pos)
+            scale = max(1.0, lp.abs().max().item())
+            assert (lk - lp).abs().max().item() <= 1e-4 * scale
+            tok = lp.argmax(-1)[..., None]
+    assert launch_counts()["duet_attention"] - before == 3 * cfg.num_layers
+    if audio:
+        assert tuple(lk.shape) == (B, cfg.num_codebooks, cfg.padded_vocab)

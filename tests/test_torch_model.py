@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from repro.configs import get_config as jget_config
+from repro.configs import list_configs as jlist_configs
 from repro.configs import reduced as jreduced
 from repro.kernels import build_duet_schedule as jbuild_duet_schedule
 from repro.models import Model as JModel
@@ -61,19 +62,26 @@ def test_configs_and_param_counts_match_jax(name):
         jcount_params_analytical(ref, active_only=True)
 
 
-def test_registry_serves_only_the_qwen3_family():
-    """The registry holds the ten configs the port serves (the qwen3
+REGISTRY = ["deepseek-v2-lite-16b", "granite-20b", "granite-moe-3b-a800m",
+            "minicpm-2b", "musicgen-medium", "paligemma-3b", "qwen3-14b",
+            "qwen3-4b", "qwen3-8b", "xlstm-350m", "yi-9b", "zamba2-1.2b"]
+
+
+@pytest.mark.parametrize("name", REGISTRY)
+def test_registry_serves_only_the_qwen3_family(name):
+    """The registry holds all twelve configs of the reference (the qwen3
     family, yi-9b, minicpm-2b, granite-20b, the MoE configs
-    granite-moe-3b-a800m and deepseek-v2-lite-16b, and the recurrent
-    zamba2-1.2b and xlstm-350m); the reference's configs with frontends
-    are refused by name."""
-    assert list_configs() == ["deepseek-v2-lite-16b", "granite-20b",
-                              "granite-moe-3b-a800m", "minicpm-2b",
-                              "qwen3-14b", "qwen3-4b", "qwen3-8b",
-                              "xlstm-350m", "yi-9b", "zamba2-1.2b"]
-    for name in ("musicgen-medium", "paligemma-3b"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            get_config(name)
+    granite-moe-3b-a800m and deepseek-v2-lite-16b, the recurrent
+    zamba2-1.2b and xlstm-350m, and the frontends paligemma-3b and
+    musicgen-medium): no config is refused, each has a parameter layout,
+    and only a name outside the registry is."""
+    assert list_configs() == REGISTRY == sorted(jlist_configs())
+    cfg = get_config(name)
+    assert cfg.name == name
+    assert count_params_analytical(cfg) == jcount_params_analytical(
+        jget_config(name))
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        get_config(name + "-unknown")
 
 
 @pytest.fixture(scope="module")

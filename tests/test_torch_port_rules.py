@@ -21,7 +21,7 @@ from repro_torch.kernels.duet_attention import (duet_attention,
                                                 duet_attention_paged)
 from repro_torch.kernels.flash_prefill import flash_prefill
 from repro_torch.kernels.paged_decode import paged_decode
-from repro_torch.launch import serve
+from repro_torch.launch import serve, train
 from repro_torch.models import Model
 from repro_torch.serving import DuetEngine, EngineConfig
 
@@ -59,6 +59,28 @@ def test_cli_serves_on_cpu_without_jax_or_reference():
     assert 0 < st["host_syncs"] <= st["super_iterations"]
 
 
+def test_train_cli_trains_on_cpu_without_jax_or_reference():
+    """The train CLI in a fresh interpreter, with the training, data and
+    launch modules imported: a few steps on the CPU, and neither ``jax``
+    nor ``repro`` was ever imported."""
+    code = (
+        "import runpy, sys\n"
+        "import repro_torch.training, repro_torch.data\n"
+        "import repro_torch.training.checkpoint, repro_torch.launch.train\n"
+        "sys.argv = ['train', '--reduced', '--device', 'cpu', '--steps',\n"
+        "            '3', '--batch', '2', '--seq', '16']\n"
+        "runpy.run_module('repro_torch.launch.train', run_name='__main__')\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
+    lines = proc.stdout.splitlines()
+    assert [ln.split()[1] for ln in lines] == ["0", "2"], lines
+
+
 @pytest.mark.parametrize("path", PORT_FILES,
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_port_source_imports_no_jax_or_reference(path):
@@ -91,6 +113,8 @@ def test_entry_points_without_device_raise_without_cuda(no_cuda):
         DuetEngine(model, EngineConfig())
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.main(["--reduced", "--num-requests", "1"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.main(["--reduced", "--steps", "1"])
     assert resolve_device("cpu") == torch.device("cpu")
 
 
