@@ -132,7 +132,33 @@ Phases (each raises on failure; nothing is swallowed):
              dispatch happened, and paged_decode_sharded launched, as
              often as the inner decode kernels; then one decode step is
              profiled on rank 0 with the all-reduces it made.
-6. train   — fp32 with TF32 off. First reduced minicpm-2b, 3 train steps
+6. dp      — data parallelism: full qwen3-4b (36 layers, bf16, random
+             weights from seed 0) as 2 replicas served from this one
+             process on the one card (share_card: one weight tree, a
+             page pool of 16-token pages each; one host thread and
+             torch's one stream serve both), through the Router (kernels
+             on, strict). One sync engine serves a pair trace (3 groups
+             of 2 requests sharing a 256-token prefix, prompts of 392 to
+             424, 64 outputs), and one engine each of round-robin's
+             shards; then, the launch counts reset: round-robin over the
+             2 replicas, whose streams must equal the independent
+             engines' exactly (wall tokens/s beside the one engine's);
+             prefix affinity on the same trace (outputs cut to 8): each
+             pair's second member on its first's replica with the whole
+             prefix matched, cluster hits >= 3 x 256, and the router's
+             (replica, matched) decisions the ClusterSim's; elastic over
+             async replicas on a burst of 8 requests (400 + 64), then
+             silence: an up and a down that drains live requests, the
+             scaling and dispatch sequences the ClusterSim's, every
+             request finished once, host_syncs <= super_iterations; and
+             one serve CLI run (--dp 2 --share-card --router-policy prefix
+             --arrival mmpp --service-mix mixture --rho 0.8 --stream, 8
+             requests). The counts are read after it and must show the
+             paged decode and duet kernels; the peak memory over the
+             router runs is printed. Then a paged decode step of each
+             replica alone and of both in turn is profiled (device busy
+             share a replica).
+7. train   — fp32 with TF32 off. First reduced minicpm-2b, 3 train steps
              (make_train_step: the loss, autograd, AdamW on its WSD
              schedule) on the card and on the CPU from the same weights
              and batches: losses, lr and grad norms within 1e-4, the
@@ -170,7 +196,7 @@ import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("build", "kernels", "parity", "serve", "tp", "train")
+PHASES = ("build", "kernels", "parity", "serve", "tp", "dp", "train")
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -2223,7 +2249,358 @@ def tp_profile(rank, model, ctx):
 
 
 # ---------------------------------------------------------------------------
-# phase 6: training
+# phase 6: data parallelism, two replicas on the one card
+# ---------------------------------------------------------------------------
+DP = 2
+# the engines of the dp phase: the serve phase's geometry (pages of 16)
+DP_ENGINE = dict(max_slots=8, max_len=1024, token_budget=256,
+                 strict_kernel=True)
+# the pair trace at full width: DP_GROUPS groups of 2 requests sharing a
+# DP_SHARED-token prefix (16 full pages) before a body of DP_BODY + 16 g
+# tokens (prompts of 392 to 424), DP_OUTPUT output tokens each; the pair's
+# second member arrives DP_PAIR_GAP virtual seconds after the first, when
+# the first's prefill (about 0.03 s of virtual time) is done and its
+# prefix cached, and the groups overlap (a request decodes for about 0.7
+# s), so an engine batches several requests a step
+DP_GROUPS, DP_SHARED, DP_BODY, DP_OUTPUT = 3, 256, 136, 64
+DP_GROUP_GAP, DP_PAIR_GAP = 0.2, 0.1
+# the prefix-affinity run checks routing and prefix hits, not tokens/s:
+# the same pair trace with outputs cut to this many tokens
+DP_PREFIX_OUTPUT = 8
+# the elastic run (async replicas): DP_BURST requests DP_BURST_GAP virtual
+# seconds apart, then silence. The scale-up threshold is crossed by the
+# third arrival; the scale-down fires while replica 1 still holds live
+# requests, which are drained and recomputed on replica 0 (the port's
+# ClusterSim at this geometry: up at 0.006 s, down at 0.508 s with 3
+# requeued)
+DP_BURST, DP_BURST_GAP, DP_BURST_PROMPT, DP_BURST_OUTPUT = 8, 0.002, 400, 64
+DP_ELASTIC = dict(min_replicas=1, max_replicas=DP, scale_up_tokens=1000,
+                  scale_down_tokens=200, cooldown_s=0.05,
+                  check_interval=0.05)
+# the CLI run; --max-len 256 caps prompts at 128 tokens and outputs at
+# 64 (the phase's time)
+DP_CLI = ["--attn-kernel", "--dp", "2", "--share-card", "--router-policy",
+          "prefix", "--arrival", "mmpp", "--service-mix", "mixture",
+          "--rho", "0.8", "--stream", "--num-requests", "8", "--max-len",
+          "256"]
+
+
+def _dp_pairs(vocab, output=DP_OUTPUT):
+    from repro_torch.serving import Request
+    from repro_torch.serving.request import synth_prompt_tokens
+    reqs = []
+    for g in range(DP_GROUPS):
+        common = np.random.default_rng(1000 + g).integers(
+            0, vocab, DP_SHARED).astype(np.int32)
+        for j in range(2):
+            rid = 2 * g + j
+            body = synth_prompt_tokens(rid, vocab, DP_BODY + 16 * g)
+            reqs.append(Request(
+                rid=rid, arrival=g * DP_GROUP_GAP + j * DP_PAIR_GAP,
+                prompt_len=DP_SHARED + len(body), output_len=output,
+                prompt_tokens=np.concatenate([common, body])))
+    return reqs
+
+
+def _dp_check(label, metrics, reqs, vocab):
+    """Every request finished exactly once with its output length of
+    tokens in the vocabulary. Returns (streams, tokens)."""
+    rids = sorted(r.rid for r in metrics.requests)
+    if rids != sorted(r.rid for r in reqs):
+        raise AssertionError(f"[dp] {label}: served rids {rids}")
+    for r in metrics.requests:
+        if r.finish_time is None or len(r.output_tokens) != r.output_len \
+                or not all(0 <= t < vocab for t in r.output_tokens):
+            raise AssertionError(f"[dp] {label}: request {r.rid} did not "
+                                 "finish with its tokens")
+    streams = {r.rid: list(r.output_tokens) for r in metrics.requests}
+    return streams, sum(len(t) for t in streams.values())
+
+
+def _dp_one(model, ec, reqs):
+    """One sync engine on ``reqs``: (streams, tokens, wall s)."""
+    from repro_torch.serving import DuetEngine
+    engine = DuetEngine(model, ec, seed=0, device="cuda")
+    engine.submit(copy.deepcopy(reqs))
+    torch.cuda.synchronize()
+    t0 = time.time()
+    metrics = engine.run()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    streams, n_tok = _dp_check("one engine", metrics, reqs,
+                               model.cfg.vocab_size)
+    return streams, n_tok, wall
+
+
+def _dp_router(model, ec, ctx, reqs, policy, cls, elastic=None):
+    """The router over ``ctx``'s replicas on ``reqs``: (router, metrics,
+    events, streams, tokens, wall s). The caller drops the router and
+    collects it (``_dp_free``) before the next run, so the peak memory
+    reads one router's pools."""
+    from repro_torch.serving.router import Router
+    router = Router(model, ec, ctx=ctx, policy=policy, engine_cls=cls,
+                    seed=0, elastic=elastic)
+    if any(e.kernel_path != "cuda" for e in router.engines):
+        raise AssertionError("[dp] a replica's kernel_path is not cuda")
+    router.submit(copy.deepcopy(reqs))
+    events = []
+    torch.cuda.synchronize()
+    t0 = time.time()
+    metrics = router.run(on_event=events.append)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    streams, n_tok = _dp_check(f"{policy} router", metrics, reqs,
+                               model.cfg.vocab_size)
+    return router, metrics, events, streams, n_tok, wall
+
+
+def _dp_free():
+    """Collect dropped engines (their pools) and return the memory."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _dp_sim(cfg, reqs, policy, elastic=None):
+    """The port's ClusterSim on ``reqs``, its replicas priced as the
+    engines' (pages of 16, the engines' token budget and batch)."""
+    from repro_torch.serving.router import ElasticConfig
+    from repro_torch.serving.simulator import (ClusterSim, SimConfig,
+                                               make_duet_instance)
+    sim = ClusterSim(
+        lambda i: make_duet_instance(
+            cfg, SimConfig(units=1, tp=1, page_size=16),
+            token_budget=DP_ENGINE["token_budget"],
+            max_batch=DP_ENGINE["max_slots"]),
+        n=DP, policy=policy,
+        elastic=None if elastic is None else ElasticConfig(**elastic))
+    sim.run(copy.deepcopy(reqs))
+    return sim
+
+
+def phase_dp():
+    """qwen3-4b at full width and depth, bf16, random weights from seed
+    0: DP = 2 replicas from one process on the one card (share_card: one
+    weight tree, a page pool each), through the Router. Round-robin's
+    streams against two independent engines fed its shards (exact), prefix
+    affinity on the warm replica against the ClusterSim's decisions, an
+    elastic run of async replicas against the ClusterSim's scaling and
+    dispatch sequences, and one serve CLI run; the launch counts reset
+    just before the first router run and read after the CLI's, the peak
+    memory over the router runs. Then a profiled decode step of each
+    replica and of the pair. Returns the DP path's launch counts."""
+    import contextlib
+    import io
+    from repro_torch.configs import get_config
+    from repro_torch.core.device import DeviceContext
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models import Model
+    from repro_torch.serving import (AsyncDuetEngine, DuetEngine,
+                                     EngineConfig)
+    from repro_torch.serving.router import ElasticConfig
+    card = card_line()
+    cfg = get_config("qwen3-4b")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = Model.init(cfg, seed=0, dtype=torch.bfloat16, device="cuda",
+                       attn_kernel=True)
+    weights = sum(b.numel() for b in model.buffers()) * 2 / 1e9
+    ctx = DeviceContext.for_replicas(cfg, DP, "cuda", share_card=True)
+    ec = EngineConfig(**DP_ENGINE)
+    log(f"[dp] {cfg.name} at full width and depth, bf16 ({weights:.2f} GB "
+        f"of weights, one tree for both replicas), {DP} replicas on "
+        f"{ctx.replica_devices} from one process: one host thread and "
+        "torch's current stream serve both, so a replica's blocking fetch "
+        f"waits for the other's queued work [{card}]")
+    pairs = _dp_pairs(cfg.vocab_size)
+    # the references: one engine on every request, and one engine on each
+    # of round-robin's shards (not counted: the DP path starts below)
+    one, one_tok, one_wall = _dp_one(model, ec, pairs)
+    indep = {}
+    for shard in (pairs[0::2], pairs[1::2]):
+        indep.update(_dp_one(model, ec, shard)[0])
+    _dp_free()
+    torch.cuda.reset_peak_memory_stats()
+
+    reset_launch_counts()            # the DP path's launches start here
+    # (a) round-robin: the streams of independent engines, exactly
+    rr, _, _, rr_streams, rr_tok, rr_wall = _dp_router(
+        model, ec, ctx, pairs, "round-robin", DuetEngine)
+    rr_hits, rr_decisions = rr.prefix_stats()["hit_tokens"], rr.decisions
+    del rr
+    _dp_free()
+    if [d.replica for d in rr_decisions] != [i % DP for i in
+                                               range(len(pairs))]:
+        raise AssertionError("[dp] round-robin did not alternate")
+    if rr_streams != indep:
+        diff = [r for r in indep if rr_streams[r] != indep[r]]
+        raise AssertionError(f"[dp] round-robin streams differ from the "
+                             f"independent engines' for requests {diff}")
+    log(f"[dp] round-robin (sync replicas): {len(pairs)} requests, "
+        f"{rr_tok} tokens in {rr_wall:.2f} s wall = {rr_tok / rr_wall:.1f} "
+        f"tokens/s; one engine on the same requests {one_tok} tokens in "
+        f"{one_wall:.2f} s = {one_tok / one_wall:.1f} tokens/s; every "
+        "stream equals the independent engines' on its shard, exactly; "
+        f"one engine's streams equal for "
+        f"{sum(one[r] == rr_streams[r] for r in one)}/{len(one)} requests "
+        f"[{card}]")
+    # (b) prefix affinity: the pairs reunite on the warm replica
+    short = _dp_pairs(cfg.vocab_size, DP_PREFIX_OUTPUT)
+    pf, _, _, _, pf_tok, pf_wall = _dp_router(model, ec, ctx, short,
+                                              "prefix", DuetEngine)
+    by_rid = {d.rid: d for d in pf.decisions}
+    for g in range(DP_GROUPS):
+        first, second = by_rid[2 * g], by_rid[2 * g + 1]
+        if second.replica != first.replica or \
+                second.matched_tokens < DP_SHARED:
+            raise AssertionError(f"[dp] prefix: group {g} routed "
+                                 f"{first} then {second}")
+    stats = pf.prefix_stats()
+    if stats["hit_tokens"] < DP_GROUPS * DP_SHARED:
+        raise AssertionError(f"[dp] prefix: {stats['hit_tokens']} hit "
+                             "tokens")
+    real = [(d.replica, d.matched_tokens) for d in pf.decisions]
+    sim = [(d.replica, d.matched_tokens)
+           for d in _dp_sim(cfg, short, "prefix").decisions]
+    if real != sim:
+        raise AssertionError(f"[dp] prefix: router {real}, ClusterSim "
+                             f"{sim}")
+    log(f"[dp] prefix affinity (sync replicas, outputs cut to "
+        f"{DP_PREFIX_OUTPUT}): decisions (replica, matched) {real}, equal "
+        f"to the ClusterSim's; cluster hit tokens {stats['hit_tokens']} "
+        f"(round-robin's {rr_hits}); {pf_tok} tokens in {pf_wall:.2f} s "
+        f"wall [{card}]")
+    del pf
+    _dp_free()
+    # (c) elastic: async replicas on a burst, then silence
+    burst = [type(pairs[0])(rid=i, arrival=i * DP_BURST_GAP,
+                            prompt_len=DP_BURST_PROMPT,
+                            output_len=DP_BURST_OUTPUT)
+             for i in range(DP_BURST)]
+    el, el_m, _, _, el_tok, el_wall = _dp_router(
+        model, ec, ctx, burst, "round-robin", AsyncDuetEngine,
+        elastic=ElasticConfig(**DP_ELASTIC))
+    el_sim = _dp_sim(cfg, burst, "round-robin", elastic=DP_ELASTIC)
+    scale = [(e.action, e.replica) for e in el.scale_events]
+    if ("up", 1) not in scale or ("down", 1) not in scale:
+        raise AssertionError(f"[dp] elastic: scale events {scale}")
+    if scale != [(e.action, e.replica) for e in el_sim.scale_events]:
+        raise AssertionError(
+            f"[dp] elastic: router {scale}, ClusterSim "
+            f"{[(e.action, e.replica) for e in el_sim.scale_events]}")
+    if [d.replica for d in el.decisions] != [d.replica for d in
+                                              el_sim.decisions]:
+        raise AssertionError("[dp] elastic: dispatch sequences differ")
+    requeued = sum(e.requeued for e in el.scale_events)
+    if requeued == 0:
+        raise AssertionError("[dp] elastic: the scale-down drained nothing")
+    for i, eng in enumerate(el.engines):
+        st = eng.dstats
+        if not st.host_syncs <= st.super_iterations:
+            raise AssertionError(f"[dp] elastic: replica {i} host_syncs "
+                                 f"{st.host_syncs} > super_iterations "
+                                 f"{st.super_iterations}")
+    def events_of(obj):
+        return [(e.action, e.replica, e.requeued, round(e.t, 3))
+                for e in obj.scale_events]
+    syncs = [(e.dstats.super_iterations, e.dstats.host_syncs)
+             for e in el.engines]
+    log(f"[dp] elastic (async replicas): scale events {events_of(el)}, "
+        f"the ClusterSim's {events_of(el_sim)}; dispatch "
+        f"{[d.replica for d in el.decisions]}, equal; "
+        f"{len(el_m.requests)} requests each finished once, "
+        f"{sum(r.preemptions for r in el_m.requests)} preempted and "
+        f"recomputed; {el_tok} tokens in {el_wall:.2f} s wall = "
+        f"{el_tok / el_wall:.1f} tokens/s; (super_iterations, host_syncs) "
+        f"a replica {syncs} [{card}]")
+    del el
+    _dp_free()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    # (d) the serve CLI (its own model: ours stays for the timings below)
+    buf = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        serve_cli.main(DP_CLI)
+    cli_wall = time.time() - t0
+    out = buf.getvalue()
+    summ = json.loads(out[out.index("{\n"):])
+    events = [json.loads(ln) for ln in out[:out.index("{\n")].splitlines()]
+    routed = sum(e["event"] == "router" for e in events)
+    n_cli = sum(e["event"] == "token" for e in events)
+    if summ["num_finished"] != 8 or routed != 8 or \
+            summ["kernel_path"] != "cuda" or summ["router"][
+                "routed_requests"] != 8:
+        raise AssertionError(f"[dp] CLI: {summ['num_finished']} finished, "
+                             f"{routed} routed, {summ['kernel_path']}")
+    for st in summ["dispatch_stats"]:
+        if not st["host_syncs"] <= st["super_iterations"]:
+            raise AssertionError(f"[dp] CLI: dispatch stats {st}")
+    log(f"[dp] CLI {' '.join(DP_CLI)}: {summ['num_finished']} requests "
+        f"finished, {n_cli} tokens streamed in {cli_wall:.1f} s wall "
+        f"(model init included), dispatch "
+        f"{summ['router']['dispatch_counts']}, prefix hit tokens "
+        f"{summ['prefix_cache']['hit_tokens']}, mesh {summ['mesh']}; "
+        "virtual clock (TPU v5e roofline prediction, not the card): mean "
+        f"TTFT {summ['mean_ttft_s']:.4f} s, mean TBT "
+        f"{summ['mean_tbt_s']:.4f} s [{card}]")
+    counts = launch_counts()         # the DP path's launches end here
+    log(f"[dp] DP path launches: {counts}")
+    for name in ("paged_decode", "duet_attention_paged"):
+        if counts[name] <= 0:
+            raise AssertionError(f"[dp] kernel {name} was never launched "
+                                 "on the DP path")
+    for name in ("flash_prefill", "duet_attention"):
+        if counts[name]:
+            raise AssertionError(f"[dp] kernel {name} launched on the "
+                                 "paged DP path")
+    log(f"[dp] peak memory {peak:.2f} GB over the router runs (the weights "
+        f"{weights:.2f} GB once, a page pool a replica) [{card}]")
+    profile_dp(model, ctx, card)
+    return counts
+
+
+def profile_dp(model, ctx, card):
+    """One paged decode step (B=8 at 1000 tokens of context, bf16, kernel
+    path) of each replica alone, and of both in turn (replica 0's, then
+    replica 1's, from one thread on one stream: what a router pass does):
+    wall on the host clock, device time and busy share from
+    torch.profiler. The replicas share the weights and have a pool each."""
+    from repro_torch.models import Model
+    from repro_torch.serving.kvcache import PagePoolConfig, init_page_pools
+    cfg, B, P, ps, steps = model.cfg, 8, 64, 16, 4
+    tree = model.param_tree()
+    replicas = []
+    for c in ctx.split_replicas():
+        rm = Model(cfg, c.place_params(tree), ctx=c, attn_kernel=True)
+        pools = init_page_pools(cfg, PagePoolConfig(num_pages=B * P + 1,
+                                                    page_size=ps),
+                                torch.bfloat16, device=c.device)
+        replicas.append((rm, pools, rm.init_state_cache(B)))
+    dev = ctx.device
+    tables = torch.arange(1, B * P + 1, dtype=torch.int32,
+                          device=dev).reshape(B, P)
+    pos = torch.full((B,), 1000, dtype=torch.int32, device=dev)
+    tok = torch.zeros((B, 1), dtype=torch.int32, device=dev)
+    active = torch.ones((B,), dtype=torch.bool, device=dev)
+
+    def run(which):
+        for _ in range(steps):
+            for i in which:
+                rm, pools, state = replicas[i]
+                rm.decode_step_paged(pools, state, tok, pos, tables,
+                                     active_mask=active)
+        torch.cuda.synchronize()
+
+    for which in ([0], [1], [0, 1]):
+        wall, events, _ = _profile(lambda: run(which), steps)
+        log_profile(f"DP {DP} on one card, replica(s) {which} paged decode "
+                    f"step, {cfg.num_layers} layers, B={B} a replica, ctx "
+                    f"1000, bf16", wall, events, steps, card, top=4)
+
+
+# ---------------------------------------------------------------------------
+# phase 7: training
 # ---------------------------------------------------------------------------
 def phase_train():
     """The reduced train step on the card against the CPU, then
@@ -2424,6 +2801,9 @@ def main(argv=None) -> int:
         elif phase == "tp":
             main_rec["paged_decode_sharded"], tp_counts = phase_tp()
             for name, n in tp_counts.items():
+                counts[name] = counts.get(name, 0) + n
+        elif phase == "dp":
+            for name, n in phase_dp().items():
                 counts[name] = counts.get(name, 0) + n
         elif phase == "train":
             phase_train()

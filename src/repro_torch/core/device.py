@@ -13,8 +13,13 @@ host <-> device copies of the engines, and the tensor-parallel context.
   samples the same tokens. Tables, lengths and positions stay
   rank-global, as the reference replicates them. Single-device serving is
   ``DeviceContext.single`` (tp 1, no group: ``all_reduce`` is the
-  identity). The DP half of the reference (``split_replicas``, ``dp``) is
-  not ported.
+  identity). The DP half (``dp``, :meth:`DeviceContext.split_replicas`)
+  describes data-parallel replicas served from ONE process, as the
+  reference's single-controller router does: ``split_replicas`` gives
+  each replica a TP-1 context on its own device
+  (``launch.mesh.split_data_axis``: card *i* when there are ``dp`` cards,
+  card 0 for every replica only with ``share_card``, or the CPU). DP over
+  TP groups is not yet ported.
 
 * :func:`resolve_device` — ``None`` means the card. Without CUDA that is an
   error, never a quiet move to the CPU; the CPU runs only when asked for.
@@ -46,17 +51,33 @@ class DeviceContext:
 
     def __init__(self, cfg: ArchConfig, device: torch.device, *,
                  tp: int = 1, rank: int = 0, group=None,
-                 backend: Optional[str] = None):
+                 backend: Optional[str] = None, dp: int = 1,
+                 share_card: bool = False):
         # the models package imports this module
         from repro_torch.models.params import axis_rules
         if tp < 1 or not 0 <= rank < tp:
             raise ValueError(f"DeviceContext: rank {rank} of tp {tp}")
+        if dp < 1:
+            raise ValueError(f"DeviceContext: dp must be >= 1, got {dp}")
+        if dp > 1 and tp > 1:
+            raise NotImplementedError(
+                "data parallelism over tensor-parallel replicas (--dp with "
+                "--tp > 1) is not yet ported; serve tp=1 replicas")
         self.cfg = cfg
-        self.device = torch.device(device)
         self.tp = tp
+        self.dp = dp
+        self.share_card = share_card
         self.rank = rank
         self.group = group
         self.backend = backend
+        # one device a replica, validated here (raises for more replicas
+        # than cards without share_card); the context's own device is
+        # replica 0's
+        self.replica_devices = (torch.device(device),)
+        if dp > 1:
+            from repro_torch.launch.mesh import split_data_axis
+            self.replica_devices = split_data_axis(device, dp, share_card)
+        self.device = self.replica_devices[0]
         self._rules = axis_rules(cfg, tp)
         # all-reduces made since construction (the model's collectives)
         self.all_reduces = 0
@@ -67,9 +88,20 @@ class DeviceContext:
         """The default context: one device, no collectives."""
         return cls(cfg, resolve_device(device))
 
+    @classmethod
+    def for_replicas(cls, cfg: ArchConfig, dp: int, device: DeviceLike = None,
+                     share_card: bool = False) -> "DeviceContext":
+        """``dp`` data-parallel replicas of tp 1 on ``device``'s type (the
+        card by default; raises without CUDA): one card a replica, or
+        every replica on one card with ``share_card``."""
+        return cls(cfg, resolve_device(device), dp=dp,
+                   share_card=share_card)
+
     # ------------------------------------------------------------- geometry
     @property
     def shape(self) -> dict:
+        if self.dp > 1:
+            return {"data": self.dp, "model": self.tp}
         return {"model": self.tp}
 
     def rules(self) -> dict:
@@ -88,9 +120,18 @@ class DeviceContext:
 
     # ------------------------------------------------------------ placement
     def place_params(self, tree: dict) -> dict:
-        """This rank's slices of a full parameter tree."""
-        from repro_torch.models.params import shard_params
-        return shard_params(tree, self.cfg, self.tp, self.rank)
+        """This rank's slices of a full parameter tree, on this context's
+        device: the same tensors at tp 1 when they are already there (DP
+        replicas on one card share one weight tree)."""
+        from repro_torch.models.params import _map, shard_params
+        return _map(lambda _, t: t.to(self.device),
+                    shard_params(tree, self.cfg, self.tp, self.rank))
+
+    def split_replicas(self) -> List["DeviceContext"]:
+        """One TP-1 context per data-parallel replica, on the devices
+        ``launch.mesh.split_data_axis`` gave this context; ``dp`` == 1
+        gives one context on this context's device."""
+        return [DeviceContext(self.cfg, d) for d in self.replica_devices]
 
     # ---------------------------------------------------------- collective
     def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
@@ -105,10 +146,16 @@ class DeviceContext:
 
     # ---------------------------------------------------------- diagnostics
     def describe(self) -> dict:
-        """The reference's geometry keys, plus the collective backend."""
-        return {"devices": self.tp, "axes": {"model": self.tp},
-                "tp": self.tp, "dp": 1, "platform": self.device.type,
-                "backend": self.backend}
+        """The reference's geometry keys, plus the collective backend and,
+        for DP replicas, whether they share a card (``devices`` counts
+        distinct devices)."""
+        out = {"devices": self.tp, "axes": self.shape, "tp": self.tp,
+               "dp": self.dp, "platform": self.device.type,
+               "backend": self.backend}
+        if self.dp > 1:
+            out["devices"] = len(set(self.replica_devices))
+            out["share_card"] = self.share_card
+        return out
 
     def collectives_per_iteration(self) -> int:
         """The reference's predicted count of all-reduces in one forward

@@ -19,8 +19,11 @@ any rank failed (the other ranks are stopped).
   for its collectives). More ranks than cards without ``share_card``, or
   CUDA where there is none, raise with a message that names the fix.
 
-The DP and duet sub-mesh splits of the reference (``split_data_axis``,
-``split_duet_submeshes``) belong to the DP slice and are not ported.
+Data-parallel replicas run in ONE process (the reference's
+single-controller router), not one a rank: :func:`split_data_axis` gives
+each replica its device, behind ``DeviceContext.split_replicas``. The
+reference's duet sub-mesh split (``split_duet_submeshes``) is not ported:
+its Hopper counterpart is SM partitioning.
 
 Usage::
 
@@ -38,7 +41,7 @@ import tempfile
 import time
 import traceback
 from dataclasses import dataclass
-from typing import Callable, List, Sequence
+from typing import Callable, List, Sequence, Tuple
 
 import torch
 
@@ -89,6 +92,38 @@ def check_geometry(tp: int, device: str, share_card: bool = False) -> str:
             "(--share-card) to run every rank on one card over gloo, or "
             "reduce tp")
     return "nccl"
+
+
+def split_data_axis(device, dp: int,
+                    share_card: bool = False) -> Tuple[torch.device, ...]:
+    """The device of each of ``dp`` data-parallel replicas of tp 1, served
+    from one process: the CPU for every replica on the CPU; on CUDA card
+    *i* for replica *i*, or card 0 (``device``'s card when it names one)
+    for every replica when ``share_card`` asks for it. One replica stays
+    on ``device``. Raises for more replicas than cards without
+    ``share_card`` (never a quiet share), and for CUDA where there is
+    none."""
+    if dp < 1:
+        raise ValueError(f"dp must be >= 1, got {dp}")
+    device = torch.device(device)
+    if dp == 1:
+        return (device,)
+    if device.type == "cpu":
+        return (device,) * dp
+    if device.type != "cuda":
+        raise ValueError(f"device must be cpu or cuda, got {device}")
+    if not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' "
+                           "(--device cpu) to run the replicas on the CPU")
+    if share_card:
+        return (torch.device("cuda", device.index or 0),) * dp
+    have = torch.cuda.device_count()
+    if dp > have:
+        raise ValueError(
+            f"dp={dp} replicas need {dp} CUDA cards (one a replica) but "
+            f"only {have} are visible; pass share_card=True (--share-card) "
+            "to run every replica on one card, or reduce dp")
+    return tuple(torch.device("cuda", i) for i in range(dp))
 
 
 def rank_device(device: str, rank: int, share_card: bool) -> torch.device:

@@ -7,13 +7,22 @@ each holds its slices of the weights and KV heads, every rank runs the
 same engine on the same requests, rank 0 prints, and the run fails unless
 every rank produced the same token streams. The ranks talk over gloo on
 the CPU, over nccl with a card a rank, and over gloo with ``--share-card``,
-which puts every rank on card 0. The flags
-are the reference's (``repro.launch.serve``); the ones of features not yet
-ported (``--dp > 1``, ``--elastic``, and the stochastic load generator's
-``--arrival``, ``--service-mix`` and ``--rho``) exit with "not yet
-ported". ``--no-paged`` serves from the slab KV cache (the reference's
-equivalence oracle for the paged path). Weights are random, from
-``--seed``.
+which puts every rank on card 0.
+
+``--dp N`` serves N real engine replicas behind the cluster router
+(``serving/router.py``) from this one process: requests are dispatched
+per ``--router-policy``, each replica keeps its own KV pool, prefix cache
+and duet multiplexer, and the summary reports per-replica plus
+cluster-aggregate metrics. A replica takes card *i* when there are N
+cards; ``--share-card`` puts every replica on card 0, where they share one
+weight tree (and torch's stream). ``--elastic`` scales the active replica
+set between ``--min-dp`` and ``--max-dp``. ``--arrival``,
+``--service-mix`` and ``--rho`` draw the trace from the seeded open-loop
+load generator (``serving/loadgen.py``). The flags are the reference's
+(``repro.launch.serve``); ``--dp`` together with ``--tp > 1`` exits with
+"not yet ported". ``--no-paged`` serves from the slab KV cache (the
+reference's equivalence oracle for the paged path). Weights are random,
+from ``--seed``.
 
 Two execution modes:
 
@@ -34,6 +43,11 @@ Usage:
       --device cpu --no-paged --stream --num-requests 4
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced \\
       --device cpu --tp 2 --num-requests 4 --attn-kernel
+  PYTHONPATH=src python -m repro_torch.launch.serve --reduced \\
+      --device cpu --dp 2 --router-policy prefix --shared-prefix-len 32 \\
+      --num-requests 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --attn-kernel \\
+      --dp 2 --share-card --stream --num-requests 8
 """
 from __future__ import annotations
 
@@ -53,13 +67,14 @@ from repro_torch.serving.async_engine import (AsyncDuetEngine, FinishEvent,
                                               TokenEvent)
 from repro_torch.serving.engine import DuetEngine, EngineConfig
 from repro_torch.serving.kvcache import DEFAULT_PAGE_SIZE, KV_QUANT_MODES
+from repro_torch.serving.loadgen import (ARRIVAL_PROCESSES, SERVICE_MIXES,
+                                         ArrivalSpec, LoadGenerator,
+                                         LoadSpec, ServiceSpec, qps_for_rho,
+                                         request_cost)
 from repro_torch.serving.request import synth_prompt_tokens
+from repro_torch.serving.router import (ROUTER_POLICIES, ElasticConfig,
+                                        Router, RouterEvent, ScaleEvent)
 from repro_torch.serving.traces import TRACES, synth_trace
-
-# the reference's choices for flags whose features are not yet ported
-ARRIVAL_PROCESSES = ("poisson", "mmpp")
-SERVICE_MIXES = ("lognormal", "mixture")
-ROUTER_POLICIES = ("round-robin", "least-loaded", "prefix")
 
 
 def _warn(msg: str):
@@ -109,36 +124,61 @@ def build_parser() -> argparse.ArgumentParser:
                          "GQA configs)")
     ap.add_argument("--share-card", action="store_true",
                     help="--tp > 1 on CUDA: every rank on card 0, over "
-                         "gloo (its collectives copy through host memory)")
+                         "gloo (its collectives copy through host memory); "
+                         "--dp > 1 on CUDA: every replica on card 0, "
+                         "sharing one weight tree")
     ap.add_argument("--dp", type=int, default=1,
-                    help="data-parallel replicas (not yet ported: 1 only)")
+                    help="data-parallel replica count: dp > 1 serves N "
+                         "real engine replicas behind the cluster router "
+                         "from this process, each with its own paged KV "
+                         "pool and prefix cache; on CUDA one card a "
+                         "replica, or --share-card (tp 1 replicas only)")
+    # elastic data-parallelism: the active replica set breathes between
+    # --min-dp and --max-dp against measured outstanding tokens; a drained
+    # replica requeues its work via the preempt->recompute path
     ap.add_argument("--elastic", action="store_true",
-                    help="elastic replica set (not yet ported)")
+                    help="scale the active replica set against load: "
+                         "--max-dp replicas are built but dispatch starts "
+                         "at --min-dp; scale decisions print as JSONL "
+                         "'scale' events under --stream")
     ap.add_argument("--min-dp", type=int, default=1,
-                    help="--elastic only (not yet ported)")
+                    help="initial/minimum active replicas (--elastic)")
     ap.add_argument("--max-dp", type=int, default=None,
-                    help="--elastic only (not yet ported)")
+                    help="maximum replicas (--elastic; default: --dp, or 2 "
+                         "when --dp is 1)")
     ap.add_argument("--scale-up-tokens", type=int, default=512,
-                    help="--elastic only (not yet ported)")
+                    help="scale up when mean outstanding tokens per active "
+                         "replica exceed this (--elastic)")
     ap.add_argument("--scale-down-tokens", type=int, default=64,
-                    help="--elastic only (not yet ported)")
+                    help="scale down when the cluster total fits under "
+                         "this per replica with one fewer (--elastic)")
     ap.add_argument("--scale-cooldown", type=float, default=0.5,
-                    help="--elastic only (not yet ported)")
+                    help="minimum virtual seconds between scale actions")
     ap.add_argument("--scale-interval", type=float, default=0.25,
-                    help="--elastic only (not yet ported)")
+                    help="drain-phase control-tick grid in virtual seconds")
+    # stochastic load generation (serving/loadgen.py): any non-default
+    # selection switches trace synthesis from synth_trace to the seeded
+    # open-loop generator
     ap.add_argument("--arrival", choices=list(ARRIVAL_PROCESSES),
                     default="poisson",
-                    help="arrival process (only poisson: the load "
-                         "generator is not yet ported)")
+                    help="arrival process: poisson, or mmpp (2-state "
+                         "Markov-modulated bursts at the same mean rate)")
     ap.add_argument("--service-mix", choices=list(SERVICE_MIXES),
                     default="lognormal",
-                    help="request-length mix (only the trace's lognormal: "
-                         "the load generator is not yet ported)")
+                    help="request-length mix: the trace's lognormal, or a "
+                         "two-point mixture with a heavy tail at the same "
+                         "mean")
     ap.add_argument("--rho", type=float, default=None,
-                    help="target utilisation (not yet ported)")
+                    help="target utilisation: sets qps to rho * k / E[S] "
+                         "using the roofline per-request cost estimate "
+                         "(overrides --qps)")
     ap.add_argument("--router-policy", choices=list(ROUTER_POLICIES),
                     default="round-robin",
-                    help="dispatch policy for --dp > 1 (not yet ported)")
+                    help="dispatch policy for --dp > 1: round-robin "
+                         "(ClusterSim parity oracle), least-loaded "
+                         "(fewest outstanding tokens), or prefix "
+                         "(longest cached prompt prefix, tie-break on "
+                         "load)")
     # copy-on-write prefix caching (paged mode only; default: follow
     # --paged, so --no-paged alone never warns about a flag nobody passed)
     ap.add_argument("--prefix-cache", dest="prefix_cache",
@@ -175,17 +215,50 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _not_yet_ported(args):
-    """Exit for flags whose features the port does not have yet."""
-    unported = {
-        "--dp > 1": args.dp > 1,
-        "--elastic": args.elastic,
-        "--arrival": args.arrival != "poisson",
-        "--service-mix": args.service_mix != "lognormal",
-        "--rho": args.rho is not None,
-    }
-    bad = [flag for flag, hit in unported.items() if hit]
-    if bad:
-        raise SystemExit(f"{', '.join(bad)}: not yet ported to repro_torch")
+    """Exit for a combination the port does not serve yet: data-parallel
+    replicas of a tensor-parallel group (one process a rank would need a
+    process group a replica)."""
+    if args.tp > 1 and (args.dp > 1 or args.elastic):
+        raise SystemExit("--dp/--elastic with --tp > 1: not yet ported to "
+                         "repro_torch")
+
+
+def _elastic_geometry(args):
+    """(replica count, ElasticConfig or None), as the reference's serve:
+    elastic builds --max-dp replicas and dispatch starts at --min-dp."""
+    if not args.elastic:
+        if args.max_dp is not None or args.min_dp != 1:
+            _warn("--min-dp/--max-dp only apply with --elastic; ignored")
+        return args.dp, None
+    dp = args.max_dp or max(args.dp, 2)
+    if args.dp > 1 and dp != args.dp:
+        raise SystemExit("--max-dp contradicts --dp; pass one of them")
+    return dp, ElasticConfig(
+        min_replicas=args.min_dp, max_replicas=dp,
+        scale_up_tokens=args.scale_up_tokens,
+        scale_down_tokens=args.scale_down_tokens,
+        cooldown_s=args.scale_cooldown,
+        check_interval=args.scale_interval)
+
+
+def _trace(args, cfg, dp: int):
+    """The trace: the seeded open-loop generator when any stochastic load
+    knob is non-default, ``synth_trace`` otherwise."""
+    if (args.arrival == "poisson" and args.service_mix == "lognormal"
+            and args.rho is None):
+        return synth_trace(args.trace, args.num_requests, args.qps,
+                           seed=args.seed)
+    qps = args.qps
+    service = ServiceSpec(trace=TRACES[args.trace], mix=args.service_mix)
+    if args.rho is not None:
+        cost = request_cost(cfg, service, units=max(1, args.tp),
+                            tp=args.tp, token_budget=args.token_budget)
+        qps = qps_for_rho(args.rho, cost, replicas=dp)
+        _warn(f"rho={args.rho}: roofline E[S]={cost:.4f}s -> "
+              f"qps={qps:.3f} over {dp} replica(s)")
+    spec = LoadSpec(arrival=ArrivalSpec(process=args.arrival, qps=qps),
+                    service=service, seed=args.seed)
+    return LoadGenerator(spec).generate(args.num_requests)
 
 
 def _apply_shared_prefix(reqs, prefix_len: int, vocab_size: int, seed: int,
@@ -255,16 +328,21 @@ def main(argv=None):
 
 
 def serve(rank, args):
-    """Serve the trace on one device (``rank`` None) or as one rank of a
-    TP group (``launch.mesh.Rank``); only rank 0 prints. Returns the
-    token streams."""
+    """Serve the trace on one device or on ``--dp`` replicas behind the
+    router (``rank`` None), or as one rank of a TP group
+    (``launch.mesh.Rank``); only rank 0 prints. Returns the token
+    streams."""
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
-    if rank is None:
-        ctx = DeviceContext.single(cfg, args.device)
-    else:
+    dp, elastic_cfg = _elastic_geometry(args) if rank is None else (1, None)
+    if rank is not None:
         ctx = rank.context(cfg)
+    elif dp > 1:
+        ctx = DeviceContext.for_replicas(cfg, dp, args.device,
+                                         share_card=args.share_card)
+    else:
+        ctx = DeviceContext.single(cfg, args.device)
     device = ctx.device
     out_rank = ctx.rank == 0
 
@@ -277,8 +355,7 @@ def serve(rank, args):
     model = Model.init(cfg, seed=args.seed, dtype=dtype, ctx=ctx,
                        attn_kernel=args.attn_kernel)
 
-    reqs = synth_trace(args.trace, args.num_requests, args.qps,
-                       seed=args.seed)
+    reqs = _trace(args, cfg, dp)
     reqs = _apply_shared_prefix(reqs, args.shared_prefix_len,
                                 cfg.vocab_size, args.seed,
                                 every=args.shared_prefix_every)
@@ -315,40 +392,70 @@ def serve(rank, args):
         elif isinstance(ev, FinishEvent):
             emit({"event": "finish", "rid": ev.rid, "reason": ev.reason,
                   "n_tokens": ev.n_tokens, "t": round(ev.t, 6)})
+        elif isinstance(ev, RouterEvent):
+            emit({"event": "router", "rid": ev.rid, "replica": ev.replica,
+                  "policy": ev.policy, "matched_tokens": ev.matched_tokens,
+                  "outstanding": list(ev.outstanding),
+                  "t": round(ev.t, 6)})
+        elif isinstance(ev, ScaleEvent):
+            emit({"event": "scale", "action": ev.action,
+                  "replica": ev.replica, "active": list(ev.active),
+                  "outstanding": list(ev.outstanding),
+                  "requeued": ev.requeued, "t": round(ev.t, 6)})
 
+    if dp > 1:
+        # cluster path: dp real replicas behind the dispatch policy; the
+        # router drives sync or async replicas on the shared virtual clock
+        router = Router(model, ec, ctx=ctx, policy=args.router_policy,
+                        engine_cls=AsyncDuetEngine if args.stream
+                        else DuetEngine,
+                        seed=args.seed, elastic=elastic_cfg)
+        router.submit(reqs)
+        metrics = router.run(on_event=print_event if args.stream else None)
+        engines = router.engines
+    else:
+        engine = (AsyncDuetEngine if args.stream else DuetEngine)(
+            model, ec, seed=args.seed, device=device)
+        engine.submit(reqs)   # async: arrivals replay on the inbox
+        if args.stream:
+            for ev in engine.events():
+                print_event(ev)
+        metrics = engine.run()   # after events(): collects metrics only
+        engines = [engine]
+    pc = None
+    if args.paged:
+        # under DP the cluster aggregate; each replica's own stats are
+        # under out["per_replica"]
+        pc = router.prefix_stats() if dp > 1 \
+            else engine.kv_mgr.prefix_stats()
+        pc.pop("per_replica", None)
     if args.stream:
-        engine = AsyncDuetEngine(model, ec, seed=args.seed, device=device)
-        engine.submit(reqs)   # open-loop: arrivals replay on the inbox
-        for ev in engine.events():
-            print_event(ev)
         # the executed geometry and the predicted collective count ride the
         # stream next to the prefix-cache outcome
         emit({"event": "mesh", **ctx.describe(),
               "device": describe_device(device),
-              "kernel_path": engine.kernel_path,
+              "kernel_path": engines[0].kernel_path,
               "collectives_per_iteration": ctx.collectives_per_iteration()})
-        if args.paged:
-            emit({"event": "prefix_cache", **engine.kv_mgr.prefix_stats()})
-        metrics = engine.run()   # drained: collects metrics only
-        out = metrics.summary()
-        out["dispatch_stats"] = dataclasses.asdict(engine.dstats)
+        if pc is not None:
+            emit({"event": "prefix_cache", **pc})
+    if dp > 1:
+        out = router.summary()
     else:
-        engine = DuetEngine(model, ec, seed=args.seed, device=device)
-        engine.submit(reqs)
-        metrics = engine.run()
         out = metrics.summary()
-    out["slo_attainment"] = metrics.slo_attainment(args.tbt_slo)
-    out["duet_fraction"] = engine.mux.stats.duet_fraction
-    out["iterations"] = engine.mux.stats.iterations
+        out["slo_attainment"] = metrics.slo_attainment(args.tbt_slo)
+        out["duet_fraction"] = engine.mux.stats.duet_fraction
+        out["iterations"] = engine.mux.stats.iterations
+    if args.stream:
+        stats = [dataclasses.asdict(e.dstats) for e in engines]
+        out["dispatch_stats"] = stats if dp > 1 else stats[0]
     out["device"] = describe_device(device)
     out["mesh"] = ctx.describe()
-    out["kernel_path"] = engine.kernel_path
+    out["kernel_path"] = engines[0].kernel_path
     out["collectives_per_iteration"] = ctx.collectives_per_iteration()
-    if args.paged:
-        out["prefix_cache"] = engine.kv_mgr.prefix_stats()
+    if pc is not None:
+        out["prefix_cache"] = pc
     emit(out, indent=2)
     return {r.rid: list(r.output_tokens) for r in metrics.requests}
-
 
 if __name__ == "__main__":
     main()

@@ -52,7 +52,7 @@ def main(argv=None):
     if args.data > 1 or args.model > 1:
         raise NotImplementedError(
             "data- and tensor-parallel training (--data, --model above 1) "
-            "are not yet ported (ROADMAP.md Queue 1 item 6); train on one "
+            "are not yet ported (ROADMAP.md Queue 1 item 2); train on one "
             "device")
     device = resolve_device(args.device)
     cfg = get_config(args.arch)

@@ -146,13 +146,13 @@ def _check_tp(cfg: ArchConfig, params: dict, ctx: DeviceContext):
     if cfg.frontend is not None:
         raise NotImplementedError(
             f"tensor parallelism for the {cfg.frontend} frontend is not yet "
-            "ported (ROADMAP.md Queue 1 item 9); serve it at tp=1")
+            "ported (ROADMAP.md Queue 1 item 1); serve it at tp=1")
     other = sorted(set(cfg.block_pattern) - {"attn"})
     if other:
         raise NotImplementedError(
             f"tensor parallelism for {cfg.name}'s {other} blocks is not yet "
             "ported (only dense GQA 'attn' blocks; ROADMAP.md Queue 1 item "
-            "9); serve it at tp=1")
+            "1); serve it at tp=1")
     specs = dict(_leaves(param_specs(cfg, ctx.tp)))
     have = dict(_leaves(params))
     for path, d in _leaves(layout(cfg)):

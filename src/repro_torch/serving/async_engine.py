@@ -293,6 +293,19 @@ class AsyncDuetEngine(DuetEngine):
             r.remaining_prompt + max(0, r.output_len - r.generated)
             for r in inbox)
 
+    def drain_requests(self):
+        """Elastic scale-down drain. The in-flight super-iteration is
+        retired *first* — its device tokens belong to requests about to be
+        preempted, and preempting under an open ``_Inflight`` would append
+        a stale fetch onto a recomputing request — then the inbox is
+        folded into ``_pending`` so withdrawn work includes requests not
+        yet ingested. The flushed token/finish events are returned for the
+        caller to stream (they happened; a drain must not swallow them)."""
+        evs = list(self._drain())
+        self._ingest()
+        drained, more = super().drain_requests()
+        return drained, evs + more
+
     # ---------------------------------------------------------------- tiers
     def _capture_demotion(self, key: bytes, slices: List):
         """Defer the host read: hold the page's cloned device slices until

@@ -29,8 +29,9 @@ Tensor parallelism: the engine runs the model's device context
 engine, with the same host scheduler, on the same requests: its pools hold
 the rank's KV heads, the host state (tables, positions, page manager) is
 rank-global, and the model's all-reduces leave every rank the same logits,
-so every rank plans and samples alike. The DP half of the reference is
-not yet ported.
+so every rank plans and samples alike. Data parallelism runs one engine
+per replica behind ``serving.router.Router``, which moves requests off a
+scaled-down replica with :meth:`DuetEngine.drain_requests`.
 """
 from __future__ import annotations
 
@@ -344,6 +345,40 @@ class DuetEngine:
             self.free_slots.append(r.slot)
             r.slot = None
         self.state.waiting.insert(0, r)
+
+    def drain_requests(self):
+        """Evict every live request for re-dispatch elsewhere (elastic
+        scale-down): running/prefilling requests go through the
+        recompute-from-prompt preemption path (greedy decode regenerates
+        the identical suffix on the new replica), queued and pending ones
+        are withdrawn as-is. Drained requests leave this engine's
+        accounting entirely — the router re-submits them, so they must
+        count exactly once in the merged metrics.
+
+        Returns:
+            ``(requests, events)`` — the drained requests sorted by
+            ``(arrival, rid)``, plus any serving events flushed on the way
+            (always ``[]`` for the synchronous engine; the async override
+            retires its in-flight super-iteration first).
+        """
+        for r in list(self.state.running) + list(self.state.prefilling):
+            self._preempt(r)
+        drained = []
+        for r in list(self.state.waiting):
+            # waiting slot-holders may hold a prefix lock from admission
+            if r.slot is not None:
+                self.free_slots.append(r.slot)
+                r.slot = None
+            self.kv_mgr.free(r.rid)
+            r.prefilled = 0
+            drained.append(r)
+        self.state.waiting.clear()
+        drained.extend(self._pending)
+        self._pending.clear()
+        gone = {id(r) for r in drained}
+        self._all = [r for r in self._all if id(r) not in gone]
+        drained.sort(key=lambda r: (r.arrival, r.rid))
+        return drained, []
 
     def _ensure_pages(self, r: Request, new_tokens: int) -> bool:
         """Make room for a prefill chunk (including a potential CoW copy of

@@ -5,8 +5,12 @@ either package loads into the other.
 Keys: ``params/<path>`` for each weight (``layers/0/attn/w_q``),
 ``opt/.step``, ``opt/.mu/<path>`` and ``opt/.nu/<path>`` for the AdamW
 state (the names ``jax.tree_util`` gives a NamedTuple's fields), and
-``meta/step``. numpy has no bf16, so bf16 leaves are written as fp32; a
-load casts each array to its template leaf's dtype and device.
+``meta/step``. numpy has no bf16, so the port writes bf16 leaves as fp32;
+a load casts each array to its template leaf's dtype and device. The
+reference's loader does not cast: it returns such a leaf as fp32 even in
+a bf16 template. The reference writes bf16 leaves as ml_dtypes bf16
+arrays, which ``np.load`` returns as numpy void ``|V2``; the port reads
+those as bf16 bit patterns, so they load bit-exact.
 """
 from __future__ import annotations
 
@@ -62,8 +66,13 @@ def _restore(data, prefix: str, template):
         if tuple(arr.shape) != tuple(t.shape):
             raise ValueError(f"checkpoint {prefix}{_key(path)} has shape "
                              f"{arr.shape}, the template {tuple(t.shape)}")
-        out = torch.from_numpy(np.array(arr)).to(device=t.device,
-                                                 dtype=t.dtype)
+        arr = np.array(arr)
+        if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:
+            # the reference's bf16 leaf: its bit patterns
+            out = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+        else:
+            out = torch.from_numpy(arr)
+        out = out.to(device=t.device, dtype=t.dtype)
         return out.requires_grad_(t.requires_grad)
     return _map(load, template)
 

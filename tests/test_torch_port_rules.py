@@ -119,13 +119,73 @@ def test_entry_points_without_device_raise_without_cuda(no_cuda):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--tp", "2", "--dp", "2"], ["--dp", "2"], ["--elastic"],
-    ["--arrival", "mmpp"],
-    ["--service-mix", "mixture"], ["--rho", "0.5"],
+    ["--tp", "2", "--dp", "2"],
 ])
 def test_unported_flags_exit(flags):
     with pytest.raises(SystemExit, match="not yet ported"):
         serve.main(["--reduced", "--device", "cpu", *flags])
+
+
+# the serve CLI's data-parallel and load-generator flags on the CPU: 4
+# requests of the reduced config each; (flags, what the run must show:
+# "router" routed requests and the replicas' summaries, "scale" an up
+# and a down event, "prefix" cross-request prefix hits)
+ELASTIC_FLAGS = ["--elastic", "--scale-up-tokens", "40",
+                 "--scale-down-tokens", "30", "--scale-cooldown", "0.001",
+                 "--scale-interval", "0.001"]
+
+
+@pytest.fixture
+def one_thread():
+    """One torch thread for an in-process CLI run of the reduced model:
+    with the suite's parallel workers sharing the cores, torch's default
+    thread team per op slows it by an order of magnitude or more."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("flags,shows", [
+    (["--dp", "2"], {"router"}),
+    (["--dp", "2", "--router-policy", "prefix", "--shared-prefix-len", "32",
+      "--stream"], {"router", "prefix"}),
+    (ELASTIC_FLAGS + ["--stream"], {"router", "scale"}),
+    (["--arrival", "mmpp"], set()),
+    (["--service-mix", "mixture", "--stream"], set()),
+    (["--rho", "0.5", "--dp", "2", "--router-policy", "least-loaded"],
+     {"router"}),
+], ids=["dp", "prefix", "elastic", "mmpp", "mixture", "rho"])
+def test_dp_and_load_flags_serve_on_cpu(flags, shows, capsys, one_thread):
+    serve.main(["--reduced", "--device", "cpu", "--num-requests", "4",
+                "--max-len", "128", *flags])
+    out = capsys.readouterr().out
+    summary = json.loads(out[out.index("{\n"):])
+    events = [json.loads(ln) for ln in out[:out.index("{\n")].splitlines()]
+    assert summary["num_finished"] == summary["num_requests"] == 4
+    if "--stream" in flags:
+        finished = sorted(e["rid"] for e in events
+                          if e["event"] == "finish")
+        assert finished == [0, 1, 2, 3]
+    if "router" in shows:
+        router = summary["router"]
+        assert router["routed_requests"] >= 4
+        assert sum(router["dispatch_counts"]) == router["routed_requests"]
+        assert len(summary["per_replica"]) == summary["mesh"]["dp"] == 2
+        if "--stream" in flags:
+            assert sum(e["event"] == "router" for e in events) == \
+                router["routed_requests"]
+    else:
+        assert "router" not in summary and summary["mesh"]["dp"] == 1
+    if "scale" in shows:
+        scale = [(e["action"], e["replica"]) for e in events
+                 if e["event"] == "scale"]
+        assert ("up", 1) in scale and ("down", 1) in scale
+        elastic = summary["router"]["elastic"]
+        assert elastic["scale_ups"] >= 1 and elastic["scale_downs"] >= 1
+    if "prefix" in shows:
+        assert summary["prefix_cache"]["hit_tokens"] > 0
+        assert summary["router"]["prefix_routed_tokens"] > 0
 
 
 def test_kernel_wrappers_never_fall_back_off_the_cpu():

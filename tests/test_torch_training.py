@@ -380,6 +380,42 @@ def test_checkpoint_crosses_packages(writer, tmp_path):
     assert step == 4
 
 
+@pytest.mark.parametrize("writer", ["port", "jax"])
+def test_bf16_checkpoint_crosses_packages(writer, tmp_path):
+    """A bf16 weight tree (the serving dtype on the card) crosses too.
+    The reference writes bf16 leaves as ml_dtypes arrays, which ``np.load``
+    gives back as numpy void ``|V2``: the port reads their bit patterns, so
+    reference -> port is bit-exact. The port writes bf16 as fp32, and the
+    reference's loader, which does not cast, returns those fp32 leaves
+    (holding the bf16 values exactly) into its bf16 template."""
+    jcfg, tcfg = _jcfg_tcfg("qwen3-4b")
+    jparams = jax.tree.map(lambda x: x.astype(jnp.bfloat16),
+                           JModel(jcfg).init(jax.random.PRNGKey(5)))
+    fp32 = jax.tree.map(lambda x: np.asarray(x.astype(jnp.float32)),
+                        jparams)
+    want = dict(_leaves(fp32))
+    template = Model(tcfg, params_from_jax(tcfg, fp32)).to(
+        torch.bfloat16).param_tree()
+    params = dict(_leaves(template))
+    path = str(tmp_path / "ck.npz")
+    if writer == "port":
+        save_checkpoint(path, template, step=2)
+        assert np.load(path)["params/final_norm"].dtype == np.float32
+        p, _, step = jcheckpoint.load_checkpoint(path, jparams)
+        for path_, leaf in _leaves(jax.tree.map(np.asarray, p)):
+            assert leaf.dtype == np.float32
+            np.testing.assert_array_equal(leaf, want[path_])
+    else:
+        jcheckpoint.save_checkpoint(path, jparams, step=2)
+        assert np.load(path)["params/final_norm"].dtype == np.dtype("V2")
+        p, _, step = load_checkpoint(path, template)
+        for path_, t in _leaves(p):
+            assert t.dtype == torch.bfloat16
+            assert torch.equal(t.view(torch.int16),
+                               params[path_].view(torch.int16))
+    assert step == 2
+
+
 def test_checkpoint_round_trip_without_opt_state(tmp_path):
     cfg = reduced(get_config("qwen3-4b"))
     model = Model.init(cfg, seed=2, device="cpu")
