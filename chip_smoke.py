@@ -131,7 +131,28 @@ Phases (each raises on failure; nothing is swallowed):
              streams are equal, host_syncs <= super_iterations, a duet
              dispatch happened, and paged_decode_sharded launched, as
              often as the inner decode kernels; then one decode step is
-             profiled on rank 0 with the all-reduces it made.
+             profiled on rank 0 with the all-reduces it made. Every other
+             block kind and both frontends: (d) deepseek-v2-lite-16b (1
+             mla + 3 mla_moe), granite-moe-3b-a800m, xlstm-350m and
+             paligemma-3b cut to 4 layers, zamba2-1.2b to 12 (2
+             shared_attn), musicgen-medium to 4, full width, fp32, TF32
+             off: the TP 2 kernel path's logits (paged prefill and decode
+             for the text configs; the slab prefill with paligemma's 256
+             patch embeddings or musicgen's codebook grid, then a slab
+             decode step) against TP 1's (rank 0, after its TP model is
+             freed) within 1e-4 x max|logit|, both ranks bitwise equal,
+             each forward's all-reduces = collectives_per_iteration + 1.
+             (e) paged_decode_sharded at granite-moe's 12 / 4 and zamba2's
+             16 / 16 rank shards (Dh 64), as (a) at S = 1. (f) full
+             deepseek-v2-lite-16b and zamba2-1.2b (bf16, every layer)
+             serve 4 azure-conv requests (outputs cut to 32) through the
+             async engine on the paged path, the launch counts reset just
+             before and read just after: every request finishes, both
+             ranks' streams are equal, host_syncs <= super_iterations,
+             one decode step's all-reduces = collectives_per_iteration +
+             1, zamba2's kernel_path is cuda_sharded and it launches
+             paged_decode_sharded, deepseek (MLA: no kernel) launches
+             none; tokens/s and the peak memory a rank are printed.
 6. dp      — data parallelism: full qwen3-4b (36 layers, bf16, random
              weights from seed 0) as 2 replicas served from this one
              process on the one card (share_card: one weight tree, a
@@ -1912,6 +1933,16 @@ TP_PARITY_LAYERS = 4
 # the TP serve runs' outputs are cut to this many tokens: gloo's host
 # round trips on one card make a TP step about 4x a TP 1 step's wall
 TP_MAX_OUTPUT = 64
+# (d): every other block kind and both frontends at full width, the depth
+# cut to this many layers (zamba2's 12 hold its 2 shared_attn blocks)
+TP_BLOCK_LAYERS = {"deepseek-v2-lite-16b": 4, "granite-moe-3b-a800m": 4,
+                   "zamba2-1.2b": 12, "xlstm-350m": 4, "paligemma-3b": 4,
+                   "musicgen-medium": 4}
+# (e): the sharded decode at these configs' rank shards too
+TP_SHARD_CONFIGS = ("granite-moe-3b-a800m", "zamba2-1.2b")
+# (f): full width and depth at TP 2, 4 requests of at most 32 tokens
+TP_SERVED = ("deepseek-v2-lite-16b", "zamba2-1.2b")
+TP_SERVE_REQUESTS, TP_SERVE_MAX_OUTPUT = 4, 32
 
 
 def phase_tp():
@@ -1938,7 +1969,7 @@ def phase_tp():
     for r, res in enumerate(ranks):
         for rec in res["kernels"]:
             log(f"[tp] rank {r} {rec['name']} {rec['dtype']:15s} "
-                f"{rec['case']:34s} max_abs_err={rec['max_abs_err']:.3e} "
+                f"{rec['case']:56s} max_abs_err={rec['max_abs_err']:.3e} "
                 f"tol={rec['tol']:.0e}/{rec['rtol']:.0e}"
                 + ("" if "ms" not in rec else
                    f" ms={rec['ms']:.4f} cold_ms={rec['cold_ms']:.4f} "
@@ -1969,6 +2000,32 @@ def phase_tp():
     log(f"[tp] {r0['profile']}")
     for line in r0["profile_top"]:
         log(f"[tp]   {line}")
+    # (d) every other block kind and both frontends: TP 2 against TP 1
+    for name, n_layers in TP_BLOCK_LAYERS.items():
+        a, b = (res["blocks"][name] for res in ranks)
+        cfg = _cut(name, n_layers)
+        for what, want in a["tp1"].items():
+            if not np.array_equal(a["logits"][what], b["logits"][what]):
+                raise AssertionError(f"[tp] {name} {what}: the ranks' "
+                                     "logits differ")
+            _check_parity(f"{name} TP {TP} vs TP 1", n_layers, cfg,
+                          [(what + " (both ranks bitwise equal)",
+                            torch.from_numpy(a["logits"][what]),
+                            torch.from_numpy(want))])
+        log(f"[tp] {name} ({n_layers} layers): {a['line']}")
+    # (f) full width and depth
+    for name in TP_SERVED:
+        a, b = (res["served"][name] for res in ranks)
+        if a["streams"] != b["streams"]:
+            raise AssertionError(f"[tp] serve {name}: the ranks' token "
+                                 "streams differ")
+        log(f"[tp] serve {name}: rank 0 {a['line']}; rank 1 peak "
+            f"{b['peak_gb']:.2f} GB; both ranks' streams equal [{card}]")
+        log(f"[tp] {a['profile']}")
+        for line in a["profile_top"]:
+            log(f"[tp]   {line}")
+        for k, n in a["counts"].items():
+            r0["counts"][k] = r0["counts"].get(k, 0) + n
     main = next(rec for rec in r0["kernels"] if rec.get("main"))
     return main, r0["counts"]
 
@@ -1981,19 +2038,33 @@ def tp_rank(rank, card):
     res.update(tp_parity(rank))
     dist.barrier()
     res.update(tp_serve(rank))
+    dist.barrier()
+    res["blocks"] = {name: tp_block_parity(rank, name, n)
+                     for name, n in TP_BLOCK_LAYERS.items()}
+    dist.barrier()
+    res["served"] = {name: tp_block_serve(rank, name, card)
+                     for name in TP_SERVED}
     return res
 
 
 def tp_kernels(rank):
-    """paged_decode_sharded on this rank's qwen3-4b TP shard against the
-    plain paged decode over the full heads, sliced; rank 0 times each case
+    """paged_decode_sharded on this rank's TP shard of qwen3-4b (S = 1
+    and 8) and of each TP_SHARD_CONFIGS config (S = 1) against the plain
+    paged decode over the full heads, sliced; rank 0 times each case
     while the other ranks wait."""
+    records = tp_kernels_at(rank, "qwen3-4b", (1, 8))
+    for name in TP_SHARD_CONFIGS:
+        records += tp_kernels_at(rank, name, (1,))
+    return records
+
+
+def tp_kernels_at(rank, name, splits):
     import torch.distributed as dist
     from repro_torch.configs import get_config
     from repro_torch.kernels.ops import paged_decode_sharded
     from repro_torch.kernels.paged_decode import (paged_decode_plain,
                                                   paged_decode_splitkv_plain)
-    cfg = get_config("qwen3-4b")
+    cfg = get_config(name)
     ctx = rank.context(cfg)
     B, H, G, Dh, ps, P = 8, cfg.num_heads, cfg.num_kv_heads, \
         cfg.head_dim, 16, 128
@@ -2003,7 +2074,7 @@ def tp_kernels(rank):
     lens = np.linspace(256, 2048, B).astype(np.int64)
     records = []
     for dtype in (torch.bfloat16, torch.float32):
-        for S in (1, 8):
+        for S in splits:
             rng = np.random.default_rng(0)      # the same on every rank
             q, kp, vp, tables, ln = _decode_inputs(
                 rng, B, H, G, Dh, B * P + 1 + 64, ps, P, dtype, lens,
@@ -2020,11 +2091,12 @@ def tp_kernels(rank):
             else:
                 plain = lambda: paged_decode_splitkv_plain(  # noqa: E731
                     q, kp, vp, tables, ln, num_splits=S)
-            label = (f"TP {TP} rank {rank.rank}: B=8 {Hl}/{Gl}/{Dh} ctx "
-                     f"256-2048 S={S}")
+            label = (f"TP {TP} rank {rank.rank}: {name} B=8 {Hl}/{Gl}/{Dh}"
+                     f" ctx 256-2048 S={S}")
             rec = {"name": "paged_decode_sharded", "case": label,
                    "dtype": str(dtype),
-                   "main": S == 1 and dtype == torch.bfloat16}
+                   "main": (S == 1 and dtype == torch.bfloat16
+                            and name == "qwen3-4b")}
             got = kernel()
             torch.cuda.synchronize()
             _check("paged_decode_sharded", got, want, dtype, label, rec,
@@ -2228,7 +2300,7 @@ def tp_profile(rank, model, ctx):
     per_step = (ctx.all_reduces - before) // steps
     if rank.rank != 0:
         _profile(run, steps, trace=False)
-        return {}
+        return {"all_reduces_per_step": per_step}
     wall, events, _ = _profile(run, steps)
     dev = sum(e.self_device_time_total for e in events) / steps / 1e3
     launched = sum(e.count for e in events) // steps
@@ -2239,13 +2311,194 @@ def tp_profile(rank, model, ctx):
            f"{e.count // steps:5d} calls/step  {e.key[:70]}"
            for e in sorted(events,
                            key=lambda e: -e.self_device_time_total)[:8]]
-    return {"profile": (
+    return {"all_reduces_per_step": per_step, "profile": (
         f"{cfg.name} TP {TP} paged decode step on rank 0, "
         f"{cfg.num_layers} layers, B={B}, ctx 1000, bf16: wall {wall:.2f} "
         f"ms/step (host clock, no profiler); device time {busy}; "
         f"{per_step} all-reduces a step (collectives_per_iteration "
         f"{ctx.collectives_per_iteration()}, plus the vocab-parallel "
         "embedding's)"), "profile_top": top}
+
+
+def _tp_block_logits(model):
+    """The kernel path's logits of one config under ``model``'s context,
+    fp32 on the host. Text: a 200-token paged prefill and one paged decode
+    step (pools of the rank's KV heads, the rank's recurrent state).
+    Frontends: a slab prefill of FRONTEND_PROMPT positions (after
+    paligemma's 256 patch embeddings; musicgen's (1, 4, S) codebook grid)
+    and one slab decode step. Also the all-reduces of one prefill."""
+    from repro_torch.serving.kvcache import PagePoolConfig, init_page_pools
+    cfg, dev, ctx = model.cfg, model.device, model.ctx
+    rng = np.random.default_rng(5)
+    out = {}
+    with torch.no_grad():
+        if cfg.frontend is None:
+            ps, P, S = 16, 16, 200
+            toks = torch.tensor(rng.integers(0, cfg.vocab_size, (1, S)),
+                                device=dev)
+            tok = torch.tensor(rng.integers(0, cfg.vocab_size, (1, 1)),
+                               device=dev)
+            pools = init_page_pools(
+                cfg, PagePoolConfig(num_pages=P + 1, page_size=ps),
+                torch.float32, device=dev, kv_heads=ctx.local_kv_heads)
+            state = model.init_state_cache(1)
+            tbl = torch.arange(1, P + 1, dtype=torch.int32, device=dev)[None]
+            before = ctx.all_reduces
+            out["paged prefill"] = model.prefill_paged(
+                toks, pools, state, tbl, start_pos=0)[0]
+            reduces = ctx.all_reduces - before
+            out["paged decode"] = model.decode_step_paged(
+                pools, state, tok, torch.tensor([S], dtype=torch.int32,
+                                                device=dev), tbl)[0]
+        else:
+            S = FRONTEND_PROMPT
+            audio = cfg.frontend == "audio"
+            lead = (1, cfg.num_codebooks) if audio else (1,)
+            toks = torch.tensor(rng.integers(0, cfg.vocab_size, lead + (S,)),
+                                device=dev)
+            tok = torch.tensor(rng.integers(0, cfg.vocab_size, lead + (1,)),
+                               device=dev)
+            kw, P = {}, 0
+            if not audio:
+                P = cfg.num_prefix_tokens
+                kw["patch_embeds"] = torch.from_numpy(
+                    0.02 * rng.standard_normal((1, P, cfg.d_model),
+                                               np.float32)).to(dev)
+            cache = model.init_cache(1, -(-(P + S + 1) // 128) * 128)
+            before = ctx.all_reduces
+            out["slab prefill"] = model.prefill(toks, cache=cache, **kw)[0]
+            reduces = ctx.all_reduces - before
+            out["slab decode"] = model.decode_step(
+                cache, tok, torch.tensor([P + S], dtype=torch.int32,
+                                         device=dev))[0]
+    return {k: v.cpu().numpy() for k, v in out.items()}, reduces
+
+
+def tp_block_parity(rank, name, n_layers):
+    """(d) One config at full width cut to ``n_layers`` layers, fp32, TF32
+    off, at TP 2 (this rank) and, on rank 0 after the TP model is freed,
+    at TP 1 from the same draws while the other ranks wait."""
+    import torch.distributed as dist
+    from repro_torch.models import Model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.time()
+    cfg = _cut(name, n_layers)
+    ctx = rank.context(cfg)
+    model = Model.init(cfg, seed=0, dtype=torch.float32, ctx=ctx,
+                       attn_kernel=True)
+    logits, reduces = _tp_block_logits(model)
+    want = ctx.collectives_per_iteration() + 1
+    if reduces != want:
+        raise AssertionError(f"[tp] {name}: {reduces} all-reduces in a "
+                             f"prefill, collectives_per_iteration + 1 = "
+                             f"{want}")
+    cut = [a for a in ("heads", "kv_heads", "ffn", "experts", "moe_ffn",
+                       "ssm_inner", "ssm_heads", "vocab") if ctx.sharded(a)]
+    out = {"logits": logits, "line": (
+        f"{dict((k, cfg.block_pattern.count(k)) for k in dict.fromkeys(cfg.block_pattern))}"
+        f", axes cut {cut}, {reduces} all-reduces a prefill "
+        f"(collectives_per_iteration {want - 1} + the embedding's); "
+        f"TP 2 model, logits and TP 1 in {time.time() - t0:.1f} s")}
+    del model
+    torch.cuda.empty_cache()
+    if rank.rank == 0:
+        one = Model.init(cfg, seed=0, dtype=torch.float32, device="cuda",
+                         attn_kernel=True)
+        out["tp1"] = _tp_block_logits(one)[0]
+        del one
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def tp_block_serve(rank, name, card):
+    """(f) One config at full width and depth, bf16, kernels on, strict,
+    at TP 2: TP_SERVE_REQUESTS azure-conv requests (outputs cut to
+    TP_SERVE_MAX_OUTPUT) through the async engine on the paged path, the
+    launch counts reset just before and read just after; then one decode
+    step profiled on rank 0 (every rank runs it) with its all-reduces."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import Model
+    from repro_torch.serving import AsyncDuetEngine, EngineConfig
+    cfg = get_config(name)
+    ctx = rank.context(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    model = Model.init(cfg, seed=0, dtype=torch.bfloat16, ctx=ctx,
+                       attn_kernel=True)
+    torch.cuda.synchronize()
+    t_init = time.time() - t0
+    gb = sum(b.numel() * b.element_size() for b in model.buffers()) / 1e9
+    reqs = _requests("paged", TP_SERVE_REQUESTS, TP_SERVE_MAX_OUTPUT)
+    eng = AsyncDuetEngine(model, EngineConfig(max_slots=8, max_len=1024,
+                                              token_budget=256,
+                                              strict_kernel=True),
+                          seed=0, device=ctx.device)
+    # as the reference's engine, the path follows the kv_heads rule (MLA's
+    # too, though no kernel reads its whole latent pools)
+    want_path = "cuda_sharded" if ctx.sharded("kv_heads") else "cuda"
+    if eng.kernel_path != want_path:
+        raise AssertionError(f"[tp] {name}: kernel_path {eng.kernel_path}, "
+                             f"expected {want_path}")
+    eng.submit(reqs)
+    reset_launch_counts()        # this TP path's launches start here
+    torch.cuda.synchronize()
+    t0 = time.time()
+    metrics = eng.run()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = launch_counts()     # and end here
+    summ = metrics.summary()
+    n_tok = sum(len(r.output_tokens) for r in metrics.requests)
+    if summ["num_finished"] != len(reqs) or any(
+            len(r.output_tokens) != r.output_len for r in metrics.requests):
+        raise AssertionError(f"[tp] {name}: {summ['num_finished']}/"
+                             f"{len(reqs)} requests finished")
+    st = eng.dstats
+    if not 0 < st.host_syncs <= st.super_iterations:
+        raise AssertionError(f"[tp] {name}: host_syncs {st.host_syncs} > "
+                             f"super_iterations {st.super_iterations}")
+    launched = {k: n for k, n in counts.items() if n}
+    if cfg.kv_lora_rank:
+        if launched:
+            raise AssertionError(f"[tp] {name}: MLA runs no kernel, but "
+                                 f"{launched} launched")
+    else:
+        inner = sum(n for k, n in counts.items()
+                    if k.startswith("paged_decode")
+                    and k != "paged_decode_sharded")
+        if not 0 < counts["paged_decode_sharded"] == inner:
+            raise AssertionError(f"[tp] {name}: paged_decode_sharded "
+                                 f"launched {counts['paged_decode_sharded']}"
+                                 f" times, the inner decode kernels {inner}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    path = eng.kernel_path
+    del eng
+    # one profiled decode step (8 slots at 1000 tokens of context) and its
+    # all-reduces
+    prof = tp_profile(rank, model, ctx)
+    per_step = prof["all_reduces_per_step"]
+    want = ctx.collectives_per_iteration() + 1
+    if per_step != want:
+        raise AssertionError(f"[tp] {name}: {per_step} all-reduces a decode"
+                             f" step, collectives_per_iteration + 1 = "
+                             f"{want}")
+    line = (f"{cfg.num_layers} layers, bf16, {gb:.2f} GB of weights a rank "
+            f"(drawn in {t_init:.1f} s), {len(reqs)} requests, {n_tok} "
+            f"tokens in {wall:.2f} s wall = {n_tok / wall:.1f} tokens/s at "
+            f"TP {TP} over gloo on one card; kernel_path {path};"
+            f" {per_step} all-reduces a decode step (collectives_per_"
+            f"iteration {want - 1} + the embedding's); super_iterations "
+            f"{st.super_iterations}, host_syncs {st.host_syncs}; launches "
+            f"{launched or 'none'}; peak allocated {peak:.2f} GB over the "
+            "weights and the run")
+    out = {"line": line, "peak_gb": peak, "counts": counts, "streams": {
+        r.rid: list(r.output_tokens) for r in metrics.requests}, **prof}
+    del model
+    torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------

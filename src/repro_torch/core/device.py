@@ -21,6 +21,17 @@ host <-> device copies of the engines, and the tensor-parallel context.
   card 0 for every replica only with ``share_card``, or the CPU). DP over
   TP groups is not yet ported.
 
+  What a rank holds follows the reference's axis rules
+  (``models.params.axis_rules``): the vocab always shards (embedding,
+  logits, the audio codebook tables and heads); GQA and MLA heads shard
+  when the query heads (and GQA's KV heads) divide the axis; dense and
+  shared-expert FFNs on ``ffn``; the MoE on ``experts`` when the expert
+  count divides, else on each expert's ``moe_ffn`` columns (routing stays
+  global either way); Mamba2 on ``ssm_inner`` / ``ssm_heads`` (its B/C
+  projections and conv weights stay whole); the mLSTM and sLSTM blocks
+  stay whole. A sharded block ends in one all-reduce, a whole one in none;
+  :meth:`DeviceContext.collectives_per_iteration` counts them.
+
 * :func:`resolve_device` — ``None`` means the card. Without CUDA that is an
   error, never a quiet move to the CPU; the CPU runs only when asked for.
 * :func:`to_device` — host numpy to the device without a host sync (pinned
@@ -117,6 +128,27 @@ class DeviceContext:
         shard, all of them where attention stays whole on every rank."""
         return self.cfg.num_kv_heads // (self.tp if self.sharded("kv_heads")
                                          else 1)
+
+    @property
+    def local_ssm_heads(self) -> int:
+        """Mamba2 heads a rank runs (and holds SSM state for)."""
+        return self.cfg.ssm_heads // (self.tp if self.sharded("ssm_heads")
+                                      else 1)
+
+    @property
+    def local_d_inner(self) -> int:
+        """Mamba2 inner channels a rank holds (its x, z and gate-norm
+        width; the conv adds the whole 2 * ssm_state B/C channels)."""
+        return self.cfg.d_inner // (self.tp if self.sharded("ssm_inner")
+                                    else 1)
+
+    @property
+    def local_experts(self) -> int:
+        """MoE experts a rank holds: its contiguous share where the expert
+        axis shards, all of them otherwise (routing is global either
+        way)."""
+        return self.cfg.num_experts // (self.tp if self.sharded("experts")
+                                        else 1)
 
     # ------------------------------------------------------------ placement
     def place_params(self, tree: dict) -> dict:

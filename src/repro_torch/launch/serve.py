@@ -3,11 +3,12 @@
 One process drives one replica on one device — the CUDA card by default,
 the CPU with ``--device cpu`` — or, with ``--tp N``, N processes (one a
 tensor-parallel rank, ``launch/mesh.py``) drive one replica together:
-each holds its slices of the weights and KV heads, every rank runs the
-same engine on the same requests, rank 0 prints, and the run fails unless
-every rank produced the same token streams. The ranks talk over gloo on
-the CPU, over nccl with a card a rank, and over gloo with ``--share-card``,
-which puts every rank on card 0.
+each holds its slices of the weights, KV heads and recurrent state (every
+block kind and both frontends shard, as the reference's axis rules say),
+every rank runs the same engine on the same requests, rank 0 prints, and
+the run fails unless every rank produced the same token streams. The
+ranks talk over gloo on the CPU, over nccl with a card a rank, and over
+gloo with ``--share-card``, which puts every rank on card 0.
 
 ``--dp N`` serves N real engine replicas behind the cluster router
 (``serving/router.py``) from this one process: requests are dispatched
@@ -43,6 +44,8 @@ Usage:
       --device cpu --no-paged --stream --num-requests 4
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced \\
       --device cpu --tp 2 --num-requests 4 --attn-kernel
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch \\
+      deepseek-v2-lite-16b --reduced --device cpu --tp 2 --num-requests 4
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced \\
       --device cpu --dp 2 --router-policy prefix --shared-prefix-len 32 \\
       --num-requests 8
@@ -120,8 +123,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "splitting)")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--tp", type=int, default=1,
-                    help="tensor-parallel degree: one process a rank (dense "
-                         "GQA configs)")
+                    help="tensor-parallel degree: one process a rank, "
+                         "every arch the engines serve (not with --dp or "
+                         "--elastic)")
     ap.add_argument("--share-card", action="store_true",
                     help="--tp > 1 on CUDA: every rank on card 0, over "
                          "gloo (its collectives copy through host memory); "

@@ -29,7 +29,11 @@ hold (H and G come from the weights' shapes), so under TP a rank computes
 its head shard against its KV-head shard of the cache or pool, and the
 out-projection's partial sums are added over the ranks (``ctx``, a
 ``DeviceContext``; None on one device) when the ``heads`` axis is sharded.
-Softmax is per head, so no other step crosses ranks.
+Softmax is per head, so no other step crosses ranks. The MLA functions
+run the same way on the rank's heads of ``w_q``, ``w_uk`` and ``w_uv`` and
+its rows of the flat ``w_o``: the latent down-projection, its norm and the
+rope key stay whole, so every rank writes the same latents into its own
+whole latent pool (the reference replicates MLA's pools).
 
 Caches and page pools are updated IN PLACE (the reference is functional):
 each function writes the new K/V into the tensors it is given and returns
@@ -537,16 +541,17 @@ def _mla_expand_attend(params, cfg: ArchConfig, x, q_nope, q_rope, ckv,
 
 
 def mla_prefill(params, cfg: ArchConfig, x: torch.Tensor,
-                positions: torch.Tensor):
+                positions: torch.Tensor, *, ctx=None):
     """Full-sequence MLA. Returns (out, MLACache of the new latents)."""
     q_nope, q_rope, ckv, krope = _mla_qkv_prefill(params, cfg, x, positions)
     out = _mla_expand_attend(params, cfg, x, q_nope, q_rope, ckv, krope,
                              positions)
-    return out, MLACache(ckv=ckv, krope=krope)
+    return _reduce_heads(out, ctx), MLACache(ckv=ckv, krope=krope)
 
 
 def mla_prefill_cached(params, cfg: ArchConfig, x: torch.Tensor,
-                       positions: torch.Tensor, cache: MLACache):
+                       positions: torch.Tensor, cache: MLACache, *,
+                       ctx=None):
     """Chunked MLA prefill: write the chunk's latents into the slab (in
     place), then attend the chunk's queries over the slab."""
     B = x.shape[0]
@@ -559,7 +564,7 @@ def mla_prefill_cached(params, cfg: ArchConfig, x: torch.Tensor,
     out = _mla_expand_attend(params, cfg, x, q_nope, q_rope,
                              cache.ckv.to(x.dtype), cache.krope.to(x.dtype),
                              positions)
-    return out, cache
+    return _reduce_heads(out, ctx), cache
 
 
 def _mla_decode_core(params, cfg: ArchConfig, x, q_nope, q_rope, ckv,
@@ -578,8 +583,8 @@ def _mla_decode_core(params, cfg: ArchConfig, x, q_nope, q_rope, ckv,
         scores = (torch.einsum("bshr,btr->bhst", q_lat.float(), ckv.float())
                   + rope_scores) * scale
         probs = _softmax(scores, valid)
-        ctx = torch.einsum("bhst,btr->bshr", probs, ckv.float())
-        out = torch.einsum("bshr,rhe->bshe", ctx.to(x.dtype),
+        lat = torch.einsum("bhst,btr->bshr", probs, ckv.float())
+        out = torch.einsum("bshr,rhe->bshe", lat.to(x.dtype),
                            params["w_uv"])
     else:
         k_nope = torch.einsum("btr,rhe->bthe", ckv, params["w_uk"])
@@ -594,7 +599,7 @@ def _mla_decode_core(params, cfg: ArchConfig, x, q_nope, q_rope, ckv,
 
 def mla_decode(params, cfg: ArchConfig, x: torch.Tensor, cache: MLACache,
                pos: torch.Tensor, *, absorb: bool = False,
-               active_mask: Optional[torch.Tensor] = None):
+               active_mask: Optional[torch.Tensor] = None, ctx=None):
     """One-token MLA decode against the slab latents. x (B,1,D); pos (B,).
     The new latent is written at ``pos`` in place, except for rows off
     ``active_mask`` (see :func:`_slab_write`)."""
@@ -617,13 +622,13 @@ def mla_decode(params, cfg: ArchConfig, x: torch.Tensor, cache: MLACache,
     out = _mla_decode_core(params, cfg, x, q_nope, q_rope,
                            cache.ckv.to(x.dtype), cache.krope.to(x.dtype),
                            valid, absorb)
-    return out, cache
+    return _reduce_heads(out, ctx), cache
 
 
 def mla_decode_paged(params, cfg: ArchConfig, x: torch.Tensor,
                      ckv_pages: torch.Tensor, krope_pages: torch.Tensor,
                      table: torch.Tensor, pos: torch.Tensor, *,
-                     absorb: bool = False):
+                     absorb: bool = False, ctx=None):
     """One-token MLA decode against the paged latent pools
     (ckv_pages (N,ps,r), krope_pages (N,ps,rope)), written in place."""
     q_nope, q_rope, ckv_new, krope_new = _mla_qkv_prefill(
@@ -637,12 +642,13 @@ def mla_decode_paged(params, cfg: ArchConfig, x: torch.Tensor,
              <= pos.long()[:, None])[:, None, None, :]
     out = _mla_decode_core(params, cfg, x, q_nope, q_rope, ckv, krope,
                            valid, absorb)
-    return out, (ckv_pages, krope_pages)
+    return _reduce_heads(out, ctx), (ckv_pages, krope_pages)
 
 
 def mla_prefill_paged(params, cfg: ArchConfig, x: torch.Tensor,
                       positions: torch.Tensor, ckv_pages: torch.Tensor,
-                      krope_pages: torch.Tensor, table: torch.Tensor):
+                      krope_pages: torch.Tensor, table: torch.Tensor, *,
+                      ctx=None):
     """Chunked MLA prefill against the paged latent pools: write the
     chunk's latents into the request's pages, attend over the gathered
     table. x (B,L,D); positions (B,L) absolute."""
@@ -654,4 +660,4 @@ def mla_prefill_paged(params, cfg: ArchConfig, x: torch.Tensor,
     krope = _paged_gather(krope_pages, table).to(x.dtype)
     out = _mla_expand_attend(params, cfg, x, q_nope, q_rope, ckv, krope,
                              positions.long())
-    return out, (ckv_pages, krope_pages)
+    return _reduce_heads(out, ctx), (ckv_pages, krope_pages)

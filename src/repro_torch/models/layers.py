@@ -100,31 +100,49 @@ def _vocab_shard(ctx, rows: int) -> int:
     return ctx.rank * rows
 
 
-def embed(params, tokens: torch.Tensor, ctx=None) -> torch.Tensor:
-    """Embedding rows of ``tokens``. Vocab-parallel with a sharded vocab:
-    each rank gathers the rows of its shard (zeros for the others) and
-    the ranks' rows are summed, which is exact (a row plus zeros)."""
-    table = params["embedding"]
+def _vocab_rows(table: torch.Tensor, tokens: torch.Tensor,
+                ctx=None) -> torch.Tensor:
+    """Rows of ``table`` (V or the rank's V/tp rows, D) at ``tokens``; with
+    a sharded vocab the rows of other ranks' shards are zeros."""
     if ctx is None or not ctx.sharded("vocab"):
         return table[tokens.long()]
     Vl = table.shape[0]
     local = tokens.long() - _vocab_shard(ctx, Vl)
     hit = (local >= 0) & (local < Vl)
     rows = table[local.clamp(0, Vl - 1)]
-    return ctx.all_reduce(torch.where(hit[..., None], rows,
-                                      torch.zeros_like(rows)))
+    return torch.where(hit[..., None], rows, torch.zeros_like(rows))
 
 
-def unembed(params, x: torch.Tensor, true_vocab: int,
-            ctx=None) -> torch.Tensor:
-    """Project to (padded) vocab logits; pad columns are masked to the
-    dtype's minimum. With a sharded vocab each rank computes its logit
-    columns (tied embeddings: from its embedding rows), masks pad columns
-    by their global index, and the full width is summed over the ranks
-    from zeroed buffers, so every rank holds the same bits."""
-    w = params["w_out"] if "w_out" in params else params["embedding"]
-    logits = x @ w.T
-    sharded = ctx is not None and ctx.sharded("vocab")
+def _reduce_vocab(ctx) -> bool:
+    return ctx is not None and ctx.sharded("vocab")
+
+
+def embed(params, tokens: torch.Tensor, ctx=None) -> torch.Tensor:
+    """Embedding rows of ``tokens``. Vocab-parallel with a sharded vocab:
+    each rank gathers the rows of its shard (zeros for the others) and
+    the ranks' rows are summed, which is exact (a row plus zeros)."""
+    rows = _vocab_rows(params["embedding"], tokens, ctx)
+    return ctx.all_reduce(rows) if _reduce_vocab(ctx) else rows
+
+
+def embed_codebooks(table: torch.Tensor, tokens: torch.Tensor,
+                    ctx=None) -> torch.Tensor:
+    """The audio frontend's embedding: ``tokens`` (B, K, S), the K
+    codebooks' rows of ``table`` (K, V, D) summed. Vocab-parallel, each
+    rank sums its K partial rows and one all-reduce sums the ranks'."""
+    tokens = tokens.long()
+    x = sum(_vocab_rows(table[k], tokens[:, k], ctx)
+            for k in range(table.shape[0]))
+    return ctx.all_reduce(x) if _reduce_vocab(ctx) else x
+
+
+def _vocab_logits(logits: torch.Tensor, true_vocab: int,
+                  ctx=None) -> torch.Tensor:
+    """The full-width logits from this rank's columns (the last dim): pad
+    columns masked to the dtype's minimum by their global index; with a
+    sharded vocab the columns are placed in a zeroed full-width buffer
+    and summed over the ranks, so every rank holds the same bits."""
+    sharded = _reduce_vocab(ctx)
     Vl = logits.shape[-1]
     lo = _vocab_shard(ctx, Vl) if sharded else 0
     cols = lo + torch.arange(Vl, device=logits.device)
@@ -136,6 +154,25 @@ def unembed(params, x: torch.Tensor, true_vocab: int,
     full = logits.new_zeros(logits.shape[:-1] + (Vl * ctx.tp,))
     full[..., lo:lo + Vl] = logits
     return ctx.all_reduce(full)
+
+
+def unembed(params, x: torch.Tensor, true_vocab: int,
+            ctx=None) -> torch.Tensor:
+    """Project to (padded) vocab logits; pad columns are masked to the
+    dtype's minimum. With a sharded vocab each rank computes its logit
+    columns (tied embeddings: from its embedding rows) and one all-reduce
+    gives every rank the full width (:func:`_vocab_logits`)."""
+    w = params["w_out"] if "w_out" in params else params["embedding"]
+    return _vocab_logits(x @ w.T, true_vocab, ctx)
+
+
+def unembed_codebooks(w_heads: torch.Tensor, x: torch.Tensor,
+                      true_vocab: int, ctx=None) -> torch.Tensor:
+    """The audio frontend's K heads ``w_heads`` (K, V, D): x (B, S, D) ->
+    (B, S, K, V) logits, the K heads' columns filling one buffer, so a
+    sharded vocab takes one all-reduce."""
+    return _vocab_logits(torch.einsum("bsd,kvd->bskv", x, w_heads),
+                         true_vocab, ctx)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

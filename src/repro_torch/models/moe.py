@@ -17,6 +17,15 @@ give the same kept and dropped choices and the same gates.
 Routing is not row-local: a token's capacity and rank depend on every row
 of its group, so a caller must route the same rows in the same order as
 the reference does (a decode step's every slot, a prefill chunk's rows).
+
+Tensor parallelism (``ctx``): the router stays whole, so every rank
+routes every token over all E experts with the global capacity and makes
+the same choices and drops as one device. Cut on ``experts``, a rank
+holds a contiguous E/tp of them and runs only the choices that landed
+there (the others add zero); cut on ``moe_ffn``, it runs every expert on
+its share of F. Either way its output is a partial sum; a shared expert
+cut on ``ffn`` joins it, and the MoE's one all-reduce sums them. A
+shared expert that stays whole is added after that all-reduce.
 """
 from __future__ import annotations
 
@@ -83,16 +92,20 @@ def route_indices(router_logits: torch.Tensor, top_k: int, capacity: int):
     return gate_vals, sid, keep
 
 
-def moe_ffn(params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+def moe_ffn(params, cfg: ArchConfig, x: torch.Tensor,
+            ctx=None) -> torch.Tensor:
     """x (B, S, D) -> (B, S, D). params: router (D, E), experts
     w_gate/w_up (E, D, F) and w_down (E, F, D), optional shared expert MLP
     (run over every token). The B·S rows are routed in groups of
     ``MOE_GROUP_SIZE`` in row order; padded experts (past
-    ``num_experts_routed``) are never chosen."""
+    ``num_experts_routed``) are never chosen. Under a TP ``ctx`` the
+    expert weights are the rank's (module docstring); the widths come from
+    their shapes."""
     B, S, D = x.shape
     T = B * S
     xf = x.reshape(T, D)
     E, k = cfg.num_experts, cfg.moe_top_k
+    El, Fl = params["w_gate"].shape[0], params["w_gate"].shape[2]
 
     Tg = min(MOE_GROUP_SIZE, T)
     pad = (-T) % Tg
@@ -107,26 +120,43 @@ def moe_ffn(params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
         pad_mask = torch.arange(E, device=x.device) >= cfg.num_experts_routed
         logits = logits.masked_fill(pad_mask, -1e30)
     gate_vals, sid, keep = route_indices(logits, k, C)       # (G, Tg, k)
+    if El < E:
+        # the rank's experts [lo, lo + El): only their choices land in its
+        # (El, C) slots; the rest are dropped here and kept by their rank
+        lo = ctx.rank * El * C
+        keep = keep & (sid >= lo) & (sid < lo + El * C)
+        sid = (sid - lo).clamp(0, El * C - 1)
 
     # dispatch: each kept choice lands alone in its (expert, rank) slot;
     # dropped choices add zeros into a slot they share
-    flat_sid = (sid + (torch.arange(G, device=x.device) * (E * C))[:, None,
-                                                                 None])
+    flat_sid = (sid + (torch.arange(G, device=x.device) * (El * C))[:, None,
+                                                                  None])
     src = (xg[:, :, None, :] * keep[..., None].to(xg.dtype)).reshape(-1, D)
-    expert_in = xg.new_zeros((G * E * C, D)).index_add_(
+    expert_in = xg.new_zeros((G * El * C, D)).index_add_(
         0, flat_sid.reshape(-1), src)
     # (G, E, C, D) -> (E, G*C, D): one batched matmul per weight
-    xin = expert_in.reshape(G, E, C, D).transpose(0, 1).reshape(E, G * C, D)
+    xin = expert_in.reshape(G, El, C, D).transpose(0, 1) \
+        .reshape(El, G * C, D)
     act = activation_fn(cfg.activation)
     h = act(torch.bmm(xin, params["w_gate"])) * torch.bmm(xin, params["w_up"])
     out = torch.bmm(h, params["w_down"])                     # (E, G*C, D)
-    out = out.reshape(E, G, C, D).transpose(0, 1).reshape(G * E * C, D)
+    out = out.reshape(El, G, C, D).transpose(0, 1).reshape(G * El * C, D)
     gathered = out.index_select(0, flat_sid.reshape(-1)).reshape(G, Tg, k, D)
     w = (gate_vals * keep).to(xg.dtype)
     y = torch.einsum("gtk,gtkd->gtd", w, gathered).reshape(-1, D)[:T]
 
+    cut = El < E or Fl < cfg.moe_d_ff        # y is the rank's partial sum
+    shared = None
     if "shared" in params:
-        y = y + gated_mlp(params["shared"], xf, cfg.activation)
+        if cut and ctx.sharded("ffn"):
+            # both partial: the one all-reduce below sums them together
+            y = y + gated_mlp(params["shared"], xf, cfg.activation)
+        else:
+            shared = gated_mlp(params["shared"], xf, cfg.activation, ctx)
+    if cut:
+        y = ctx.all_reduce(y)
+    if shared is not None:
+        y = y + shared
     return y.reshape(B, S, D)
 
 

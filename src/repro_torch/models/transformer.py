@@ -52,11 +52,18 @@ page pools and recurrent state are updated in place.
 
 Tensor parallelism (``ctx``, a ``DeviceContext`` with tp > 1): the model
 holds the rank's slices of the weights (``ctx.place_params``, or
-``Model.init`` with the context) and sizes its caches by the rank's KV
-heads; the embedding and the logits are vocab-parallel and the attention
-and MLP outputs are summed over the ranks (``models/layers.py``,
-``models/attention.py``), so every rank computes the same logits. It
-serves dense GQA blocks (``attn``) only.
+``Model.init`` with the context), cut as the reference's axis rules say,
+and sizes its caches at the rank's widths. The embedding and the logits
+are vocab-parallel (the audio frontend's K tables and heads too, one
+all-reduce each); GQA and MLA blocks run the rank's heads (MLA's latent
+stays whole, so every rank writes the same latents); dense FFNs and
+shared experts their ``ffn`` columns; the MoE routes every token
+globally and runs the rank's experts (or each expert's ``moe_ffn``
+columns); Mamba2 its heads' share of the inner width, with the whole B/C
+channels; mLSTM and sLSTM blocks stay whole. Each sharded block ends in
+one all-reduce and a whole one in none, so every rank computes the same
+logits (``models/layers.py``, ``models/attention.py``, ``models/moe.py``,
+``models/ssm.py``).
 """
 from __future__ import annotations
 
@@ -72,8 +79,9 @@ from repro_torch.core.device import (DeviceContext, DeviceLike,
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import xlstm as xlstm_mod
-from repro_torch.models.layers import (cross_entropy, embed, gated_mlp,
-                                      rms_norm, unembed)
+from repro_torch.models.layers import (cross_entropy, embed,
+                                      embed_codebooks, gated_mlp, rms_norm,
+                                      unembed, unembed_codebooks)
 from repro_torch.models.moe import moe_ffn
 from repro_torch.models.params import (_leaves, _mlstm_inner, _shard_leaf,
                                        init_params, layout, param_specs,
@@ -141,18 +149,7 @@ class ParamTree(nn.Module):
 
 
 def _check_tp(cfg: ArchConfig, params: dict, ctx: DeviceContext):
-    """Refuse what tensor parallelism does not serve yet, and a tree that is
-    not this rank's slices."""
-    if cfg.frontend is not None:
-        raise NotImplementedError(
-            f"tensor parallelism for the {cfg.frontend} frontend is not yet "
-            "ported (ROADMAP.md Queue 1 item 1); serve it at tp=1")
-    other = sorted(set(cfg.block_pattern) - {"attn"})
-    if other:
-        raise NotImplementedError(
-            f"tensor parallelism for {cfg.name}'s {other} blocks is not yet "
-            "ported (only dense GQA 'attn' blocks; ROADMAP.md Queue 1 item "
-            "1); serve it at tp=1")
+    """Refuse a tree that is not this rank's slices."""
     specs = dict(_leaves(param_specs(cfg, ctx.tp)))
     have = dict(_leaves(params))
     for path, d in _leaves(layout(cfg)):
@@ -181,6 +178,15 @@ class Model(nn.Module):
             _check_tp(cfg, params, ctx)
         self.ctx = ctx
         self.params = ParamTree(params)
+        # a Mamba2 layer's conv over the rank's channels (its x channels and
+        # the whole B/C ones), cut once here from the whole conv weights;
+        # layer index -> (conv_w, conv_b)
+        self._rank_conv = {}
+        if ctx.sharded("ssm_inner"):
+            for i, (p, kind) in enumerate(self._layers()):
+                if kind == "mamba2":
+                    self._rank_conv[i] = ssm_mod.rank_conv(
+                        p["mamba"], ctx.local_d_inner, ctx.rank)
         # MLA decode: fold the latent up-projections into the query and
         # the output instead of expanding every cached latent each step
         self.mla_absorb = mla_absorb
@@ -238,10 +244,8 @@ class Model(nn.Module):
         go before the text embeddings and ``prefix_len`` is P."""
         cfg = self.cfg
         if cfg.frontend == "audio":
-            table = self.params["codebook_embeddings"]
-            tokens = tokens.long()
-            x = sum(table[k][tokens[:, k]] for k in range(cfg.num_codebooks))
-            return x, 0
+            return embed_codebooks(self.params["codebook_embeddings"],
+                                   tokens, self.ctx), 0
         x = embed(self.params, tokens, self.ctx)
         if patch_embeds is None:
             return x, 0
@@ -253,7 +257,8 @@ class Model(nn.Module):
         embeddings have no w_out in the layout, so unembed reads the
         embedding table."""
         if self.cfg.frontend == "audio":
-            return torch.einsum("bsd,kvd->bskv", x, self.params["w_heads"])
+            return unembed_codebooks(self.params["w_heads"], x,
+                                     self.cfg.vocab_size, self.ctx)
         return unembed(self.params, x, self.cfg.vocab_size, self.ctx)
 
     def _text_only(self):
@@ -266,7 +271,7 @@ class Model(nn.Module):
         routes all of ``x``'s rows together, in row order."""
         h = rms_norm(x, p["mlp_norm"], self.cfg.norm_eps)
         if kind in ("attn_moe", "mla_moe"):
-            return x + moe_ffn(p["moe"], self.cfg, h)
+            return x + moe_ffn(p["moe"], self.cfg, h, self.ctx)
         return x + gated_mlp(p["mlp"], h, self.cfg.activation, self.ctx)
 
     def _block_params(self, i: int):
@@ -281,13 +286,18 @@ class Model(nn.Module):
         """(layer params, block kind) of every layer."""
         return (self._block_params(i) for i in range(self.cfg.num_layers))
 
-    def _recurrent(self, p, kind, x, cache_in, *, decode: bool):
-        """One recurrent block (pre-norm, residual). Returns (x, the
-        layer's new state)."""
+    def _recurrent(self, i, x, cache_in, *, decode: bool):
+        """Layer ``i``, a recurrent block (pre-norm, residual). Returns (x,
+        the layer's new state). A Mamba2 block takes the rank's conv and
+        the context; the xLSTM blocks stay whole and make no
+        collective."""
+        p, kind = self._block_params(i)
         key, prefill, step = RECURRENT[kind]
+        kw = ({"conv": self._rank_conv.get(i), "ctx": self.ctx}
+              if kind == "mamba2" else {})
         h = rms_norm(x, p["norm"], self.cfg.norm_eps)
         out, new = (step if decode else prefill)(p[key], self.cfg, h,
-                                                 cache_in)
+                                                 cache_in, **kw)
         return x + out, new
 
     def _run_block_prefill(self, i, x, positions, cache_in, *,
@@ -300,15 +310,16 @@ class Model(nn.Module):
         cfg = self.cfg
         p, kind = self._block_params(i)
         if kind in RECURRENT:
-            return self._recurrent(p, kind, x, cache_in, decode=False)
+            return self._recurrent(i, x, cache_in, decode=False)
         h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
         if kind in MLA_KINDS:
             if cache_in is not None:
                 out, new_cache = attn_mod.mla_prefill_cached(
-                    p["attn"], cfg, h, positions, cache_in)
+                    p["attn"], cfg, h, positions, cache_in, ctx=self.ctx)
             else:
                 out, new_cache = attn_mod.mla_prefill(p["attn"], cfg, h,
-                                                      positions)
+                                                      positions,
+                                                      ctx=self.ctx)
         elif cache_in is not None:
             out, new_cache = attn_mod.gqa_prefill_cached(
                 p["attn"], cfg, h, positions, cache_in, window=window,
@@ -428,14 +439,15 @@ class Model(nn.Module):
         x, _ = self._embed(token)
         for i, (p, kind) in enumerate(self._layers()):
             if kind in RECURRENT:
-                x, new = self._recurrent(p, kind, x, cache[i], decode=True)
+                x, new = self._recurrent(i, x, cache[i], decode=True)
                 write_state(cache[i], new, active_mask)
                 continue
             h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
             if kind in MLA_KINDS:
                 out, cache[i] = attn_mod.mla_decode(
                     p["attn"], cfg, h, cache[i], pos,
-                    absorb=self.mla_absorb, active_mask=active_mask)
+                    absorb=self.mla_absorb, active_mask=active_mask,
+                    ctx=self.ctx)
             elif self.attn_kernel and not sliding:
                 out, cache[i] = attn_mod.gqa_decode_kernel(
                     p["attn"], cfg, h, cache[i], pos,
@@ -472,13 +484,14 @@ class Model(nn.Module):
             .expand(B, S)
         for i, (p, kind) in enumerate(self._layers()):
             if kind in RECURRENT:
-                x, new = self._recurrent(p, kind, x, state[i], decode=False)
+                x, new = self._recurrent(i, x, state[i], decode=False)
                 write_state(state[i], new)
                 continue
             h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
             if kind in MLA_KINDS:
                 out, pools[i] = attn_mod.mla_prefill_paged(
-                    p["attn"], cfg, h, positions, *pools[i], tables)
+                    p["attn"], cfg, h, positions, *pools[i], tables,
+                    ctx=self.ctx)
             else:
                 out, pools[i] = attn_mod.gqa_prefill_paged(
                     p["attn"], cfg, h, positions, *pools[i], tables,
@@ -500,14 +513,14 @@ class Model(nn.Module):
         x, _ = self._embed(token)
         for i, (p, kind) in enumerate(self._layers()):
             if kind in RECURRENT:
-                x, new = self._recurrent(p, kind, x, state[i], decode=True)
+                x, new = self._recurrent(i, x, state[i], decode=True)
                 write_state(state[i], new, active_mask)
                 continue
             h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
             if kind in MLA_KINDS:
                 out, pools[i] = attn_mod.mla_decode_paged(
                     p["attn"], cfg, h, *pools[i], tables, pos,
-                    absorb=self.mla_absorb)
+                    absorb=self.mla_absorb, ctx=self.ctx)
             else:
                 out, pools[i] = attn_mod.gqa_decode_paged(
                     p["attn"], cfg, h, *pools[i], tables, pos,
@@ -559,36 +572,39 @@ class Model(nn.Module):
                    dtype: Optional[torch.dtype] = None, *,
                    sliding: bool = False) -> list:
         """Zeroed slab cache on the model's device: one AttnCache
-        (batch, S, G, Dh) per GQA layer (G: the rank's KV heads), S = max_len (min(max_len,
+        (batch, S, G, Dh) per GQA layer, S = max_len (min(max_len,
         sliding_window) with ``sliding``), one MLACache (batch, max_len,
         r | rope) per MLA layer, and one recurrent state per recurrent
-        layer (its conv tail in ``dtype``, the rest fp32). ``dtype``
-        defaults to the model's."""
+        layer (its conv tail in ``dtype``, the rest fp32), all at the
+        rank's widths (G its KV heads, Mamba2 its heads and inner
+        channels). ``dtype`` defaults to the model's."""
         return _build_cache(self.cfg, batch, max_len,
                             dtype or self.dtype, sliding, self.device,
-                            kv_heads=self.ctx.local_kv_heads)
+                            ctx=self.ctx)
 
     def init_state_cache(self, batch: int) -> list:
         """Per-slot cache for paged serving: attention entries are None
         (their KV lives in the page pools); recurrent layers keep their
         O(1) per-slot state, zeroed, as ``init_cache`` builds it."""
         return _build_cache(self.cfg, batch, 1, self.dtype, False,
-                            self.device, attention=False,
-                            kv_heads=self.ctx.local_kv_heads)
+                            self.device, attention=False, ctx=self.ctx)
 
 
 def _build_cache(cfg: ArchConfig, batch: int, max_len: int, dtype, sliding,
                  device, *, attention: bool = True,
-                 kv_heads: Optional[int] = None) -> list:
+                 ctx: DeviceContext) -> list:
     """One zeroed entry per layer: AttnCache (GQA), MLACache (MLA),
     MambaCache / MLSTMCache / SLSTMCache (recurrent; fp32 but for the conv
-    tails, as the reference's). With ``attention`` False the attention
-    entries are None (the paged path's per-slot state)."""
+    tails, as the reference's), at ``ctx``'s rank widths: its KV heads,
+    and Mamba2's conv (B, W-1, d_inner/tp + 2n) and SSM state (B,
+    heads/tp, p, n); MLA latents and the xLSTM states stay whole. With
+    ``attention`` False the attention entries are None (the paged path's
+    per-slot state)."""
     def zeros(*shape, dt=None):
         return torch.zeros(shape, dtype=dt or dtype, device=device)
     f32 = torch.float32
     S = min(max_len, cfg.sliding_window) if sliding else max_len
-    G, dh = kv_heads or cfg.num_kv_heads, cfg.head_dim
+    G, dh = ctx.local_kv_heads, cfg.head_dim
     cache = []
     for kind in cfg.block_pattern:
         if kind in ATTN_KINDS:
@@ -601,10 +617,10 @@ def _build_cache(cfg: ArchConfig, batch: int, max_len: int, dtype, sliding,
                 krope=zeros(batch, max_len, cfg.qk_rope_dim))
                 if attention else None)
         elif kind == "mamba2":
-            conv_ch = cfg.d_inner + 2 * cfg.ssm_state
+            conv_ch = ctx.local_d_inner + 2 * cfg.ssm_state
             cache.append(MambaCache(
                 conv=zeros(batch, cfg.ssm_conv - 1, conv_ch),
-                ssm=zeros(batch, cfg.ssm_heads, cfg.ssm_head_dim,
+                ssm=zeros(batch, ctx.local_ssm_heads, cfg.ssm_head_dim,
                           cfg.ssm_state, dt=f32)))
         elif kind == "mlstm":
             di = _mlstm_inner(cfg)

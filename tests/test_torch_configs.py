@@ -72,6 +72,17 @@ MOE_NAMES = ("granite-moe-3b-a800m", "deepseek-v2-lite-16b")
 ORACLE_CAPACITY = 64.0
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread: the reduced model's ops are tiny, and with the
+    suite's parallel workers sharing the cores, torch's default thread
+    team per op slows these tests by an order of magnitude or more."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cfgs(name):
     base, heads = CASES[name]
     jcfg, tcfg = jreduced(jget_config(base)), reduced(get_config(base))

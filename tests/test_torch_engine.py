@@ -50,6 +50,17 @@ KW = dict(max_slots=3, max_len=128, token_budget=48, page_size=8)
 SPECS = [(i, i * 0.0003, 20 + 7 * i, 6 + i) for i in range(5)]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread: the reduced model's ops are tiny, and with the
+    suite's parallel workers sharing the cores, torch's default thread
+    team per op slows these tests by an order of magnitude or more."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def setup():
     jcfg = jreduced(jget_config("qwen3-4b"))
@@ -235,15 +246,16 @@ def test_host_tier_round_trip_keeps_tokens(setup, cls):
 
 def test_engine_rejects_unported_modes(setup):
     """EngineConfig.tp on a single-device model is the reference's
-    modelling-only knob (the planner prices TP 2, one device runs); tensor
-    parallelism over blocks other than dense GQA is not yet ported."""
+    modelling-only knob (the planner prices TP 2, one device runs). Every
+    block kind serves under tensor parallelism (an MoE model builds at TP
+    2); data parallelism over TP groups is not yet ported."""
     jcfg, forward, tcfg, tmodel = setup
     eng = DuetEngine(tmodel, EngineConfig(tp=2), device="cpu")
     assert eng.mux.model.tp == 2 and eng.ctx.tp == 1
     moe = reduced(get_config("granite-moe-3b-a800m"))
+    Model.init(moe, device="cpu", ctx=DeviceContext(moe, "cpu", tp=2, rank=0))
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        Model.init(moe, device="cpu",
-                   ctx=DeviceContext(moe, "cpu", tp=2, rank=0))
+        DeviceContext(moe, "cpu", tp=2, dp=2)
 
 
 # ---------------------------------------------------------------------------

@@ -41,6 +41,17 @@ TOL = 1e-4
 NAMES = ("paligemma-3b", "musicgen-medium")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread: the reduced model's ops are tiny, and with the
+    suite's parallel workers sharing the cores, torch's default thread
+    team per op slows these tests by an order of magnitude or more."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _close(got, want, tol=TOL):
     np.testing.assert_allclose(np.asarray(got, np.float32),
                                np.asarray(want, np.float32), atol=tol,

@@ -70,6 +70,17 @@ SPECS = [(0, 0.0, 20, 6), (1, 0.0003, 27, 1), (2, 0.0006, 34, 8),
          (3, 0.0009, 41, 9), (4, 0.0012, 30, 10)]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread: the reduced model's ops are tiny, and with the
+    suite's parallel workers sharing the cores, torch's default thread
+    team per op slows these tests by an order of magnitude or more."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _close(got, want, tol=STEP_TOL):
     np.testing.assert_allclose(np.asarray(got, np.float32),
                                np.asarray(want, np.float32),

@@ -60,6 +60,17 @@ KW = dict(max_slots=3, max_len=128, token_budget=48, page_size=8)
 SPECS = [(i, i * 0.0003, 20 + 7 * i, 6 + i) for i in range(5)]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread: the reduced model's ops are tiny, and with the
+    suite's parallel workers sharing the cores, torch's default thread
+    team per op slows these tests by an order of magnitude or more."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _both(arr, dtype):
     jd, td = DTYPES[dtype]
     return jnp.asarray(arr, jd), torch.from_numpy(arr).to(td)

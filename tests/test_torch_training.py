@@ -55,6 +55,17 @@ STEP_TOL = 1e-5             # losses, lr and grad norms of 5 train steps
 PARAM_TOL_LR = 0.1
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread: the reduced model's ops are tiny, and with the
+    suite's parallel workers sharing the cores, torch's default thread
+    team per op slows these tests by an order of magnitude or more."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(x):
     return torch.from_numpy(np.array(x))
 
