@@ -195,6 +195,31 @@ Phases (each raises on failure; nothing is swallowed):
              one is traced by torch.profiler. No kernel of the port runs
              here: the training forward is the plain blockwise attention,
              as the reference's.
+8. grid    — the (data, model) grid of ranks, every rank on the one card
+             over gloo (share_card). (a) Serving: full qwen3-4b (36
+             layers, bf16) as DP 2 x TP 2: 2 processes, each its rank of
+             both replicas (a process group a replica), the async engine
+             on the paged kernel path, 4 azure-conv requests cut to 32
+             tokens, round-robin: both ranks' streams bitwise equal, each
+             replica's streams equal a TP 2 engine serving its requests
+             alone, every request finished, at most one host sync a
+             super-iteration; paged_decode_sharded's launches join the
+             kernels line. (b) Training: minicpm-2b at full width cut to
+             4 layers (fp32, TF32 off, remat) as DP 2 x TP 2 (4
+             processes) against DP 1 x TP 1 (run first in this process,
+             then freed) on the same global batches (2 x 512), 3 WSD
+             steps: losses, lr and grad norms within 1e-4, the gathered
+             parameters within a tenth of the learning rate, the data
+             ranks' parameters equal. (c) Gradients: one step each of
+             zamba2-1.2b (12 layers: both shared attention blocks) and
+             deepseek-v2-lite-16b (2 layers: MLA, then MLA with the
+             MoE) at full width and TP 2 (a model group each, in the
+             same 4 processes): every gathered gradient leaf against
+             TP 1's within 1e-4 of the leaf's largest. Prints wall ms a
+             step, all-reduces a step and peak GB a rank, with the
+             card's name and power limit. Ranks sharing one card
+             time-slice it and every collective copies through host
+             memory: these numbers show parity and memory, not speed.
 
 Before the last line it prints the card's name and power limit
 (``nvidia-smi``) and a ``{"kernels": [...]}`` JSON line (flash_prefill
@@ -217,7 +242,8 @@ import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("build", "kernels", "parity", "serve", "tp", "dp", "train")
+PHASES = ("build", "kernels", "parity", "serve", "tp", "dp", "train",
+          "grid")
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -3022,6 +3048,348 @@ def train_full(card):
 
 
 # ---------------------------------------------------------------------------
+# phase 8: the (data, model) grid of ranks on the one card
+# ---------------------------------------------------------------------------
+GRID_DP, GRID_TP = 2, 2
+# (a) serving: qwen3-4b at full width and depth, DP 2 x TP 2
+GRID_SERVE_ARCH = "qwen3-4b"
+GRID_SERVE_REQUESTS, GRID_SERVE_MAX_OUTPUT = 4, 32
+# (b) training: TRAIN_ARCH at full width, cut to this depth, at TRAIN_BATCH
+# x TRAIN_SEQ, TRAIN_LR on its WSD schedule
+GRID_TRAIN_LAYERS, GRID_TRAIN_STEPS = 4, 3
+# (c) gradients at TP 2 against TP 1: the configs whose sharded blocks
+# read whole leaves (Mamba2's B/C and conv, the shared block's q/k norms;
+# MLA's latent projection, norm and rope key, the MoE router), at full
+# width cut to this depth, one batch of GRID_GRAD_SHAPE
+GRID_GRAD_LAYERS = {"zamba2-1.2b": 12, "deepseek-v2-lite-16b": 2}
+GRID_GRAD_SHAPE = (2, 512)
+GRID_GRAD_TOL = 1e-4        # relative to the leaf's largest |gradient|
+# where the ranks and the TP 1 references run (a rehearsal on the CPU sets
+# "cpu" in each rank)
+GRID_DEVICE = "cuda"
+
+
+def phase_grid():
+    """(a) serving over 2 ranks, then (b) training and (c) gradients over
+    a 2 x 2 grid of ranks, every rank on card 0 over gloo; the TP 1
+    training reference runs here first. Returns the serving path's launch
+    counts on rank 0."""
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import run_ranks
+    _build.build_all()
+    torch.cuda.empty_cache()
+    card = card_line()
+    log(f"[grid] every rank on cuda:0 over gloo (share_card): ranks "
+        "time-slice the card and every all-reduce copies through host "
+        f"memory, so no speed is claimed [{card}]")
+    # (a)
+    t0 = time.time()
+    ranks = run_ranks(grid_serve_rank, GRID_TP, device=GRID_DEVICE,
+                      share_card=True, args=(card,))
+    if ranks[0]["streams"] != ranks[1]["streams"]:
+        raise AssertionError("[grid] serve: the ranks' streams differ")
+    for r, res in enumerate(ranks):
+        log(f"[grid] serve rank {r}: {res['line']} [{card}]")
+    log(f"[grid] serve: both ranks' streams bitwise equal; {GRID_DP} x "
+        f"TP {GRID_TP} done in {time.time() - t0:.1f} s")
+    counts = ranks[0]["counts"]
+    # (b) the TP 1 reference, freed before the grid starts
+    t0 = time.time()
+    rows, want = grid_train_reference(card)
+    ranks = run_ranks(grid_train_rank, GRID_TP, dp=GRID_DP,
+                      device=GRID_DEVICE, share_card=True, args=(card,))
+    got = ranks[0]["train"]
+    worst = {k: max(abs(g[k] - w[k]) / abs(w[k])
+                    for g, w in zip(got["rows"], rows))
+             for k in ("loss", "lr", "grad_norm")}
+    err = max(np.abs(got["params"][k] - w).max() for k, w in want.items())
+    del want
+    for r, res in enumerate(ranks):
+        log(f"[grid] train rank {r} (data {r // GRID_TP}, model "
+            f"{r % GRID_TP}): {res['train']['line']} [{card}]")
+        if res["train"]["rows"] != got["rows"]:
+            raise AssertionError(f"[grid] train: rank {r}'s losses differ "
+                                 "from rank 0's")
+        if not res["train"]["data_equal"]:
+            raise AssertionError(f"[grid] train: rank {r}'s parameters "
+                                 "differ from its data peer's")
+    log(f"[grid] train DP {GRID_DP} x TP {GRID_TP} vs DP 1 x TP 1: losses "
+        f"{[round(r['loss'], 6) for r in got['rows']]} vs "
+        f"{[round(r['loss'], 6) for r in rows]}; largest relative "
+        f"difference loss {worst['loss']:.2e}, lr {worst['lr']:.2e}, grad "
+        f"norm {worst['grad_norm']:.2e} (tol {TRAIN_TOL:.0e}); gathered "
+        f"parameters {err:.2e} (tol {TRAIN_PARAM_TOL_LR} x lr "
+        f"{TRAIN_LR:.0e}); the data ranks' parameters equal; "
+        f"{time.time() - t0:.1f} s with the reference [{card}]")
+    if max(worst.values()) > TRAIN_TOL or \
+            err > TRAIN_PARAM_TOL_LR * TRAIN_LR:
+        raise AssertionError("[grid] the grid's train steps differ from "
+                             "TP 1's")
+    # (c)
+    for r, res in enumerate(ranks):
+        if "grads" in res:
+            log(f"[grid] {res['grads']} [{card}]")
+    return counts
+
+
+def grid_serve_rank(rank, card):
+    """(a) One rank of DP 2 x TP 2 serving (a spawned process): its rank
+    of both replicas of GRID_SERVE_ARCH, bf16, kernels on and strict.
+    Each replica's round-robin share of the requests is first served
+    alone by a TP 2 engine over the default group; then the router serves
+    them all, the launch counts reset just before and read just after."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import Model
+    from repro_torch.serving import AsyncDuetEngine, EngineConfig
+    from repro_torch.serving.router import Router
+    cfg = get_config(GRID_SERVE_ARCH)
+    ctx = rank.context(cfg, dp=GRID_DP, share_card=True)
+    model = Model.init(cfg, seed=0, dtype=torch.bfloat16, ctx=ctx,
+                       attn_kernel=True)
+    gb = sum(b.numel() * b.element_size() for b in model.buffers()) / 1e9
+    ec = EngineConfig(max_slots=8, max_len=1024, token_budget=256,
+                      strict_kernel=True)
+    reqs = _requests("paged", GRID_SERVE_REQUESTS, GRID_SERVE_MAX_OUTPUT)
+    alone = {}
+    for i in range(GRID_DP):
+        eng = AsyncDuetEngine(model, ec, seed=0, device=ctx.device)
+        eng.submit(copy.deepcopy(reqs[i::GRID_DP]))
+        alone.update({r.rid: list(r.output_tokens)
+                      for r in eng.run().requests})
+        del eng
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    router = Router(model, ec, ctx=ctx, policy="round-robin",
+                    engine_cls=AsyncDuetEngine, seed=0)
+    subs = ctx.split_replicas()
+    router.submit(copy.deepcopy(reqs))
+    reduces = sum(c.all_reduces for c in subs)
+    reset_launch_counts()        # the DP x TP path's launches start here
+    torch.cuda.synchronize()
+    t0 = time.time()
+    metrics = router.run()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = launch_counts()     # and end here
+    reduces = sum(c.all_reduces for c in subs) - reduces
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    streams = {r.rid: list(r.output_tokens) for r in metrics.requests}
+    if metrics.summary()["num_finished"] != len(reqs) or any(
+            len(r.output_tokens) != r.output_len for r in metrics.requests):
+        raise AssertionError("[grid] serve: not every request finished")
+    if streams != alone:
+        raise AssertionError("[grid] serve: a replica's streams differ from "
+                             "a TP 2 engine serving its requests alone")
+    if len({id(c.group) for c in subs}) != GRID_DP:
+        raise AssertionError("[grid] serve: the replicas share a group")
+    syncs = []
+    for e in router.engines:
+        st = e.dstats
+        if e.kernel_path != "cuda_sharded":
+            raise AssertionError(f"[grid] serve: kernel_path "
+                                 f"{e.kernel_path}")
+        if not 0 < st.host_syncs <= st.super_iterations:
+            raise AssertionError(f"[grid] serve: host_syncs "
+                                 f"{st.host_syncs} > super_iterations "
+                                 f"{st.super_iterations}")
+        syncs.append(f"{st.host_syncs}/{st.super_iterations}")
+    inner = sum(n for k, n in counts.items()
+                if k.startswith("paged_decode")
+                and k != "paged_decode_sharded")
+    if not 0 < counts["paged_decode_sharded"] == inner:
+        raise AssertionError(f"[grid] serve: paged_decode_sharded launched "
+                             f"{counts['paged_decode_sharded']} times, the "
+                             f"inner decode kernels {inner}")
+    n_tok = sum(len(t) for t in streams.values())
+    launched = {k: n for k, n in counts.items() if n}
+    line = (f"{cfg.name}, {cfg.num_layers} layers, bf16, {gb:.2f} GB of "
+            f"weights a rank shared by its {GRID_DP} replicas; "
+            f"{len(reqs)} requests round-robin, {n_tok} tokens in "
+            f"{wall:.2f} s wall ({n_tok / wall:.1f} tokens/s over gloo on "
+            f"one card); {reduces} all-reduces over the replicas' groups; "
+            f"host_syncs/super_iterations a replica {syncs}; each "
+            f"replica's streams equal a TP {GRID_TP} engine's alone; "
+            f"launches {launched}; peak allocated {peak:.2f} GB a rank")
+    return {"streams": streams, "counts": counts, "line": line}
+
+
+def _grid_train_cfg():
+    return _cut(TRAIN_ARCH, GRID_TRAIN_LAYERS)
+
+
+def _grid_opt(cfg):
+    from repro_torch.training import AdamWConfig
+    return AdamWConfig(lr=TRAIN_LR, schedule=cfg.lr_schedule,
+                       warmup_steps=2, total_steps=GRID_TRAIN_STEPS)
+
+
+def grid_train_reference(card):
+    """(b)'s DP 1 x TP 1 run in this process: the metrics of each step and
+    the final parameters on the host; the card is freed after."""
+    from repro_torch.data import data_iterator
+    from repro_torch.models import Model
+    from repro_torch.models.params import _leaves
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = _grid_train_cfg()
+    model = Model.init(cfg, seed=0, dtype=torch.float32,
+                       device=GRID_DEVICE, requires_grad=True, remat=True)
+    params, _, rows = _train_run(model, _grid_opt(cfg), data_iterator(
+        cfg, TRAIN_SEQ, TRAIN_BATCH, seed=0), GRID_TRAIN_STEPS, sync=True)
+    want = {"/".join(map(str, p)): t.detach().cpu().numpy()
+            for p, t in _leaves(params)}
+    n = sum(w.size for w in want.values())
+    log(f"[grid] train reference DP 1 x TP 1: {cfg.name} cut to "
+        f"{cfg.num_layers} layers, {n} parameters ({n * 16 / 1e9:.2f} GB "
+        f"of fp32 weights, gradients and moments), {GRID_TRAIN_STEPS} "
+        f"steps at {TRAIN_BATCH} x {TRAIN_SEQ}: wall ms "
+        f"{[round(r['ms'], 1) for r in rows]} [{card}]")
+    del model, params
+    torch.cuda.empty_cache()
+    return rows, want
+
+
+def grid_train_rank(rank, card):
+    """One rank of the 2 x 2 grid (a spawned process): (b) the train steps
+    of DP 2 x TP 2, then (c) one config's TP 2 gradients on this rank's
+    model group."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"train": grid_train(rank)}
+    torch.cuda.empty_cache()
+    name = list(GRID_GRAD_LAYERS)[rank.data_rank]
+    line = grid_grads(rank, name)
+    if line is not None:
+        out["grads"] = line
+    return out
+
+
+def grid_train(rank):
+    """(b) GRID_TRAIN_STEPS steps of DP 2 x TP 2 on the global batches,
+    each synchronised and timed; then the gathered parameters (returned
+    by global rank 0) and whether this rank's parameters equal its data
+    peer's, bit for bit."""
+    import torch.distributed as dist
+    from repro_torch.data import data_iterator
+    from repro_torch.models import Model
+    from repro_torch.models.params import _leaves, gather_params
+    from repro_torch.training import init_adamw, make_train_step
+    cfg = _grid_train_cfg()
+    ctx = rank.context(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    model = Model.init(cfg, seed=0, dtype=torch.float32, ctx=ctx,
+                       requires_grad=True, remat=True)
+    step = make_train_step(model, _grid_opt(cfg),
+                           data_group=rank.data_group)
+    params = model.param_tree()
+    state = init_adamw(params)
+    data = data_iterator(cfg, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    rows, fwd, bwd = [], [], []
+    for _ in range(GRID_TRAIN_STEPS):
+        batch = next(data)
+        f0, b0 = ctx.all_reduces, ctx.grad_all_reduces
+        torch.cuda.synchronize()
+        t0 = time.time()
+        params, state, m = step(params, state, batch)
+        torch.cuda.synchronize()
+        rows.append({k: float(v) for k, v in m.items()}
+                    | {"ms": (time.time() - t0) * 1e3})
+        fwd.append(ctx.all_reduces - f0)
+        bwd.append(ctx.grad_all_reduces - b0)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    equal = True
+    for _, t in _leaves(params):
+        top = t.detach().clone()
+        dist.all_reduce(top, op=dist.ReduceOp.MAX, group=rank.data_group)
+        equal &= torch.equal(top, t.detach())
+    full = gather_params(params, ctx)
+    ms = [round(r["ms"], 1) for r in rows]
+    out = {"rows": [{k: v for k, v in r.items() if k != "ms"}
+                    for r in rows],
+           "data_equal": bool(equal),
+           "line": (f"{cfg.name} cut to {cfg.num_layers} layers, fp32, "
+                    f"remat, TF32 off: wall ms a step {ms} (steps 1-"
+                    f"{GRID_TRAIN_STEPS - 1} median "
+                    f"{float(np.median(ms[1:])):.1f}); model-group "
+                    f"all-reduces a step: forward {fwd[-1]} (the "
+                    f"recomputed blocks' too), backward {bwd[-1]}, the "
+                    "norm's 1; data-group all-reduces a step: 2 (one "
+                    "flat fp32 gradient bucket, the loss); peak allocated "
+                    f"{peak:.2f} GB a rank")}
+    if rank.rank == 0:
+        out["params"] = {"/".join(map(str, p)): t.cpu().numpy()
+                         for p, t in _leaves(full)}
+    del full, model, params, state
+    return out
+
+
+def grid_grads(rank, name):
+    """(c) One step's gradients of ``name`` (full width, GRID_GRAD_LAYERS
+    deep, fp32) at TP 2 on this rank's model group, gathered, against TP
+    1's computed on the card by the group's rank 0 (which returns the
+    line; the other rank None)."""
+    from repro_torch.data import data_iterator
+    from repro_torch.models import Model
+    from repro_torch.models.params import _leaves, _map, gather_params
+    from repro_torch.training.train_loop import batch_to
+    cfg = _cut(name, GRID_GRAD_LAYERS[name])
+    B, S = GRID_GRAD_SHAPE
+    batch = batch_to(next(data_iterator(cfg, S, B, seed=0)),
+                     torch.device(GRID_DEVICE))
+
+    def grads(model):
+        loss = model.loss(batch)
+        leaves = list(_leaves(model.param_tree()))
+        got = dict(zip((p for p, _ in leaves), torch.autograd.grad(
+            loss, [t for _, t in leaves])))
+        return float(loss.detach()), _map(lambda p, _: got[p],
+                                          model.param_tree())
+
+    lead = rank.model_rank == 0
+    if lead:
+        one = Model.init(cfg, seed=0, dtype=torch.float32,
+                         device=GRID_DEVICE, requires_grad=True, remat=True)
+        loss1, want = grads(one)
+        del one
+    ctx = rank.context(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    model = Model.init(cfg, seed=0, dtype=torch.float32, ctx=ctx,
+                       requires_grad=True, remat=True)
+    f0 = ctx.all_reduces
+    torch.cuda.synchronize()
+    t0 = time.time()
+    loss2, got = grads(model)
+    torch.cuda.synchronize()
+    ms = (time.time() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    full = gather_params(got, ctx)
+    del model, got
+    if not lead:
+        return None
+    worst, n = 0.0, 0
+    flat = dict(_leaves(full))
+    for path, w in _leaves(want):
+        scale = max(w.abs().max().item(), 1e-12)
+        err = (flat[path] - w).abs().max().item() / scale
+        if not err <= GRID_GRAD_TOL:
+            raise AssertionError(f"[grid] {name}: gradient "
+                                 f"{'/'.join(map(str, path))} differs from "
+                                 f"TP 1's by {err:.2e} of its largest")
+        worst, n = max(worst, err), n + 1
+    if abs(loss2 - loss1) > TRAIN_TOL * abs(loss1):
+        raise AssertionError(f"[grid] {name}: loss {loss2} vs TP 1 {loss1}")
+    return (f"grads {name} cut to {cfg.num_layers} layers, fp32, TP "
+            f"{GRID_TP} vs TP 1 at {B} x {S}: loss {loss2:.6f} vs "
+            f"{loss1:.6f}; {n} gathered gradient leaves, the largest "
+            f"difference {worst:.2e} of its leaf's largest |gradient| (tol "
+            f"{GRID_GRAD_TOL:.0e}); loss with its gradients {ms:.1f} ms "
+            f"wall on the model group, {ctx.all_reduces - f0} forward and "
+            f"{ctx.grad_all_reduces} backward all-reduces; peak allocated "
+            f"{peak:.2f} GB on rank 0 (with TP 1's gradients)")
+
+
+# ---------------------------------------------------------------------------
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -3060,6 +3428,9 @@ def main(argv=None) -> int:
                 counts[name] = counts.get(name, 0) + n
         elif phase == "train":
             phase_train()
+        elif phase == "grid":
+            for name, n in phase_grid().items():
+                counts[name] = counts.get(name, 0) + n
         log(f"[time] {phase} phase {time.time() - t_phase:.1f} s")
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():

@@ -5,21 +5,32 @@ host <-> device copies of the engines, and the tensor-parallel context.
   ``repro.core.device.DeviceContext`` over ``torch.distributed`` instead
   of a jax ``Mesh``: the TP degree and this process's rank, the process
   group and its backend, the per-arch axis rules, the rank's slice of the
-  weights and its KV heads, and the one collective the model makes
-  (:meth:`DeviceContext.all_reduce`). One process runs one rank (SPMD):
-  every rank runs the same engine on the same requests with its own
-  slices of the weights and page pools, and the all-reduces leave the
-  residual stream and the logits identical on every rank, so every rank
-  samples the same tokens. Tables, lengths and positions stay
+  weights and its KV heads, and the collectives the model makes
+  (:meth:`DeviceContext.reduce_from_model` and its backward twin). One
+  process runs one rank (SPMD): every rank runs the same engine on the
+  same requests with its own slices of the weights and page pools, and
+  the all-reduces leave the residual stream and the logits identical on
+  every rank, so every rank samples the same tokens. Tables, lengths and positions stay
   rank-global, as the reference replicates them. Single-device serving is
-  ``DeviceContext.single`` (tp 1, no group: ``all_reduce`` is the
+  ``DeviceContext.single`` (tp 1, no group: the collectives are the
   identity). The DP half (``dp``, :meth:`DeviceContext.split_replicas`)
-  describes data-parallel replicas served from ONE process, as the
-  reference's single-controller router does: ``split_replicas`` gives
-  each replica a TP-1 context on its own device
-  (``launch.mesh.split_data_axis``: card *i* when there are ``dp`` cards,
-  card 0 for every replica only with ``share_card``, or the CPU). DP over
-  TP groups is not yet ported.
+  describes data-parallel replicas served by the reference's
+  single-controller router, which each rank runs: ``split_replicas``
+  gives each replica a context on its own device
+  (``launch.mesh.split_data_axis``: card ``i * tp + rank`` for replica
+  *i* when there are ``dp * tp`` cards, card 0 for every replica only
+  with ``share_card``, or the CPU), of tp 1, or, under TP, of the same
+  rank and tp over a process group of its own.
+
+  The collectives are Megatron's pair, visible to autograd, so the
+  training forward's gradients cross the ranks too:
+  :meth:`DeviceContext.reduce_from_model` (forward all-reduce, backward
+  identity) ends a sharded region and :meth:`DeviceContext.copy_to_model`
+  (forward identity, backward all-reduce) enters one: each sharded block
+  passes its replicated input through it, and each whole leaf it reads
+  (the MoE router, MLA's latent projection, its norm and the rope key,
+  Mamba2's B/C projections and conv, GQA's q/k norms), whose gradient on
+  a rank is then that rank's share.
 
   What a rank holds follows the reference's axis rules
   (``models.params.axis_rules``): the vocab always shards (embedding,
@@ -70,10 +81,6 @@ class DeviceContext:
             raise ValueError(f"DeviceContext: rank {rank} of tp {tp}")
         if dp < 1:
             raise ValueError(f"DeviceContext: dp must be >= 1, got {dp}")
-        if dp > 1 and tp > 1:
-            raise NotImplementedError(
-                "data parallelism over tensor-parallel replicas (--dp with "
-                "--tp > 1) is not yet ported; serve tp=1 replicas")
         self.cfg = cfg
         self.tp = tp
         self.dp = dp
@@ -87,11 +94,16 @@ class DeviceContext:
         self.replica_devices = (torch.device(device),)
         if dp > 1:
             from repro_torch.launch.mesh import split_data_axis
-            self.replica_devices = split_data_axis(device, dp, share_card)
+            self.replica_devices = split_data_axis(device, dp, share_card,
+                                                   tp=tp, rank=rank)
         self.device = self.replica_devices[0]
         self._rules = axis_rules(cfg, tp)
-        # all-reduces made since construction (the model's collectives)
+        self._replicas = None
+        # forward all-reduces made since construction (the model's
+        # collectives; a block recomputed under remat counts again), and
+        # the backward all-reduces of copy_to_model
         self.all_reduces = 0
+        self.grad_all_reduces = 0
 
     @classmethod
     def single(cls, cfg: ArchConfig,
@@ -160,32 +172,74 @@ class DeviceContext:
                     shard_params(tree, self.cfg, self.tp, self.rank))
 
     def split_replicas(self) -> List["DeviceContext"]:
-        """One TP-1 context per data-parallel replica, on the devices
+        """One context per data-parallel replica, on the devices
         ``launch.mesh.split_data_axis`` gave this context; ``dp`` == 1
-        gives one context on this context's device."""
-        return [DeviceContext(self.cfg, d) for d in self.replica_devices]
+        gives one context on this context's device. At tp 1 each is a
+        TP-1 context. Under TP each has this rank and tp, and a process
+        group of its own over this context's ranks, made by
+        ``torch.distributed.new_group`` once a replica, in replica order,
+        on the first call (every rank of the default group must make it,
+        in the same order); later calls return the same contexts."""
+        if self._replicas is not None:
+            return self._replicas
+        if self.tp == 1:
+            self._replicas = [DeviceContext(self.cfg, d)
+                              for d in self.replica_devices]
+            return self._replicas
+        dist = torch.distributed
+        ranks = (dist.get_process_group_ranks(self.group)
+                 if self.group is not None
+                 else list(range(dist.get_world_size())))
+        self._replicas = [
+            DeviceContext(self.cfg, d, tp=self.tp, rank=self.rank,
+                          group=dist.new_group(ranks), backend=self.backend)
+            for d in self.replica_devices]
+        return self._replicas
 
-    # ---------------------------------------------------------- collective
-    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
-        """Sum ``x`` over the ranks, in place, and return it; ``x``
-        untouched at tp 1. Every rank gets the same bits."""
+    # --------------------------------------------------------- collectives
+    def reduce_from_model(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum ``x`` over the ranks and return it (Megatron's "g"): the
+        end of a sharded region, whose output is each rank's partial sum.
+        Its backward is the identity: the gradient of the sum reaches
+        every rank's part whole. ``x`` untouched at tp 1. Every rank gets
+        the same bits. Without autograd (serving) the sum is in place."""
         if self.tp == 1:
             return x
+        self.all_reduces += 1
+        if torch.is_grad_enabled() and x.requires_grad:
+            return _ReduceFromModel.apply(x, self.group)
         x = x.contiguous()
         torch.distributed.all_reduce(x, group=self.group)
-        self.all_reduces += 1
         return x
+
+    def copy_to_model(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` itself (Megatron's "f"): the entry of a sharded region,
+        for a tensor every rank holds whole (a block's input, a whole
+        weight). Its backward sums the ranks' gradients, each rank's share
+        of the whole gradient. The identity at tp 1 and without
+        autograd."""
+        if self.tp == 1 or not (torch.is_grad_enabled()
+                                and x.requires_grad):
+            return x
+        return _CopyToModel.apply(x, self)
+
+    def copy_leaves(self, params, keys) -> "_Leaves":
+        """``params`` (a weight mapping) with its leaves at ``keys`` (those
+        present) through :meth:`copy_to_model`: the whole weights a
+        sharded block reads."""
+        return _Leaves(params, {k: self.copy_to_model(params[k])
+                                for k in keys if k in params})
 
     # ---------------------------------------------------------- diagnostics
     def describe(self) -> dict:
         """The reference's geometry keys, plus the collective backend and,
-        for DP replicas, whether they share a card (``devices`` counts
-        distinct devices)."""
+        for DP replicas, whether they share a card (``devices`` is then
+        the ranks a replica times the distinct replica devices)."""
         out = {"devices": self.tp, "axes": self.shape, "tp": self.tp,
                "dp": self.dp, "platform": self.device.type,
                "backend": self.backend}
         if self.dp > 1:
-            out["devices"] = len(set(self.replica_devices))
+            out["devices"] = self.tp * len(set(self.replica_devices))
             out["share_card"] = self.share_card
         return out
 
@@ -216,6 +270,51 @@ class DeviceContext:
         if rules["vocab"]:
             n += 1
         return n
+
+
+class _Leaves:
+    """A weight mapping read through, with some leaves replaced."""
+
+    def __init__(self, base, over: dict):
+        self._base, self._over = base, over
+
+    def __getitem__(self, key):
+        return self._over[key] if key in self._over else self._base[key]
+
+    def __contains__(self, key) -> bool:
+        return key in self._over or key in self._base
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """All-reduce forward, identity backward."""
+
+    @staticmethod
+    def forward(fctx, x, group):
+        out = x.contiguous().clone()
+        torch.distributed.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(fctx, grad):
+        return grad, None
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Identity forward, all-reduce backward."""
+
+    @staticmethod
+    def forward(fctx, x, ctx):
+        fctx.ctx = ctx
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(fctx, grad):
+        ctx = fctx.ctx
+        # a copy: autograd may hand the same gradient to other inputs
+        grad = grad.contiguous().clone()
+        torch.distributed.all_reduce(grad, group=ctx.group)
+        ctx.grad_all_reduces += 1
+        return grad, None
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:

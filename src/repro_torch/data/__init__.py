@@ -1,3 +1,4 @@
-from repro_torch.data.pipeline import PackedLMDataset, data_iterator
+from repro_torch.data.pipeline import (PackedLMDataset, data_iterator,
+                                       shard_batch)
 
-__all__ = ["PackedLMDataset", "data_iterator"]
+__all__ = ["PackedLMDataset", "data_iterator", "shard_batch"]

@@ -7,7 +7,8 @@ EOS separator), and yields model-ready batches for every frontend family
 
 A copy of the reference's numpy-only ``repro.data.pipeline``: the same seed
 gives the same batches, bit for bit (numpy arrays; the training loop moves
-them to the model's device).
+them to the model's device). :func:`shard_batch` cuts a data-parallel
+rank's rows from one.
 """
 from __future__ import annotations
 
@@ -73,3 +74,17 @@ def data_iterator(cfg: ArchConfig, seq_len: int, batch_size: int,
                   seed: int = 0) -> Iterator[dict]:
     return iter(PackedLMDataset(cfg, seq_len=seq_len, batch_size=batch_size,
                                 seed=seed))
+
+
+def shard_batch(batch: dict, index: int, count: int) -> dict:
+    """Rows ``[index * B / count, (index + 1) * B / count)`` of every array
+    of ``batch`` (B rows each): data rank ``index`` of ``count``'s share
+    of the global batch, as the reference splits a batch over its data
+    axes. Raises when ``count`` does not divide B."""
+    B = len(next(iter(batch.values())))
+    if B % count:
+        raise ValueError(f"the batch of {B} rows does not split over "
+                         f"{count} data-parallel ranks; pass a batch that "
+                         f"{count} divides")
+    n = B // count
+    return {k: v[index * n:(index + 1) * n] for k, v in batch.items()}

@@ -1,29 +1,40 @@
-"""Bring-up of a tensor-parallel group: ``tp`` processes, one a rank.
+"""Bring-up of a ``(data, model)`` grid of ranks: ``dp * tp`` processes,
+one a rank.
 
 The reference builds a jax ``Mesh`` over the devices of one process
-(``repro.launch.mesh``); the port runs one process per rank (SPMD) over
-``torch.distributed``. :func:`run_ranks` spawns the ranks (the ``spawn``
-start method: CUDA cannot fork), joins them into one process group and
-calls ``fn(rank, *args)`` in each, where ``rank`` is a :class:`Rank`; it
-returns what each rank's ``fn`` returned, in rank order, and raises if
-any rank failed (the other ranks are stopped).
+(``repro.launch.mesh``, ``jax.make_mesh((dp, tp), ("data", "model"))``);
+the port runs one process per rank (SPMD) over ``torch.distributed``.
+:func:`run_ranks` spawns the ranks (the ``spawn`` start method: CUDA
+cannot fork), joins them into one process group and calls ``fn(rank,
+*args)`` in each, where ``rank`` is a :class:`Rank`; it returns what each
+rank's ``fn`` returned, in rank order, and raises if any rank failed (the
+other ranks are stopped).
 
+* Global rank ``g = d * tp + m`` sits at data index ``d`` and model index
+  ``m``: the row-major order of the reference's ``("data", "model")``
+  mesh. With ``dp`` > 1 every rank makes, in the same order, one
+  ``new_group`` per model group (ranks ``d*tp .. d*tp+tp-1``: a
+  tensor-parallel replica) and one per data group (ranks ``m, tp+m, ...``:
+  the replicas' rank ``m``), and keeps its own two. With ``dp`` == 1 the
+  model group is the default group and there is no data group.
 * Rendezvous goes through a ``FileStore`` in a temporary directory, so no
   TCP port is chosen and parallel test workers cannot collide; gloo binds
   to the loopback interface.
 * The placement the caller asks for fixes the collective backend
   (:func:`check_geometry`): ``gloo`` on the CPU; ``nccl`` with one CUDA
-  card a rank; ``gloo`` with every rank on one card, which only
-  ``share_card=True`` asks for (NCCL refuses two ranks of one
-  communicator on one card; gloo copies CUDA tensors through host memory
-  for its collectives). More ranks than cards without ``share_card``, or
-  CUDA where there is none, raise with a message that names the fix.
+  card a rank (rank ``g`` on card ``g``); ``gloo`` with every rank on one
+  card, which only ``share_card=True`` asks for (NCCL refuses two ranks
+  of one communicator on one card; gloo copies CUDA tensors through host
+  memory for its collectives). More ranks than cards without
+  ``share_card``, or CUDA where there is none, raise with a message that
+  names the fix.
 
-Data-parallel replicas run in ONE process (the reference's
-single-controller router), not one a rank: :func:`split_data_axis` gives
-each replica its device, behind ``DeviceContext.split_replicas``. The
-reference's duet sub-mesh split (``split_duet_submeshes``) is not ported:
-its Hopper counterpart is SM partitioning.
+Serving's data-parallel replicas run in the router of each process (the
+reference's single-controller router), not one a rank:
+:func:`split_data_axis` gives each replica its device, behind
+``DeviceContext.split_replicas``. The reference's duet sub-mesh split
+(``split_duet_submeshes``) stays unported: its Hopper counterpart is SM
+partitioning.
 
 Usage::
 
@@ -31,6 +42,7 @@ Usage::
         ctx = rank.context(cfg)
         ...
     outs = run_ranks(body, 2, device="cpu", args=(cfg,))
+    outs = run_ranks(body, 2, dp=2, device="cpu", args=(cfg,))
 """
 from __future__ import annotations
 
@@ -41,7 +53,7 @@ import tempfile
 import time
 import traceback
 from dataclasses import dataclass
-from typing import Callable, List, Sequence, Tuple
+from typing import Any, Callable, List, Sequence, Tuple
 
 import torch
 
@@ -55,26 +67,47 @@ TIMEOUT_S = 900.0
 
 @dataclass(frozen=True)
 class Rank:
-    """What one rank's body is given: its place in the group."""
+    """What one rank's body is given: its place in the grid. ``rank`` is
+    the global rank, ``d * tp + m``."""
     tp: int
     rank: int
     backend: str
     device: torch.device
+    dp: int = 1
+    # the tensor-parallel peers (None: the default group) and, with dp > 1,
+    # the data-parallel peers
+    model_group: Any = None
+    data_group: Any = None
 
-    def context(self, cfg: ArchConfig) -> DeviceContext:
-        """This rank's :class:`DeviceContext` for ``cfg`` over the group's
-        default process group."""
-        return DeviceContext(cfg, self.device, tp=self.tp, rank=self.rank,
-                             backend=self.backend)
+    @property
+    def model_rank(self) -> int:
+        return self.rank % self.tp
+
+    @property
+    def data_rank(self) -> int:
+        return self.rank // self.tp
+
+    def context(self, cfg: ArchConfig, *, dp: int = 1,
+                share_card: bool = False) -> DeviceContext:
+        """This rank's :class:`DeviceContext` for ``cfg`` over its model
+        group; ``dp`` > 1 adds that many serving replicas of it
+        (``DeviceContext.split_replicas``)."""
+        return DeviceContext(cfg, self.device, tp=self.tp,
+                             rank=self.model_rank, group=self.model_group,
+                             backend=self.backend, dp=dp,
+                             share_card=share_card)
 
 
-def check_geometry(tp: int, device: str, share_card: bool = False) -> str:
-    """The collective backend of ``tp`` ranks placed as asked: ``gloo`` on
-    the CPU or with ``share_card`` (every rank on card 0), ``nccl`` with a
-    card a rank. Raises for more ranks than cards without ``share_card``,
-    and for CUDA where there is none (never a quiet move to the CPU)."""
-    if tp < 1:
-        raise ValueError(f"tp must be >= 1, got {tp}")
+def check_geometry(tp: int, device: str, share_card: bool = False,
+                   dp: int = 1) -> str:
+    """The collective backend of ``dp * tp`` ranks placed as asked:
+    ``gloo`` on the CPU or with ``share_card`` (every rank on card 0),
+    ``nccl`` with a card a rank. Raises for more ranks than cards without
+    ``share_card``, and for CUDA where there is none (never a quiet move
+    to the CPU)."""
+    if tp < 1 or dp < 1:
+        raise ValueError(f"tp must be >= 1 and dp >= 1, got tp={tp} "
+                         f"dp={dp}")
     if device == "cpu":
         return "gloo"
     if device != "cuda":
@@ -84,25 +117,25 @@ def check_geometry(tp: int, device: str, share_card: bool = False) -> str:
                            "(--device cpu) to run the ranks on the CPU")
     if share_card:
         return "gloo"
-    have = torch.cuda.device_count()
-    if tp > have:
+    have, n = torch.cuda.device_count(), dp * tp
+    if n > have:
         raise ValueError(
-            f"tp={tp} ranks need {tp} CUDA cards (one a rank, over nccl) "
-            f"but only {have} are visible; pass share_card=True "
-            "(--share-card) to run every rank on one card over gloo, or "
-            "reduce tp")
+            f"{n} ranks (dp={dp} x tp={tp}) need {n} CUDA cards (one a "
+            f"rank, over nccl) but only {have} are visible; pass "
+            "share_card=True (--share-card) to run every rank on one card "
+            "over gloo, or reduce the grid")
     return "nccl"
 
 
-def split_data_axis(device, dp: int,
-                    share_card: bool = False) -> Tuple[torch.device, ...]:
-    """The device of each of ``dp`` data-parallel replicas of tp 1, served
-    from one process: the CPU for every replica on the CPU; on CUDA card
-    *i* for replica *i*, or card 0 (``device``'s card when it names one)
-    for every replica when ``share_card`` asks for it. One replica stays
-    on ``device``. Raises for more replicas than cards without
-    ``share_card`` (never a quiet share), and for CUDA where there is
-    none."""
+def split_data_axis(device, dp: int, share_card: bool = False, *,
+                    tp: int = 1, rank: int = 0) -> Tuple[torch.device, ...]:
+    """The device of each of ``dp`` data-parallel serving replicas, as
+    tensor-parallel rank ``rank`` of ``tp`` holds them: the CPU for every
+    replica on the CPU; on CUDA card ``i * tp + rank`` for replica *i*, or
+    card 0 (``device``'s card when it names one) for every replica when
+    ``share_card`` asks for it. One replica stays on ``device``. Raises
+    for more replicas than cards without ``share_card`` (never a quiet
+    share), and for CUDA where there is none."""
     if dp < 1:
         raise ValueError(f"dp must be >= 1, got {dp}")
     device = torch.device(device)
@@ -118,12 +151,13 @@ def split_data_axis(device, dp: int,
     if share_card:
         return (torch.device("cuda", device.index or 0),) * dp
     have = torch.cuda.device_count()
-    if dp > have:
+    if dp * tp > have:
         raise ValueError(
-            f"dp={dp} replicas need {dp} CUDA cards (one a replica) but "
-            f"only {have} are visible; pass share_card=True (--share-card) "
-            "to run every replica on one card, or reduce dp")
-    return tuple(torch.device("cuda", i) for i in range(dp))
+            f"dp={dp} replicas of tp={tp} need {dp * tp} CUDA cards (one "
+            f"a replica's rank) but only {have} are visible; pass "
+            "share_card=True (--share-card) to run every replica on one "
+            "card, or reduce dp")
+    return tuple(torch.device("cuda", i * tp + rank) for i in range(dp))
 
 
 def rank_device(device: str, rank: int, share_card: bool) -> torch.device:
@@ -132,21 +166,37 @@ def rank_device(device: str, rank: int, share_card: bool) -> torch.device:
     return torch.device("cuda", 0 if share_card else rank)
 
 
-def _rank_main(rank: int, fn: Callable, tp: int, backend: str, device: str,
-               share_card: bool, store_path: str, results,
+def _grid_groups(dp: int, tp: int, rank: int):
+    """(model group, data group) of global rank ``rank``: every rank makes
+    every group, model groups first, each in index order."""
+    import torch.distributed as dist
+    if dp == 1:
+        return None, None
+    model = [dist.new_group([d * tp + m for m in range(tp)])
+             for d in range(dp)]
+    data = [dist.new_group([d * tp + m for d in range(dp)])
+            for m in range(tp)]
+    return model[rank // tp], data[rank % tp]
+
+
+def _rank_main(rank: int, fn: Callable, tp: int, dp: int, backend: str,
+               device: str, share_card: bool, store_path: str, results,
                args: Sequence):
-    """One rank's process: join the group, run ``fn``, report."""
+    """One rank's process: join the grid, run ``fn``, report."""
     import torch.distributed as dist
     os.environ["GLOO_SOCKET_IFNAME"] = "lo"      # loopback, no hostname
-    torch.set_num_threads(1)                     # tp processes share cores
+    torch.set_num_threads(1)                     # the ranks share cores
     dev = rank_device(device, rank, share_card)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
+    world = dp * tp
     try:
         dist.init_process_group(
-            backend, store=dist.FileStore(store_path, tp), rank=rank,
-            world_size=tp, timeout=datetime.timedelta(seconds=TIMEOUT_S))
-        out = fn(Rank(tp, rank, backend, dev), *args)
+            backend, store=dist.FileStore(store_path, world), rank=rank,
+            world_size=world, timeout=datetime.timedelta(seconds=TIMEOUT_S))
+        model_group, data_group = _grid_groups(dp, tp, rank)
+        out = fn(Rank(tp, rank, backend, dev, dp, model_group, data_group),
+                 *args)
         results.put((rank, True, out))
     except BaseException:
         results.put((rank, False, traceback.format_exc()))
@@ -156,28 +206,29 @@ def _rank_main(rank: int, fn: Callable, tp: int, backend: str, device: str,
             dist.destroy_process_group()
 
 
-def run_ranks(fn: Callable, tp: int, *, device: str,
+def run_ranks(fn: Callable, tp: int, *, dp: int = 1, device: str,
               share_card: bool = False, args: Sequence = ()) -> List:
-    """Spawn ``tp`` ranks, each running ``fn(rank, *args)`` in one process
-    group (``fn`` and ``args`` must pickle: a module-level function), and
-    return their results in rank order. Raises, after stopping every rank,
-    if a rank raised or died, or if the group is not done in
-    :data:`TIMEOUT_S`."""
+    """Spawn a ``(dp, tp)`` grid of ranks, each running ``fn(rank, *args)``
+    in one process group (``fn`` and ``args`` must pickle: a module-level
+    function), and return their results in global rank order. Raises,
+    after stopping every rank, if a rank raised or died, or if the grid is
+    not done in :data:`TIMEOUT_S`."""
     import torch.multiprocessing as mp
-    backend = check_geometry(tp, device, share_card)
+    backend = check_geometry(tp, device, share_card, dp)
+    world = dp * tp
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     with tempfile.TemporaryDirectory(prefix="tp_store_") as tmp:
         store = os.path.join(tmp, "store")
         procs = [ctx.Process(target=_rank_main,
-                             args=(r, fn, tp, backend, device, share_card,
-                                   store, results, tuple(args)))
-                 for r in range(tp)]
+                             args=(r, fn, tp, dp, backend, device,
+                                   share_card, store, results, tuple(args)))
+                 for r in range(world)]
         for p in procs:
             p.start()
         done, deadline = {}, time.time() + TIMEOUT_S
         try:
-            while len(done) < tp:
+            while len(done) < world:
                 try:
                     rank, ok, val = results.get(timeout=1.0)
                 except queue.Empty:
@@ -190,11 +241,12 @@ def run_ranks(fn: Callable, tp: int, *, device: str,
                             f"{dead[0][1]} before reporting")
                     if time.time() > deadline:
                         raise TimeoutError(
-                            f"the {tp} ranks did not finish in "
+                            f"the {world} ranks did not finish in "
                             f"{TIMEOUT_S:.0f} s")
                     continue
                 if not ok:
-                    raise RuntimeError(f"rank {rank} of {tp} failed:\n{val}")
+                    raise RuntimeError(
+                        f"rank {rank} of {world} failed:\n{val}")
                 done[rank] = val
             for p in procs:
                 p.join()
@@ -207,4 +259,4 @@ def run_ranks(fn: Callable, tp: int, *, device: str,
                     p.kill()
                     p.join()
             results.close()
-    return [done[r] for r in range(tp)]
+    return [done[r] for r in range(world)]

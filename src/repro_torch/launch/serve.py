@@ -17,13 +17,17 @@ and duet multiplexer, and the summary reports per-replica plus
 cluster-aggregate metrics. A replica takes card *i* when there are N
 cards; ``--share-card`` puts every replica on card 0, where they share one
 weight tree (and torch's stream). ``--elastic`` scales the active replica
-set between ``--min-dp`` and ``--max-dp``. ``--arrival``,
-``--service-mix`` and ``--rho`` draw the trace from the seeded open-loop
-load generator (``serving/loadgen.py``). The flags are the reference's
-(``repro.launch.serve``); ``--dp`` together with ``--tp > 1`` exits with
-"not yet ported". ``--no-paged`` serves from the slab KV cache (the
-reference's equivalence oracle for the paged path). Weights are random,
-from ``--seed``.
+set between ``--min-dp`` and ``--max-dp``. ``--dp`` (or ``--elastic``)
+with ``--tp M`` serves N replicas of M ranks: each of the M rank
+processes runs the router over its rank of every replica (each replica a
+process group of its own; replica *i*'s rank *m* on card ``i * M + m``,
+or every one on card 0 with ``--share-card``), and the run fails unless
+every rank produced the same streams. ``--arrival``, ``--service-mix``
+and ``--rho`` draw the trace from the seeded open-loop load generator
+(``serving/loadgen.py``). The flags are the reference's
+(``repro.launch.serve``). ``--no-paged`` serves from the slab KV cache
+(the reference's equivalence oracle for the paged path). Weights are
+random, from ``--seed``.
 
 Two execution modes:
 
@@ -51,6 +55,8 @@ Usage:
       --num-requests 8
   PYTHONPATH=src python -m repro_torch.launch.serve --attn-kernel \\
       --dp 2 --share-card --stream --num-requests 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --reduced \\
+      --device cpu --tp 2 --dp 2 --num-requests 8
 """
 from __future__ import annotations
 
@@ -124,8 +130,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--tp", type=int, default=1,
                     help="tensor-parallel degree: one process a rank, "
-                         "every arch the engines serve (not with --dp or "
-                         "--elastic)")
+                         "every arch the engines serve; with --dp, the "
+                         "ranks of every replica")
     ap.add_argument("--share-card", action="store_true",
                     help="--tp > 1 on CUDA: every rank on card 0, over "
                          "gloo (its collectives copy through host memory); "
@@ -136,7 +142,7 @@ def build_parser() -> argparse.ArgumentParser:
                          "real engine replicas behind the cluster router "
                          "from this process, each with its own paged KV "
                          "pool and prefix cache; on CUDA one card a "
-                         "replica, or --share-card (tp 1 replicas only)")
+                         "replica's rank, or --share-card")
     # elastic data-parallelism: the active replica set breathes between
     # --min-dp and --max-dp against measured outstanding tokens; a drained
     # replica requeues its work via the preempt->recompute path
@@ -216,15 +222,6 @@ def build_parser() -> argparse.ArgumentParser:
                     help="serve with AsyncDuetEngine and print per-token "
                          "events as JSON lines")
     return ap
-
-
-def _not_yet_ported(args):
-    """Exit for a combination the port does not serve yet: data-parallel
-    replicas of a tensor-parallel group (one process a rank would need a
-    process group a replica)."""
-    if args.tp > 1 and (args.dp > 1 or args.elastic):
-        raise SystemExit("--dp/--elastic with --tp > 1: not yet ported to "
-                         "repro_torch")
 
 
 def _elastic_geometry(args):
@@ -317,7 +314,6 @@ def describe_device(device: torch.device) -> dict:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    _not_yet_ported(args)
     if args.tp <= 1:
         serve(None, args)
         return
@@ -334,14 +330,14 @@ def main(argv=None):
 def serve(rank, args):
     """Serve the trace on one device or on ``--dp`` replicas behind the
     router (``rank`` None), or as one rank of a TP group
-    (``launch.mesh.Rank``); only rank 0 prints. Returns the token
-    streams."""
+    (``launch.mesh.Rank``), which with ``--dp`` holds its rank of every
+    replica; only rank 0 prints. Returns the token streams."""
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
-    dp, elastic_cfg = _elastic_geometry(args) if rank is None else (1, None)
+    dp, elastic_cfg = _elastic_geometry(args)
     if rank is not None:
-        ctx = rank.context(cfg)
+        ctx = rank.context(cfg, dp=dp, share_card=args.share_card)
     elif dp > 1:
         ctx = DeviceContext.for_replicas(cfg, dp, args.device,
                                          share_card=args.share_card)

@@ -85,7 +85,7 @@ def prefix_views(c, n: int):
 def _reduce_heads(out, ctx):
     """Sum a head-sharded out-projection over the tensor-parallel ranks."""
     if ctx is not None and ctx.sharded("heads"):
-        return ctx.all_reduce(out)
+        return ctx.reduce_from_model(out)
     return out
 
 
@@ -94,6 +94,16 @@ def _qk_norm(q, k, params, eps):
         q = rms_norm(q, params["q_norm"], eps)
         k = rms_norm(k, params["k_norm"], eps)
     return q, k
+
+
+def _enter_heads(params, x, ctx, whole):
+    """(params, x) as a head-sharded block reads them: ``x`` and the
+    ``whole`` leaves (every rank holds them whole) through
+    ``ctx.copy_to_model``, so their gradients sum over the ranks; as they
+    are where the heads stay whole (or without a context)."""
+    if ctx is None or not ctx.sharded("heads"):
+        return params, x
+    return ctx.copy_leaves(params, whole), ctx.copy_to_model(x)
 
 
 def _gqa_scores(q, k):
@@ -134,7 +144,8 @@ def _blockwise_gqa(q, k, v, positions, mask_fn):
     return torch.cat(outs, dim=1)
 
 
-def _project_qkv(params, cfg: ArchConfig, x, positions):
+def _project_qkv(params, cfg: ArchConfig, x, positions, ctx=None):
+    params, x = _enter_heads(params, x, ctx, ("q_norm", "k_norm"))
     q = torch.einsum("bsd,dhe->bshe", x, params["w_q"])
     k = torch.einsum("bsd,dge->bsge", x, params["w_k"])
     v = torch.einsum("bsd,dge->bsge", x, params["w_v"])
@@ -177,7 +188,7 @@ def gqa_prefill(params, cfg: ArchConfig, x: torch.Tensor,
                 positions: torch.Tensor, *, prefix_len: int = 0,
                 window: Optional[int] = None, ctx=None):
     """Full-sequence attention. Returns (out, AttnCache of the new K/V)."""
-    q, k, v = _project_qkv(params, cfg, x, positions)
+    q, k, v = _project_qkv(params, cfg, x, positions, ctx=ctx)
     Sq, Sk = q.shape[1], k.shape[1]
     if Sq > ATTN_BLOCK_Q:
         kpos = torch.arange(Sk, device=x.device)
@@ -231,7 +242,7 @@ def gqa_decode(params, cfg: ArchConfig, x: torch.Tensor, cache: AttnCache,
     ``active_mask`` (the port's argument; see :func:`_slab_write`).
     """
     W = cache.k.shape[1]
-    q, k, v = _project_qkv(params, cfg, x, pos[:, None])
+    q, k, v = _project_qkv(params, cfg, x, pos[:, None], ctx=ctx)
     pos = pos.long()
     slot = (pos % W) if sliding else pos
     _slab_write(cache, slot, k[:, 0], v[:, 0], active_mask)
@@ -264,7 +275,7 @@ def gqa_prefill_cached(params, cfg: ArchConfig, x: torch.Tensor,
     position. The slab is written in place.
     """
     B, L, _ = x.shape
-    q, k, v = _project_qkv(params, cfg, x, positions)
+    q, k, v = _project_qkv(params, cfg, x, positions, ctx=ctx)
     W = cache.k.shape[1]
     bidx = torch.arange(B, device=x.device)[:, None]
     kslot = torch.arange(W, device=x.device)
@@ -323,7 +334,7 @@ def gqa_decode_kernel(params, cfg: ArchConfig, x: torch.Tensor,
     :func:`gqa_decode` (full cache, no sliding)."""
     B = x.shape[0]
     W = cache.k.shape[1]
-    q, k, v = _project_qkv(params, cfg, x, pos[:, None])
+    q, k, v = _project_qkv(params, cfg, x, pos[:, None], ctx=ctx)
     bidx = torch.arange(B, device=x.device)
     _slab_write(cache, pos.long(), k[:, 0], v[:, 0], active_mask)
     # one tile per decode row (block_q=1): tile_slot = batch index
@@ -385,7 +396,7 @@ def gqa_decode_paged(params, cfg: ArchConfig, x: torch.Tensor,
     kernel above it; where TP cuts the KV heads the dispatcher runs the
     sharded route on this rank's heads.
     """
-    q, k, v = _project_qkv(params, cfg, x, pos[:, None])
+    q, k, v = _project_qkv(params, cfg, x, pos[:, None], ctx=ctx)
     _paged_write(k_pages, k, table, pos[:, None])
     _paged_write(v_pages, v, table, pos[:, None])
     lengths = (pos + 1).to(torch.int32)
@@ -413,7 +424,7 @@ def gqa_prefill_paged(params, cfg: ArchConfig, x: torch.Tensor,
     """Chunked prefill against the paged pool: write the chunk's K/V into
     the request's pages, attend chunk queries over the gathered table
     (previous chunks + this chunk). x (B,L,D); positions (B,L) absolute."""
-    q, k, v = _project_qkv(params, cfg, x, positions)
+    q, k, v = _project_qkv(params, cfg, x, positions, ctx=ctx)
     _paged_write(k_pages, k, table, positions)
     _paged_write(v_pages, v, table, positions)
     kg = _paged_gather(k_pages, table).to(q.dtype)
@@ -465,7 +476,7 @@ def gqa_duet_paged(params, cfg: ArchConfig, x: torch.Tensor,
     depend on the layout. Packing and unpacking are index ops on the device
     (no host sync); a pad row's query is never read.
     """
-    q, k, v = _project_qkv(params, cfg, x, pos[:, None])
+    q, k, v = _project_qkv(params, cfg, x, pos[:, None], ctx=ctx)
     _paged_write(k_pages, k, table, pos[:, None])
     _paged_write(v_pages, v, table, pos[:, None])
     src, row_pos, tile_slot, dst = packing
@@ -490,10 +501,14 @@ def _mla_scale(cfg: ArchConfig) -> float:
     return 1.0 / (cfg.qk_nope_dim + cfg.qk_rope_dim) ** 0.5
 
 
-def _mla_qkv_prefill(params, cfg: ArchConfig, x, positions):
+def _mla_qkv_prefill(params, cfg: ArchConfig, x, positions, ctx=None):
     """x (B,S,D) -> q_nope (B,S,H,nope), q_rope (B,S,H,rope) with RoPE, the
     normalised latent ckv (B,S,r) and the one-head rope key krope
-    (B,S,rope) with RoPE."""
+    (B,S,rope) with RoPE. Under TP the latent's projection, its norm and
+    the rope key's projection are whole leaves read by the rank's heads
+    (:func:`_enter_heads`)."""
+    params, x = _enter_heads(params, x, ctx,
+                             ("w_dkv", "kv_norm", "w_krope"))
     nope = cfg.qk_nope_dim
     q = torch.einsum("bsd,dhe->bshe", x, params["w_q"])
     q_nope, q_rope = q[..., :nope], q[..., nope:]
@@ -543,7 +558,8 @@ def _mla_expand_attend(params, cfg: ArchConfig, x, q_nope, q_rope, ckv,
 def mla_prefill(params, cfg: ArchConfig, x: torch.Tensor,
                 positions: torch.Tensor, *, ctx=None):
     """Full-sequence MLA. Returns (out, MLACache of the new latents)."""
-    q_nope, q_rope, ckv, krope = _mla_qkv_prefill(params, cfg, x, positions)
+    q_nope, q_rope, ckv, krope = _mla_qkv_prefill(params, cfg, x, positions,
+                                                  ctx=ctx)
     out = _mla_expand_attend(params, cfg, x, q_nope, q_rope, ckv, krope,
                              positions)
     return _reduce_heads(out, ctx), MLACache(ckv=ckv, krope=krope)

@@ -6,8 +6,10 @@ Conventions (as the reference's ``repro.models.layers``):
     function takes its own sub-mapping
   * compute dtype follows the input; norms and RoPE compute in fp32
   * ``ctx`` (a ``DeviceContext``; None on one device) makes the embedding
-    vocab-parallel and sums a sharded FFN's down-projection over the
-    tensor-parallel ranks; the weights are then the rank's slices
+    and the logits vocab-parallel and sums a sharded FFN's
+    down-projection over the tensor-parallel ranks; the weights are then
+    the rank's slices. A sharded region's input enters through
+    ``ctx.copy_to_model``, so autograd sums its gradient over the ranks
 """
 from __future__ import annotations
 
@@ -78,14 +80,17 @@ def gated_mlp(params, x: torch.Tensor, act: str = "silu",
     (act(x W_up) W_down). With the ``ffn`` dim sharded each rank holds its
     columns of W_up / W_gate and rows of W_down, and the partial outputs
     are summed over the ranks."""
+    sharded = ctx is not None and ctx.sharded("ffn")
+    if sharded:
+        x = ctx.copy_to_model(x)
     u = x @ params["w_up"]
     if "w_gate" in params:
         u = activation_fn(act)(x @ params["w_gate"]) * u
     else:
         u = activation_fn(act)(u)
     out = u @ params["w_down"]
-    if ctx is not None and ctx.sharded("ffn"):
-        out = ctx.all_reduce(out)
+    if sharded:
+        out = ctx.reduce_from_model(out)
     return out
 
 
@@ -122,7 +127,7 @@ def embed(params, tokens: torch.Tensor, ctx=None) -> torch.Tensor:
     each rank gathers the rows of its shard (zeros for the others) and
     the ranks' rows are summed, which is exact (a row plus zeros)."""
     rows = _vocab_rows(params["embedding"], tokens, ctx)
-    return ctx.all_reduce(rows) if _reduce_vocab(ctx) else rows
+    return ctx.reduce_from_model(rows) if _reduce_vocab(ctx) else rows
 
 
 def embed_codebooks(table: torch.Tensor, tokens: torch.Tensor,
@@ -133,7 +138,7 @@ def embed_codebooks(table: torch.Tensor, tokens: torch.Tensor,
     tokens = tokens.long()
     x = sum(_vocab_rows(table[k], tokens[:, k], ctx)
             for k in range(table.shape[0]))
-    return ctx.all_reduce(x) if _reduce_vocab(ctx) else x
+    return ctx.reduce_from_model(x) if _reduce_vocab(ctx) else x
 
 
 def _vocab_logits(logits: torch.Tensor, true_vocab: int,
@@ -153,7 +158,7 @@ def _vocab_logits(logits: torch.Tensor, true_vocab: int,
         return logits
     full = logits.new_zeros(logits.shape[:-1] + (Vl * ctx.tp,))
     full[..., lo:lo + Vl] = logits
-    return ctx.all_reduce(full)
+    return ctx.reduce_from_model(full)
 
 
 def unembed(params, x: torch.Tensor, true_vocab: int,
@@ -163,6 +168,8 @@ def unembed(params, x: torch.Tensor, true_vocab: int,
     columns (tied embeddings: from its embedding rows) and one all-reduce
     gives every rank the full width (:func:`_vocab_logits`)."""
     w = params["w_out"] if "w_out" in params else params["embedding"]
+    if _reduce_vocab(ctx):
+        x = ctx.copy_to_model(x)
     return _vocab_logits(x @ w.T, true_vocab, ctx)
 
 
@@ -171,6 +178,8 @@ def unembed_codebooks(w_heads: torch.Tensor, x: torch.Tensor,
     """The audio frontend's K heads ``w_heads`` (K, V, D): x (B, S, D) ->
     (B, S, K, V) logits, the K heads' columns filling one buffer, so a
     sharded vocab takes one all-reduce."""
+    if _reduce_vocab(ctx):
+        x = ctx.copy_to_model(x)
     return _vocab_logits(torch.einsum("bsd,kvd->bskv", x, w_heads),
                          true_vocab, ctx)
 

@@ -25,7 +25,17 @@ holds a contiguous E/tp of them and runs only the choices that landed
 there (the others add zero); cut on ``moe_ffn``, it runs every expert on
 its share of F. Either way its output is a partial sum; a shared expert
 cut on ``ffn`` joins it, and the MoE's one all-reduce sums them. A
-shared expert that stays whole is added after that all-reduce.
+shared expert that stays whole is added after that all-reduce. For
+autograd the cut MoE is a sharded region: its input and the whole router
+enter through ``ctx.copy_to_model``, so their gradients, each rank's
+share, sum over the ranks.
+
+Data parallelism: routing groups are ``min(MOE_GROUP_SIZE, T)`` rows of
+the tokens a rank holds, so a data-parallel rank with fewer tokens than
+the whole batch routes in smaller groups, and its capacity drops differ
+from one device's over the whole batch. DP training matches one device
+only where each rank's tokens are whole groups of the whole batch's (e.g.
+2 sequences of 1024 predicted tokens over 2 data ranks).
 """
 from __future__ import annotations
 
@@ -106,6 +116,12 @@ def moe_ffn(params, cfg: ArchConfig, x: torch.Tensor,
     xf = x.reshape(T, D)
     E, k = cfg.num_experts, cfg.moe_top_k
     El, Fl = params["w_gate"].shape[0], params["w_gate"].shape[2]
+    cut = El < E or Fl < cfg.moe_d_ff        # y is the rank's partial sum
+    router = params["router"]
+    if cut:
+        # the sharded region: its input, and the whole router its rank's
+        # experts read, enter through copy_to_model
+        xf, router = ctx.copy_to_model(xf), ctx.copy_to_model(router)
 
     Tg = min(MOE_GROUP_SIZE, T)
     pad = (-T) % Tg
@@ -115,7 +131,7 @@ def moe_ffn(params, cfg: ArchConfig, x: torch.Tensor,
     E_active = cfg.num_experts_routed or E
     C = _capacity(Tg, E_active, k, cfg.capacity_factor)
 
-    logits = torch.einsum("gtd,de->gte", xg, params["router"])
+    logits = torch.einsum("gtd,de->gte", xg, router)
     if cfg.num_experts_routed and cfg.num_experts_routed < E:
         pad_mask = torch.arange(E, device=x.device) >= cfg.num_experts_routed
         logits = logits.masked_fill(pad_mask, -1e30)
@@ -145,16 +161,17 @@ def moe_ffn(params, cfg: ArchConfig, x: torch.Tensor,
     w = (gate_vals * keep).to(xg.dtype)
     y = torch.einsum("gtk,gtkd->gtd", w, gathered).reshape(-1, D)[:T]
 
-    cut = El < E or Fl < cfg.moe_d_ff        # y is the rank's partial sum
     shared = None
     if "shared" in params:
         if cut and ctx.sharded("ffn"):
             # both partial: the one all-reduce below sums them together
             y = y + gated_mlp(params["shared"], xf, cfg.activation)
         else:
-            shared = gated_mlp(params["shared"], xf, cfg.activation, ctx)
+            # whole, or its own sharded region: from the block's input
+            shared = gated_mlp(params["shared"], x.reshape(T, D),
+                               cfg.activation, ctx)
     if cut:
-        y = ctx.all_reduce(y)
+        y = ctx.reduce_from_model(y)
     if shared is not None:
         y = y + shared
     return y.reshape(B, S, D)

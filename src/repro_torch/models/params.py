@@ -21,7 +21,10 @@ layout onto the ``model`` axis (the reference's per-arch divisibility
 rules), :func:`param_specs` gives each leaf's spec as a tuple of
 ``"model"`` / None, and :func:`shard_params` cuts one rank's slice of a
 full tree along those axes (``init_params`` draws the full leaf and keeps
-the slice, leaf by leaf).
+the slice, leaf by leaf). :func:`unshard_params` is its inverse over the
+ranks' trees, and :func:`gather_params` its inverse on the ranks
+themselves (a collective over the model group); :func:`cut_dims` names the
+one dim each leaf is cut on.
 """
 from __future__ import annotations
 
@@ -326,6 +329,64 @@ def _shard_leaf(t: torch.Tensor, spec: tuple, tp: int,
             n = t.shape[dim] // tp
             t = t.narrow(dim, rank * n, n)
     return t
+
+
+def cut_dims(cfg: ArchConfig, tp: int) -> dict:
+    """path -> the dim of the full leaf that :func:`shard_params` cuts at
+    TP degree ``tp``, or None for a leaf every rank holds whole (its spec
+    names no ``"model"`` dim, or that dim does not divide)."""
+    specs = dict(_leaves(param_specs(cfg, tp)))
+    out = {}
+    for path, d in _leaves(layout(cfg)):
+        dims = [i for i, a in enumerate(specs[path])
+                if a == "model" and tp > 1 and d.shape[i] % tp == 0]
+        if len(dims) > 1:
+            raise ValueError(f"{path}: cut on {len(dims)} dims")
+        out[path] = dims[0] if dims else None
+    return out
+
+
+def unshard_params(trees, cfg: ArchConfig, tp: int) -> dict:
+    """The full tree from the ``tp`` ranks' trees (rank order), each leaf
+    its ranks' slices concatenated along its cut dim (padded experts and
+    vocab rows included), rank 0's where it is whole: the inverse of
+    :func:`shard_params`."""
+    if tp <= 1:
+        return trees[0]
+    if len(trees) != tp:
+        raise ValueError(f"unshard_params: {len(trees)} trees for tp={tp}")
+    dims = cut_dims(cfg, tp)
+    flat = [dict(_leaves(t)) for t in trees]
+    return _map(lambda path, _: flat[0][path] if dims[path] is None
+                else torch.cat([f[path] for f in flat], dim=dims[path]),
+                layout(cfg))
+
+
+@torch.no_grad()
+def gather_params(tree: dict, ctx) -> dict:
+    """The full tree on every rank of ``ctx``'s model group, from each
+    rank's slices (``tree``: weights, gradients or moments, in the
+    layout): a collective every rank must make. Each cut leaf is placed in
+    a zeroed full-size buffer at the rank's offset and summed over the
+    ranks (exact: a value plus zeros), whole leaves are detached as they
+    are. The identity at tp 1."""
+    if ctx.tp <= 1:
+        return tree
+    dims = cut_dims(ctx.cfg, ctx.tp)
+
+    def gather(path, t):
+        t = t.detach()
+        dim = dims[path]
+        if dim is None:
+            return t
+        n = t.shape[dim]
+        shape = list(t.shape)
+        shape[dim] = n * ctx.tp
+        full = t.new_zeros(shape)
+        full.narrow(dim, ctx.rank * n, n).copy_(t)
+        torch.distributed.all_reduce(full, group=ctx.group)
+        return full
+    return _map(gather, tree)
 
 
 def shard_params(tree: dict, cfg: ArchConfig, tp: int, rank: int) -> dict:

@@ -19,10 +19,15 @@ Tensor parallelism: a rank holds its heads' share of ``w_z``, ``w_x``,
 ``w_dt``, ``dt_bias``, ``A_log``, ``D``, ``norm`` and ``w_out``, and the
 whole ``w_B`` / ``w_C``; d_inner and the heads above are then the rank's
 (read from the weights' shapes), and so is its state. The causal conv
-runs over the rank's x channels and the whole B/C channels, ``conv``
-(:func:`rank_conv`, cut once by the model); the gate norm's groups are
-the heads, so it stays rank-local, and the out-projection's partial sums
-are added over the ranks (``ctx``) in the block's one all-reduce.
+runs over the rank's x channels and the whole B/C channels
+(:func:`rank_conv`, an index into the whole conv weights, taken in the
+forward so autograd reaches every channel; the model caches it for
+serving, ``conv``); the gate norm's groups are the heads, so it stays
+rank-local, and the out-projection's partial sums are added over the
+ranks (``ctx``) in the block's one all-reduce. The block is a sharded
+region: its input and the whole ``w_B``, ``w_C``, ``conv_w`` and
+``conv_b`` enter through ``ctx.copy_to_model``, so their gradients, each
+rank's share, sum over the ranks.
 """
 from __future__ import annotations
 
@@ -53,6 +58,19 @@ def rank_conv(params, d_inner: int, rank: int):
     return w[:, idx].contiguous(), b[idx].contiguous()
 
 
+def _enter(params, cfg: ArchConfig, x: torch.Tensor, conv, ctx):
+    """(params, x, conv) as the block runs them: under TP (the rank holds
+    part of d_inner) ``x`` and the whole leaves through
+    ``ctx.copy_to_model`` and, unless ``conv`` is given, the rank's conv
+    cut from them; else as given, with the whole conv weights."""
+    if params["w_x"].shape[1] == cfg.d_inner:
+        return params, x, conv or (params["conv_w"], params["conv_b"])
+    params = ctx.copy_leaves(params, ("w_B", "w_C", "conv_w", "conv_b"))
+    if conv is None:
+        conv = rank_conv(params, params["w_x"].shape[1], ctx.rank)
+    return params, ctx.copy_to_model(x), conv
+
+
 def _dims(params):
     """(d_inner, heads) this rank runs, from its weights."""
     return params["w_x"].shape[1], params["A_log"].shape[0]
@@ -76,7 +94,7 @@ def _gate_out(params, cfg: ArchConfig, y: torch.Tensor, z: torch.Tensor,
                    eps=cfg.norm_eps)
     out = y @ params["w_out"]
     if params["w_out"].shape[0] < cfg.d_inner:   # the rank's partial sum
-        out = ctx.all_reduce(out)
+        out = ctx.reduce_from_model(out)
     return out
 
 
@@ -86,13 +104,13 @@ def mamba2_prefill(params, cfg: ArchConfig, x: torch.Tensor,
     """x (B,S,D) -> (y (B,S,D), MambaCache). S is padded internally to a
     multiple of the chunk length (padded steps have dt = 0, so they leave
     the state unchanged). ``conv``: the rank's (conv_w, conv_b) under TP
-    (:func:`rank_conv`), else the whole ones."""
+    (:func:`rank_conv`; cut here when None)."""
     B, S, D = x.shape
+    params, x, (conv_w, conv_b) = _enter(params, cfg, x, conv, ctx)
     di, h = _dims(params)
     p, n = cfg.ssm_head_dim, cfg.ssm_state
     z, xbc, dt = _split_proj(params, cfg, x)
     prev_conv = cache.conv if cache is not None else None
-    conv_w, conv_b = conv or (params["conv_w"], params["conv_b"])
     xbc_c, conv_state = causal_conv1d(xbc, conv_w, conv_b, prev_conv)
     xbc_c = F.silu(xbc_c)
     xs = xbc_c[..., :di].reshape(B, S, h, p)
@@ -152,10 +170,10 @@ def mamba2_decode(params, cfg: ArchConfig, x: torch.Tensor,
                   cache: MambaCache, *, conv=None, ctx=None):
     """x (B,1,D) -> (y (B,1,D), MambaCache)."""
     B = x.shape[0]
+    params, x, (conv_w, conv_b) = _enter(params, cfg, x, conv, ctx)
     di, h = _dims(params)
     p, n = cfg.ssm_head_dim, cfg.ssm_state
     z, xbc, dt = _split_proj(params, cfg, x)         # dt (B,1,h)
-    conv_w, conv_b = conv or (params["conv_w"], params["conv_b"])
     xbc_c, conv_state = causal_conv1d(xbc, conv_w, conv_b, cache.conv)
     xbc_c = F.silu(xbc_c)[:, 0]                      # (B, C)
     xs = xbc_c[:, :di].reshape(B, h, p).float()

@@ -63,7 +63,10 @@ columns); Mamba2 its heads' share of the inner width, with the whole B/C
 channels; mLSTM and sLSTM blocks stay whole. Each sharded block ends in
 one all-reduce and a whole one in none, so every rank computes the same
 logits (``models/layers.py``, ``models/attention.py``, ``models/moe.py``,
-``models/ssm.py``).
+``models/ssm.py``). The collectives are autograd's
+(``DeviceContext.reduce_from_model`` / ``copy_to_model``), so the
+training forward at TP gives every rank the gradients of its slices and
+the whole leaves' whole gradients.
 """
 from __future__ import annotations
 
@@ -179,14 +182,9 @@ class Model(nn.Module):
         self.ctx = ctx
         self.params = ParamTree(params)
         # a Mamba2 layer's conv over the rank's channels (its x channels and
-        # the whole B/C ones), cut once here from the whole conv weights;
-        # layer index -> (conv_w, conv_b)
+        # the whole B/C ones) for the steps that take no gradient: layer
+        # index -> (the conv leaves' versions, (conv_w, conv_b))
         self._rank_conv = {}
-        if ctx.sharded("ssm_inner"):
-            for i, (p, kind) in enumerate(self._layers()):
-                if kind == "mamba2":
-                    self._rank_conv[i] = ssm_mod.rank_conv(
-                        p["mamba"], ctx.local_d_inner, ctx.rank)
         # MLA decode: fold the latent up-projections into the query and
         # the output instead of expanding every cached latent each step
         self.mla_absorb = mla_absorb
@@ -286,6 +284,24 @@ class Model(nn.Module):
         """(layer params, block kind) of every layer."""
         return (self._block_params(i) for i in range(self.cfg.num_layers))
 
+    def _conv_cut(self, i, p):
+        """Layer ``i``'s rank conv (``ssm.rank_conv``) cut once and reused
+        while its leaves are unchanged, for steps that take no gradient;
+        None (the block cuts it in the forward, where autograd sees the
+        index) at tp 1 or when a gradient may flow."""
+        w, b = p["conv_w"], p["conv_b"]
+        if not self.ctx.sharded("ssm_inner") or (
+                torch.is_grad_enabled()
+                and (w.requires_grad or b.requires_grad)):
+            return None
+        key = (w._version, b._version)
+        hit = self._rank_conv.get(i)
+        if hit is None or hit[0] != key:
+            hit = (key, ssm_mod.rank_conv(p, self.ctx.local_d_inner,
+                                          self.ctx.rank))
+            self._rank_conv[i] = hit
+        return hit[1]
+
     def _recurrent(self, i, x, cache_in, *, decode: bool):
         """Layer ``i``, a recurrent block (pre-norm, residual). Returns (x,
         the layer's new state). A Mamba2 block takes the rank's conv and
@@ -293,7 +309,7 @@ class Model(nn.Module):
         collective."""
         p, kind = self._block_params(i)
         key, prefill, step = RECURRENT[kind]
-        kw = ({"conv": self._rank_conv.get(i), "ctx": self.ctx}
+        kw = ({"conv": self._conv_cut(i, p[key]), "ctx": self.ctx}
               if kind == "mamba2" else {})
         h = rms_norm(x, p["norm"], self.cfg.norm_eps)
         out, new = (step if decode else prefill)(p[key], self.cfg, h,

@@ -2,7 +2,7 @@
 
 The port of the reference's ``repro.serving.router``. ``serve.py --dp N``
 serves **N real engine replicas** in one process (the reference's
-single-controller router): each replica has its own TP-1
+single-controller router): each replica has its own
 :class:`~repro_torch.core.device.DeviceContext` from
 ``DeviceContext.split_replicas`` — card *i* when there are N cards, card 0
 for every replica when ``share_card`` asks for it, or the CPU — and owns
@@ -11,9 +11,18 @@ its paged KV pool, prefix cache and
 decision stays replica-local (Nexus-style intra-GPU multiplexing), while
 the router decides only *which* replica serves each request.
 
+With ``--tp M`` as well, each of the M rank processes runs this router
+over its rank of every replica (``split_replicas`` gives each replica a
+TP context over a process group of its own), as the reference carves its
+mesh's data axes into ``(1, tp)`` submeshes: replica *i*'s rank *m* sits
+on card ``i * M + m``, or every one on card 0 with ``share_card``. The
+ranks' routers see the same host state (the replicas' engines on every
+rank sample the same tokens), so they make the same dispatch, scaling
+and drain decisions without talking.
+
 Weights: each replica's model holds ``ctx.place_params`` of the served
-model's tree, which is the same tensors when the replica's device is the
-model's. Replicas on one card therefore share one read-only weight tree;
+model's tree (under TP, the rank's slices moved to the replica's device),
+which is the same tensors when the replica's device is the model's. Replicas on one card therefore share one read-only weight tree;
 only the pools, the per-slot state and the host state are per replica.
 Replicas on one card also share torch's current stream, so one replica's
 blocking fetch (``core.device.fetch_to_host``) waits for the other's
@@ -57,6 +66,7 @@ from typing import Iterator, List, Optional, Sequence, Union
 
 from repro_torch.core.device import DeviceContext
 from repro_torch.core.roofline import HardwareSpec, TPU_V5E
+from repro_torch.models.params import _map
 from repro_torch.models.transformer import Model
 from repro_torch.serving.engine import DuetEngine, EngineConfig
 from repro_torch.serving.request import Request, ServingMetrics
@@ -321,17 +331,26 @@ class Router:
                  hw: HardwareSpec = TPU_V5E, seed: int = 0,
                  elastic: Optional[ElasticConfig] = None):
         """Args:
-            model: the served model (one device, tp 1); each replica gets
-                a :class:`Model` over ``c.place_params`` of its weights for
-                its context ``c`` (the same tensors on the model's device).
-                The port's engines take no separate ``params``.
+            model: the served model; each replica gets a :class:`Model`
+                over its weights for its context ``c``. At tp 1 those are
+                ``c.place_params`` of the model's whole tree (the same
+                tensors on the model's device). Under TP ``model`` is this
+                rank's, so its tree already holds the rank's slices, and
+                each replica (the same rank of its own TP group) takes
+                them on its device: never cut twice, and no whole tree is
+                built. The port's engines take no separate ``params``.
             engine_cfg / hw / seed: forwarded to every replica engine.
-            ctx: cluster device context (``DeviceContext.for_replicas``);
-                ``split_replicas`` gives one TP-1 context per replica.
-                Defaults to ``replicas`` replicas on the model's device
-                type, one card a replica (raising when there are fewer
-                cards: sharing one takes an explicit context with
-                ``share_card=True``).
+            ctx: cluster device context (``DeviceContext.for_replicas``, or
+                under TP the rank's context with ``dp`` replicas, e.g.
+                ``Rank.context(cfg, dp=...)``); ``split_replicas`` gives
+                one context per replica (under TP one of tp ranks over a
+                process group of its own). Every rank's router makes the
+                same decisions: they read only host state, which the
+                ranks' identical engines keep identical.
+                Defaults, at tp 1, to ``replicas`` replicas on the
+                model's device type, one card a replica (raising when
+                there are fewer cards: sharing one takes an explicit
+                context with ``share_card=True``).
             replicas: replica count; defaults to ``ctx.dp`` (or 2 when no
                 context is given). With ``elastic`` this is the *maximum*
                 replica count — all engines are built up front, but
@@ -347,16 +366,17 @@ class Router:
 
         Raises:
             ValueError: replica count contradicts ``ctx.dp`` (or the
-                elastic ``max_replicas``), or fewer than one replica
-                requested.
-            NotImplementedError: ``model`` is one rank of a TP group (DP
-                across TP groups is not yet ported).
+                elastic ``max_replicas``), fewer than one replica
+                requested, or a TP model without its rank's context.
         """
         cfg = model.cfg
-        if model.ctx.tp > 1:
-            raise NotImplementedError(
-                "data parallelism over tensor-parallel replicas (--dp with "
-                "--tp > 1) is not yet ported; serve tp=1 replicas")
+        mctx = model.ctx
+        if mctx.tp > 1 and (ctx is None or (ctx.tp, ctx.rank)
+                            != (mctx.tp, mctx.rank)):
+            raise ValueError(
+                f"a TP model (rank {mctx.rank} of tp={mctx.tp}) is served "
+                "by replicas of its rank: pass ctx=DeviceContext(cfg, "
+                "device, tp=..., rank=..., dp=...) of the same rank")
         if ctx is None:
             n = replicas or (elastic.max_replicas if elastic else 2)
             ctx = DeviceContext.for_replicas(cfg, n,
@@ -380,8 +400,14 @@ class Router:
         self.policy = policy if isinstance(policy, DispatchPolicy) \
             else make_dispatch_policy(policy)
         tree = model.param_tree()
+
+        def weights(c: DeviceContext) -> dict:
+            if mctx.tp == 1:
+                return c.place_params(tree)
+            return _map(lambda _, t: t.to(c.device), tree)
+
         self.engines: List[DuetEngine] = [
-            engine_cls(Model(cfg, c.place_params(tree), ctx=c,
+            engine_cls(Model(cfg, weights(c), ctx=c,
                              mla_absorb=model.mla_absorb,
                              attn_kernel=model.attn_kernel,
                              split_kv_threshold=model.split_kv_threshold),

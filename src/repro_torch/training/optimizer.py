@@ -12,6 +12,12 @@ and the learning rate is taken at ``step + 1`` (the schedule of the step
 being made). The schedule is computed on the host in fp32 from the host's
 step counter, so an update makes no host sync; the clip scale stays on
 the device.
+
+Tensor parallelism (``ctx``, a ``DeviceContext`` with tp > 1): each rank
+updates its slices in place. The global norm sums the squares of the cut
+leaves over the model group and adds the whole leaves' once (their
+gradients are equal on every rank); the clip, the moments and the weight
+decay are elementwise, so they stay per slice.
 """
 from __future__ import annotations
 
@@ -21,7 +27,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from repro_torch.models.params import _leaves, _map
+from repro_torch.models.params import _leaves, _map, cut_dims
 
 
 class AdamWState(NamedTuple):
@@ -79,17 +85,31 @@ def init_adamw(params) -> AdamWState:
                       nu=zeros())
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, ctx=None) -> torch.Tensor:
     """sqrt of the sum of every leaf's squares, in fp32, the leaves summed
-    in the reference's order."""
-    return torch.sqrt(sum(x.float().square().sum() for _, x in _leaves(tree)))
+    in the reference's order. Under a TP ``ctx``, ``tree`` holds the
+    rank's slices: the cut leaves' squares are summed over the model
+    group, then the whole leaves' are added once."""
+    if ctx is None or ctx.tp <= 1:
+        return torch.sqrt(sum(x.float().square().sum()
+                              for _, x in _leaves(tree)))
+    dims = cut_dims(ctx.cfg, ctx.tp)
+    zero = next(iter(_leaves(tree)))[1].new_zeros((), dtype=torch.float32)
+    cut = sum((x.float().square().sum() for path, x in _leaves(tree)
+               if dims[path] is not None), zero)
+    torch.distributed.all_reduce(cut, group=ctx.group)
+    return torch.sqrt(cut + sum(x.float().square().sum()
+                                for path, x in _leaves(tree)
+                                if dims[path] is None))
 
 
 @torch.no_grad()
-def adamw_update(cfg: AdamWConfig, grads, state: AdamWState, params):
+def adamw_update(cfg: AdamWConfig, grads, state: AdamWState, params,
+                 ctx=None):
     """One AdamW step: ``params`` and the moments are updated in place.
-    Returns (params, new state, metrics {"grad_norm", "lr"})."""
-    gnorm = global_norm(grads)
+    Returns (params, new state, metrics {"grad_norm", "lr"}). Under a TP
+    ``ctx`` the trees are the rank's slices (:func:`global_norm`)."""
+    gnorm = global_norm(grads, ctx)
     scale = (torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
              if cfg.grad_clip else 1.0)
     step = state.step + 1

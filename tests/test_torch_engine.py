@@ -248,14 +248,16 @@ def test_engine_rejects_unported_modes(setup):
     """EngineConfig.tp on a single-device model is the reference's
     modelling-only knob (the planner prices TP 2, one device runs). Every
     block kind serves under tensor parallelism (an MoE model builds at TP
-    2); data parallelism over TP groups is not yet ported."""
+    2), and so do data-parallel replicas of a TP group (the context of
+    two replicas of TP 2 builds)."""
     jcfg, forward, tcfg, tmodel = setup
     eng = DuetEngine(tmodel, EngineConfig(tp=2), device="cpu")
     assert eng.mux.model.tp == 2 and eng.ctx.tp == 1
     moe = reduced(get_config("granite-moe-3b-a800m"))
     Model.init(moe, device="cpu", ctx=DeviceContext(moe, "cpu", tp=2, rank=0))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        DeviceContext(moe, "cpu", tp=2, dp=2)
+    grid = DeviceContext(moe, "cpu", tp=2, rank=1, dp=2)
+    assert grid.describe()["axes"] == {"data": 2, "model": 2}
+    assert grid.local_experts == moe.num_experts // 2
 
 
 # ---------------------------------------------------------------------------

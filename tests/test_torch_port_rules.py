@@ -121,9 +121,14 @@ def test_entry_points_without_device_raise_without_cuda(no_cuda):
 @pytest.mark.parametrize("flags", [
     ["--tp", "2", "--dp", "2"],
 ])
-def test_unported_flags_exit(flags):
-    with pytest.raises(SystemExit, match="not yet ported"):
-        serve.main(["--reduced", "--device", "cpu", *flags])
+def test_unported_flags_exit(flags, no_cuda):
+    """No serve flag is refused as unported any more: DP x TP places its
+    ranks itself, and on a missing card it raises before spawning any,
+    never moving to the CPU quietly."""
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--reduced", *flags])
+    with pytest.raises(SystemExit, match="places its ranks itself"):
+        serve.main(["--reduced", "--device", "mps", *flags])
 
 
 # the serve CLI's data-parallel and load-generator flags on the CPU: 4

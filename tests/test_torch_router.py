@@ -321,8 +321,10 @@ def test_split_replicas_geometry():
     model = Model.init(cfg, seed=0, device="cpu")
     tree = subs[0].place_params(model.param_tree())
     assert tree["final_norm"] is model.param_tree()["final_norm"]
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        DeviceContext(cfg, torch.device("cpu"), tp=2, dp=2)
+    # replicas of a TP group: the grid's shape, a device a replica
+    grid = DeviceContext(cfg, torch.device("cpu"), tp=2, rank=1, dp=2)
+    assert grid.shape == {"data": 2, "model": 2}
+    assert grid.replica_devices == (torch.device("cpu"),) * 2
     # the router's default context: 2 replicas on the model's device
     router = Router(model, EngineConfig(**EC))
     assert router.ctx.dp == router.n_replicas == 2

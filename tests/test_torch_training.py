@@ -453,13 +453,21 @@ def test_train_cli_loss_falls(capsys):
 
 
 def test_train_cli_refuses_parallel_and_missing_card():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-        train_cli.main(["--reduced", "--device", "cpu", "--data", "2"])
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        train_cli.main(["--reduced", "--device", "cpu", "--model", "2"])
+    """The refusals that remain: a batch the data ranks do not divide, and
+    a missing card (never a quiet move to the CPU, on one device or on a
+    grid). A 2 x 2 grid on the CPU trains, and its loss falls."""
+    with pytest.raises(SystemExit, match="does not split over --data 2"):
+        train_cli.main(["--reduced", "--device", "cpu", "--data", "2",
+                        "--batch", "3"])
     if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="CUDA is not available"):
-            train_cli.main(["--reduced", "--steps", "1"])
+        for grid in ([], ["--data", "2", "--model", "2"]):
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                train_cli.main(["--reduced", "--steps", "1", *grid])
+    losses = train_cli.main(["--arch", "minicpm-2b", "--reduced", "--device",
+                             "cpu", "--data", "2", "--model", "2", "--steps",
+                             "6", "--batch", "2", "--seq", "32"])
+    assert len(losses) == 6 and all(np.isfinite(losses))
+    assert losses[-1] < losses[0]
 
 
 def test_configs_keep_the_reference_schedules():
