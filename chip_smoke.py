@@ -220,6 +220,38 @@ Phases (each raises on failure; nothing is swallowed):
              card's name and power limit. Ranks sharing one card
              time-slice it and every collective copies through host
              memory: these numbers show parity and memory, not speed.
+9. dryrun  — the dry run (``launch/dryrun.py``: one rank of a grid run
+             on shape-only tensors on the host, no device) held to one
+             rank built on the card. (a) ``lower_one`` for every assigned
+             arch at decode_32k on the 16 x 16 grid: each record's spec
+             and port GB a rank, GFLOPs and collectives; an error record
+             fails. (b) qwen3-4b's decode_32k rank 0 on (data 16, model
+             1), 8 rows at 32,768 positions, bf16: the record's
+             prediction, then that rank on the card: the bytes its
+             weights and cache request from the allocator within 512 B a
+             tensor of the record's argument bytes (the allocator's own
+             rounded bytes printed beside them), one plain decode step's
+             requested peak within 5% of the record's, its
+             FlopCounterMode count equal to the record's; then the kernel
+             path (the slab duet_attention
+             kernel at 32,768 keys, once a layer), its logits beside the
+             plain path's, both paths' device and wall ms a step
+             (torch.profiler) beside the bound (the argument bytes at
+             3.35 TB/s); the kernel path's
+             logits at 32,768 keys against the plain path's within
+             PARITY_TOL at full width cut to 4 layers, fp32, TF32 off;
+             and the kernel alone at those shapes against its plain
+             version, timed hot and cold beside its bound, its plain
+             version and SDPA.
+             (c) the (data 16, model 2) record's rank 0 weight bytes
+             against shard_params(tp=2, rank=0) as allocated on the card.
+             (d), in the train phase: the dry run's peak for minicpm-2b's
+             train step (fp32, remat, 2 x 512) within 10% of the peak the
+             card measured over its steps. The records of (a)-(d) are
+             host work: one spawned process makes them beside the card's
+             phases from the script's start, and the phases wait for it.
+             The launches here are checks, not the main path: they join
+             no count of the kernels line.
 
 Before the last line it prints the card's name and power limit
 (``nvidia-smi``) and a ``{"kernels": [...]}`` JSON line (flash_prefill
@@ -243,7 +275,7 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "kernels", "parity", "serve", "tp", "dp", "train",
-          "grid")
+          "grid", "dryrun")
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -2979,6 +3011,7 @@ def train_full(card):
     cfg = get_config(TRAIN_ARCH)
     n = count_params_analytical(cfg)
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     model = Model.init(cfg, seed=0, dtype=torch.float32, device="cuda",
                        requires_grad=True, remat=True)
     torch.cuda.synchronize()
@@ -3012,6 +3045,7 @@ def train_full(card):
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"[train] losses {losses}: not all finite, or "
                              "the last is not below the first")
+    train_dryrun(cfg, peak - base, card)
     # one more step split by CUDA events (loss + gradients, AdamW), then
     # traced; these steps come after the checked run
     batch = batch_to(next(data), torch.device("cuda"))
@@ -3045,6 +3079,24 @@ def train_full(card):
             f"ms/step  {e.count:5d} calls/step  {e.key} (aten op)")
     del model, params, state, box
     torch.cuda.empty_cache()
+
+
+def train_dryrun(cfg, peak: int, card):
+    """(d) of the dryrun phase: the dry run's peak for this run's step
+    (one rank, fp32 weights, remat, TRAIN_BATCH x TRAIN_SEQ; host counts
+    from DRYRUN_COUNTS) against the peak the card measured over its
+    steps, within DRYRUN_TRAIN_TOL."""
+    rec = DRYRUN_COUNTS.get("train")
+    pred = rec["rank_memory"]["peak_bytes"]
+    miss = (peak - pred) / pred
+    log(f"[dryrun] (d) {cfg.name} train step at {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ}, fp32, remat: the dry run's peak {_gb(pred)} GB "
+        f"(host count, {rec['lower_s']} s) vs {_gb(peak)} GB measured "
+        f"over {TRAIN_STEPS} steps ({100 * miss:+.2f}%, tol "
+        f"{100 * DRYRUN_TRAIN_TOL:.0f}%) [{card}]")
+    if abs(miss) > DRYRUN_TRAIN_TOL:
+        raise AssertionError("[dryrun] the train step's peak misses the "
+                             "dry run's")
 
 
 # ---------------------------------------------------------------------------
@@ -3390,24 +3442,373 @@ def grid_grads(rank, name):
 
 
 # ---------------------------------------------------------------------------
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default=",".join(PHASES),
-                    help=f"comma-separated subset of {','.join(PHASES)}")
-    args = ap.parse_args(argv)
-    phases = [p for p in args.phases.split(",") if p]
-    unknown = set(phases) - set(PHASES)
-    if unknown:
-        ap.error(f"unknown phases {sorted(unknown)}")
-    if not torch.cuda.is_available():
-        print("chip_smoke: CUDA is not available; the port's smoke test "
-              "needs one card", file=sys.stderr)
-        return 2
-    sys.path.insert(0, os.path.join(HERE, "src"))
-    import repro_torch  # noqa: F401  (fails outside the repository)
-    log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
-        f"cuda {torch.version.cuda} card {torch.cuda.get_device_name(0)}")
+# phase 9: the dry run, and one of its ranks built on the card
+# ---------------------------------------------------------------------------
+DRYRUN_SHAPE = "decode_32k"
+# (b) the measured rank: DRYRUN_ARCH's decode_32k rank 0 on (data 16,
+# model 1): 128 / 16 = 8 rows at 32,768 positions, bf16; (c) its TP rank
+# on (data 16, model 2)
+DRYRUN_ARCH = "qwen3-4b"
+DRYRUN_RANK_GRID, DRYRUN_TP_GRID = (16, 1), (16, 2)
+DRYRUN_ALLOC_SLACK = 512    # bytes a tensor: a request's rounding
+DRYRUN_PEAK_TOL = 0.05      # the measured peak against the record's
+DRYRUN_TRAIN_TOL = 0.10     # (d) the train phase's peak against the record's
+DRYRUN_COUNTS_TIMEOUT = 600  # seconds from the script's start
+# the kernel path's logits at 32,768 keys against the plain path's, fp32
+# with TF32 off, DRYRUN_ARCH at full width cut to this depth
+DRYRUN_PARITY_LAYERS = 4
+
+
+def dryrun_counts(conn):
+    """The dry run's host counts, in a process of their own (started by
+    :class:`DryrunCounts`): (a) the sweep's records, the records of (b)
+    and (c), and (d)'s train step on one rank (TRAIN_ARCH, fp32, remat,
+    TRAIN_BATCH x TRAIN_SEQ), sent through ``conn``. They need no card."""
+    torch.set_num_threads(1)
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ASSIGNED_ARCHS
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.launch.dryrun import lower_one
+    from repro_torch.launch.mesh import Grid
     t0 = time.time()
+    recs = {"sweep": [lower_one(arch, DRYRUN_SHAPE, verbose=False)
+                      for arch in ASSIGNED_ARCHS]}
+    recs["sweep_s"] = time.time() - t0
+    recs["rank"] = _dryrun_record(DRYRUN_RANK_GRID)
+    recs["tp"] = _dryrun_record(DRYRUN_TP_GRID)
+    recs["train"] = lower_one(
+        TRAIN_ARCH, InputShape(f"train_{TRAIN_BATCH}x{TRAIN_SEQ}", TRAIN_SEQ,
+                               TRAIN_BATCH, "train"),
+        grid=Grid(("data", "model"), (1, 1)), cfg=get_config(TRAIN_ARCH),
+        dtype=torch.float32, verbose=False)
+    recs["seconds"] = time.time() - t0
+    conn.send(recs)
+
+
+class DryrunCounts:
+    """:func:`dryrun_counts` in a spawned process, started before the
+    first phase so that its host work (about a minute on one core) runs
+    beside the card's phases; ``get`` waits for it, at most
+    DRYRUN_COUNTS_TIMEOUT seconds from the start."""
+
+    def __init__(self):
+        import multiprocessing
+        mp = multiprocessing.get_context("spawn")
+        self.conn, child = mp.Pipe(duplex=False)
+        self.proc = mp.Process(target=dryrun_counts, args=(child,),
+                               daemon=True)
+        self.t0 = time.time()
+        self.proc.start()
+        child.close()
+        self.recs = None
+
+    def get(self, key):
+        if self.recs is None:
+            self.recs = self._wait()
+            self.proc.join()
+            log(f"[dryrun] host counts: {self.recs['seconds']:.1f} s in "
+                "their own process beside the card's phases, waited for "
+                f"{time.time() - self.t0:.1f} s after its start")
+        return self.recs[key]
+
+    def _wait(self) -> dict:
+        while not self.conn.poll(1.0):
+            if not self.proc.is_alive() or \
+                    time.time() - self.t0 > DRYRUN_COUNTS_TIMEOUT:
+                break
+        else:
+            try:
+                return self.conn.recv()
+            except EOFError:          # it ended without sending
+                pass
+        raise RuntimeError("[dryrun] the host counts' process ended (exit "
+                           f"code {self.proc.exitcode}) or ran past "
+                           f"{DRYRUN_COUNTS_TIMEOUT} s, and sent nothing")
+
+    def stop(self):
+        if self.proc.is_alive():
+            self.proc.kill()
+        self.proc.join()
+
+
+DRYRUN_COUNTS = None         # a DryrunCounts, made by main()
+
+
+def phase_dryrun():
+    """(a) the sweep, (b) one rank measured, with its kernel path, (c) a TP
+    rank's weights; (d) runs in the train phase (train_full). The records
+    come from DRYRUN_COUNTS."""
+    card = card_line()
+    dryrun_sweep(card)
+    dryrun_rank(card)
+    dryrun_kernel(card)
+    dryrun_parity(card)
+    dryrun_tp(card)
+
+
+def _gb(n) -> str:
+    return f"{n / 1e9:.3f}"
+
+
+def dryrun_sweep(card):
+    """(a) ``lower_one`` for every assigned arch at DRYRUN_SHAPE on the
+    16 x 16 grid (host counts, no device); a combination that raises
+    fails the phase."""
+    recs = DRYRUN_COUNTS.get("sweep")
+    for rec in recs:
+        mem, rank, coll = rec["memory"], rec["rank_memory"], \
+            rec["collectives"]
+        log(f"[dryrun] {rec['arch']} {DRYRUN_SHAPE} on {rec['mesh']} (host "
+            f"counts, rank 0): spec arguments "
+            f"{_gb(mem['argument_size_in_bytes'])} GB, port rank entry {_gb(rank['entry_bytes'])} GB, peak "
+            f"{_gb(rank['peak_bytes'])} GB "
+            f"({'fits' if rank['peak_bytes'] <= 80e9 else 'exceeds'} 80 "
+            f"GB); {rec['flops'] / 1e9:.1f} GFLOPs; {coll['all-reduce']} "
+            f"all-reduce bytes in {coll['count']} collectives; "
+            f"{rec['lower_s']} s")
+    log(f"[dryrun] sweep of {len(recs)} archs in "
+        f"{DRYRUN_COUNTS.get('sweep_s'):.1f} s [{card}]")
+
+
+def _dryrun_record(grid_sizes):
+    """DRYRUN_ARCH's DRYRUN_SHAPE record on a (data, model) grid."""
+    from repro_torch.launch.dryrun import lower_one
+    from repro_torch.launch.mesh import Grid
+    return lower_one(DRYRUN_ARCH, DRYRUN_SHAPE,
+                     grid=Grid(("data", "model"), grid_sizes), verbose=False)
+
+
+def _requested(which: str = "current") -> int:
+    """Bytes the live tensors asked the caching allocator for (before its
+    rounding: a large block keeps up to 1 MiB of its segment's tail)."""
+    return torch.cuda.memory_stats()[f"requested_bytes.all.{which}"]
+
+
+def dryrun_rank(card):
+    """(b) DRYRUN_ARCH's decode_32k rank 0 on (data 16, model 1): the
+    record's prediction, then that rank built on the card (bf16 weights
+    from seed 0, the slab cache of 8 x 32,768, filled at random): the
+    bytes its tensors request from the allocator against the record's
+    arguments (within DRYRUN_ALLOC_SLACK a tensor; the weights and the
+    cache apart too), one plain decode step's requested peak against the
+    record's (within DRYRUN_PEAK_TOL), its FLOPs (FlopCounterMode) equal
+    to the record's; the allocator's own (rounded) bytes beside them;
+    then the kernel path (the slab duet_attention kernel at 32,768 keys,
+    once a layer), its logits beside the plain path's, both paths'
+    device and wall ms a step (torch.profiler) beside the bound (the
+    argument bytes at HBM_BYTES_PER_S). Every number is printed before a
+    miss raises."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts
+    from repro_torch.models import Model
+    from repro_torch.models.params import _leaves
+    rec = DRYRUN_COUNTS.get("rank")
+    args = rec["memory"]["argument_size_in_bytes"]
+    weights = rec["rank_memory"]["weight_bytes"]
+    pred_peak = rec["rank_memory"]["peak_bytes"]
+    log(f"[dryrun] prediction: {DRYRUN_ARCH} {DRYRUN_SHAPE} rank 0 of "
+        f"{rec['mesh']}: arguments {args} B (weights {weights} B), peak "
+        f"{pred_peak} B, {rec['flops']} FLOPs (host counts)")
+    cfg = get_config(DRYRUN_ARCH)
+    B, S = 128 // DRYRUN_RANK_GRID[0], 32_768
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base, base_alloc = _requested(), torch.cuda.memory_allocated()
+    model = Model.init(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    got_w = _requested() - base
+    cache = model.init_cache(B, S)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    token = torch.randint(0, cfg.vocab_size, (B, 1), generator=gen,
+                          device=dev, dtype=torch.int32)
+    pos = torch.full((B,), S - 1, dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    held = _requested() - base
+    alloc = torch.cuda.memory_allocated() - base_alloc
+    n_w = len(list(_leaves(model.param_tree())))
+    n = n_w + sum(len(c) for c in cache) + 2
+    misses = []
+    log(f"[dryrun] measured: the rank's tensors request {held} B vs the "
+        f"record's arguments {args} B ({held - args:+d} B over {n} "
+        f"tensors, slack {DRYRUN_ALLOC_SLACK} B a tensor); the weights "
+        f"{got_w} B vs {weights} B ({got_w - weights:+d} B over {n_w}); "
+        f"the allocator holds {alloc} B ({alloc - args:+d} B of block "
+        f"rounding) [{card}]")
+    if abs(held - args) > DRYRUN_ALLOC_SLACK * n or \
+            abs(got_w - weights) > DRYRUN_ALLOC_SLACK * n_w:
+        misses.append("the rank's bytes differ from the record's arguments")
+    for c in cache:
+        for t in c:
+            t.normal_(generator=gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    plain, _ = model.decode_step(cache, token, pos)
+    torch.cuda.synchronize()
+    peak = _requested("peak") - base
+    peak_alloc = torch.cuda.max_memory_allocated() - base_alloc
+    miss = (peak - pred_peak) / pred_peak
+    log(f"[dryrun] measured: one plain decode step's requested peak {peak} "
+        f"B vs the record's {pred_peak} B ({100 * miss:+.2f}%, tol "
+        f"{100 * DRYRUN_PEAK_TOL:.0f}%); max_memory_allocated "
+        f"{peak_alloc} B ({100 * (peak_alloc - pred_peak) / pred_peak:+.2f}"
+        f"%) [{card}]")
+    if abs(miss) > DRYRUN_PEAK_TOL:
+        misses.append("the step's peak misses the record's")
+    with FlopCounterMode(display=False) as fc:
+        model.decode_step(cache, token, pos)
+    flops = fc.get_total_flops()
+    log(f"[dryrun] measured: the step on the card counts {flops} FLOPs vs "
+        f"the record's {rec['flops']}")
+    if flops != rec["flops"]:
+        misses.append("the card's FLOPs differ from the record's")
+    model.attn_kernel = True
+    before = launch_counts()["duet_attention"]
+    kern, _ = model.decode_step(cache, token, pos)
+    launched = launch_counts()["duet_attention"] - before
+    if launched != cfg.num_layers:
+        misses.append(f"duet_attention launched {launched} times in one "
+                      f"step of {cfg.num_layers} layers")
+    V = cfg.vocab_size
+    kv, pv = kern[:, :V].float(), plain[:, :V].float()
+    if not torch.isfinite(kv).all():
+        misses.append("kernel path logits not finite")
+    err = (kv - pv).abs().max().item()
+    scale = pv.abs().max().item()
+    same = (kv.argmax(-1) == pv.argmax(-1)).float().mean().item()
+    # each path's device time a step (torch.profiler) beside its wall time
+    bound = args / HBM_BYTES_PER_S * 1e3
+    dev = {}
+    for label, on in (("plain", False), ("kernel", True)):
+        model.attn_kernel = on
+
+        def run():
+            for _ in range(2):
+                model.decode_step(cache, token, pos)
+            torch.cuda.synchronize()
+        wall, events, _ = _profile(run, 2)
+        dev[label] = sum(e.self_device_time_total for e in events) / 2e3
+        log_profile(f"{DRYRUN_ARCH} bf16 decode step, {label} path, B={B} "
+                    f"at {S} keys", wall, events, 2, card,
+                    extra=f"; bound {bound:.3f} ms", top=5)
+    log(f"[dryrun] measured: {DRYRUN_ARCH} bf16 decode step, B={B} at "
+        f"{S} keys: kernel path (duet_attention x {launched}) logits max "
+        f"abs diff {err:.3e} of max|plain| {scale:.3g} (bf16; fp32 parity "
+        f"below), argmax agreement {same:.3f}; device time a step: kernel "
+        f"path {dev['kernel']:.3f} ms, plain path {dev['plain']:.3f} ms "
+        f"(torch.profiler); bound {bound:.3f} ms ({_gb(args)} GB at 3.35 "
+        f"TB/s), the kernel path at {100 * bound / dev['kernel']:.1f}% of "
+        f"it [{card}]")
+    del model, cache, plain, kern
+    torch.cuda.empty_cache()
+    if misses:
+        raise AssertionError("[dryrun] " + "; ".join(misses))
+
+
+def dryrun_kernel(card):
+    """(b) the slab duet_attention kernel alone at the rank's shapes (8
+    decode rows at 32,768 keys, DRYRUN_ARCH's heads, bf16): against its
+    plain version, its ms hot and cold beside its bound, the plain
+    version's and SDPA's (the kernels phase's record)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(DRYRUN_ARCH)
+    B, S = 128 // DRYRUN_RANK_GRID[0], 32_768
+    rec = check_duet_slab(
+        np.random.default_rng(24), f"slab {B} decode at {S} keys",
+        torch.bfloat16, B, S, cfg.num_kv_heads, cfg.num_heads, cfg.head_dim,
+        [(i, S - 1) for i in range(B)], [], bq=1)
+    log(f"[dryrun] {rec['name']} [{rec['case']}] bf16: max abs err "
+        f"{rec['max_abs_err']:.3e}; {rec['ms']:.4f} ms hot, "
+        f"{rec['cold_ms']:.4f} cold; bound {rec['bound_ms']:.4f} "
+        f"({rec['bound_by']}), {100 * rec['bound_ms'] / rec['cold_ms']:.1f}"
+        f"% of cold; plain {rec['plain_ms']:.4f}; SDPA "
+        f"{rec['library_ms']:.4f} [{card}]")
+    torch.cuda.empty_cache()
+
+
+def dryrun_parity(card):
+    """(b) the kernel path at 32,768 keys against the plain path's logits:
+    DRYRUN_ARCH at full width cut to DRYRUN_PARITY_LAYERS layers, fp32,
+    TF32 off, 8 rows whose positions run from 32,767 down in steps of
+    4,096 over a cache filled at random, each path on its own copy."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts
+    from repro_torch.models import Model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = _cut(DRYRUN_ARCH, DRYRUN_PARITY_LAYERS)
+    dev = torch.device("cuda")
+    kern = Model.init(cfg, seed=0, dtype=torch.float32, device=dev,
+                      attn_kernel=True)
+    plain = copy.copy(kern)
+    plain.attn_kernel = False
+    B, S = 128 // DRYRUN_RANK_GRID[0], 32_768
+    gen = torch.Generator(device=dev).manual_seed(2)
+    cache = plain.init_cache(B, S)
+    for c in cache:
+        for t in c:
+            t.normal_(generator=gen)
+    kcache = [type(c)(*(t.clone() for t in c)) for c in cache]
+    token = torch.randint(0, cfg.vocab_size, (B, 1), generator=gen,
+                          device=dev, dtype=torch.int32)
+    pos = (S - 1 - 4096 * torch.arange(B, device=dev)).to(torch.int32)
+    with torch.no_grad():
+        want, _ = plain.decode_step(cache, token, pos)
+        before = launch_counts()["duet_attention"]
+        got, _ = kern.decode_step(kcache, token, pos)
+        launched = launch_counts()["duet_attention"] - before
+    if launched != cfg.num_layers:
+        raise AssertionError(f"[dryrun] duet_attention launched {launched} "
+                             f"times in {cfg.num_layers} layers")
+    _check_parity(DRYRUN_ARCH, cfg.num_layers, get_config(DRYRUN_ARCH),
+                  [(f"slab decode at {S} keys (B={B}, positions "
+                    f"{pos.tolist()})", got, want)])
+    del kern, plain, cache, kcache
+    torch.cuda.empty_cache()
+
+
+def dryrun_tp(card):
+    """(c) the (data 16, model 2) record's rank 0 weight bytes against
+    ``shard_params(..., tp=2, rank=0)`` as allocated on the card (bf16,
+    the full tree drawn from seed 0 and freed)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.params import (_leaves, init_params,
+                                           shard_params, tp_adjusted_config)
+    rec = DRYRUN_COUNTS.get("tp")
+    want = rec["rank_memory"]["weight_bytes"]
+    tp = DRYRUN_TP_GRID[1]
+    log(f"[dryrun] prediction: {DRYRUN_ARCH} rank 0 of {rec['mesh']}: "
+        f"weights {want} B, spec arguments "
+        f"{rec['memory']['argument_size_in_bytes']} B, port rank peak "
+        f"{rec['rank_memory']['peak_bytes']} B (host counts)")
+    cfg = tp_adjusted_config(get_config(DRYRUN_ARCH), tp)
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base, base_alloc = _requested(), torch.cuda.memory_allocated()
+    full = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                       torch.bfloat16, dev)
+    shard = shard_params(full, cfg, tp, 0)
+    del full
+    torch.cuda.synchronize()
+    held = _requested() - base
+    alloc = torch.cuda.memory_allocated() - base_alloc
+    n = len(list(_leaves(shard)))
+    log(f"[dryrun] measured: shard_params(tp={tp}, rank=0) requests {held} "
+        f"B on the card vs the record's {want} B: {held - want:+d} B over "
+        f"{n} tensors; the allocator holds {alloc} B [{card}]")
+    if abs(held - want) > DRYRUN_ALLOC_SLACK * n:
+        raise AssertionError("[dryrun] the TP rank's weights differ from "
+                             "the record's")
+    del shard
+    torch.cuda.empty_cache()
+
+
+def run_phases(phases):
+    """Run the chosen phases in PHASES' order: the kernels' records, and
+    the kernels' launch counts on the main path."""
     main_rec, counts = {}, {}
     for phase in (p for p in PHASES if p in phases):
         t_phase = time.time()
@@ -3431,7 +3832,39 @@ def main(argv=None) -> int:
         elif phase == "grid":
             for name, n in phase_grid().items():
                 counts[name] = counts.get(name, 0) + n
+        elif phase == "dryrun":
+            phase_dryrun()
         log(f"[time] {phase} phase {time.time() - t_phase:.1f} s")
+    return main_rec, counts
+
+
+# ---------------------------------------------------------------------------
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help=f"comma-separated subset of {','.join(PHASES)}")
+    args = ap.parse_args(argv)
+    phases = [p for p in args.phases.split(",") if p]
+    unknown = set(phases) - set(PHASES)
+    if unknown:
+        ap.error(f"unknown phases {sorted(unknown)}")
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; the port's smoke test "
+              "needs one card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    import repro_torch  # noqa: F401  (fails outside the repository)
+    log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
+        f"cuda {torch.version.cuda} card {torch.cuda.get_device_name(0)}")
+    t0 = time.time()
+    global DRYRUN_COUNTS
+    if {"train", "dryrun"} & set(phases):
+        DRYRUN_COUNTS = DryrunCounts()
+    try:
+        main_rec, counts = run_phases(phases)
+    finally:
+        if DRYRUN_COUNTS is not None:
+            DRYRUN_COUNTS.stop()
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
         rec = main_rec.get(name, {})

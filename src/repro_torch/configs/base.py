@@ -2,9 +2,10 @@
 
 Every assigned architecture is expressed as an :class:`ArchConfig` — a frozen,
 declarative description consumed by ``repro_torch.models.transformer.Model`` (layer
-stack), ``repro_torch.models.params`` (init) and ``repro_torch.core.roofline``
-(operator census). The port registers every architecture of the
-reference; ``get_config`` of any other name raises "not yet ported".
+stack), ``repro_torch.models.params`` (init), ``repro_torch.core.roofline``
+(operator census) and ``repro_torch.launch.dryrun`` (entry-point
+selection). The port registers every architecture of the reference;
+``get_config`` of any other name raises "not yet ported".
 
 Block types (``block_pattern`` entries):
   ``attn``    self-attention + MLP (dense transformer block)
@@ -187,6 +188,14 @@ def get_config(name: str) -> ArchConfig:
 def list_configs() -> list[str]:
     _ensure_loaded()
     return sorted(_REGISTRY)
+
+
+# the 10 architectures assigned to this paper (the dry run's sweep set)
+ASSIGNED_ARCHS = [
+    "deepseek-v2-lite-16b", "granite-20b", "granite-moe-3b-a800m",
+    "minicpm-2b", "musicgen-medium", "paligemma-3b", "qwen3-4b",
+    "xlstm-350m", "yi-9b", "zamba2-1.2b",
+]
 
 
 # every architecture of the reference: the dense GQA and MQA configs (the

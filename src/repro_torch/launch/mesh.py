@@ -32,9 +32,18 @@ other ranks are stopped).
 Serving's data-parallel replicas run in the router of each process (the
 reference's single-controller router), not one a rank:
 :func:`split_data_axis` gives each replica its device, behind
-``DeviceContext.split_replicas``. The reference's duet sub-mesh split
-(``split_duet_submeshes``) stays unported: its Hopper counterpart is SM
-partitioning.
+``DeviceContext.split_replicas``.
+
+The production grid (the dry run's, ``launch.dryrun``): a :class:`Grid`
+names axes and sizes and holds no devices and starts no processes.
+:func:`make_production_mesh` gives ``("data", "model")`` = (16, 16), or
+``("pod", "data", "model")`` = (2, 16, 16) with ``multi_pod``: 256 or
+512 ranks, each one H100. :func:`data_axes` names its data-parallel axes
+and :func:`split_duet_submeshes` the (prefill, decode) global ranks of
+the reference's duet split of ``model``, geometry only (the Hopper
+counterpart of the split itself is SM partitioning). The reference's
+``make_test_mesh`` has no namesake: :func:`check_geometry` validates a
+small grid and :func:`run_ranks` brings it up.
 
 Usage::
 
@@ -48,13 +57,15 @@ from __future__ import annotations
 
 import datetime
 import os
+import math
 import queue
 import tempfile
 import time
 import traceback
 from dataclasses import dataclass
-from typing import Any, Callable, List, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
@@ -96,6 +107,74 @@ class Rank:
                              rank=self.model_rank, group=self.model_group,
                              backend=self.backend, dp=dp,
                              share_card=share_card)
+
+
+@dataclass(frozen=True)
+class Grid:
+    """A grid of ranks by name: ``axis_names`` and their ``sizes``, the
+    last axis ``model`` (the reference's mesh shapes). Global rank order is
+    row-major over the axes, as :func:`run_ranks` numbers ``(data,
+    model)``."""
+    axis_names: Tuple[str, ...]
+    sizes: Tuple[int, ...]
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.sizes))
+
+    @property
+    def size(self) -> int:
+        return int(np.prod(self.sizes))
+
+    def ranks(self) -> np.ndarray:
+        """The global ranks laid out on the axes."""
+        return np.arange(self.size).reshape(self.sizes)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Grid:
+    """(data 16, model 16), or (pod 2, data 16, model 16) with
+    ``multi_pod``."""
+    if multi_pod:
+        return Grid(("pod", "data", "model"), (2, 16, 16))
+    return Grid(("data", "model"), (16, 16))
+
+
+def data_axes(grid: Grid) -> Tuple[str, ...]:
+    return tuple(a for a in ("pod", "data") if a in grid.shape)
+
+
+def batch_split(grid: Grid, batch: int) -> Tuple[Tuple[str, ...], int]:
+    """How a global ``batch`` splits over the grid's data axes: the axes
+    it is cut on and the rows a rank holds. It is cut only when it exceeds
+    1 and their product divides it (the reference's cache rule); else no
+    axis and the whole batch. ``grid`` may be anything whose ``shape``
+    maps axis names to sizes."""
+    axes = data_axes(grid)
+    n = math.prod(grid.shape[a] for a in axes)
+    if batch > 1 and batch % n == 0:
+        return axes, batch // n
+    return (), batch
+
+
+def split_duet_submeshes(grid: Grid, decode_chips: int):
+    """The (prefill, decode) global ranks of ``grid``: the last
+    ``decode_chips`` columns of the ``model`` axis decode, the rest
+    prefill, every data/pod index keeping its share of both (the
+    reference's split, each array laid out on the grid's axes)."""
+    if "model" not in grid.shape:
+        raise ValueError(
+            "split_duet_submeshes needs a 'model' axis, grid has "
+            f"{tuple(grid.axis_names)}")
+    model_size = grid.shape["model"]
+    if not 0 < decode_chips < model_size:
+        raise ValueError(
+            f"decode_chips must be in (0, {model_size}) so both sub-meshes "
+            f"are non-empty, got {decode_chips}")
+    ranks = grid.ranks()
+    axis = list(grid.axis_names).index("model")
+    cut = model_size - decode_chips
+    return (np.take(ranks, range(cut), axis=axis),
+            np.take(ranks, range(cut, model_size), axis=axis))
 
 
 def check_geometry(tp: int, device: str, share_card: bool = False,

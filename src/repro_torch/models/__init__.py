@@ -1,6 +1,8 @@
-from repro_torch.models.params import (count_params_analytical, init_params,
+from repro_torch.models.params import (abstract_params,
+                                       count_params_analytical, init_params,
                                        params_from_jax, trainable)
 from repro_torch.models.transformer import Model, ParamTree
 
-__all__ = ["Model", "ParamTree", "count_params_analytical", "init_params",
+__all__ = ["Model", "ParamTree", "abstract_params",
+           "count_params_analytical", "init_params",
            "params_from_jax", "trainable"]

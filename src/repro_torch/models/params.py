@@ -9,7 +9,9 @@ kind) with the reference's layouts, e.g. GQA's ``w_q (D,H,Dh)`` and
 ``w_o (H,Dh,D)``, MLA's flat ``w_o (H*vd, D)`` and the experts'
 ``w_gate (E,D,F)``, so both packages compute the same einsums term for
 term.
-``init_params`` materialises it from a ``torch.Generator``;
+``init_params`` materialises it from a ``torch.Generator``, and
+``abstract_params`` gives it as ``meta`` tensors (shapes only, for the
+dry run);
 ``params_from_jax`` turns the reference's parameter tree (nested dict of
 numpy arrays, as ``jax.tree.map(np.asarray, params)`` gives it) into the
 port's tensors. The ``uniform_log`` leaves (Mamba2's ``dt_bias`` and
@@ -436,6 +438,21 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
             leaf = _shard_leaf(leaf, specs[path], tp, rank).clone()
         made[path] = leaf
     return _map(lambda path, _: made[path], defs)
+
+
+def abstract_params(cfg: ArchConfig, dtype=torch.bfloat16, *,
+                    tp: int = 1) -> dict:
+    """The layout's tree as ``meta`` tensors (shapes and dtypes, no
+    storage), the ``uniform_log`` leaves fp32 as :func:`init_params` keeps
+    them; at ``tp`` > 1 each leaf is a rank's slice (:func:`shard_params`'
+    cut; every rank's has the same shape)."""
+    specs = dict(_leaves(param_specs(cfg, tp)))
+
+    def make(path, d: ParamDef):
+        dt = torch.float32 if d.init == "uniform_log" else dtype
+        return _shard_leaf(torch.empty(d.shape, dtype=dt, device="meta"),
+                           specs[path], tp, 0)
+    return _map(make, layout(cfg))
 
 
 def count_params_analytical(cfg: ArchConfig,

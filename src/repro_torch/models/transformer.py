@@ -18,6 +18,10 @@ Slab cache (one contiguous KV row per slot, ``init_cache``):
                             attention through the slab ``duet_attention``
                             kernel, ``sliding`` uses the ring buffer
 
+``cache_specs`` / ``cache_pspecs`` give the reference's global slab cache
+tree as ``meta`` tensors and its partition specs on a grid, for the dry
+run (``launch/dryrun.py``).
+
 Paged KV pool:
 
   * ``prefill_paged``     — chunked prefill against the paged KV pool
@@ -87,8 +91,8 @@ from repro_torch.models.layers import (cross_entropy, embed,
                                       unembed, unembed_codebooks)
 from repro_torch.models.moe import moe_ffn
 from repro_torch.models.params import (_leaves, _mlstm_inner, _shard_leaf,
-                                       init_params, layout, param_specs,
-                                       trainable)
+                                       axis_rules, init_params, layout,
+                                       param_specs, trainable)
 from repro_torch.models.ssm import MambaCache
 from repro_torch.models.xlstm import MLSTMCache, SLSTMCache
 
@@ -652,3 +656,71 @@ def _build_cache(cfg: ArchConfig, batch: int, max_len: int, dtype, sliding,
         else:
             raise ValueError(kind)
     return cache
+
+
+def cache_specs(cfg: ArchConfig, batch: int, max_len: int,
+                dtype=torch.bfloat16, *, sliding: bool = False) -> list:
+    """The reference's (global) slab cache tree as ``meta`` tensors, no
+    storage: whole KV heads and Mamba2 widths, MLA latents at ``max_len``
+    even when ``sliding``."""
+    meta = torch.device("meta")
+    return _build_cache(cfg, batch, max_len, dtype, sliding, meta,
+                        ctx=DeviceContext(cfg, meta))
+
+
+def cache_pspecs(cfg: ArchConfig, grid, batch: int, *,
+                 sliding: bool = False) -> list:
+    """The reference's partition specs of the :func:`cache_specs` tree on
+    ``grid`` (``launch.mesh.Grid``, or anything whose ``shape`` maps axis
+    names to sizes): each leaf's spec is a tuple with one entry a dim,
+    None, an axis name or a tuple of two or more axis names (the entries
+    of the reference's ``PartitionSpec``, which writes one axis as its
+    name).
+
+    Batch shards over (pod?, data) when they divide it; for batch 1
+    (long_500k) attention caches shard their *sequence* over the data axes
+    instead (context-parallel decode). An attention cache whose KV heads do
+    not shard over ``model`` shards its sequence over it too, and MLA's
+    latents always do; recurrent states replicate over data, Mamba2's SSM
+    state split on ``ssm_heads``. (What the reference's GSPMD lowering
+    places; the port's ranks hold ``Model.init_cache``'s layout, which
+    shards no sequence.)"""
+    # launch.mesh imports the models package (through core), so not above
+    from repro_torch.launch.mesh import batch_split, data_axes
+    on_batch, _ = batch_split(grid, batch)
+    batch_ax = _entry(on_batch)
+    seq_ax = () if on_batch else data_axes(grid)
+    rules = axis_rules(cfg, grid.shape.get("model", 1))
+    ssm_heads_ax = rules["ssm_heads"]
+
+    specs = []
+    for kind in cfg.block_pattern:
+        if kind in ATTN_KINDS:
+            kv_ax = rules["kv_heads"]
+            sq = _entry(seq_ax + (("model",) if kv_ax is None else ()))
+            s = (batch_ax, sq, kv_ax, None)
+            specs.append(attn_mod.AttnCache(k=s, v=s))
+        elif kind in MLA_KINDS:
+            sq = _entry(seq_ax + ("model",))
+            specs.append(attn_mod.MLACache(ckv=(batch_ax, sq, None),
+                                           krope=(batch_ax, sq, None)))
+        elif kind == "mamba2":
+            specs.append(MambaCache(conv=(batch_ax, None, None),
+                                    ssm=(batch_ax, ssm_heads_ax, None,
+                                         None)))
+        elif kind == "mlstm":
+            specs.append(MLSTMCache(conv=(batch_ax, None, None),
+                                    C=(batch_ax, None, None, None),
+                                    n=(batch_ax, None, None),
+                                    m=(batch_ax, None)))
+        elif kind == "slstm":
+            s2 = (batch_ax, None)
+            specs.append(SLSTMCache(c=s2, n=s2, m=s2, h=s2))
+        else:
+            raise ValueError(kind)
+    return specs
+
+
+def _entry(axes: tuple):
+    """A spec entry over ``axes``: None, one name, or the tuple."""
+    return None if not axes else axes[0] if len(axes) == 1 else axes
