@@ -78,8 +78,8 @@ Phases (each raises on failure; nothing is swallowed):
              the paged path (4 of the 8 requests, those with the shortest
              outputs, through the async engine, the sync engine, and the
              async engine again with split_kv_threshold=256) and the slab
-             path (all 8 requests; paged=False: the sync and the async
-             engine). The kernels line's launches sum both paths. Every
+             path (all 8 requests, outputs cut to 64 tokens; paged=False:
+             the sync and the async engine). The kernels line's launches sum both paths. Every
              request must finish, the async runs must keep host_syncs <=
              super_iterations, the paged async runs must make at least one
              duet dispatch, and every kernel of a path must have launched
@@ -90,7 +90,7 @@ Phases (each raises on failure; nothing is swallowed):
              granite-20b, granite-moe-3b-a800m and deepseek-v2-lite-16b,
              one at a time at full depth (bf16, random weights from seed 0,
              their measured weight bytes and peak memory printed), each
-             serve 4 requests of at most 64 output tokens through the
+             serve 4 requests of at most 32 output tokens through the
              async engine on the paged path (the duet kernel on for the
              GQA configs; deepseek's MLA runs no kernel, and its paths
              must launch none) and on the slab path, each path's launch
@@ -124,7 +124,7 @@ Phases (each raises on failure; nothing is swallowed):
              at the engine's tiles) against TP 1's within 1e-4 x
              max|logit|, both ranks' bitwise equal. (c) full qwen3-4b
              (36 layers, bf16) serves the paged path's 4 requests, outputs
-             cut to 64 tokens, through the async and then the sync engine
+             cut to 32 tokens, through the async and then the sync engine
              (kernels on, strict), the
              launch counts reset just before and read just after: every
              request finishes, kernel_path is cuda_sharded, both ranks'
@@ -145,7 +145,7 @@ Phases (each raises on failure; nothing is swallowed):
              (e) paged_decode_sharded at granite-moe's 12 / 4 and zamba2's
              16 / 16 rank shards (Dh 64), as (a) at S = 1. (f) full
              deepseek-v2-lite-16b and zamba2-1.2b (bf16, every layer)
-             serve 4 azure-conv requests (outputs cut to 32) through the
+             serve 4 azure-conv requests (outputs cut to 16) through the
              async engine on the paged path, the launch counts reset just
              before and read just after: every request finishes, both
              ranks' streams are equal, host_syncs <= super_iterations,
@@ -199,7 +199,7 @@ Phases (each raises on failure; nothing is swallowed):
              over gloo (share_card). (a) Serving: full qwen3-4b (36
              layers, bf16) as DP 2 x TP 2: 2 processes, each its rank of
              both replicas (a process group a replica), the async engine
-             on the paged kernel path, 4 azure-conv requests cut to 32
+             on the paged kernel path, 4 azure-conv requests cut to 16
              tokens, round-robin: both ranks' streams bitwise equal, each
              replica's streams equal a TP 2 engine serving its requests
              alone, every request finished, at most one host sync a
@@ -251,7 +251,37 @@ Phases (each raises on failure; nothing is swallowed):
              host work: one spawned process makes them beside the card's
              phases from the script's start, and the phases wait for it.
              The launches here are checks, not the main path: they join
-             no count of the kernels line.
+             no count of the kernels line. The records are those of the
+             context-parallel layout (a decode rank holds its span of the
+             GQA caches' sequence).
+10. cp     — context-parallel decode, every rank on card 0 over gloo.
+             (d) the slab duet_attention kernel alone with its
+             log-sum-exp and the key offset, at paligemma-3b's rank span
+             (8 rows, 8 / 1 / 256, 16,384 keys) and at granite-20b's
+             block role over as many keys, fp32 and bf16: out and lse
+             against the plain version (rows before, inside and past the
+             span; dead rows' lse exactly -inf), then timed hot and cold
+             with and without lse beside the bound (the span's KV bytes
+             at 3.35 TB/s), the plain version and SDPA (checks: no
+             count). (a) paligemma-3b at TP 2: its one KV head does not
+             divide the model axis, so each rank holds 16,384 of the
+             32,768 positions of 8 rows (the whole random cache cut by
+             shard_cache); 4 decode steps from positions with one row in
+             rank 0's span only and one crossing the spans: the CP kernel
+             path against TP 1's whole cache (plain path, here) and the
+             CP plain path, at full depth in bf16 (error and argmax
+             agreement printed) and at 4 layers in fp32, TF32 off,
+             within PARITY_TOL (the hard check); both ranks' logits
+             bitwise equal; duet_attention launched once a layer a step
+             (these launches join the kernels line). (b) qwen3-4b cut to
+             4 layers, fp32, batch 1, long_500k's sliding ring of 8,192
+             cut over (data 2, model 1), positions past 524,287: logits
+             within PARITY_TOL of one model with the whole ring. (c)
+             minicpm-2b's decode_32k rank 0 of 16 x 16 allocated on the
+             card (its weight shards and its span of 2,048 keys of 36 KV
+             heads, 8 rows): the bytes requested within 512 B a tensor
+             of the record's arguments; the record's peak under 80 GB;
+             no step (its peers do not exist).
 
 Before the last line it prints the card's name and power limit
 (``nvidia-smi``) and a ``{"kernels": [...]}`` JSON line (flash_prefill
@@ -275,7 +305,7 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "kernels", "parity", "serve", "tp", "dp", "train",
-          "grid", "dryrun")
+          "grid", "dryrun", "cp")
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -320,6 +350,7 @@ PATH_OF = {"paged_decode": "paged", "paged_decode[block]": "paged",
            "paged_decode_splitkv": "paged", "duet_attention_paged": "paged",
            "duet_attention": "slab", "duet_attention[block]": "slab"}
 PAGED_MAX_OUTPUT = 160      # see phase_serve's requests()
+SLAB_MAX_OUTPUT = 64        # the same: keeps the script inside its limit
 # the registered configs whose GQA head shapes the kernels phase runs at
 # the main path's shapes: granite-20b's MQA (rep 48, every CTA on the
 # 64-row block; its bf16 records are the block roles' in the kernels
@@ -351,7 +382,9 @@ TRAIN_ARCH = "minicpm-2b"
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 8, 2, 512, 3e-4
 TRAIN_CHECK_STEPS, TRAIN_CHECK_SEQ, TRAIN_CHECK_LR = 3, 64, 1e-3
 TRAIN_TOL, TRAIN_PARAM_TOL_LR = 1e-4, 0.1
-SERVE_REQUESTS, SERVE_MAX_OUTPUT = 4, 64    # each served config's runs
+# each served config's runs (outputs of 32 keep the whole script inside
+# its time limit on a slow host)
+SERVE_REQUESTS, SERVE_MAX_OUTPUT = 4, 32
 # the recurrent configs' parity depth: zamba2's first 6 layers (5 mamba2
 # + 1 shared_attn), xlstm's first 4 (3 mlstm + 1 slstm)
 RECURRENT_PARITY_LAYERS = {"zamba2-1.2b": 6, "xlstm-350m": 4}
@@ -1528,18 +1561,20 @@ def _requests(path, n=None, max_output=None):
     """The serve phase's azure-conv requests (8, qps 4, seed 0, clamped to
     max_len 1024). The qwen3-4b paged path's three runs serve those of at
     most PAGED_MAX_OUTPUT output tokens (4 of the 8), which halves their
-    decode steps, its slab path all 8; a served config's runs take the
-    first ``n`` with outputs cut to ``max_output`` tokens."""
+    decode steps, its slab path all 8 with outputs cut to SLAB_MAX_OUTPUT
+    tokens; a served config's runs take the first ``n`` with outputs cut
+    to ``max_output`` tokens."""
     from repro_torch.launch.serve import _clamp_lengths
     from repro_torch.serving.traces import synth_trace
     reqs = _clamp_lengths(synth_trace("azure-conv", 8, 4.0, seed=0), 1024,
                           True)
-    if n is not None:
-        reqs = reqs[:n]
-        for r in reqs:
-            r.output_len = min(r.output_len, max_output)
-    elif path == "paged":
-        reqs = [r for r in reqs if r.output_len <= PAGED_MAX_OUTPUT]
+    if n is None and path == "paged":
+        return [r for r in reqs if r.output_len <= PAGED_MAX_OUTPUT]
+    if n is None:
+        n, max_output = len(reqs), SLAB_MAX_OUTPUT
+    reqs = reqs[:n]
+    for r in reqs:
+        r.output_len = min(r.output_len, max_output)
     return reqs
 
 
@@ -1989,8 +2024,9 @@ def profile_duet(model, card):
 TP = 2
 TP_PARITY_LAYERS = 4
 # the TP serve runs' outputs are cut to this many tokens: gloo's host
-# round trips on one card make a TP step about 4x a TP 1 step's wall
-TP_MAX_OUTPUT = 64
+# round trips on one card make a TP step about 4x a TP 1 step's wall (32
+# keeps the whole script inside its time limit on a slow host)
+TP_MAX_OUTPUT = 32
 # (d): every other block kind and both frontends at full width, the depth
 # cut to this many layers (zamba2's 12 hold its 2 shared_attn blocks)
 TP_BLOCK_LAYERS = {"deepseek-v2-lite-16b": 4, "granite-moe-3b-a800m": 4,
@@ -1998,9 +2034,9 @@ TP_BLOCK_LAYERS = {"deepseek-v2-lite-16b": 4, "granite-moe-3b-a800m": 4,
                    "musicgen-medium": 4}
 # (e): the sharded decode at these configs' rank shards too
 TP_SHARD_CONFIGS = ("granite-moe-3b-a800m", "zamba2-1.2b")
-# (f): full width and depth at TP 2, 4 requests of at most 32 tokens
+# (f): full width and depth at TP 2, 4 requests of at most 16 tokens
 TP_SERVED = ("deepseek-v2-lite-16b", "zamba2-1.2b")
-TP_SERVE_REQUESTS, TP_SERVE_MAX_OUTPUT = 4, 32
+TP_SERVE_REQUESTS, TP_SERVE_MAX_OUTPUT = 4, 16
 
 
 def phase_tp():
@@ -3105,7 +3141,7 @@ def train_dryrun(cfg, peak: int, card):
 GRID_DP, GRID_TP = 2, 2
 # (a) serving: qwen3-4b at full width and depth, DP 2 x TP 2
 GRID_SERVE_ARCH = "qwen3-4b"
-GRID_SERVE_REQUESTS, GRID_SERVE_MAX_OUTPUT = 4, 32
+GRID_SERVE_REQUESTS, GRID_SERVE_MAX_OUTPUT = 4, 16
 # (b) training: TRAIN_ARCH at full width, cut to this depth, at TRAIN_BATCH
 # x TRAIN_SEQ, TRAIN_LR on its WSD schedule
 GRID_TRAIN_LAYERS, GRID_TRAIN_STEPS = 4, 3
@@ -3806,6 +3842,437 @@ def dryrun_tp(card):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 10: context-parallel decode
+# ---------------------------------------------------------------------------
+# (a) CP_ARCH at full width and depth, bf16, at TP CP_TP: its one KV head
+# does not divide the model axis, so the cache's sequence is cut over it
+# (cache_pspecs); CP_B rows at CP_S positions, a span of CP_S / CP_TP keys
+# a rank; CP_STEPS decode steps from CP_POS: row 0 in rank 0's span only
+# (rank 1 holds none of its keys), row 1 crossing from rank 0's span into
+# rank 1's; then CP_PARITY_LAYERS layers in fp32, TF32 off
+CP_ARCH, CP_TP = "paligemma-3b", 2
+CP_B, CP_S, CP_STEPS, CP_PARITY_LAYERS = 8, 32_768, 4, 4
+CP_POS = (1_000, 16_382, 16_384, 20_000, 24_000, 28_000, 32_000, 32_764)
+CP_SEED = 25
+# (b) CP_RING_ARCH's long_500k ring at (data CP_RING_DP, model 1), batch 1:
+# the sliding window's ring cut over data, the positions past 524,287 (the
+# ring has wrapped), CP_PARITY_LAYERS layers, fp32
+CP_RING_ARCH, CP_RING_DP, CP_RING_POS = "qwen3-4b", 2, 524_288 + 37
+# (c) CP_RANK_ARCH's decode_32k rank 0 of the 16 x 16 grid, allocated
+CP_RANK_ARCH = "minicpm-2b"
+# (d) the kernel's log-sum-exp in bf16, (atol, rtol): l sums the bf16
+# rounded P, about 2^-9 of each key's weight, so log l moves by at most
+# ~2e-3; fp32 at TOL
+LSE_BF16_TOL = (1e-2, 1e-3)
+CARD_BYTES = 80e9
+
+
+def phase_cp():
+    """(d) the kernel alone with its log-sum-exp and key offset, (a) CP_ARCH
+    at TP CP_TP over the sequence, (b) the wrapped long_500k ring over the
+    data axis, (c) a decode_32k rank of the 16 x 16 grid allocated on the
+    card. Every rank on card 0 over gloo. Returns (a)'s kernel path's
+    launch counts on rank 0."""
+    from repro_torch.kernels import _build
+    _build.build_all()
+    torch.cuda.empty_cache()
+    card = card_line()
+    log(f"[cp] every rank on cuda:0 over gloo (share_card): each decode "
+        "layer's all-gather copies through host memory, so no CP speed is "
+        f"claimed [{card}]")
+    cp_kernel(card)
+    counts = cp_model(card)
+    cp_ring(card)
+    cp_rank(card)
+    return counts
+
+
+def _cp_cache(cfg, B, S, dtype, seed, sliding=False):
+    """A whole slab (or ring) cache on the card, every leaf drawn normal
+    from ``seed`` (the same bits in every process)."""
+    from repro_torch.core.device import DeviceContext
+    from repro_torch.models.transformer import _build_cache
+    dev = torch.device("cuda")
+    cache = _build_cache(cfg, B, S, dtype, sliding, dev,
+                         ctx=DeviceContext(cfg, dev))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for c in cache:
+        for t in c:
+            t.normal_(generator=gen)
+    return cache
+
+
+def _cp_steps(cfg, positions):
+    """CP_STEPS (tokens (B, 1), positions (B,)) from CP_SEED."""
+    rng = np.random.default_rng(CP_SEED)
+    B = len(positions)
+    return [(rng.integers(0, cfg.vocab_size, (B, 1)).astype(np.int32),
+             np.asarray(positions, np.int32) + i) for i in range(CP_STEPS)]
+
+
+def _cp_decode(model, cache, steps, sliding=False):
+    """(fp32 logits of every step (steps, B, V) on the host, wall ms a step
+    on the host clock, synchronised)."""
+    dev, out = model.device, []
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with torch.no_grad():
+        for tok, pos in steps:
+            lg, cache = model.decode_step(
+                cache, torch.from_numpy(tok).to(dev),
+                torch.from_numpy(pos).to(dev), sliding=sliding)
+            out.append(lg.float())
+    torch.cuda.synchronize()
+    ms = (time.time() - t0) / len(steps) * 1e3
+    return torch.stack(out).cpu().numpy(), ms
+
+
+def _cp_cases():
+    """(label, config, dtype) of (a): full depth bf16, then the cut fp32."""
+    from repro_torch.configs import get_config
+    return (("bf16", get_config(CP_ARCH), torch.bfloat16),
+            (f"fp32 {CP_PARITY_LAYERS} layers",
+             _cut(CP_ARCH, CP_PARITY_LAYERS), torch.float32))
+
+
+def _agree(got, want, vocab):
+    """(max abs diff, max |want|, share of rows whose argmax agrees)."""
+    got, want = got[..., :vocab], want[..., :vocab]
+    return (float(np.abs(got - want).max()), float(np.abs(want).max()),
+            float((got.argmax(-1) == want.argmax(-1)).mean()))
+
+
+def cp_model(card):
+    """(a) TP 1 with the whole cache (plain path) here, then CP_TP ranks
+    each holding its span: the CP kernel path against the TP 1 logits and
+    against the CP plain path; fp32 within PARITY_TOL is the hard check,
+    bf16 prints its error and argmax agreement; both ranks' logits bitwise
+    equal; the kernel path launches duet_attention once a layer a step."""
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models import Model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.time()
+    want = {}
+    for label, cfg, dtype in _cp_cases():
+        model = Model.init(cfg, seed=0, dtype=dtype, device="cuda")
+        cache = _cp_cache(cfg, CP_B, CP_S, dtype, CP_SEED)
+        want[label], ms = _cp_decode(model, cache, _cp_steps(cfg, CP_POS))
+        kv = sum(t.numel() * t.element_size() for c in cache for t in c)
+        log(f"[cp] {CP_ARCH} {label} TP 1, whole cache ({_gb(kv)} GB of "
+            f"KV, {CP_B} x {CP_S}), plain path: {ms:.1f} ms a step (wall) "
+            f"[{card}]")
+        del model, cache
+        torch.cuda.empty_cache()
+    ranks = run_ranks(cp_model_rank, CP_TP, device="cuda", share_card=True)
+    for label, cfg, _ in _cp_cases():
+        V = cfg.vocab_size
+        for path in ("kernel", "plain"):
+            if not np.array_equal(ranks[0][label][path],
+                                  ranks[1][label][path]):
+                raise AssertionError(f"[cp] {label} {path}: the ranks' "
+                                     "logits differ")
+        r0 = ranks[0][label]
+        for r, res in enumerate(ranks):
+            log(f"[cp] {CP_ARCH} {label} rank {r}: {res[label]['line']} "
+                f"[{card}]")
+        if label == "bf16":
+            for what, ref in (("TP 1 whole-cache plain path", want[label]),
+                              ("CP plain path", r0["plain"])):
+                if not np.isfinite(r0["kernel"]).all():
+                    raise AssertionError("[cp] kernel path logits not "
+                                         "finite")
+                err, scale, same = _agree(r0["kernel"], ref, V)
+                log(f"[cp] {CP_ARCH} bf16, {CP_STEPS} steps from "
+                    f"{list(CP_POS)}: CP kernel path against the {what}: "
+                    f"max abs diff {err:.3e} of max|logit| {scale:.3g}, "
+                    f"argmax agrees on {same:.3f} of the rows (both ranks "
+                    f"bitwise equal) [{card}]")
+        else:
+            checks = [(f"CP {path} path vs TP 1 whole cache, {CP_STEPS} "
+                       f"steps (both ranks bitwise equal)",
+                       torch.from_numpy(r0[path]),
+                       torch.from_numpy(want[label]))
+                      for path in ("kernel", "plain")]
+            _check_parity(f"{CP_ARCH} TP {CP_TP} CP", CP_PARITY_LAYERS, cfg,
+                          checks)
+    log(f"[cp] (a) done in {time.time() - t0:.1f} s")
+    return ranks[0]["counts"]
+
+
+def cp_model_rank(rank):
+    """(a) One rank (a spawned process): its context over the sequence
+    group cache_seq_axes names, the model from seed 0 (its slices), the
+    whole random cache cut to its span by shard_cache, then CP_STEPS
+    decode steps on the kernel path (launches counted) and on a copy of
+    its span on the plain path, for each of _cp_cases."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import Model
+    from repro_torch.models.transformer import cache_seq_axes, shard_cache
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    for label, cfg, dtype in _cp_cases():
+        axes = cache_seq_axes(cfg, rank.grid, CP_B)
+        if axes != ("model",):
+            raise AssertionError(f"[cp] {CP_ARCH}: sequence axes {axes}")
+        ctx = rank.context(cfg, seq_axes=axes)
+        model = Model.init(cfg, seed=0, dtype=dtype, ctx=ctx,
+                           attn_kernel=True)
+        whole = _cp_cache(cfg, CP_B, CP_S, dtype, CP_SEED)
+        span = shard_cache(whole, cfg, rank.grid, CP_B, rank.rank)
+        del whole
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        copy_ = [type(c)(*(t.clone() for t in c)) for c in span]
+        steps = _cp_steps(cfg, CP_POS)
+        reset_launch_counts()          # the CP kernel path starts here
+        got, kms = _cp_decode(model, span, steps)
+        counts = {k: n for k, n in launch_counts().items() if n}
+        plain = copy.copy(model)
+        plain.attn_kernel = False
+        pgot, pms = _cp_decode(plain, copy_, steps)
+        want = CP_STEPS * cfg.num_layers
+        if counts.get("duet_attention") != want:
+            raise AssertionError(f"[cp] {label}: the kernel path launched "
+                                 f"{counts}, want duet_attention x {want}")
+        kv = sum(t.numel() * t.element_size() for c in span for t in c)
+        w = sum(t.numel() * t.element_size()
+                for t in model.params.buffers())
+        out[label] = {"kernel": got, "plain": pgot, "line": (
+            f"sequence group {ctx.seq} over {axes}, span of "
+            f"{span[0].k.shape[1]} keys from {ctx.seq_span(CP_S)[0]}, "
+            f"{_gb(kv)} GB of KV (x2: the plain path's copy) and {_gb(w)} "
+            f"GB of weights; kernel path {kms:.1f} ms a step (wall), plain "
+            f"{pms:.1f}; {ctx.seq_gathers} all-gathers in "
+            f"{2 * CP_STEPS} steps; peak "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches "
+            f"{counts}")}
+        if label == "bf16":
+            out["counts"] = counts
+        del model, plain, span, copy_
+        torch.cuda.empty_cache()
+    return out
+
+
+def cp_ring(card):
+    """(b) CP_RING_ARCH cut to CP_PARITY_LAYERS layers, fp32, TF32 off,
+    batch 1: the long_500k ring (the sliding window) whole on one model
+    here, then cut over the data axis of (data CP_RING_DP, model 1), each
+    rank its span of the ring, CP_STEPS sliding decode steps from
+    CP_RING_POS: logits within PARITY_TOL, both ranks bitwise equal."""
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models import Model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.time()
+    cfg = _cut(CP_RING_ARCH, CP_PARITY_LAYERS)
+    model = Model.init(cfg, seed=0, dtype=torch.float32, device="cuda")
+    ring = _cp_cache(cfg, 1, SHAPES["long_500k"].seq_len, torch.float32,
+                     CP_SEED + 1, sliding=True)
+    want, ms = _cp_decode(model, ring, _cp_steps(cfg, [CP_RING_POS]),
+                          sliding=True)
+    W = ring[0].k.shape[1]
+    del model, ring
+    torch.cuda.empty_cache()
+    ranks = run_ranks(cp_ring_rank, 1, dp=CP_RING_DP, device="cuda",
+                      share_card=True)
+    if not np.array_equal(ranks[0]["logits"], ranks[1]["logits"]):
+        raise AssertionError("[cp] ring: the ranks' logits differ")
+    for r, res in enumerate(ranks):
+        log(f"[cp] {CP_RING_ARCH} long_500k ring rank {r}: {res['line']} "
+            f"[{card}]")
+    _check_parity(f"{CP_RING_ARCH} DP {CP_RING_DP} CP ring",
+                  CP_PARITY_LAYERS, cfg,
+                  [(f"sliding decode, ring of {W} wrapped, {CP_STEPS} steps "
+                    f"from {CP_RING_POS}, vs the whole ring ({ms:.1f} ms a "
+                    "step) (both ranks bitwise equal)",
+                    torch.from_numpy(ranks[0]["logits"]),
+                    torch.from_numpy(want))])
+    log(f"[cp] (b) done in {time.time() - t0:.1f} s")
+
+
+def cp_ring_rank(rank):
+    """(b) One rank (a spawned process) of the ring's data axis."""
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.models import Model
+    from repro_torch.models.transformer import cache_seq_axes, shard_cache
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = _cut(CP_RING_ARCH, CP_PARITY_LAYERS)
+    axes = cache_seq_axes(cfg, rank.grid, 1)
+    if axes != ("data",):
+        raise AssertionError(f"[cp] ring: sequence axes {axes}")
+    ctx = rank.context(cfg, seq_axes=axes)
+    model = Model.init(cfg, seed=0, dtype=torch.float32, ctx=ctx)
+    whole = _cp_cache(cfg, 1, SHAPES["long_500k"].seq_len, torch.float32,
+                      CP_SEED + 1, sliding=True)
+    span = shard_cache(whole, cfg, rank.grid, 1, rank.rank, sliding=True)
+    del whole
+    got, ms = _cp_decode(model, span, _cp_steps(cfg, [CP_RING_POS]),
+                         sliding=True)
+    return {"logits": got, "line": (
+        f"sequence group {ctx.seq} over {axes}, ring span of "
+        f"{span[0].k.shape[1]} slots from {ctx.seq_span(ctx.seq * span[0].k.shape[1])[0]}; "
+        f"{ms:.1f} ms a step (wall), plain path (the reference's: no "
+        f"kernel under sliding); {ctx.seq_gathers} all-gathers")}
+
+
+def cp_rank(card):
+    """(c) CP_RANK_ARCH's decode_32k rank 0 of the 16 x 16 grid built on
+    the card: its weight shards (``init_params(tp=16, rank=0)``) and its
+    span of the cache (``init_cache`` under its sequence group), the
+    bytes they request against the record's arguments within
+    DRYRUN_ALLOC_SLACK a tensor; the record's peak under the card's 80 GB.
+    No step runs (its peers do not exist)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.core.device import DeviceContext
+    from repro_torch.launch.mesh import make_production_mesh, seq_group
+    from repro_torch.models.params import (_leaves, init_params,
+                                           tp_adjusted_config)
+    from repro_torch.models.transformer import _build_cache, cache_seq_axes
+    rec = next(r for r in DRYRUN_COUNTS.get("sweep")
+               if r["arch"] == CP_RANK_ARCH)
+    args = rec["memory"]["argument_size_in_bytes"]
+    peak = rec["rank_memory"]["peak_bytes"]
+    log(f"[cp] prediction: {CP_RANK_ARCH} decode_32k rank 0 of "
+        f"{rec['mesh']}: arguments {args} B, rank entry "
+        f"{rec['rank_memory']['entry_bytes']} B, peak {peak} B (host "
+        "counts; the whole sequence a rank took 103.478 GB)")
+    grid = make_production_mesh()
+    tp = grid.shape["model"]
+    shape = SHAPES["decode_32k"]
+    cfg = tp_adjusted_config(get_config(CP_RANK_ARCH), tp)
+    B = shape.global_batch // grid.shape["data"]
+    axes = cache_seq_axes(cfg, grid, shape.global_batch)
+    seq, seq_rank, _ = seq_group(axes, grid.shape["data"], tp, 0, None,
+                                 None)
+    dev = torch.device("cuda")
+    ctx = DeviceContext(cfg, dev, tp=tp, rank=0, seq=seq, seq_rank=seq_rank)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = _requested()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         torch.bfloat16, dev, tp=tp, rank=0)
+    torch.cuda.synchronize()
+    got_w = _requested() - base
+    cache = _build_cache(cfg, B, shape.seq_len, torch.bfloat16, False, dev,
+                         ctx=ctx)
+    token = torch.zeros((B, 1), dtype=torch.int32, device=dev)
+    pos = torch.zeros((B,), dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    held = _requested() - base
+    n = len(list(_leaves(params))) + sum(len(c) for c in cache) + 2
+    log(f"[cp] measured: {CP_RANK_ARCH} rank 0 (sequence group {seq} over "
+        f"{axes}, a span of {cache[0].k.shape[1]} keys of "
+        f"{cache[0].k.shape[2]} KV heads, {B} rows): its tensors request "
+        f"{held} B vs the record's arguments {args} B ({held - args:+d} B "
+        f"over {n} tensors, slack {DRYRUN_ALLOC_SLACK} B a tensor); weights "
+        f"{got_w} B vs {rec['rank_memory']['weight_bytes']} B; the record's "
+        f"peak {_gb(peak)} GB {'<' if peak < CARD_BYTES else '>='} 80 GB "
+        f"[{card}]")
+    del params, cache, token, pos
+    torch.cuda.empty_cache()
+    if abs(held - args) > DRYRUN_ALLOC_SLACK * n:
+        raise AssertionError("[cp] the rank's bytes differ from the "
+                             "record's arguments")
+    if peak >= CARD_BYTES:
+        raise AssertionError("[cp] the record's peak exceeds the card")
+
+
+def cp_kernel(card):
+    """(d) the slab duet_attention kernel with its log-sum-exp and the key
+    offset, alone, at CP_ARCH's rank span (CP_B rows of CP_ARCH's heads,
+    CP_S / CP_TP keys) and at granite-20b's block role over as many
+    keys: out and lse against the plain version with the rows of CP_POS
+    as rank 1 sees them (before its span: dead; inside; past it), bf16
+    and fp32; then, every row past the span (all of it live), the kernel
+    with and without lse timed hot and cold beside its bound (the span's
+    KV bytes at 3.35 TB/s), its plain version and SDPA. These launches
+    are checks: they join no count."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.duet_attention import (cluster_for,
+                                                    duet_attention,
+                                                    duet_attention_plain,
+                                                    slab_role)
+    S, base = CP_S // CP_TP, CP_S // CP_TP
+    dev = "cuda"
+    for name in (CP_ARCH, "granite-20b"):
+        cfg = get_config(name)
+        H, G, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        rng = np.random.default_rng(26)
+        for dtype in (torch.float32, torch.bfloat16):
+            def draw(shape):
+                return torch.from_numpy(rng.standard_normal(
+                    shape, np.float32)).to(dev, dtype)
+            q, k, v = draw((CP_B, H, Dh)), draw((CP_B, S, G, Dh)), \
+                draw((CP_B, S, G, Dh))
+            slot = torch.arange(CP_B, dtype=torch.int32, device=dev)
+            mixed = torch.tensor(np.asarray(CP_POS) - base, device=dev,
+                                 dtype=torch.int32)[:, None]
+            past = torch.full_like(mixed, S + 100)
+            rec = {"name": "duet_attention" if slab_role(1, H // G)
+                   == "decode" else "duet_attention[block]"}
+            for label, rp in (("mixed", mixed), ("past", past)):
+                got, lse = duet_attention(q, rp, slot, k, v, block_q=1,
+                                          return_lse=True)
+                torch.cuda.synchronize()
+                want, wlse = duet_attention_plain(q, rp, slot, k, v,
+                                                  block_q=1,
+                                                  return_lse=True)
+                bf16 = dtype == torch.bfloat16
+                _check(rec["name"], got, want, dtype, f"{label} out", rec,
+                       ATTN_BF16_TOL if bf16 else None)
+                err_out = rec["max_abs_err"]
+                if not torch.equal(torch.isneginf(lse), torch.isneginf(wlse)):
+                    raise AssertionError(f"[cp] {name} {label}: the "
+                                         "kernel's -inf rows differ")
+                fin = torch.isfinite(wlse)
+                _check(rec["name"], lse[fin], wlse[fin], dtype,
+                       f"{label} lse", rec, LSE_BF16_TOL if bf16 else None)
+                log(f"[cp] {rec['name']} {name} {H}/{G}/{Dh}, {CP_B} rows "
+                    f"over a span of {S} keys, rows {label} "
+                    f"({rp[:, 0].tolist()}), {dtype}: out max abs err "
+                    f"{err_out:.3e}, lse {rec['max_abs_err']:.3e} (tol "
+                    f"{rec['tol']:.0e}/{rec['rtol']:.0e}); "
+                    f"{int((~fin).sum())} dead (row, head) pairs at -inf")
+            if dtype != torch.bfloat16:
+                continue
+            kern = lambda: duet_attention(  # noqa: E731
+                q, past, slot, k, v, block_q=1, return_lse=True)
+            nolse = lambda: duet_attention(  # noqa: E731
+                q, past, slot, k, v, block_q=1)
+            plain = lambda: duet_attention_plain(  # noqa: E731
+                q, past, slot, k, v, block_q=1, return_lse=True)
+            elt = q.element_size()
+            nbytes = (2 * CP_B * S * G * Dh * elt + 2 * CP_B * H * Dh * elt
+                      + 4 * CP_B * H + 8 * CP_B)
+            rec["bound_ms"], rec["bound_by"] = _bound(
+                nbytes, 4.0 * H * Dh * CP_B * S, dtype)
+            _time_kernel(kern, rec)
+            off = {}
+            _time_kernel(nolse, off)
+            rec["plain_ms"] = time_ms(plain, iters=3)
+            kk = k.repeat_interleave(H // G, dim=2).transpose(1, 2)
+            vv = v.repeat_interleave(H // G, dim=2).transpose(1, 2)
+            fn = torch.nn.functional.scaled_dot_product_attention
+            qq = q[:, :, None, :]
+            rec["library_ms"] = time_ms(lambda: fn(qq, kk, vv))
+            del kk, vv
+            log(f"[cp] {rec['name']} {name} bf16, {CP_B} rows over the "
+                f"whole span of {S} keys, C={cluster_for(q, slot, k, 1)}: "
+                f"with lse {rec['ms']:.4f} ms hot, {rec['cold_ms']:.4f} "
+                f"cold; without lse {off['ms']:.4f} hot, "
+                f"{off['cold_ms']:.4f} cold; bound {rec['bound_ms']:.4f} "
+                f"({rec['bound_by']}), {100 * rec['bound_ms'] / rec['cold_ms']:.1f}"
+                f"% of cold with lse; plain {rec['plain_ms']:.4f}; SDPA "
+                f"{rec['library_ms']:.4f} [{card}]")
+    torch.cuda.empty_cache()
+
+
 def run_phases(phases):
     """Run the chosen phases in PHASES' order: the kernels' records, and
     the kernels' launch counts on the main path."""
@@ -3834,6 +4301,9 @@ def run_phases(phases):
                 counts[name] = counts.get(name, 0) + n
         elif phase == "dryrun":
             phase_dryrun()
+        elif phase == "cp":
+            for name, n in phase_cp().items():
+                counts[name] = counts.get(name, 0) + n
         log(f"[time] {phase} phase {time.time() - t_phase:.1f} s")
     return main_rec, counts
 
@@ -3858,7 +4328,7 @@ def main(argv=None) -> int:
         f"cuda {torch.version.cuda} card {torch.cuda.get_device_name(0)}")
     t0 = time.time()
     global DRYRUN_COUNTS
-    if {"train", "dryrun"} & set(phases):
+    if {"train", "dryrun", "cp"} & set(phases):
         DRYRUN_COUNTS = DryrunCounts()
     try:
         main_rec, counts = run_phases(phases)

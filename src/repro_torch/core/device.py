@@ -43,6 +43,19 @@ host <-> device copies of the engines, and the tensor-parallel context.
   stay whole. A sharded block ends in one all-reduce, a whole one in none;
   :meth:`DeviceContext.collectives_per_iteration` counts them.
 
+  Context-parallel decode (``seq`` > 1): the rank holds a contiguous
+  span of every GQA cache's sequence, as the reference's ``cache_pspecs``
+  places it (the sequence cut over ``model`` where the KV heads do not
+  divide it, over the data axes at batch 1, or both), and is rank
+  ``seq_rank`` of a sequence group of ``seq`` ranks (``seq_group``: the
+  model group, the data group or the world, ``launch.mesh.seq_group``).
+  Each rank attends over its span and :meth:`DeviceContext.combine_partials`
+  gathers the ranks' ``(out, lse)`` partials in one collective and
+  combines them in rank order, so every rank of the group gets the same
+  bits of the softmax over the whole sequence (:meth:`seq_span` gives the
+  span). Only the slab decode step runs on that layout; the paged engines
+  and TP serving keep the whole sequence, as the reference's engines do.
+
 * :func:`resolve_device` — ``None`` means the card. Without CUDA that is an
   error, never a quiet move to the CPU; the CPU runs only when asked for.
 * :func:`to_device` — host numpy to the device without a host sync (pinned
@@ -53,7 +66,7 @@ host <-> device copies of the engines, and the tensor-parallel context.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -74,13 +87,17 @@ class DeviceContext:
     def __init__(self, cfg: ArchConfig, device: torch.device, *,
                  tp: int = 1, rank: int = 0, group=None,
                  backend: Optional[str] = None, dp: int = 1,
-                 share_card: bool = False):
+                 share_card: bool = False, seq: int = 1, seq_rank: int = 0,
+                 seq_group=None):
         # the models package imports this module
         from repro_torch.models.params import axis_rules
         if tp < 1 or not 0 <= rank < tp:
             raise ValueError(f"DeviceContext: rank {rank} of tp {tp}")
         if dp < 1:
             raise ValueError(f"DeviceContext: dp must be >= 1, got {dp}")
+        if seq < 1 or not 0 <= seq_rank < seq:
+            raise ValueError(f"DeviceContext: sequence rank {seq_rank} of "
+                             f"{seq}")
         self.cfg = cfg
         self.tp = tp
         self.dp = dp
@@ -88,6 +105,10 @@ class DeviceContext:
         self.rank = rank
         self.group = group
         self.backend = backend
+        # the sequence group of context-parallel decode (size 1: none)
+        self.seq = seq
+        self.seq_rank = seq_rank
+        self.seq_group = seq_group
         # one device a replica, validated here (raises for more replicas
         # than cards without share_card); the context's own device is
         # replica 0's
@@ -104,6 +125,8 @@ class DeviceContext:
         # the backward all-reduces of copy_to_model
         self.all_reduces = 0
         self.grad_all_reduces = 0
+        # the sequence group's all-gathers (one a GQA layer's decode)
+        self.seq_gathers = 0
 
     @classmethod
     def single(cls, cfg: ArchConfig,
@@ -161,6 +184,17 @@ class DeviceContext:
         way)."""
         return self.cfg.num_experts // (self.tp if self.sharded("experts")
                                         else 1)
+
+    def seq_span(self, length: int) -> Tuple[int, int]:
+        """(first key, keys) of this rank's contiguous span of a cache
+        sequence of ``length`` keys (the whole of it at ``seq`` 1). Raises
+        where the span does not divide the sequence (it is not
+        rounded)."""
+        if length % self.seq:
+            raise ValueError(f"a sequence of {length} keys does not split "
+                             f"into {self.seq} equal spans")
+        n = length // self.seq
+        return self.seq_rank * n, n
 
     # ------------------------------------------------------------ placement
     def place_params(self, tree: dict) -> dict:
@@ -222,6 +256,32 @@ class DeviceContext:
                                 and x.requires_grad):
             return x
         return _CopyToModel.apply(x, self)
+
+    def combine_partials(self, out: torch.Tensor,
+                         lse: torch.Tensor) -> torch.Tensor:
+        """The softmax attention over the union of the sequence group's
+        spans from each rank's partial over its own: ``out`` (..., Dh) its
+        normalised output and ``lse`` (...) its fp32 natural-log
+        log-sum-exp (-inf where it saw no key). One
+        ``all_gather_into_tensor`` of the packed fp32 (..., Dh + 1), then
+        the log-sum-exp combine in rank order
+        (``kernels.ops.lse_combine``, weights exp(lse_r - max lse)), the
+        same bits on every rank. Returns fp32 (..., Dh); ``out`` as it is
+        at ``seq`` 1."""
+        if self.seq == 1:
+            return out
+        from repro_torch.kernels.ops import lse_combine
+        packed = torch.cat([out.float(), lse.float()[..., None]],
+                           dim=-1).contiguous()
+        # the ranks' partials concatenated on dim 0 (gloo's layout)
+        gathered = packed.new_empty((self.seq * packed.shape[0],)
+                                    + tuple(packed.shape[1:]))
+        torch.distributed.all_gather_into_tensor(gathered, packed,
+                                                 group=self.seq_group)
+        gathered = gathered.view((self.seq,) + tuple(packed.shape))
+        self.seq_gathers += 1
+        m = gathered[..., -1]
+        return lse_combine(m, torch.ones_like(m), gathered[..., :-1], dim=0)
 
     def copy_leaves(self, params, keys) -> "_Leaves":
         """``params`` (a weight mapping) with its leaves at ``keys`` (those

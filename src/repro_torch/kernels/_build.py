@@ -46,7 +46,7 @@ SIGNATURES = {
         "duet_attention_paged_occupancy": [_I] * 5 + [_P],
     },
     "duet_attention": {
-        "duet_attention_launch": [_P] * 6 + [_I] * 7 + [_F, _I, _P],
+        "duet_attention_launch": [_P] * 7 + [_I] * 7 + [_F, _I, _P],
         "duet_attention_occupancy": [_I] * 4 + [_P],
     },
     "flash_prefill": {

@@ -489,10 +489,18 @@ struct SimtState {
 // rank keeps its rows' weights in its own room), reading (m, l) one thread
 // a row and acc as float4s, one per rank in flight at once, through
 // distributed shared memory, and hands row r, column d of the output to
-// write_out(r, d, value). Every CTA of the cluster must call it.
-template <int NRB, int DH, int THREADS, class Out>
+// write_out(r, d, value) and the row's natural-log log-sum-exp over the
+// cluster's keys, (max m + log2 l) * ln 2 (-inf for a row that saw no
+// valid key), to write_lse(r, value). Every CTA of the cluster must call
+// it.
+struct NoLse {   // the default write_lse: the log-sum-exp is not asked for
+  __device__ void operator()(int, float) const {}
+};
+
+template <int NRB, int DH, int THREADS, class Out, class Lse = NoLse>
 __device__ __forceinline__ void cluster_combine(float* c_m, int nrows,
-                                                Out write_out) {
+                                                Out write_out,
+                                                Lse write_lse = Lse{}) {
   float* c_l = c_m + NRB;
   float* c_acc = c_l + NRB;
   float* wgt = c_acc + NRB * DH;                    // [NRB][MAX_CLUSTER]
@@ -522,6 +530,9 @@ __device__ __forceinline__ void cluster_combine(float* c_m, int nrows,
       ls += wt * lr[c];
     }
     den[r] = 1.f / fmaxf(ls, DENOM_EPS);
+    write_lse(r, ms > MASKED_M_THRESHOLD && ls > 0.f
+                     ? (ms + log2f(ls)) * 0.6931471805599453f
+                     : __int_as_float((int)0xff800000u));    // -inf
   }
   __syncthreads();
   constexpr int V = DH / 4;                         // float4s a row
@@ -555,13 +566,15 @@ __device__ __forceinline__ void cluster_combine(float* c_m, int nrows,
 // Walk keys k_begin .. k_end - 1 of this CTA's span through the ring for
 // ``nrows`` query rows (row r at qrow(r), seeing keys up to lim_of(r)),
 // combine the warps' partials, then the cluster's, and hand row r,
-// column d of the output to write_out(r, d, value). Every CTA of the
-// cluster must call it, also with an empty span.
-template <class Cf, class Src, class RowOf, class LimOf, class Out>
+// column d of the output to write_out(r, d, value) and its log-sum-exp
+// to write_lse(r, value) (cluster_combine). Every CTA of the cluster must
+// call it, also with an empty span.
+template <class Cf, class Src, class RowOf, class LimOf, class Out,
+          class Lse = NoLse>
 __device__ __forceinline__ void decode_cluster(
     char* smem, const typename Cf::T* k, const typename Cf::T* v,
     const Src& src, int k_begin, int k_end, RowOf qrow, LimOf lim_of,
-    int nrows, float scale, Out write_out) {
+    int nrows, float scale, Out write_out, Lse write_lse = Lse{}) {
   constexpr int SK = Cf::SK, NRB = Cf::NRB, DH = Cf::DH;
   constexpr int WARPS = Cf::WARPS, THREADS = Cf::THREADS;
   using State =
@@ -624,7 +637,7 @@ __device__ __forceinline__ void decode_cluster(
     }
   }
 
-  cluster_combine<NRB, DH, THREADS>(c_m, nrows, write_out);
+  cluster_combine<NRB, DH, THREADS>(c_m, nrows, write_out, write_lse);
 }
 
 // Launch ``kernel`` (Cf's instantiation) on grid with cluster dims

@@ -33,6 +33,17 @@
 // grid y (attn::head_split). The role follows block_q and rep alone, so
 // the host picks the kernel and prices the one it launches.
 //
+// Log-sum-exp (optional, for context-parallel decode): with ``lse`` given
+// (fp32, (T*bq, H)), each row and head also gets the natural-log
+// log-sum-exp of its scores over the keys the launch saw, (m + log2 l) *
+// ln 2 from the cluster combine's (m, l) (-inf for a row that saw no valid
+// key); a rank of a sequence group combines its span's (out, lse) with
+// its peers'. The caller shifts row_pos by the span's first key: a row
+// before the span comes out dead (out 0, lse -inf), a row past it sees all
+// of it. With lse the block role combines through the cluster's partials
+// also at C = 1 (one store per row and head more); without it nothing
+// changes.
+//
 // Bound: memory, the live KV bytes (each tile's keys 0..max row_pos of its
 // group) at 3.35 TB/s. Tiles of one slot re-read its keys once per tile
 // (and once per head block).
@@ -49,8 +60,9 @@ __global__ void __launch_bounds__(dcore::Cfg<T, DH, NRB>::THREADS)
                                   const int* __restrict__ tile_slot,
                                   const T* __restrict__ k_slab,
                                   const T* __restrict__ v_slab,
-                                  T* __restrict__ out, int H, int G, int S,
-                                  int bq, float scale) {
+                                  T* __restrict__ out,
+                                  float* __restrict__ lse, int H, int G,
+                                  int S, int bq, float scale) {
   using Cf = dcore::Cfg<T, DH, NRB>;
   extern __shared__ __align__(16) char core_smem[];
   const int t = blockIdx.x, g = blockIdx.y;
@@ -81,8 +93,12 @@ __global__ void __launch_bounds__(dcore::Cfg<T, DH, NRB>::THREADS)
       min(u1 * dcore::SPLIT_KEYS, n_keys),
       [&](int i) { return q + row_head(i) * DH; },
       [&](int i) { return slot >= 0 ? row_pos[t * bq + i / rep] : -1; },
-      nrows, scale, [&](int i, int d, float x) {
+      nrows, scale,
+      [&](int i, int d, float x) {
         out[row_head(i) * DH + d] = from_f32<T>(x);
+      },
+      [&](int i, float x) {
+        if (lse) lse[row_head(i)] = x;
       });
 }
 
@@ -94,8 +110,9 @@ __global__ void __launch_bounds__(pcore::BlockCfg<T, DH>::THREADS, 2)
                                 const int* __restrict__ tile_slot,
                                 const T* __restrict__ k_slab,
                                 const T* __restrict__ v_slab,
-                                T* __restrict__ out, int H, int G, int S,
-                                int bq, HeadSplit hs, float scale) {
+                                T* __restrict__ out,
+                                float* __restrict__ lse, int H, int G,
+                                int S, int bq, HeadSplit hs, float scale) {
   extern __shared__ __align__(128) char block_smem[];
   const int t = blockIdx.x;
   const HeadBlock hb = HeadBlock::split(blockIdx.y, H / G, hs);
@@ -124,15 +141,19 @@ __global__ void __launch_bounds__(pcore::BlockCfg<T, DH>::THREADS, 2)
         return i < nrows ? (long long)(row_head(i) * DH) : -1LL;
       },
       [&](int i) { return slot >= 0 ? row_pos[t * bq + i / hb.hc] : -1; },
-      nrows, scale, C, [&](int i, int d, float x) {
+      nrows, scale, C,
+      [&](int i, int d, float x) {
         out[row_head(i) * DH + d] = from_f32<T>(x);
+      },
+      lse != nullptr, [&](int i, float x) {
+        if (lse) lse[row_head(i)] = x;
       });
 }
 
 static cudaError_t launch_slab(const void* q, const void* row_pos,
                                const void* tile_slot, const void* k,
-                               const void* v, void* out, int T_, int bq,
-                               int H, int G, int Dh, int S, int C,
+                               const void* v, void* out, void* lse, int T_,
+                               int bq, int H, int G, int Dh, int S, int C,
                                float scale, int dtype, cudaStream_t stream) {
   if (C < 1 || C > dcore::MAX_CLUSTER || G < 1 || H % G || bq < 1 ||
       bq > pcore::ROWS)
@@ -148,8 +169,8 @@ static cudaError_t launch_slab(const void* q, const void* row_pos,
           (size_t)Bc::MAIN_BYTES, stream, static_cast<const T*>(q),
           static_cast<const int*>(row_pos),
           static_cast<const int*>(tile_slot), static_cast<const T*>(k),
-          static_cast<const T*>(v), static_cast<T*>(out), H, G, S, bq, hs,
-          scale);
+          static_cast<const T*>(v), static_cast<T*>(out),
+          static_cast<float*>(lse), H, G, S, bq, hs, scale);
     });
   return dcore::dispatch(dtype, Dh, bq * (H / G), [&](auto cf) {
     using Cf = decltype(cf);
@@ -159,7 +180,7 @@ static cudaError_t launch_slab(const void* q, const void* row_pos,
         (size_t)Cf::FIXED_BYTES, stream, static_cast<const T*>(q),
         static_cast<const int*>(row_pos), static_cast<const int*>(tile_slot),
         static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<T*>(out), H, G, S, bq, scale);
+        static_cast<T*>(out), static_cast<float*>(lse), H, G, S, bq, scale);
   });
 }
 
@@ -191,13 +212,15 @@ static cudaError_t slab_occupancy(int Dh, int rows, int C, int dtype,
 extern "C" {
 
 // grid (T, G, C) (block_q * rep <= 16) or (T, G * head blocks, C) (the
-// block role) in clusters of C CTAs along z; out (T*bq, H, Dh).
+// block role) in clusters of C CTAs along z; out (T*bq, H, Dh); lse
+// (T*bq, H) fp32, or null where the log-sum-exp is not asked for.
 int duet_attention_launch(const void* q, const void* row_pos,
                           const void* tile_slot, const void* k, const void* v,
-                          void* out, int T_, int bq, int H, int G, int Dh,
-                          int S, int C, float scale, int dtype, void* stream) {
-  return (int)launch_slab(q, row_pos, tile_slot, k, v, out, T_, bq, H, G, Dh,
-                          S, C, scale, dtype,
+                          void* out, void* lse, int T_, int bq, int H, int G,
+                          int Dh, int S, int C, float scale, int dtype,
+                          void* stream) {
+  return (int)launch_slab(q, row_pos, tile_slot, k, v, out, lse, T_, bq, H,
+                          G, Dh, S, C, scale, dtype,
                           static_cast<cudaStream_t>(stream));
 }
 

@@ -614,17 +614,21 @@ struct BlockCfg {
 };
 
 // The block over this CTA's span k_begin .. k_end - 1 of a cluster of C
-// CTAs (rows and limits as for mma_block), then, with C > 1, the ranks'
-// partials combined in rank order (dcore::cluster_combine) and row r,
-// column d of the output handed to write_out(r, d, value). With C = 1 the
-// block writes its rows itself. Every CTA of the cluster must call it.
+// CTAs (rows and limits as for mma_block), then, with C > 1 or
+// ``want_lse``, the ranks' partials combined in rank order
+// (dcore::cluster_combine) and row r, column d of the output handed to
+// write_out(r, d, value) and the row's log-sum-exp to write_lse(r, value).
+// With C = 1 and no log-sum-exp asked for the block writes its rows
+// itself. Every CTA of the cluster must call it.
 template <typename T, int DH, class Src, class RowOff, class LimOf,
-          class Out>
+          class Out, class Lse = dcore::NoLse>
 __device__ __forceinline__ void block_cluster(
     char* smem, const T* q, const T* k, const T* v, T* out, const Src& src,
     int k_begin, int k_end, RowOff row_off, LimOf lim_of, int nrows,
-    float scale, int C, Out write_out) {
-  float* part = C > 1 ? reinterpret_cast<float*>(smem) : nullptr;
+    float scale, int C, Out write_out, bool want_lse = false,
+    Lse write_lse = Lse{}) {
+  float* part = C > 1 || want_lse ? reinterpret_cast<float*>(smem)
+                                  : nullptr;
   if constexpr (BlockCfg<T, DH>::MMA)
     mma_block<DH>(smem, q, k, v, out, src, k_begin, k_end, row_off, lim_of,
                   scale, part);
@@ -632,8 +636,8 @@ __device__ __forceinline__ void block_cluster(
     simt_block<T, DH>(smem, q, k, v, out, src, k_begin, k_end, row_off,
                       lim_of, scale, part);
   if (part)
-    dcore::cluster_combine<ROWS, DH, BlockCfg<T, DH>::THREADS>(part, nrows,
-                                                                write_out);
+    dcore::cluster_combine<ROWS, DH, BlockCfg<T, DH>::THREADS>(
+        part, nrows, write_out, write_lse);
 }
 
 // Calls fn((T*)nullptr, std::integral_constant<int, Dh>{}) for the dtype

@@ -41,7 +41,14 @@ is that schedule in plain PyTorch.
 
 Pad rows (``row_pos < 0``) and pad tiles (``tile_slot < 0``) come out as
 zeros here and in the plain versions (the reference kernels leave the mean
-of V there); callers read only unpacked rows. On a CPU tensor a wrapper
+of V there); callers read only unpacked rows.
+
+The slab kernel can also return each row's natural-log log-sum-exp over
+the keys it saw (``return_lse``; -inf for a row that saw none): a rank of a
+context-parallel decode runs it over its span of the cache's sequence,
+with ``row_pos`` shifted by the span's first key, and the sequence group
+combines the ranks' ``(out, lse)`` partials
+(``core.device.DeviceContext.combine_partials``). On a CPU tensor a wrapper
 runs the plain version; on a CUDA tensor it launches the kernel or raises.
 :data:`launches` counts kernel launches per wrapper, and the slab
 kernel's per role (``"duet_attention[block]"`` for the block role).
@@ -70,10 +77,12 @@ LOG2E = 1.4426950408889634
 BLOCK_N = 64             # keys a K/V tile of the paged walk (csrc)
 
 
-def _attend_rows(q, pos, live, k, v):
+def _attend_rows(q, pos, live, k, v, with_lse: bool):
     """Masked fp32 softmax attention of n query rows, each over its own
-    keys: q (n,H,Dh); pos, live (n,); k/v (n,L,G,Dh). Dead rows give
-    zeros."""
+    keys: q (n,H,Dh); pos, live (n,); k/v (n,L,G,Dh). Returns (out
+    (n,H,Dh), with ``with_lse`` the scores' fp32 natural-log log-sum-exp
+    over the valid keys (n,H), else None). Dead rows give zeros and
+    -inf."""
     n, H, Dh = q.shape
     G = k.shape[2]
     kpos = torch.arange(k.shape[1], device=q.device)
@@ -81,33 +90,46 @@ def _attend_rows(q, pos, live, k, v):
     s = torch.einsum("ngrd,nkgd->ngrk", qg, k.float()) * default_sm_scale(Dh)
     mask = (kpos[None, :] <= pos[:, None]) & live[:, None]          # (n,L)
     s = torch.where(mask[:, None, None, :], s, torch.full_like(s, NEG_INF))
+    lse = None
+    if with_lse:
+        lse = torch.logsumexp(torch.where(
+            mask[:, None, None, :], s, torch.full_like(s, float("-inf"))),
+            dim=-1).reshape(n, H)
     p = torch.softmax(s, dim=-1)
     p = torch.where(live[:, None, None, None], p, torch.zeros_like(p))
     o = torch.einsum("ngrk,nkgd->ngrd", p, v.float())
-    return o.reshape(n, H, Dh).to(q.dtype)
+    return o.reshape(n, H, Dh).to(q.dtype), lse
 
 
-def _plain(q, row_pos, tile_slot, block_q, gather_kv):
+def _plain(q, row_pos, tile_slot, block_q, gather_kv, with_lse=False):
     """Rows go in chunks of 16 so the gathered keys stay small at serving
-    widths; ``gather_kv(slots)`` gives the chunk's (k, v) (n,L,G,Dh)."""
+    widths; ``gather_kv(slots)`` gives the chunk's (k, v) (n,L,G,Dh).
+    Returns (out, lse or None)."""
     row_slot = tile_slot.long().repeat_interleave(block_q)          # (R,)
     pos = row_pos.reshape(-1).long()
     live = (row_slot >= 0) & (pos >= 0)
     out = torch.empty_like(q)
+    lse = (torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+           if with_lse else None)
     for r0 in range(0, q.shape[0], _PLAIN_ROWS):
         sl = slice(r0, r0 + _PLAIN_ROWS)
         k, v = gather_kv(row_slot[sl].clamp(min=0))
-        out[sl] = _attend_rows(q[sl], pos[sl], live[sl], k, v)
-    return out
+        out[sl], part = _attend_rows(q[sl], pos[sl], live[sl], k, v,
+                                     with_lse)
+        if with_lse:
+            lse[sl] = part
+    return out, lse
 
 
 def duet_attention_plain(q, row_pos, tile_slot, k_slab, v_slab, *,
-                         block_q: int = 8):
+                         block_q: int = 8, return_lse: bool = False):
     """Plain PyTorch version of :func:`duet_attention`: each row reads its
     tile's slab slot and runs a masked fp32 softmax. Pad rows and pad
-    tiles give zeros."""
-    return _plain(q, row_pos, tile_slot, block_q,
-                  lambda slots: (k_slab[slots], v_slab[slots]))
+    tiles give zeros (and a log-sum-exp of -inf)."""
+    out, lse = _plain(q, row_pos, tile_slot, block_q,
+                      lambda slots: (k_slab[slots], v_slab[slots]),
+                      return_lse)
+    return (out, lse) if return_lse else out
 
 
 def duet_attention_paged_plain(q, row_pos, tile_slot, k_pages, v_pages,
@@ -122,7 +144,7 @@ def duet_attention_paged_plain(q, row_pos, tile_slot, k_pages, v_pages,
         chain = tables[slots].long()                                # (n,P)
         return (k_pages[chain].reshape(len(slots), L, G, Dh),
                 v_pages[chain].reshape(len(slots), L, G, Dh))
-    return _plain(q, row_pos, tile_slot, block_q, gather)
+    return _plain(q, row_pos, tile_slot, block_q, gather)[0]
 
 
 def duet_tile_plan(row_pos, tile_slot, *, block_q: int, rep: int):
@@ -305,7 +327,7 @@ def cluster_for(q, tile_slot, k_slab, block_q) -> int:
         lambda C: C * occupancy(dev, q.dtype, Dh, block_q * hpc, C)[0])
 
 
-def _launch(q, row_pos, tile_slot, k_slab, v_slab, block_q):
+def _launch(q, row_pos, tile_slot, k_slab, v_slab, block_q, return_lse):
     S = k_slab.shape[1]
     _check_launch("duet_attention", q, row_pos, tile_slot, (k_slab, v_slab),
                   {}, block_q)
@@ -313,17 +335,20 @@ def _launch(q, row_pos, tile_slot, k_slab, v_slab, block_q):
     T, G = tile_slot.shape[0], k_slab.shape[2]
     C = cluster_for(q, tile_slot, k_slab, block_q)
     out = torch.empty_like(q)
+    lse = (torch.empty((R, H), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     lib = _build.load("duet_attention")
     err = lib.duet_attention_launch(
         q.data_ptr(), row_pos.data_ptr(), tile_slot.data_ptr(),
-        k_slab.data_ptr(), v_slab.data_ptr(), out.data_ptr(), T, block_q, H,
-        G, Dh, S, C, default_sm_scale(Dh), _DTYPES[q.dtype],
+        k_slab.data_ptr(), v_slab.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), T, block_q, H, G, Dh, S, C,
+        default_sm_scale(Dh), _DTYPES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "duet_attention")
     role = slab_role(block_q, H // G)
     launches["duet_attention" if role == "decode"
              else f"duet_attention[{role}]"] += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 @functools.lru_cache(maxsize=None)
@@ -378,7 +403,8 @@ def _launch_paged(q, row_pos, tile_slot, k_pages, v_pages, tables, block_q):
 
 
 def duet_attention(q, row_pos, tile_slot, k_slab, v_slab, *,
-                   block_q: int = 8, block_k: int = 128):
+                   block_q: int = 8, block_k: int = 128,
+                   return_lse: bool = False):
     """Fused mixed-phase attention over the slab cache.
 
     Args:
@@ -392,15 +418,19 @@ def duet_attention(q, row_pos, tile_slot, k_slab, v_slab, *,
       block_k:   the reference's KV tile; S must be a multiple of it (the
                  reference's contract). The CUDA kernel stages its own
                  tiles and the result does not depend on it.
-    Returns (T*block_q, H, Dh).
+      return_lse: also return each row's and head's fp32 natural-log
+                 log-sum-exp of its scores over the keys it saw, (T*block_q,
+                 H) (-inf for a pad row or one that saw no key).
+    Returns (T*block_q, H, Dh), or (that, lse).
     """
     if k_slab.shape[1] % block_k:
         raise ValueError(f"duet_attention: S={k_slab.shape[1]} is not a "
                          f"multiple of block_k={block_k}")
     if q.device.type == "cpu":
         return duet_attention_plain(q, row_pos, tile_slot, k_slab, v_slab,
-                                    block_q=block_q)
-    return _launch(q, row_pos, tile_slot, k_slab, v_slab, block_q)
+                                    block_q=block_q, return_lse=return_lse)
+    return _launch(q, row_pos, tile_slot, k_slab, v_slab, block_q,
+                   return_lse)
 
 
 def duet_attention_paged(q, row_pos, tile_slot, k_pages, v_pages, tables, *,

@@ -155,8 +155,8 @@ def cluster_spans(n_units: int, C: int) -> List[Tuple[int, int]]:
 from repro_torch.kernels.duet_attention import (  # noqa: E402,F401
     duet_attention, duet_attention_paged)
 from repro_torch.kernels.flash_prefill import flash_prefill  # noqa: E402,F401
-from repro_torch.kernels.paged_decode import (  # noqa: E402
-    paged_decode, paged_decode_splitkv)
+from repro_torch.kernels.paged_decode import (  # noqa: E402,F401
+    lse_combine, paged_decode, paged_decode_splitkv)
 
 
 # launches of the sharded route (each also counts under the inner

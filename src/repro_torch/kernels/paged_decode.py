@@ -95,11 +95,24 @@ def _split_attend(q, k, v, valid):
                     torch.zeros_like(s))
     l_part = p.sum(dim=-1)
     acc = torch.einsum("bshl,bslhd->bshd", p, v)
-    m_star = m.amax(dim=1, keepdim=True)
+    return lse_combine(m, l_part, acc, dim=1).to(q.dtype)
+
+
+def lse_combine(m, l, acc, dim: int):
+    """The log-sum-exp combine of partials stacked on ``dim``, in that
+    order: m (natural-log max or log-sum-exp; a partial at or below
+    MASKED_M_THRESHOLD, -inf included, weighs 0), l (its denominator) and
+    acc (its unnormalised sum, one more dim of Dh). Returns
+    sum_i w_i acc_i / max(sum_i w_i l_i, DENOM_EPS), w_i = exp(m_i - max
+    m), in fp32. Split-KV's splits, and a context-parallel decode's ranks
+    (normalised outputs with l = 1, m their log-sum-exp), combine
+    through it."""
+    live = m > MASKED_M_THRESHOLD
+    m_star = m.amax(dim=dim, keepdim=True)
     w = torch.where(live, torch.exp(m - m_star), torch.zeros_like(m))
-    l_star = (w * l_part).sum(dim=1)                          # (B,H)
-    out = (acc * w[..., None]).sum(dim=1)
-    return (out / l_star.clamp(min=DENOM_EPS)[..., None]).to(q.dtype)
+    l_star = (w * l).sum(dim=dim)
+    out = (acc * w[..., None]).sum(dim=dim)
+    return out / l_star.clamp(min=DENOM_EPS)[..., None]
 
 
 def paged_decode_splitkv_plain(q, k_pages, v_pages, tables, lengths, *,

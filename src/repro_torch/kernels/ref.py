@@ -4,7 +4,9 @@ Shapes follow the kernel contracts:
   flash_prefill : q (B,S,H,Dh), k/v (B,S,G,Dh), causal (+offset for chunks)
   paged_decode  : q (B,H,Dh), pages (N,ps,G,Dh), tables (B,P), lengths (B,)
   duet_attention: q rows (R,H,Dh) over a slot slab (Ns,S,G,Dh) with per-row
-                  slot ids and positions (mixed prefill rows + decode rows)
+                  slot ids and positions (mixed prefill rows + decode rows);
+                  ``duet_attention_lse_ref`` also gives each row's and
+                  head's log-sum-exp (R,H), the context-parallel partial
 
 Scores, softmax and the probability-weighted sum are fp32 whatever the
 input dtype (the reference's ``preferred_element_type=float32``); the
@@ -97,3 +99,23 @@ def duet_attention_paged_ref(q, row_slot, row_pos, k_pages, v_pages, tables):
     k_slab = k_pages[tbl].reshape(B, P * ps, G, Dh)
     v_slab = v_pages[tbl].reshape(B, P * ps, G, Dh)
     return duet_attention_ref(q, row_slot, row_pos, k_slab, v_slab)
+
+
+def duet_attention_lse_ref(q, row_slot, row_pos, k_slab, v_slab):
+    """:func:`duet_attention_ref` and each row's and head's fp32 natural-log
+    log-sum-exp of its scaled scores over its valid keys, (R, H): -inf for
+    a padding row (``row_slot`` < 0) or one with no valid key (``row_pos``
+    < 0). Returns (out, lse)."""
+    Dh = q.shape[-1]
+    rep = q.shape[1] // k_slab.shape[2]
+    slot = row_slot.long().clamp(min=0)
+    k = gqa_repeat_kv(k_slab[slot], rep).float()        # (R,S,H,Dh)
+    scores = torch.einsum("rhd,rkhd->rhk", q.float(), k)
+    scores = scores * default_sm_scale(Dh)
+    pos = torch.arange(k_slab.shape[1], device=q.device)
+    mask = (pos[None, :] <= row_pos[:, None]) & (row_slot >= 0)[:, None]
+    lse = torch.logsumexp(torch.where(mask[:, None, :], scores,
+                                      torch.full_like(scores,
+                                                      float("-inf"))),
+                          dim=-1)
+    return duet_attention_ref(q, row_slot, row_pos, k_slab, v_slab), lse

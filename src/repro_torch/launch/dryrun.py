@@ -21,12 +21,16 @@ of the production grid (``launch.mesh.make_production_mesh``: 16 x 16, or
   * ``rank_memory``  — what rank 0 of the port really holds: the peak of
                        its live tensors, the bytes live at entry, the
                        temp between them (peak less entry) and its
-                       weights' share of the entry bytes. It
-                       exceeds ``memory`` wherever the reference shards the
-                       cache's sequence (context-parallel decode, and KV
-                       heads that do not divide ``model``): the port's
-                       ranks hold ``Model.init_cache``'s layout, the whole
-                       sequence of their KV heads
+                       weights' share of the entry bytes. A decode rank
+                       holds its span of every GQA cache's sequence as
+                       ``cache_pspecs`` places it (context-parallel decode:
+                       the sequence cut over the data axes at batch 1 and
+                       over ``model`` where the KV heads do not divide
+                       it), so its entry bytes are the spec's but for two
+                       layouts the port keeps: MLA latents stay whole
+                       (``whole_sequence`` names those layer kinds; their
+                       sequence cut is not yet ported) and a Mamba2 conv
+                       tail holds only the rank's channels
   * ``flops``        — ``torch.utils.flop_counter.FlopCounterMode`` over the
                        step: matmul-class ops only, for one rank (the
                        reference's HLO count adds the elementwise ops)
@@ -73,10 +77,12 @@ from torch.utils._pytree import tree_leaves
 from repro_torch.configs import get_config, input_specs, list_configs
 from repro_torch.configs.base import ASSIGNED_ARCHS
 from repro_torch.configs.shapes import SHAPES, InputShape
+from repro_torch.configs.base import MLA_KINDS
 from repro_torch.launch.mesh import (Grid, _grid_groups, batch_split,
-                                     make_production_mesh)
+                                     make_production_mesh, seq_group)
 from repro_torch.models.params import abstract_params, tp_adjusted_config
-from repro_torch.models.transformer import Model, cache_pspecs
+from repro_torch.models.transformer import (Model, _axes_of, cache_pspecs,
+                                            cache_seq_axes)
 
 COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
                "collective-permute")
@@ -191,8 +197,15 @@ def _run_rank(cfg, shape: InputShape, grid: Grid, *, mla_absorb, remat,
     tp = grid.shape.get("model", 1)
     dp = grid.size // tp
     model_group, data_group = _grid_groups(dp, tp, 0)
+    # a decode rank holds its span of the GQA caches' sequence (its
+    # sequence group's partials combine in one all-gather a layer)
+    seq, seq_rank, group = seq_group(
+        cache_seq_axes(cfg, grid, shape.global_batch)
+        if shape.kind == "decode" else (), dp, tp, 0, model_group,
+        data_group)
     ctx = DeviceContext(cfg, torch.device("cpu"), tp=tp, rank=0,
-                        group=model_group)
+                        group=model_group, seq=seq, seq_rank=seq_rank,
+                        seq_group=group)
     # the train step takes the global batch and cuts the data rank's rows;
     # prefill and decode run the rank's rows
     B = shape.global_batch if shape.kind == "train" else \
@@ -220,7 +233,8 @@ def _run_rank(cfg, shape: InputShape, grid: Grid, *, mla_absorb, remat,
                 return model.prefill(batch["tokens"],
                                      patch_embeds=batch.get("patch_embeds"))
         else:
-            # the port's own rank layout (its KV heads, whole sequence)
+            # the rank's layout: its rows, KV heads and span of the GQA
+            # caches' sequence (cache_pspecs'), MLA latents whole
             cache = model.init_cache(B, shape.seq_len, kv_dtype,
                                      sliding=shape.sliding)
             args = (params, cache, batch)
@@ -249,6 +263,19 @@ def _run_rank(cfg, shape: InputShape, grid: Grid, *, mla_absorb, remat,
 def _tracked_total(tracker, which: str) -> int:
     return sum(snap["Total"] for snap in
                tracker.get_tracker_snapshot(which).values())
+
+
+def _whole_sequence(cfg, shape: InputShape, grid: Grid) -> list:
+    """The layer kinds whose decode cache the port's rank keeps whole
+    along a sequence that ``cache_pspecs`` cuts: MLA's latents (their
+    sequence cut is not yet ported); [] elsewhere."""
+    if shape.kind != "decode":
+        return []
+    specs = cache_pspecs(cfg, grid, shape.global_batch,
+                         sliding=shape.sliding)
+    return sorted({kind for kind, spec in zip(cfg.block_pattern, specs)
+                   if kind in MLA_KINDS and math.prod(
+                       grid.shape[a] for a in _axes_of(spec[0][1])) > 1})
 
 
 def lower_one(arch: str, shape_name: Union[str, InputShape], *,
@@ -304,7 +331,9 @@ def lower_one(arch: str, shape_name: Union[str, InputShape], *,
         "rank_memory": {"peak_bytes": run["peak"],
                         "entry_bytes": run["entry"],
                         "temp_bytes": run["peak"] - run["entry"],
-                        "weight_bytes": run["weights"]},
+                        "weight_bytes": run["weights"],
+                        "whole_sequence": _whole_sequence(cfg, shape,
+                                                          grid)},
         "collectives": run["collectives"],
         "lower_s": round(run["seconds"], 2),
         "compile_s": None,

@@ -17,6 +17,11 @@ other ranks are stopped).
   tensor-parallel replica) and one per data group (ranks ``m, tp+m, ...``:
   the replicas' rank ``m``), and keeps its own two. With ``dp`` == 1 the
   model group is the default group and there is no data group.
+* Context-parallel decode's sequence group (:func:`seq_group`,
+  ``Rank.seq_group``) is one of those, or the world: the cache spec's
+  sequence entry (``models.transformer.cache_seq_axes``) names ``model``
+  (the model group), the data axes (the data group) or both (every rank,
+  data major, model minor).
 * Rendezvous goes through a ``FileStore`` in a temporary directory, so no
   TCP port is chosen and parallel test workers cannot collide; gloo binds
   to the loopback interface.
@@ -98,15 +103,31 @@ class Rank:
     def data_rank(self) -> int:
         return self.rank // self.tp
 
+    @property
+    def grid(self) -> "Grid":
+        """The ``(data, model)`` grid this rank is part of."""
+        return Grid(("data", "model"), (self.dp, self.tp))
+
+    def seq_group(self, axes: Sequence[str]) -> Tuple[int, int, Any]:
+        """(size, this rank's index, process group) of the sequence group
+        over ``axes`` (:func:`seq_group`)."""
+        return seq_group(axes, self.dp, self.tp, self.rank,
+                         self.model_group, self.data_group)
+
     def context(self, cfg: ArchConfig, *, dp: int = 1,
-                share_card: bool = False) -> DeviceContext:
+                share_card: bool = False,
+                seq_axes: Sequence[str] = ()) -> DeviceContext:
         """This rank's :class:`DeviceContext` for ``cfg`` over its model
         group; ``dp`` > 1 adds that many serving replicas of it
-        (``DeviceContext.split_replicas``)."""
+        (``DeviceContext.split_replicas``); ``seq_axes`` (the cache spec's
+        sequence entry, ``models.transformer.cache_seq_axes``) makes it a
+        rank of that context-parallel sequence group."""
+        seq, seq_rank, group = self.seq_group(seq_axes)
         return DeviceContext(cfg, self.device, tp=self.tp,
                              rank=self.model_rank, group=self.model_group,
                              backend=self.backend, dp=dp,
-                             share_card=share_card)
+                             share_card=share_card, seq=seq,
+                             seq_rank=seq_rank, seq_group=group)
 
 
 @dataclass(frozen=True)
@@ -256,6 +277,28 @@ def _grid_groups(dp: int, tp: int, rank: int):
     data = [dist.new_group([d * tp + m for d in range(dp)])
             for m in range(tp)]
     return model[rank // tp], data[rank % tp]
+
+
+def seq_group(axes: Sequence[str], dp: int, tp: int, rank: int,
+              model_group, data_group) -> Tuple[int, int, Any]:
+    """(size, index of global rank ``rank``, process group) of the
+    context-parallel sequence group over ``axes`` (the cache spec's
+    sequence entry) on a ``(dp, tp)`` grid, pod and data folded into the
+    data index as :func:`run_ranks` and the dry run fold them: ``model``
+    gives the model group (its ``tp`` ranks), the data axes the data group
+    (its ``dp`` ranks), both every rank in global order (data major,
+    model minor: the spec entry's order), the default group (None). The
+    groups are :func:`_grid_groups`' (the default group at ``dp`` 1). No
+    axis gives (1, 0, None)."""
+    on_model = "model" in axes
+    on_data = any(a != "model" for a in axes)
+    if on_model and on_data:
+        return dp * tp, rank, None
+    if on_model:
+        return tp, rank % tp, model_group
+    if on_data:
+        return dp, rank // tp, data_group
+    return 1, 0, None
 
 
 def _rank_main(rank: int, fn: Callable, tp: int, dp: int, backend: str,

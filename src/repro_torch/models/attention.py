@@ -29,11 +29,23 @@ hold (H and G come from the weights' shapes), so under TP a rank computes
 its head shard against its KV-head shard of the cache or pool, and the
 out-projection's partial sums are added over the ranks (``ctx``, a
 ``DeviceContext``; None on one device) when the ``heads`` axis is sharded.
-Softmax is per head, so no other step crosses ranks. The MLA functions
+Softmax is per head, so no other step crosses ranks (but for
+context-parallel decode, below). The MLA functions
 run the same way on the rank's heads of ``w_q``, ``w_uk`` and ``w_uv`` and
 its rows of the flat ``w_o``: the latent down-projection, its norm and the
 rope key stay whole, so every rank writes the same latents into its own
 whole latent pool (the reference replicates MLA's pools).
+
+Context-parallel decode (``ctx.seq`` > 1, the slab decode only): a
+rank's slab holds its contiguous span of the cache's sequence (or of the
+sliding ring), keys ``base .. base + S_local - 1`` of the whole
+(``ctx.seq_span``), as the reference's ``cache_pspecs`` places it. Only
+the rank whose span holds the new token's slot writes its K/V; positions
+stay rank-global. Each rank attends over its span (masked by the global
+key index), giving a normalised output and its log-sum-exp, and the
+sequence group's partials are combined before the out-projection
+(``ctx.combine_partials``), so every rank of the group gets the same
+bits.
 
 Caches and page pools are updated IN PLACE (the reference is functional):
 each function writes the new K/V into the tensors it is given and returns
@@ -50,7 +62,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops as kernel_ops
-from repro_torch.kernels.ops import NEG_INF
+from repro_torch.kernels.ops import DENOM_EPS, MASKED_M_THRESHOLD, NEG_INF
 from repro_torch.models.layers import apply_rope, rms_norm
 
 ATTN_BLOCK_Q = 1024  # query-block size for memory-efficient attention
@@ -124,6 +136,41 @@ def _gqa_combine(probs, v):
 def _softmax(scores, mask):
     scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
     return torch.softmax(scores.float(), dim=-1)
+
+
+def _partial_attend(scores, mask, v):
+    """One span's share of a context-parallel decode: fp32 scores
+    (B,G,R,Sq,Sk) masked by ``mask`` over v (B,Sk,G,Dh) -> (its normalised
+    output (B,Sq,H,Dh) fp32, its natural-log log-sum-exp (B,Sq,H)); a row
+    with no valid key in the span gives zeros and -inf."""
+    s = torch.where(mask, scores.float(), torch.full_like(scores, NEG_INF))
+    m = s.amax(dim=-1)
+    live = m > MASKED_M_THRESHOLD
+    p = torch.where(live[..., None], torch.exp(s - m[..., None]),
+                    torch.zeros_like(s))
+    l = p.sum(dim=-1)
+    out = _gqa_combine(p / l.clamp(min=DENOM_EPS)[..., None], v)
+    lse = torch.where(live, m + torch.log(l),
+                      torch.full_like(m, float("-inf")))
+    B, G, R, Sq = lse.shape
+    return out, lse.permute(0, 3, 1, 2).reshape(B, Sq, G * R)
+
+
+def _seq_layout(cache: AttnCache, ctx):
+    """(sequence group size, the span's first key, the whole sequence's
+    keys) of a slab or ring ``cache`` as this rank holds it."""
+    seq = 1 if ctx is None else ctx.seq
+    whole = cache.k.shape[1] * seq
+    return seq, (0 if seq == 1 else ctx.seq_span(whole)[0]), whole
+
+
+def _own_slot(slot, base: int, span: int, active_mask):
+    """(the span-local write slot, the write mask): a row writes only
+    where its slot lies in this rank's span ``base .. base + span - 1``
+    (and it is active); others write their old entry back in place."""
+    own = (slot >= base) & (slot < base + span)
+    mask = own if active_mask is None else active_mask & own
+    return (slot - base).clamp(0, span - 1), mask
 
 
 def _blockwise_gqa(q, k, v, positions, mask_fn):
@@ -240,24 +287,34 @@ def gqa_decode(params, cfg: ArchConfig, x: torch.Tensor, cache: AttnCache,
     absolute position pos - ((pos - s) mod W), valid iff that is >= 0.
     The new K/V is written into the cache in place, except for rows off
     ``active_mask`` (the port's argument; see :func:`_slab_write`).
+    Under a sequence group the cache is this rank's span of the sequence
+    or ring (slots are global key indices; see the module docstring).
     """
-    W = cache.k.shape[1]
+    seq, base, W = _seq_layout(cache, ctx)
+    span = cache.k.shape[1]
     q, k, v = _project_qkv(params, cfg, x, pos[:, None], ctx=ctx)
     pos = pos.long()
     slot = (pos % W) if sliding else pos
+    if seq > 1:
+        slot, active_mask = _own_slot(slot, base, span, active_mask)
     _slab_write(cache, slot, k[:, 0], v[:, 0], active_mask)
 
     # read path: cast (no-op when the cache holds the compute dtype)
     k_read = cache.k.to(q.dtype)
     v_read = cache.v.to(q.dtype)
     scores = _gqa_scores(q, k_read) / (cfg.head_dim ** 0.5)
-    slots = torch.arange(W, device=x.device)
+    slots = base + torch.arange(span, device=x.device)
     if sliding:
         valid = ((pos[:, None] - slots[None, :]) % W) <= pos[:, None]
     else:
         valid = slots[None, :] <= pos[:, None]
-    probs = _softmax(scores, valid[:, None, None, None, :])
-    out = _gqa_combine(probs, v_read).to(x.dtype)
+    if seq == 1:
+        probs = _softmax(scores, valid[:, None, None, None, :])
+        out = _gqa_combine(probs, v_read).to(x.dtype)
+    else:
+        out, lse = _partial_attend(scores, valid[:, None, None, None, :],
+                                   v_read)
+        out = ctx.combine_partials(out, lse).to(x.dtype)
     out = torch.einsum("bshe,hed->bsd", out, params["w_o"])
     return _reduce_heads(out, ctx), cache
 
@@ -331,17 +388,27 @@ def gqa_decode_kernel(params, cfg: ArchConfig, x: torch.Tensor,
     (``kernels.duet_attention``, the CUDA kernel on the card and its plain
     version on the CPU): each active request is one decode row over its
     slab slot — the engine's kernel path. Semantically identical to
-    :func:`gqa_decode` (full cache, no sliding)."""
+    :func:`gqa_decode` (full cache, no sliding). Under a sequence group
+    the kernel runs over this rank's span, each row's position shifted by
+    the span's first key, and returns its log-sum-exp; the group's
+    partials are combined before the out-projection."""
     B = x.shape[0]
-    W = cache.k.shape[1]
+    seq, base, _ = _seq_layout(cache, ctx)
+    span = cache.k.shape[1]
     q, k, v = _project_qkv(params, cfg, x, pos[:, None], ctx=ctx)
     bidx = torch.arange(B, device=x.device)
-    _slab_write(cache, pos.long(), k[:, 0], v[:, 0], active_mask)
+    slot = pos.long()
+    if seq > 1:
+        slot, active_mask = _own_slot(slot, base, span, active_mask)
+    _slab_write(cache, slot, k[:, 0], v[:, 0], active_mask)
     # one tile per decode row (block_q=1): tile_slot = batch index
+    row_pos = (pos.long() - base)[:, None].to(torch.int32).contiguous()
     rows = kernel_ops.duet_attention(
-        q[:, 0].contiguous(), pos[:, None].to(torch.int32).contiguous(),
-        bidx.to(torch.int32), cache.k.to(q.dtype), cache.v.to(q.dtype),
-        block_q=1, block_k=min(block_k, W))
+        q[:, 0].contiguous(), row_pos, bidx.to(torch.int32),
+        cache.k.to(q.dtype), cache.v.to(q.dtype), block_q=1,
+        block_k=min(block_k, span), return_lse=seq > 1)
+    if seq > 1:
+        rows = ctx.combine_partials(*rows).to(x.dtype)
     out = torch.einsum("bhe,hed->bd", rows, params["w_o"])[:, None, :]
     return _reduce_heads(out, ctx), cache
 

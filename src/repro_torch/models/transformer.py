@@ -20,7 +20,12 @@ Slab cache (one contiguous KV row per slot, ``init_cache``):
 
 ``cache_specs`` / ``cache_pspecs`` give the reference's global slab cache
 tree as ``meta`` tensors and its partition specs on a grid, for the dry
-run (``launch/dryrun.py``).
+run (``launch/dryrun.py``). Under a context with a sequence group
+(context-parallel decode, ``DeviceContext.seq``) ``init_cache`` builds the
+rank's span of every GQA cache's sequence, as ``cache_pspecs`` places it,
+and ``decode_step`` combines the group's partials; ``shard_cache`` cuts a
+whole cache into a rank's rows, heads and span (``unshard_cache`` joins
+the ranks' shards).
 
 Paged KV pool:
 
@@ -74,6 +79,7 @@ the whole leaves' whole gradients.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -420,6 +426,11 @@ class Model(nn.Module):
         the prefix-LM mask.
         """
         cfg = self.cfg
+        if cache is not None and self.ctx.seq > 1 and any(
+                kind in ATTN_KINDS for kind in cfg.block_pattern):
+            raise NotImplementedError(
+                "prefill into a sequence-sharded cache is not yet ported: "
+                "prefill the whole cache and cut it with shard_cache")
         x, prefix_len = self._embed(tokens, patch_embeds)
         prefix_len = prefix_len if cfg.prefix_lm else 0
         B, S = x.shape[:2]
@@ -454,6 +465,13 @@ class Model(nn.Module):
         bool, the port's argument: rows off it keep their slab entry and
         recurrent state (the reference's look-ahead loop restores them
         after the step). Audio: token (B, K, 1), the codebooks summed.
+        Under a context with a sequence group (``ctx.seq`` > 1) every GQA
+        cache is the rank's span of the sequence (or ring), as
+        ``cache_pspecs`` places it: each rank attends over its span and the
+        group's partials are combined in one collective a layer, so every
+        rank of the group gets the logits one device with the whole cache
+        gets, bit for bit the same on every rank (``pos`` stays global).
+        MLA caches keep their whole sequence.
         Returns (logits (B, V), or (B, K, V) for audio, cache)."""
         cfg = self.cfg
         x, _ = self._embed(token)
@@ -597,7 +615,9 @@ class Model(nn.Module):
         r | rope) per MLA layer, and one recurrent state per recurrent
         layer (its conv tail in ``dtype``, the rest fp32), all at the
         rank's widths (G its KV heads, Mamba2 its heads and inner
-        channels). ``dtype`` defaults to the model's."""
+        channels). Under a sequence group a GQA cache holds the rank's
+        span of S, S / ``ctx.seq`` keys (raises where that does not
+        divide). ``dtype`` defaults to the model's."""
         return _build_cache(self.cfg, batch, max_len,
                             dtype or self.dtype, sliding, self.device,
                             ctx=self.ctx)
@@ -615,15 +635,18 @@ def _build_cache(cfg: ArchConfig, batch: int, max_len: int, dtype, sliding,
                  ctx: DeviceContext) -> list:
     """One zeroed entry per layer: AttnCache (GQA), MLACache (MLA),
     MambaCache / MLSTMCache / SLSTMCache (recurrent; fp32 but for the conv
-    tails, as the reference's), at ``ctx``'s rank widths: its KV heads,
-    and Mamba2's conv (B, W-1, d_inner/tp + 2n) and SSM state (B,
-    heads/tp, p, n); MLA latents and the xLSTM states stay whole. With
+    tails, as the reference's), at ``ctx``'s rank widths: its KV heads
+    and its span of the GQA sequence (``ctx.seq_span``), and Mamba2's conv
+    (B, W-1, d_inner/tp + 2n) and SSM state (B, heads/tp, p, n); MLA
+    latents (whole sequence) and the xLSTM states stay whole. With
     ``attention`` False the attention entries are None (the paged path's
     per-slot state)."""
     def zeros(*shape, dt=None):
         return torch.zeros(shape, dtype=dt or dtype, device=device)
     f32 = torch.float32
     S = min(max_len, cfg.sliding_window) if sliding else max_len
+    if attention:
+        S = ctx.seq_span(S)[1]
     G, dh = ctx.local_kv_heads, cfg.head_dim
     cache = []
     for kind in cfg.block_pattern:
@@ -683,13 +706,11 @@ def cache_pspecs(cfg: ArchConfig, grid, batch: int, *,
     not shard over ``model`` shards its sequence over it too, and MLA's
     latents always do; recurrent states replicate over data, Mamba2's SSM
     state split on ``ssm_heads``. (What the reference's GSPMD lowering
-    places; the port's ranks hold ``Model.init_cache``'s layout, which
-    shards no sequence.)"""
-    # launch.mesh imports the models package (through core), so not above
-    from repro_torch.launch.mesh import batch_split, data_axes
-    on_batch, _ = batch_split(grid, batch)
+    places. The port's ranks hold it for the GQA caches under a context
+    whose sequence group is :func:`cache_seq_axes`'; they keep MLA's
+    latents whole, and cut Mamba2's conv tail to the rank's channels.)"""
+    on_batch, seq_ax = _batch_and_seq_axes(grid, batch)
     batch_ax = _entry(on_batch)
-    seq_ax = () if on_batch else data_axes(grid)
     rules = axis_rules(cfg, grid.shape.get("model", 1))
     ssm_heads_ax = rules["ssm_heads"]
 
@@ -697,7 +718,7 @@ def cache_pspecs(cfg: ArchConfig, grid, batch: int, *,
     for kind in cfg.block_pattern:
         if kind in ATTN_KINDS:
             kv_ax = rules["kv_heads"]
-            sq = _entry(seq_ax + (("model",) if kv_ax is None else ()))
+            sq = _entry(cache_seq_axes(cfg, grid, batch))
             s = (batch_ax, sq, kv_ax, None)
             specs.append(attn_mod.AttnCache(k=s, v=s))
         elif kind in MLA_KINDS:
@@ -724,3 +745,121 @@ def cache_pspecs(cfg: ArchConfig, grid, batch: int, *,
 def _entry(axes: tuple):
     """A spec entry over ``axes``: None, one name, or the tuple."""
     return None if not axes else axes[0] if len(axes) == 1 else axes
+
+
+def _batch_and_seq_axes(grid, batch: int):
+    """(the axes the batch is cut on, the data axes an attention cache's
+    sequence is cut on instead: batch 1)"""
+    # launch.mesh imports the models package (through core), so not above
+    from repro_torch.launch.mesh import batch_split, data_axes
+    on_batch, _ = batch_split(grid, batch)
+    return on_batch, (() if on_batch else data_axes(grid))
+
+
+def cache_seq_axes(cfg: ArchConfig, grid, batch: int) -> tuple:
+    """The axes :func:`cache_pspecs` cuts a GQA cache's sequence on, in
+    the spec entry's order: the data axes at batch 1, then ``model`` where
+    the KV heads do not divide it; () where it cuts none. A rank's
+    context-parallel sequence group is the ranks over these axes
+    (``launch.mesh.Rank.context(cfg, seq_axes=...)``)."""
+    _, seq_ax = _batch_and_seq_axes(grid, batch)
+    kv_ax = axis_rules(cfg, grid.shape.get("model", 1))["kv_heads"]
+    return seq_ax + (("model",) if kv_ax is None else ())
+
+
+def _axes_of(entry) -> tuple:
+    return () if entry is None else (entry,) if isinstance(entry, str) \
+        else tuple(entry)
+
+
+def _rank_slices(kind: str, leaf: int, spec: tuple, shape, cfg: ArchConfig,
+                 grid, coords: dict):
+    """The index into a whole cache leaf of ``shape`` that gives the
+    rank at grid ``coords`` its shard: on each dim cut by ``spec``, the
+    rank's part (the entry's axes row-major: data major, model minor); on
+    Mamba2's conv tail (channels [x | B | C]) the rank's x channels and
+    every B and C channel where ``ssm_inner`` is cut (the port's rank
+    conv, ``ssm.rank_conv``), where the reference's spec keeps the
+    channels whole. Raises where an MLA latent's sequence is cut (not yet
+    ported) and where a part does not divide."""
+    idx = []
+    for dim, (size, entry) in enumerate(zip(shape, spec)):
+        n, part = 1, 0
+        for a in _axes_of(entry):
+            n *= grid.shape[a]
+            part = part * grid.shape[a] + coords[a]
+        if n > 1 and kind in MLA_KINDS and dim == 1:
+            raise NotImplementedError(
+                f"shard_cache: cutting an MLA latent cache's sequence over "
+                f"{entry!r} is not yet ported (the port's ranks keep MLA "
+                "latents whole)")
+        if size % n:
+            raise ValueError(f"shard_cache: {kind} leaf {leaf} dim {dim} "
+                             f"of {size} does not split into {n} parts")
+        w = size // n
+        idx.append(slice(part * w, (part + 1) * w))
+    tp = grid.shape.get("model", 1)
+    if kind == "mamba2" and leaf == 0 and tp > 1 \
+            and axis_rules(cfg, tp)["ssm_inner"] == "model":
+        di = cfg.d_inner // tp
+        m = coords["model"]
+        idx[2] = torch.cat([torch.arange(m * di, (m + 1) * di),
+                            torch.arange(cfg.d_inner, shape[2])])
+    return tuple(idx)
+
+
+def _grid_coords(grid, rank: int) -> dict:
+    import numpy as np
+    return dict(zip(grid.axis_names,
+                    (int(i) for i in np.unravel_index(rank, grid.sizes))))
+
+
+def shard_cache(cache: list, cfg: ArchConfig, grid, batch: int, rank: int,
+                *, sliding: bool = False) -> list:
+    """Global rank ``rank``'s shard of a whole slab cache (e.g. the
+    reference's from its ``prefill``, one entry a layer) on ``grid``, as
+    :func:`cache_pspecs` places it: its rows, its KV heads and its span of
+    every GQA cache's sequence (or ring), its Mamba2 heads and conv
+    channels; recurrent states whole otherwise. The cache's counterpart
+    of ``models.params.shard_params``: the result is what
+    ``Model.init_cache`` builds under the rank's context (copies).
+    ``batch`` is the global batch. Raises "not yet ported" where an MLA
+    latent's sequence would be cut."""
+    coords = _grid_coords(grid, rank)
+    specs = cache_pspecs(cfg, grid, batch, sliding=sliding)
+    out = []
+    for kind, entry, spec in zip(cfg.block_pattern, cache, specs):
+        out.append(type(entry)(*(
+            t[_rank_slices(kind, i, s, t.shape, cfg, grid, coords)].clone()
+            for i, (t, s) in enumerate(zip(entry, spec)))))
+    return out
+
+
+def unshard_cache(shards: list, cfg: ArchConfig, grid, batch: int, *,
+                  sliding: bool = False) -> list:
+    """The whole cache from every rank's :func:`shard_cache` shard
+    (``shards`` in global rank order): each rank's part put back where it
+    came from (parts every rank holds are taken from the last)."""
+    if len(shards) != grid.size:
+        raise ValueError(f"unshard_cache: {len(shards)} shards for a grid "
+                         f"of {grid.size} ranks")
+    specs = cache_pspecs(cfg, grid, batch, sliding=sliding)
+    tp = grid.shape.get("model", 1)
+    conv_cut = tp > 1 and axis_rules(cfg, tp)["ssm_inner"] == "model"
+    out = []
+    for layer, (kind, spec) in enumerate(zip(cfg.block_pattern, specs)):
+        first = shards[0][layer]
+        leaves = []
+        for i, (t, s) in enumerate(zip(first, spec)):
+            shape = [size * math.prod(grid.shape[a] for a in _axes_of(e))
+                     for size, e in zip(t.shape, s)]
+            if kind == "mamba2" and i == 0 and conv_cut:
+                shape[2] = cfg.d_inner + 2 * cfg.ssm_state
+            whole = t.new_empty(shape)
+            for r in range(grid.size):
+                idx = _rank_slices(kind, i, s, shape, cfg, grid,
+                                   _grid_coords(grid, r))
+                whole[idx] = shards[r][layer][i]
+            leaves.append(whole)
+        out.append(type(first)(*leaves))
+    return out
