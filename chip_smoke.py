@@ -281,7 +281,19 @@ Phases (each raises on failure; nothing is swallowed):
              card (its weight shards and its span of 2,048 keys of 36 KV
              heads, 8 rows): the bytes requested within 512 B a tensor
              of the record's arguments; the record's peak under 80 GB;
-             no step (its peers do not exist).
+             no step (its peers do not exist); (c') the same for
+             deepseek-v2-lite-16b's rank (its span of 2,048 of the MLA
+             latents' 32,768 positions). (e), in (a)'s spawn:
+             deepseek-v2-lite-16b at full width cut to 4 layers (the
+             dense MLA layer and three MLA + MoE layers), fp32, TF32 off,
+             at TP 2: each rank holds 16,384 of the 32,768 latent
+             positions of 8 rows (the whole random latents cut by
+             shard_cache), 4 decode steps from (a)'s positions, for
+             mla_absorb off and on: logits within 1e-5 x max|logit| of
+             TP 1's whole latents, both ranks bitwise equal, two
+             all-gathers an MLA layer a step (every head's query over
+             the model group, then the partials' combine); MLA runs no
+             kernel, and its path must launch none.
 
 Before the last line it prints the card's name and power limit
 (``nvidia-smi``) and a ``{"kernels": [...]}`` JSON line (flash_prefill
@@ -375,9 +387,11 @@ FRONTEND_PROMPT, FRONTEND_DECODE = 64, 4
 # moments, remat, TRAIN_STEPS AdamW steps on its WSD schedule at
 # TRAIN_BATCH x TRAIN_SEQ from the data pipeline; first the reduced config
 # on the card against the CPU for TRAIN_CHECK_STEPS steps (fp32, TF32 off;
-# losses, lr and grad norms within TRAIN_TOL, parameters within a tenth
-# of the learning rate: Adam's m / sqrt(v) has no scale, so an entry whose
-# gradient is at the rounding noise moves by another fraction of lr)
+# losses, lr, grad norms and each gradient entry against its leaf's
+# largest within TRAIN_TOL; parameters within a tenth of the learning rate
+# after AdamW from the same gradients: Adam's m / sqrt(v) has no scale, so
+# free-running, an entry whose gradient is at the rounding noise moves by
+# a fraction of lr that the host's summation order sets, train_check)
 TRAIN_ARCH = "minicpm-2b"
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 8, 2, 512, 3e-4
 TRAIN_CHECK_STEPS, TRAIN_CHECK_SEQ, TRAIN_CHECK_LR = 3, 64, 1e-3
@@ -2980,11 +2994,54 @@ def _train_run(model, opt_cfg, data, steps, sync=False):
     return params, state, rows
 
 
+def _train_forced(cpu, card, opt_cfg, data, steps):
+    """(b) of train_check: ``steps`` steps of the CPU's model and the
+    card's from the same weights and batches, each side computing its own
+    loss and gradients, then both sides' AdamW fed the CPU's gradients.
+    Returns the largest gradient difference, each entry's relative to its
+    leaf's largest |gradient| on the CPU, and both sides' parameters."""
+    from repro_torch.models.params import _leaves, _map
+    from repro_torch.training import adamw_update, init_adamw
+    from repro_torch.training.train_loop import batch_to
+    models = (cpu, card)
+    trees = [m.param_tree() for m in models]
+    states = [init_adamw(t) for t in trees]
+    worst = 0.0
+    for _ in range(steps):
+        batch = next(data)
+        grads = []
+        for model, tree in zip(models, trees):
+            leaves = list(_leaves(tree))
+            loss = model.loss(batch_to(batch, model.device))
+            got = torch.autograd.grad(loss, [t for _, t in leaves])
+            grads.append({path: g.detach().cpu()
+                          for (path, _), g in zip(leaves, got)})
+        for path, want in grads[0].items():
+            scale = want.abs().max().item()
+            err = (grads[1][path] - want).abs().max().item()
+            worst = max(worst, err / scale if scale else
+                        (0.0 if err == 0 else float("inf")))
+        for i, tree in enumerate(trees):
+            _, states[i], _ = adamw_update(opt_cfg, _map(
+                lambda path, t: grads[0][path].to(t.device), tree),
+                states[i], tree)
+    return worst, trees
+
+
 def train_check(card):
-    """TRAIN_ARCH reduced, fp32, TF32 off: TRAIN_CHECK_STEPS train steps on
-    the card and on the CPU from the same weights and batches; the losses,
-    learning rates and grad norms within TRAIN_TOL of the CPU's, the
-    parameters within TRAIN_PARAM_TOL_LR x lr."""
+    """TRAIN_ARCH reduced, fp32, TF32 off, TRAIN_CHECK_STEPS train steps on
+    the card and on the CPU from the same weights and batches. (a) Each
+    side free-running through ``make_train_step``: the losses, learning
+    rates and grad norms within TRAIN_TOL of the CPU's. (b) Each step's
+    gradients on both sides from the same weights, every entry within
+    TRAIN_TOL of its leaf's largest |gradient|, then AdamW on both sides
+    fed the CPU's gradients: the parameters within TRAIN_PARAM_TOL_LR x
+    lr. (a)'s parameters are logged, not held to a tolerance: Adam's m /
+    sqrt(v) has no scale, so an entry whose gradient is at the rounding
+    noise moves by a fraction of lr that depends on the summation order
+    (``train_check_floor.py`` measures how far correct runs fall apart:
+    CPU runs that differ only in their thread count or instruction set,
+    and the card's)."""
     from repro_torch.configs import get_config, reduced
     from repro_torch.data import data_iterator
     from repro_torch.models import Model, trainable
@@ -2992,36 +3049,50 @@ def train_check(card):
     from repro_torch.training import AdamWConfig
     t0 = time.time()
     cfg = reduced(get_config(TRAIN_ARCH))
-    cpu = Model.init(cfg, seed=0, device="cpu", requires_grad=True,
-                     remat=True)
-    gpu = Model(cfg, trainable(_map(
-        lambda _, t: t.detach().to("cuda", copy=True), cpu.param_tree())),
-        remat=True)
     opt = AdamWConfig(lr=TRAIN_CHECK_LR, schedule=cfg.lr_schedule,
                       warmup_steps=2, total_steps=TRAIN_CHECK_STEPS)
-    out = {}
-    for label, model in (("cpu", cpu), ("card", gpu)):
-        out[label] = _train_run(model, opt, data_iterator(
-            cfg, TRAIN_CHECK_SEQ, 2, seed=0), TRAIN_CHECK_STEPS)
+
+    def pair():
+        cpu = Model.init(cfg, seed=0, device="cpu", requires_grad=True,
+                         remat=True)
+        return cpu, Model(cfg, trainable(_map(
+            lambda _, t: t.detach().to("cuda", copy=True),
+            cpu.param_tree())), remat=True)
+
+    def distance(cpu_tree, card_tree):
+        want = dict(_leaves(cpu_tree))
+        return max((t.detach().cpu() - want[path].detach()).abs().max()
+                   .item() for path, t in _leaves(card_tree))
+
+    # (a)
+    out = {label: _train_run(model, opt, data_iterator(
+        cfg, TRAIN_CHECK_SEQ, 2, seed=0), TRAIN_CHECK_STEPS)
+        for label, model in zip(("cpu", "card"), pair())}
     (pc, _, rc), (pg, _, rg) = out["cpu"], out["card"]
     worst = {}
     for key in ("loss", "lr", "grad_norm"):
         worst[key] = max(abs(g[key] - c[key]) / abs(c[key])
                          for c, g in zip(rc, rg))
-    want = dict(_leaves(pc))
-    worst["params"] = max((t.detach().cpu() - want[path].detach())
-                          .abs().max().item() for path, t in _leaves(pg))
+    free = distance(pc, pg)
+    del out, pc, pg
+    # (b)
+    worst["grads"], (pc, pg) = _train_forced(*pair(), opt, data_iterator(
+        cfg, TRAIN_CHECK_SEQ, 2, seed=0), TRAIN_CHECK_STEPS)
+    worst["params"] = distance(pc, pg)
     log(f"[train] {cfg.name} ({cfg.num_layers} layers, d_model "
         f"{cfg.d_model}, lr_schedule {cfg.lr_schedule}), "
         f"{TRAIN_CHECK_STEPS} steps at 2 x {TRAIN_CHECK_SEQ}, fp32, TF32 "
-        f"off: card losses {[round(r['loss'], 6) for r in rg]} vs CPU "
+        f"off: (a) card losses {[round(r['loss'], 6) for r in rg]} vs CPU "
         f"{[round(r['loss'], 6) for r in rc]}; largest relative "
         f"difference loss {worst['loss']:.2e}, lr {worst['lr']:.2e}, grad "
         f"norm {worst['grad_norm']:.2e} (tol {TRAIN_TOL:.0e}); parameters "
+        f"free-running {free:.2e} (rounding through Adam, not held); (b) "
+        f"gradients {worst['grads']:.2e} of their leaf's largest (tol "
+        f"{TRAIN_TOL:.0e}), parameters from the CPU's gradients "
         f"{worst['params']:.2e} (tol {TRAIN_PARAM_TOL_LR} x lr "
         f"{TRAIN_CHECK_LR:.0e}) [{card}], {time.time() - t0:.1f} s")
-    if max(worst[k] for k in ("loss", "lr", "grad_norm")) > TRAIN_TOL or \
-            worst["params"] > TRAIN_PARAM_TOL_LR * TRAIN_CHECK_LR:
+    if max(worst[k] for k in ("loss", "lr", "grad_norm", "grads")) > \
+            TRAIN_TOL or worst["params"] > TRAIN_PARAM_TOL_LR * TRAIN_CHECK_LR:
         raise AssertionError("[train] the card's train steps differ from "
                              "the CPU's")
 
@@ -3859,8 +3930,16 @@ CP_SEED = 25
 # the sliding window's ring cut over data, the positions past 524,287 (the
 # ring has wrapped), CP_PARITY_LAYERS layers, fp32
 CP_RING_ARCH, CP_RING_DP, CP_RING_POS = "qwen3-4b", 2, 524_288 + 37
-# (c) CP_RANK_ARCH's decode_32k rank 0 of the 16 x 16 grid, allocated
-CP_RANK_ARCH = "minicpm-2b"
+# (c), (c') each CP_RANK_ARCHS' decode_32k rank 0 of the 16 x 16 grid,
+# allocated; the rank's peak when it held its whole sequence (GB, host
+# counts of the dry run before the sequence cut: minicpm-2b's GQA cache,
+# deepseek-v2-lite-16b's MLA latents)
+CP_RANK_ARCHS = {"minicpm-2b": 103.478, "deepseek-v2-lite-16b": 10.455}
+# (e) CP_MLA_ARCH at full width cut to CP_MLA_LAYERS layers (its dense MLA
+# layer and three MLA + MoE layers), fp32, TF32 off, at TP CP_TP: the
+# latents cut over model as (a)'s cache (CP_B x CP_S from CP_POS), both
+# mla_absorb values, within CP_MLA_TOL x max|logit| of TP 1's whole cache
+CP_MLA_ARCH, CP_MLA_LAYERS, CP_MLA_TOL = "deepseek-v2-lite-16b", 4, 1e-5
 # (d) the kernel's log-sum-exp in bf16, (atol, rtol): l sums the bf16
 # rounded P, about 2^-9 of each key's weight, so log l moves by at most
 # ~2e-3; fp32 at TOL
@@ -3870,10 +3949,12 @@ CARD_BYTES = 80e9
 
 def phase_cp():
     """(d) the kernel alone with its log-sum-exp and key offset, (a) CP_ARCH
-    at TP CP_TP over the sequence, (b) the wrapped long_500k ring over the
-    data axis, (c) a decode_32k rank of the 16 x 16 grid allocated on the
-    card. Every rank on card 0 over gloo. Returns (a)'s kernel path's
-    launch counts on rank 0."""
+    at TP CP_TP over the sequence and, in the same spawn, (e) CP_MLA_ARCH's
+    MLA latents over it, (b) the wrapped long_500k ring over the data
+    axis, (c) and (c') a decode_32k rank of the 16 x 16 grid allocated on
+    the card. Every rank on card 0 over gloo. Returns (a)'s kernel path's
+    launch counts on rank 0 (MLA runs no kernel: (e) checks that it
+    launched none)."""
     from repro_torch.kernels import _build
     _build.build_all()
     torch.cuda.empty_cache()
@@ -3884,7 +3965,8 @@ def phase_cp():
     cp_kernel(card)
     counts = cp_model(card)
     cp_ring(card)
-    cp_rank(card)
+    for arch in CP_RANK_ARCHS:
+        cp_rank(card, arch)
     return counts
 
 
@@ -3965,7 +4047,11 @@ def cp_model(card):
             f"[{card}]")
         del model, cache
         torch.cuda.empty_cache()
+    t_mla = time.time()
+    want_mla = cp_mla_reference(card)
+    t_mla = time.time() - t_mla
     ranks = run_ranks(cp_model_rank, CP_TP, device="cuda", share_card=True)
+    cp_mla_check(card, ranks, want_mla, t_mla)
     for label, cfg, _ in _cp_cases():
         V = cfg.vocab_size
         for path in ("kernel", "plain"):
@@ -4053,7 +4139,116 @@ def cp_model_rank(rank):
             out["counts"] = counts
         del model, plain, span, copy_
         torch.cuda.empty_cache()
+    out["mla"] = cp_mla_rank(rank)
     return out
+
+
+def cp_mla_reference(card):
+    """(e) TP 1 with CP_MLA_ARCH's whole latents, fp32, TF32 off: the
+    logits of CP_STEPS decode steps from CP_POS for each mla_absorb."""
+    from repro_torch.models import Model
+    cfg = _cut(CP_MLA_ARCH, CP_MLA_LAYERS)
+    model = Model.init(cfg, seed=0, dtype=torch.float32, device="cuda")
+    cache = _cp_cache(cfg, CP_B, CP_S, torch.float32, CP_SEED + 2)
+    lat = sum(t.numel() * t.element_size() for c in cache for t in c)
+    out = {}
+    for absorb in (False, True):
+        model.mla_absorb = absorb
+        out[absorb], ms = _cp_decode(
+            model, [type(c)(*(t.clone() for t in c)) for c in cache],
+            _cp_steps(cfg, CP_POS))
+        log(f"[cp] (e) {CP_MLA_ARCH} {CP_MLA_LAYERS} layers fp32 TP 1, "
+            f"whole latents ({_gb(lat)} GB, {CP_B} x {CP_S}), mla_absorb "
+            f"{absorb}: {ms:.1f} ms a step (wall) [{card}]")
+    del model, cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def cp_mla_rank(rank):
+    """(e) One rank: its context over the sequence group cache_seq_axes
+    names for CP_MLA_ARCH (``model``: MLA's latents), the model from seed
+    0 (its heads and experts), the whole random latents cut to its span
+    by shard_cache, CP_STEPS decode steps for each mla_absorb, with the
+    all-gathers and the kernel launches each made."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import Model
+    from repro_torch.models.transformer import cache_seq_axes, shard_cache
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = _cut(CP_MLA_ARCH, CP_MLA_LAYERS)
+    axes = cache_seq_axes(cfg, rank.grid, CP_B)
+    if axes != ("model",):
+        raise AssertionError(f"[cp] {CP_MLA_ARCH}: sequence axes {axes}")
+    ctx = rank.context(cfg, seq_axes=axes)
+    model = Model.init(cfg, seed=0, dtype=torch.float32, ctx=ctx)
+    whole = _cp_cache(cfg, CP_B, CP_S, torch.float32, CP_SEED + 2)
+    span = shard_cache(whole, cfg, rank.grid, CP_B, rank.rank)
+    del whole
+    torch.cuda.empty_cache()
+    steps = _cp_steps(cfg, CP_POS)
+    out = {}
+    for absorb in (False, True):
+        model.mla_absorb = absorb
+        g0 = ctx.seq_gathers
+        reset_launch_counts()
+        got, ms = _cp_decode(model, [type(c)(*(t.clone() for t in c))
+                                     for c in span], steps)
+        out[absorb] = {"logits": got, "ms": ms,
+                       "gathers": ctx.seq_gathers - g0,
+                       "launches": {k: n for k, n in launch_counts().items()
+                                    if n}}
+    lat = sum(t.numel() * t.element_size() for c in span for t in c)
+    out["line"] = (f"sequence group {ctx.seq} over {axes}, a span of "
+                   f"{span[0].ckv.shape[1]} latents from "
+                   f"{ctx.seq_span(CP_S)[0]}, {_gb(lat)} GB, "
+                   f"{ctx.local_experts} experts, heads "
+                   f"{model.params['layers'][0]['attn']['w_uv'].shape[1]}"
+                   f" of {cfg.num_heads}")
+    return out
+
+
+def cp_mla_check(card, ranks, want, ref_s):
+    """(e) the ranks' logits for each mla_absorb: bitwise equal, within
+    CP_MLA_TOL x max|logit| of TP 1's whole latents, 2 all-gathers an MLA
+    layer a step (the query gather and the combine), no kernel launched
+    (the reference has no MLA kernel)."""
+    from repro_torch.configs.base import MLA_KINDS
+    cfg = _cut(CP_MLA_ARCH, CP_MLA_LAYERS)
+    n_mla = sum(k in MLA_KINDS for k in cfg.block_pattern)
+    V = cfg.vocab_size
+    for r, res in enumerate(ranks):
+        log(f"[cp] (e) {CP_MLA_ARCH} rank {r}: {res['mla']['line']}")
+    for absorb in (False, True):
+        res = [r["mla"][absorb] for r in ranks]
+        if not all(np.array_equal(x["logits"], res[0]["logits"])
+                   for x in res):
+            raise AssertionError(f"[cp] (e) mla_absorb {absorb}: the ranks' "
+                                 "logits differ")
+        got, ref = res[0]["logits"][..., :V], want[absorb][..., :V]
+        err, scale = float(np.abs(got - ref).max()), float(np.abs(ref).max())
+        gathers = [x["gathers"] for x in res]
+        launches = [x["launches"] for x in res]
+        log(f"[cp] (e) {CP_MLA_ARCH} {CP_MLA_LAYERS} layers fp32 TP "
+            f"{CP_TP} CP over model, mla_absorb {absorb}, {CP_STEPS} steps "
+            f"from {list(CP_POS)}: max abs diff {err:.3e} of max|logit| "
+            f"{scale:.3g} against TP 1's whole latents (tol "
+            f"{CP_MLA_TOL:.0e} x max|logit|; both ranks bitwise equal); "
+            f"{gathers[0] / CP_STEPS:.1f} all-gathers a step ({n_mla} MLA "
+            f"layers); {res[0]['ms']:.1f} ms a step (wall, gloo); kernel "
+            f"launches {launches[0] or 'none'} [{card}]")
+        if not (np.isfinite(got).all() and err <= CP_MLA_TOL * scale):
+            raise AssertionError(f"[cp] (e) mla_absorb {absorb}: max abs "
+                                 f"diff {err:.3e} > {CP_MLA_TOL:.0e} x "
+                                 f"{scale:.3g}")
+        if any(g != 2 * n_mla * CP_STEPS for g in gathers):
+            raise AssertionError(f"[cp] (e) all-gathers {gathers}, want "
+                                 f"{2 * n_mla * CP_STEPS} a rank")
+        if any(launches):
+            raise AssertionError(f"[cp] (e) MLA launched kernels "
+                                 f"{launches}")
+    log(f"[cp] (e) TP 1 references {ref_s:.1f} s; MLA runs no kernel "
+        f"(the reference has none): its path launched none [{card}]")
 
 
 def cp_ring(card):
@@ -4120,10 +4315,11 @@ def cp_ring_rank(rank):
         f"kernel under sliding); {ctx.seq_gathers} all-gathers")}
 
 
-def cp_rank(card):
-    """(c) CP_RANK_ARCH's decode_32k rank 0 of the 16 x 16 grid built on
-    the card: its weight shards (``init_params(tp=16, rank=0)``) and its
-    span of the cache (``init_cache`` under its sequence group), the
+def cp_rank(card, arch):
+    """(c) ``arch``'s decode_32k rank 0 of the 16 x 16 grid built on the
+    card (one of CP_RANK_ARCHS: (c') is deepseek's, its MLA latents cut
+    over model): its weight shards (``init_params(tp=16, rank=0)``) and
+    its span of the cache (``init_cache`` under its sequence group), the
     bytes they request against the record's arguments within
     DRYRUN_ALLOC_SLACK a tensor; the record's peak under the card's 80 GB.
     No step runs (its peers do not exist)."""
@@ -4134,18 +4330,18 @@ def cp_rank(card):
     from repro_torch.models.params import (_leaves, init_params,
                                            tp_adjusted_config)
     from repro_torch.models.transformer import _build_cache, cache_seq_axes
-    rec = next(r for r in DRYRUN_COUNTS.get("sweep")
-               if r["arch"] == CP_RANK_ARCH)
+    rec = next(r for r in DRYRUN_COUNTS.get("sweep") if r["arch"] == arch)
     args = rec["memory"]["argument_size_in_bytes"]
     peak = rec["rank_memory"]["peak_bytes"]
-    log(f"[cp] prediction: {CP_RANK_ARCH} decode_32k rank 0 of "
+    log(f"[cp] prediction: {arch} decode_32k rank 0 of "
         f"{rec['mesh']}: arguments {args} B, rank entry "
         f"{rec['rank_memory']['entry_bytes']} B, peak {peak} B (host "
-        "counts; the whole sequence a rank took 103.478 GB)")
+        f"counts; its peak with the whole sequence {CP_RANK_ARCHS[arch]} "
+        "GB)")
     grid = make_production_mesh()
     tp = grid.shape["model"]
     shape = SHAPES["decode_32k"]
-    cfg = tp_adjusted_config(get_config(CP_RANK_ARCH), tp)
+    cfg = tp_adjusted_config(get_config(arch), tp)
     B = shape.global_batch // grid.shape["data"]
     axes = cache_seq_axes(cfg, grid, shape.global_batch)
     seq, seq_rank, _ = seq_group(axes, grid.shape["data"], tp, 0, None,
@@ -4166,9 +4362,10 @@ def cp_rank(card):
     torch.cuda.synchronize()
     held = _requested() - base
     n = len(list(_leaves(params))) + sum(len(c) for c in cache) + 2
-    log(f"[cp] measured: {CP_RANK_ARCH} rank 0 (sequence group {seq} over "
-        f"{axes}, a span of {cache[0].k.shape[1]} keys of "
-        f"{cache[0].k.shape[2]} KV heads, {B} rows): its tensors request "
+    log(f"[cp] measured: {arch} rank 0 (sequence group {seq} over "
+        f"{axes}, a span of {cache[0][0].shape[1]} positions of "
+        f"{type(cache[0]).__name__} {list(cache[0][0].shape)}, {B} rows): "
+        f"its tensors request "
         f"{held} B vs the record's arguments {args} B ({held - args:+d} B "
         f"over {n} tensors, slack {DRYRUN_ALLOC_SLACK} B a tensor); weights "
         f"{got_w} B vs {rec['rank_memory']['weight_bytes']} B; the record's "
@@ -4177,10 +4374,11 @@ def cp_rank(card):
     del params, cache, token, pos
     torch.cuda.empty_cache()
     if abs(held - args) > DRYRUN_ALLOC_SLACK * n:
-        raise AssertionError("[cp] the rank's bytes differ from the "
-                             "record's arguments")
+        raise AssertionError(f"[cp] {arch}: the rank's bytes differ from "
+                             "the record's arguments")
     if peak >= CARD_BYTES:
-        raise AssertionError("[cp] the record's peak exceeds the card")
+        raise AssertionError(f"[cp] {arch}: the record's peak exceeds the "
+                             "card")
 
 
 def cp_kernel(card):

@@ -44,16 +44,20 @@ host <-> device copies of the engines, and the tensor-parallel context.
   :meth:`DeviceContext.collectives_per_iteration` counts them.
 
   Context-parallel decode (``seq`` > 1): the rank holds a contiguous
-  span of every GQA cache's sequence, as the reference's ``cache_pspecs``
-  places it (the sequence cut over ``model`` where the KV heads do not
-  divide it, over the data axes at batch 1, or both), and is rank
+  span of every GQA cache's and MLA latent cache's sequence, as the
+  reference's ``cache_pspecs`` places it (a GQA sequence cut over
+  ``model`` where the KV heads do not divide it, MLA's always, and over
+  the data axes at batch 1), and is rank
   ``seq_rank`` of a sequence group of ``seq`` ranks (``seq_group``: the
   model group, the data group or the world, ``launch.mesh.seq_group``).
   Each rank attends over its span and :meth:`DeviceContext.combine_partials`
   gathers the ranks' ``(out, lse)`` partials in one collective and
   combines them in rank order, so every rank of the group gets the same
   bits of the softmax over the whole sequence (:meth:`seq_span` gives the
-  span). Only the slab decode step runs on that layout; the paged engines
+  span). An MLA layer, whose heads are cut over ``model`` too, first
+  gathers its heads' queries over the model group
+  (:meth:`gather_heads`), so each rank attends with every head over its
+  span. Only the slab decode step runs on that layout; the paged engines
   and TP serving keep the whole sequence, as the reference's engines do.
 
 * :func:`resolve_device` — ``None`` means the card. Without CUDA that is an
@@ -125,7 +129,8 @@ class DeviceContext:
         # the backward all-reduces of copy_to_model
         self.all_reduces = 0
         self.grad_all_reduces = 0
-        # the sequence group's all-gathers (one a GQA layer's decode)
+        # context-parallel decode's all-gathers: one a GQA layer (the
+        # combine), two an MLA layer (its query gather and the combine)
         self.seq_gathers = 0
 
     @classmethod
@@ -283,6 +288,24 @@ class DeviceContext:
         m = gathered[..., -1]
         return lse_combine(m, torch.ones_like(m), gathered[..., :-1], dim=0)
 
+    def gather_heads(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every model rank's ``x`` (its share of the heads on ``dim``)
+        concatenated on ``dim`` in model-rank order: the whole heads, the
+        same on every rank of the model group. One
+        ``all_gather_into_tensor`` over the model group (counted in
+        ``seq_gathers``); ``x`` itself where the heads are whole on every
+        rank (tp 1, or heads that do not divide it). Context-parallel MLA
+        decode's query gather; no autograd."""
+        if not self.sharded("heads"):
+            return x
+        x = x.contiguous()
+        # the ranks' shares concatenated on dim 0 (gloo's layout)
+        out = x.new_empty((self.tp * x.shape[0],) + tuple(x.shape[1:]))
+        torch.distributed.all_gather_into_tensor(out, x, group=self.group)
+        self.seq_gathers += 1
+        out = out.view((self.tp,) + tuple(x.shape))
+        return torch.movedim(out, 0, dim).flatten(dim, dim + 1)
+
     def copy_leaves(self, params, keys) -> "_Leaves":
         """``params`` (a weight mapping) with its leaves at ``keys`` (those
         present) through :meth:`copy_to_model`: the whole weights a
@@ -307,7 +330,9 @@ class DeviceContext:
         """The reference's predicted count of all-reduces in one forward
         pass: one per sharded attention out-projection and per sharded
         FFN / MoE down-projection, plus the vocab-sharded classifier; 0 at
-        tp 1. (The port's vocab-parallel embedding adds one more.)"""
+        tp 1. (The port's vocab-parallel embedding adds one more.) The
+        all-gathers of context-parallel decode are not all-reduces and are
+        not counted here (``seq_gathers``)."""
         if self.tp <= 1:
             return 0
         rules = self._rules

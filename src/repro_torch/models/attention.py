@@ -40,12 +40,16 @@ Context-parallel decode (``ctx.seq`` > 1, the slab decode only): a
 rank's slab holds its contiguous span of the cache's sequence (or of the
 sliding ring), keys ``base .. base + S_local - 1`` of the whole
 (``ctx.seq_span``), as the reference's ``cache_pspecs`` places it. Only
-the rank whose span holds the new token's slot writes its K/V; positions
-stay rank-global. Each rank attends over its span (masked by the global
-key index), giving a normalised output and its log-sum-exp, and the
-sequence group's partials are combined before the out-projection
-(``ctx.combine_partials``), so every rank of the group gets the same
-bits.
+the rank whose span holds the new token's slot writes its K/V (or
+latents); positions stay rank-global. Each rank attends over its span
+(masked by the global key index), giving a normalised output and its
+log-sum-exp, and the sequence group's partials are combined before the
+out-projection (``ctx.combine_partials``), so every rank of the group
+gets the same bits. MLA's latents are cut over ``model`` while its heads
+are too, so an MLA layer first gathers every head's absorbed query over
+the model group (``ctx.gather_heads``), attends with all of them over its
+span in the latent space and, after the combine, keeps its own heads
+(:func:`mla_decode`). The paged pools keep their whole sequence.
 
 Caches and page pools are updated IN PLACE (the reference is functional):
 each function writes the new K/V into the tensors it is given and returns
@@ -138,29 +142,39 @@ def _softmax(scores, mask):
     return torch.softmax(scores.float(), dim=-1)
 
 
-def _partial_attend(scores, mask, v):
-    """One span's share of a context-parallel decode: fp32 scores
-    (B,G,R,Sq,Sk) masked by ``mask`` over v (B,Sk,G,Dh) -> (its normalised
-    output (B,Sq,H,Dh) fp32, its natural-log log-sum-exp (B,Sq,H)); a row
-    with no valid key in the span gives zeros and -inf."""
+def _span_softmax(scores, mask):
+    """One span's softmax: fp32 scores (..., Sk) masked by ``mask`` ->
+    (the probabilities normalised over the span, their natural-log
+    log-sum-exp (...)); a row with no valid key in the span gives zeros
+    and -inf."""
     s = torch.where(mask, scores.float(), torch.full_like(scores, NEG_INF))
     m = s.amax(dim=-1)
     live = m > MASKED_M_THRESHOLD
     p = torch.where(live[..., None], torch.exp(s - m[..., None]),
                     torch.zeros_like(s))
     l = p.sum(dim=-1)
-    out = _gqa_combine(p / l.clamp(min=DENOM_EPS)[..., None], v)
     lse = torch.where(live, m + torch.log(l),
                       torch.full_like(m, float("-inf")))
+    return p / l.clamp(min=DENOM_EPS)[..., None], lse
+
+
+def _partial_attend(scores, mask, v):
+    """One span's share of a context-parallel decode: fp32 scores
+    (B,G,R,Sq,Sk) masked by ``mask`` over v (B,Sk,G,Dh) -> (its normalised
+    output (B,Sq,H,Dh) fp32, its natural-log log-sum-exp (B,Sq,H)); a row
+    with no valid key in the span gives zeros and -inf."""
+    probs, lse = _span_softmax(scores, mask)
     B, G, R, Sq = lse.shape
-    return out, lse.permute(0, 3, 1, 2).reshape(B, Sq, G * R)
+    return (_gqa_combine(probs, v),
+            lse.permute(0, 3, 1, 2).reshape(B, Sq, G * R))
 
 
-def _seq_layout(cache: AttnCache, ctx):
+def _seq_layout(cache, ctx):
     """(sequence group size, the span's first key, the whole sequence's
-    keys) of a slab or ring ``cache`` as this rank holds it."""
+    keys) of a slab or ring ``cache`` (AttnCache or MLACache) as this rank
+    holds it."""
     seq = 1 if ctx is None else ctx.seq
-    whole = cache.k.shape[1] * seq
+    whole = cache[0].shape[1] * seq
     return seq, (0 if seq == 1 else ctx.seq_span(whole)[0]), whole
 
 
@@ -680,31 +694,78 @@ def _mla_decode_core(params, cfg: ArchConfig, x, q_nope, q_rope, ckv,
     return out.reshape(B, 1, -1) @ params["w_o"]
 
 
+def _mla_decode_span(params, cfg: ArchConfig, x, q_nope, q_rope, ckv,
+                     krope, valid, ctx):
+    """One-token MLA attention over this rank's span of the latents
+    (B,S_local,r | rope), ``valid`` (B,1,1,S_local) by the global key
+    index, in the latent space: the rank's heads' absorbed queries
+    (q_nope . w_uk, q_rope) gathered over the model group, so every rank
+    holds every head's (``ctx.gather_heads``); every head's partial over
+    the span (fp32 scores, a normalised latent output (B,1,H,r) and its
+    log-sum-exp); the sequence group's partials combined
+    (``ctx.combine_partials``); then the rank's own heads through
+    ``w_uv`` and its rows of ``w_o``."""
+    B = x.shape[0]
+    scale = _mla_scale(cfg)
+    q_lat = torch.einsum("bshe,rhe->bshr", q_nope, params["w_uk"])
+    r = q_lat.shape[-1]
+    q = ctx.gather_heads(torch.cat([q_lat, q_rope], dim=-1), dim=2)
+    q_lat, q_rope = q[..., :r], q[..., r:]
+    rope_scores = torch.einsum("bshe,bte->bhst", q_rope.float(),
+                               krope.float())
+    scores = (torch.einsum("bshr,btr->bhst", q_lat.float(), ckv.float())
+              + rope_scores) * scale
+    probs, lse = _span_softmax(scores, valid)
+    lat = torch.einsum("bhst,btr->bshr", probs, ckv.float())
+    lat = ctx.combine_partials(lat, lse.transpose(1, 2))
+    h = params["w_uv"].shape[1]
+    h0 = ctx.rank * h if ctx.sharded("heads") else 0
+    out = torch.einsum("bshr,rhe->bshe", lat[:, :, h0:h0 + h].to(x.dtype),
+                       params["w_uv"])
+    return out.reshape(B, 1, -1) @ params["w_o"]
+
+
 def mla_decode(params, cfg: ArchConfig, x: torch.Tensor, cache: MLACache,
                pos: torch.Tensor, *, absorb: bool = False,
                active_mask: Optional[torch.Tensor] = None, ctx=None):
     """One-token MLA decode against the slab latents. x (B,1,D); pos (B,).
     The new latent is written at ``pos`` in place, except for rows off
-    ``active_mask`` (see :func:`_slab_write`)."""
+    ``active_mask`` (see :func:`_slab_write`).
+
+    Under a sequence group (``ctx.seq`` > 1) the slab is this rank's span
+    of the latent sequence (the module docstring): only the rank whose
+    span holds ``pos`` writes, and the step runs in the latent space
+    (:func:`_mla_decode_span`) whatever ``absorb`` says, since the
+    expanded path needs every head's ``w_uk`` / ``w_uv`` against every
+    span and a TP rank holds only its heads'. The two paths are equal up
+    to rounding."""
     B = x.shape[0]
     q_nope, q_rope, ckv_new, krope_new = _mla_qkv_prefill(
         params, cfg, x, pos[:, None])
+    seq, base, _ = _seq_layout(cache, ctx)
+    span = cache.ckv.shape[1]
     pos = pos.long()
+    slot = pos
+    if seq > 1:
+        slot, active_mask = _own_slot(pos, base, span, active_mask)
     bidx = torch.arange(B, device=x.device)
     ckv_new = ckv_new[:, 0].to(cache.ckv.dtype)
     krope_new = krope_new[:, 0].to(cache.krope.dtype)
     if active_mask is not None:
         keep = active_mask[:, None]
-        ckv_new = torch.where(keep, ckv_new, cache.ckv[bidx, pos])
-        krope_new = torch.where(keep, krope_new, cache.krope[bidx, pos])
-    cache.ckv[bidx, pos] = ckv_new
-    cache.krope[bidx, pos] = krope_new
-    S = cache.ckv.shape[1]
-    valid = (torch.arange(S, device=x.device)[None, :]
-             <= pos[:, None])[:, None, None, :]
-    out = _mla_decode_core(params, cfg, x, q_nope, q_rope,
-                           cache.ckv.to(x.dtype), cache.krope.to(x.dtype),
-                           valid, absorb)
+        ckv_new = torch.where(keep, ckv_new, cache.ckv[bidx, slot])
+        krope_new = torch.where(keep, krope_new, cache.krope[bidx, slot])
+    cache.ckv[bidx, slot] = ckv_new
+    cache.krope[bidx, slot] = krope_new
+    keys = base + torch.arange(span, device=x.device)
+    valid = (keys[None, :] <= pos[:, None])[:, None, None, :]
+    ckv, krope = cache.ckv.to(x.dtype), cache.krope.to(x.dtype)
+    if seq == 1:
+        out = _mla_decode_core(params, cfg, x, q_nope, q_rope, ckv, krope,
+                               valid, absorb)
+    else:
+        out = _mla_decode_span(params, cfg, x, q_nope, q_rope, ckv, krope,
+                               valid, ctx)
     return _reduce_heads(out, ctx), cache
 
 

@@ -22,10 +22,10 @@ Slab cache (one contiguous KV row per slot, ``init_cache``):
 tree as ``meta`` tensors and its partition specs on a grid, for the dry
 run (``launch/dryrun.py``). Under a context with a sequence group
 (context-parallel decode, ``DeviceContext.seq``) ``init_cache`` builds the
-rank's span of every GQA cache's sequence, as ``cache_pspecs`` places it,
-and ``decode_step`` combines the group's partials; ``shard_cache`` cuts a
-whole cache into a rank's rows, heads and span (``unshard_cache`` joins
-the ranks' shards).
+rank's span of every GQA cache's and MLA latent cache's sequence, as
+``cache_pspecs`` places it, and ``decode_step`` combines the group's
+partials; ``shard_cache`` cuts a whole cache into a rank's rows, heads
+and span (``unshard_cache`` joins the ranks' shards).
 
 Paged KV pool:
 
@@ -427,7 +427,8 @@ class Model(nn.Module):
         """
         cfg = self.cfg
         if cache is not None and self.ctx.seq > 1 and any(
-                kind in ATTN_KINDS for kind in cfg.block_pattern):
+                kind in ATTN_KINDS or kind in MLA_KINDS
+                for kind in cfg.block_pattern):
             raise NotImplementedError(
                 "prefill into a sequence-sharded cache is not yet ported: "
                 "prefill the whole cache and cut it with shard_cache")
@@ -466,12 +467,13 @@ class Model(nn.Module):
         recurrent state (the reference's look-ahead loop restores them
         after the step). Audio: token (B, K, 1), the codebooks summed.
         Under a context with a sequence group (``ctx.seq`` > 1) every GQA
-        cache is the rank's span of the sequence (or ring), as
-        ``cache_pspecs`` places it: each rank attends over its span and the
-        group's partials are combined in one collective a layer, so every
-        rank of the group gets the logits one device with the whole cache
-        gets, bit for bit the same on every rank (``pos`` stays global).
-        MLA caches keep their whole sequence.
+        cache and MLA latent cache is the rank's span of the sequence (or
+        ring), as ``cache_pspecs`` places it: each rank attends over its
+        span and the group's partials are combined in one collective a
+        layer (an MLA layer first gathers every head's query over the
+        model group), so every rank of the group gets the logits one
+        device with the whole cache gets, bit for bit the same on every
+        rank (``pos`` stays global).
         Returns (logits (B, V), or (B, K, V) for audio, cache)."""
         cfg = self.cfg
         x, _ = self._embed(token)
@@ -616,8 +618,9 @@ class Model(nn.Module):
         layer (its conv tail in ``dtype``, the rest fp32), all at the
         rank's widths (G its KV heads, Mamba2 its heads and inner
         channels). Under a sequence group a GQA cache holds the rank's
-        span of S, S / ``ctx.seq`` keys (raises where that does not
-        divide). ``dtype`` defaults to the model's."""
+        span of S, S / ``ctx.seq`` keys, and an MLA cache its span of
+        max_len (raises where that does not divide). ``dtype`` defaults
+        to the model's."""
         return _build_cache(self.cfg, batch, max_len,
                             dtype or self.dtype, sliding, self.device,
                             ctx=self.ctx)
@@ -636,17 +639,20 @@ def _build_cache(cfg: ArchConfig, batch: int, max_len: int, dtype, sliding,
     """One zeroed entry per layer: AttnCache (GQA), MLACache (MLA),
     MambaCache / MLSTMCache / SLSTMCache (recurrent; fp32 but for the conv
     tails, as the reference's), at ``ctx``'s rank widths: its KV heads
-    and its span of the GQA sequence (``ctx.seq_span``), and Mamba2's conv
-    (B, W-1, d_inner/tp + 2n) and SSM state (B, heads/tp, p, n); MLA
-    latents (whole sequence) and the xLSTM states stay whole. With
-    ``attention`` False the attention entries are None (the paged path's
-    per-slot state)."""
+    and its span of the GQA sequence (``ctx.seq_span``), its span of MLA's
+    latent sequence (of ``max_len`` even when ``sliding``: MLA never
+    slides), and Mamba2's conv (B, W-1, d_inner/tp + 2n) and SSM state
+    (B, heads/tp, p, n); the xLSTM states stay whole. With ``attention``
+    False the attention entries are None (the paged path's per-slot
+    state)."""
     def zeros(*shape, dt=None):
         return torch.zeros(shape, dtype=dt or dtype, device=device)
     f32 = torch.float32
     S = min(max_len, cfg.sliding_window) if sliding else max_len
+    S_lat = max_len
     if attention:
         S = ctx.seq_span(S)[1]
+        S_lat = ctx.seq_span(max_len)[1]
     G, dh = ctx.local_kv_heads, cfg.head_dim
     cache = []
     for kind in cfg.block_pattern:
@@ -656,8 +662,8 @@ def _build_cache(cfg: ArchConfig, batch: int, max_len: int, dtype, sliding,
                          if attention else None)
         elif kind in MLA_KINDS:
             cache.append(attn_mod.MLACache(
-                ckv=zeros(batch, max_len, cfg.kv_lora_rank),
-                krope=zeros(batch, max_len, cfg.qk_rope_dim))
+                ckv=zeros(batch, S_lat, cfg.kv_lora_rank),
+                krope=zeros(batch, S_lat, cfg.qk_rope_dim))
                 if attention else None)
         elif kind == "mamba2":
             conv_ch = ctx.local_d_inner + 2 * cfg.ssm_state
@@ -706,9 +712,9 @@ def cache_pspecs(cfg: ArchConfig, grid, batch: int, *,
     not shard over ``model`` shards its sequence over it too, and MLA's
     latents always do; recurrent states replicate over data, Mamba2's SSM
     state split on ``ssm_heads``. (What the reference's GSPMD lowering
-    places. The port's ranks hold it for the GQA caches under a context
-    whose sequence group is :func:`cache_seq_axes`'; they keep MLA's
-    latents whole, and cut Mamba2's conv tail to the rank's channels.)"""
+    places. The port's ranks hold it for the GQA and MLA caches under a
+    context whose sequence group is :func:`cache_seq_axes`', and cut
+    Mamba2's conv tail to the rank's channels.)"""
     on_batch, seq_ax = _batch_and_seq_axes(grid, batch)
     batch_ax = _entry(on_batch)
     rules = axis_rules(cfg, grid.shape.get("model", 1))
@@ -718,7 +724,7 @@ def cache_pspecs(cfg: ArchConfig, grid, batch: int, *,
     for kind in cfg.block_pattern:
         if kind in ATTN_KINDS:
             kv_ax = rules["kv_heads"]
-            sq = _entry(cache_seq_axes(cfg, grid, batch))
+            sq = _entry(_gqa_seq_axes(cfg, grid, seq_ax))
             s = (batch_ax, sq, kv_ax, None)
             specs.append(attn_mod.AttnCache(k=s, v=s))
         elif kind in MLA_KINDS:
@@ -756,15 +762,33 @@ def _batch_and_seq_axes(grid, batch: int):
     return on_batch, (() if on_batch else data_axes(grid))
 
 
-def cache_seq_axes(cfg: ArchConfig, grid, batch: int) -> tuple:
-    """The axes :func:`cache_pspecs` cuts a GQA cache's sequence on, in
-    the spec entry's order: the data axes at batch 1, then ``model`` where
-    the KV heads do not divide it; () where it cuts none. A rank's
-    context-parallel sequence group is the ranks over these axes
-    (``launch.mesh.Rank.context(cfg, seq_axes=...)``)."""
-    _, seq_ax = _batch_and_seq_axes(grid, batch)
+def _gqa_seq_axes(cfg: ArchConfig, grid, seq_ax: tuple) -> tuple:
+    """The axes a GQA cache's sequence is cut on: ``seq_ax`` (the data
+    axes at batch 1), then ``model`` where the KV heads do not divide
+    it."""
     kv_ax = axis_rules(cfg, grid.shape.get("model", 1))["kv_heads"]
     return seq_ax + (("model",) if kv_ax is None else ())
+
+
+def cache_seq_axes(cfg: ArchConfig, grid, batch: int) -> tuple:
+    """The axes :func:`cache_pspecs` cuts an attention cache's sequence
+    on, in the spec entry's order: the data axes at batch 1, then
+    ``model`` for MLA's latents (always) and for a GQA cache whose KV heads
+    do not divide it; () where it cuts none. A rank's context-parallel
+    sequence group is the ranks over these axes
+    (``launch.mesh.Rank.context(cfg, seq_axes=...)``). Raises for a config
+    whose GQA and MLA caches would need two different groups (no
+    registered config has both kinds)."""
+    _, seq_ax = _batch_and_seq_axes(grid, batch)
+    gqa = _gqa_seq_axes(cfg, grid, seq_ax)
+    if not any(kind in MLA_KINDS for kind in cfg.block_pattern):
+        return gqa
+    mla = seq_ax + ("model",)
+    if gqa != mla and any(kind in ATTN_KINDS for kind in cfg.block_pattern):
+        raise ValueError(f"cache_seq_axes: {cfg.name}'s GQA caches cut "
+                         f"their sequence on {gqa} and its MLA latents on "
+                         f"{mla}; a rank has one sequence group")
+    return mla
 
 
 def _axes_of(entry) -> tuple:
@@ -780,19 +804,13 @@ def _rank_slices(kind: str, leaf: int, spec: tuple, shape, cfg: ArchConfig,
     Mamba2's conv tail (channels [x | B | C]) the rank's x channels and
     every B and C channel where ``ssm_inner`` is cut (the port's rank
     conv, ``ssm.rank_conv``), where the reference's spec keeps the
-    channels whole. Raises where an MLA latent's sequence is cut (not yet
-    ported) and where a part does not divide."""
+    channels whole. Raises where a part does not divide."""
     idx = []
     for dim, (size, entry) in enumerate(zip(shape, spec)):
         n, part = 1, 0
         for a in _axes_of(entry):
             n *= grid.shape[a]
             part = part * grid.shape[a] + coords[a]
-        if n > 1 and kind in MLA_KINDS and dim == 1:
-            raise NotImplementedError(
-                f"shard_cache: cutting an MLA latent cache's sequence over "
-                f"{entry!r} is not yet ported (the port's ranks keep MLA "
-                "latents whole)")
         if size % n:
             raise ValueError(f"shard_cache: {kind} leaf {leaf} dim {dim} "
                              f"of {size} does not split into {n} parts")
@@ -819,12 +837,11 @@ def shard_cache(cache: list, cfg: ArchConfig, grid, batch: int, rank: int,
     """Global rank ``rank``'s shard of a whole slab cache (e.g. the
     reference's from its ``prefill``, one entry a layer) on ``grid``, as
     :func:`cache_pspecs` places it: its rows, its KV heads and its span of
-    every GQA cache's sequence (or ring), its Mamba2 heads and conv
-    channels; recurrent states whole otherwise. The cache's counterpart
-    of ``models.params.shard_params``: the result is what
-    ``Model.init_cache`` builds under the rank's context (copies).
-    ``batch`` is the global batch. Raises "not yet ported" where an MLA
-    latent's sequence would be cut."""
+    every GQA cache's sequence (or ring) and of every MLA latent cache's
+    sequence, its Mamba2 heads and conv channels; recurrent states whole
+    otherwise. The cache's counterpart of ``models.params.shard_params``:
+    the result is what ``Model.init_cache`` builds under the rank's
+    context (copies). ``batch`` is the global batch."""
     coords = _grid_coords(grid, rank)
     specs = cache_pspecs(cfg, grid, batch, sliding=sliding)
     out = []

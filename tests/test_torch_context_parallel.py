@@ -25,11 +25,16 @@ Held, on the CPU, fp32:
         2 x 64), against the JAX sliding ``decode_step``;
 * (v)   ``shard_cache`` / ``unshard_cache`` round trip, the shards'
         shapes against the reference's specs and ``init_cache`` under the
-        rank's context, for every assigned arch (MLA raises);
+        rank's context, for every assigned arch (MLA's latents cut on
+        their sequence too);
 * (vi)  ``lower_one``'s decode records on a (data 2, model 16) grid for
         every assigned arch at full width (cut in depth):
         ``rank_memory.entry_bytes`` equals the spec's arguments but for
-        Mamba2's conv tail (the rank's channels) and MLA's whole latents.
+        Mamba2's conv tail (the rank's channels), and the step all-gathers
+        where a sequence is cut.
+
+MLA's own context-parallel decode is held in
+``tests/test_torch_mla_context_parallel.py``.
 
 The rank bodies are module-level functions the spawned ranks import, so
 this module imports neither ``jax`` nor ``repro`` at its top.
@@ -375,11 +380,6 @@ def test_shard_cache_round_trip_and_shapes(arch, batch):
     whole = [type(c)(*(torch.from_numpy(rng.standard_normal(
         t.shape).astype(np.float32)) for t in c))
         for c in cache_specs(cfg, batch, S, torch.float32)]
-    cut = any(k in MLA_KINDS for k in cfg.block_pattern)
-    if cut:
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            shard_cache(whole, cfg, V_GRID, batch, 0)
-        return
     specs = cache_pspecs(cfg, V_GRID, batch)
     shards = [shard_cache(whole, cfg, V_GRID, batch, r)
               for r in range(V_GRID.size)]
@@ -449,19 +449,16 @@ def test_dryrun_decode_rank_holds_the_spec_layout(arch, shape):
     # the dry run's config: KV heads repeated where that shards them
     axes = cache_seq_axes(tp_adjusted_config(cfg, VI_GRID.shape["model"]),
                           VI_GRID, SHAPES[shape].global_batch)
-    n_attn = sum(k not in MLA_KINDS and k in ("attn", "attn_moe",
-                                              "shared_attn")
+    n_attn = sum(k in MLA_KINDS or k in ("attn", "attn_moe", "shared_attn")
                  for k in cfg.block_pattern)
     seq = math.prod(VI_GRID.shape[a] for a in axes)
     if any(k in MLA_KINDS for k in cfg.block_pattern):
-        # MLA latents keep their whole sequence (not yet ported)
-        assert rank["whole_sequence"] == sorted(
-            set(k for k in cfg.block_pattern if k in MLA_KINDS))
-        assert rank["entry_bytes"] > args
-        return
-    assert rank["whole_sequence"] == []
+        # MLA's latents are cut over model always
+        assert "model" in axes and seq > 1
+    assert "whole_sequence" not in rank
     assert rank["entry_bytes"] == args - _conv_excess(
         cfg, SHAPES[shape], VI_GRID)
-    # one all-gather a GQA layer where the sequence is cut
+    # one all-gather a GQA layer (two an MLA layer) where the sequence is
+    # cut
     gathers = n_attn if seq > 1 and n_attn else 0
     assert (rec["collectives"]["all-gather"] > 0) == bool(gathers)

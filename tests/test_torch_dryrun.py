@@ -23,7 +23,9 @@ calls).
 """
 import ast
 import dataclasses
+import inspect
 import json
+import math
 import os
 import subprocess
 import sys
@@ -54,14 +56,17 @@ from repro.training.optimizer import init_adamw as jinit_adamw
 from repro.training.train_loop import make_train_step as jmake_train_step
 from repro_torch.configs import (SHAPES, InputShape, get_config, get_shape,
                                  input_specs, list_configs, reduced)
-from repro_torch.configs.base import ASSIGNED_ARCHS
+from repro_torch.configs.base import ASSIGNED_ARCHS, GQA_KINDS, MLA_KINDS
 from repro_torch.core.device import DeviceContext
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import (Grid, batch_split, data_axes,
                                      make_production_mesh,
                                      split_duet_submeshes)
 from repro_torch.models.params import abstract_params, tp_adjusted_config
-from repro_torch.models.transformer import cache_pspecs, cache_specs
+from repro_torch.models.attention import MLACache
+from repro_torch.models.transformer import (cache_pspecs, cache_seq_axes,
+                                            cache_specs, shard_cache,
+                                            unshard_cache)
 
 REPO = os.path.join(os.path.dirname(__file__), "..")
 GRIDS = {"16x16": {"data": 16, "model": 16},
@@ -111,8 +116,44 @@ XLA_SCRIPT = textwrap.dedent("""
                                  specs["pos"]).compile()
         out["args"][arch] = \\
             compiled.memory_analysis().argument_size_in_bytes
+
+    # each device's shard of reduced deepseek's whole MLA latents, placed
+    # by the reference's cache_pspecs: its global rank's index
+    import numpy as np
+    from jax.sharding import NamedSharding
+    from repro.models.transformer import cache_pspecs
+    cfg = reduced(get_config("deepseek-v2-lite-16b"))
+    devs = mesh.devices
+    out["mla_shards"] = {}
+    for batch in MLA_BATCHES:
+        got = out["mla_shards"][str(batch)] = {}
+        for layer, entry in enumerate(cache_pspecs(cfg, mesh, batch)):
+            for leaf, spec in enumerate(entry):
+                whole = mla_leaf(cfg, batch, layer, leaf)
+                arr = jax.device_put(whole, NamedSharding(mesh, spec))
+                idx = got[f"{layer}/{leaf}"] = {}
+                for sh in arr.addressable_shards:
+                    assert (np.asarray(sh.data) == whole[sh.index]).all()
+                    r = int(np.ravel_multi_index(
+                        np.argwhere(devs == sh.device)[0], devs.shape))
+                    idx[str(r)] = [list(s.indices(n))[:2] for s, n in
+                                   zip(sh.index, whole.shape)]
     print("RESULT " + json.dumps(out))
 """)
+
+
+def _mla_leaf(cfg, batch, layer, leaf):
+    """A whole MLA latent leaf (ckv or krope) of MLA_LEN positions, drawn
+    from a seed of its own: the same bits in the XLA subprocess."""
+    import numpy as np
+    width = cfg.kv_lora_rank if leaf == 0 else cfg.qk_rope_dim
+    rng = np.random.default_rng([batch, layer, leaf])
+    return rng.standard_normal((batch, MLA_LEN, width)).astype(np.float32)
+
+
+# the batches of the MLA shard case: cut over (pod, data), and batch 1,
+# whose latents are cut over (pod, data, model)
+MLA_BATCHES, MLA_LEN = (4, 1), 64
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -133,7 +174,9 @@ def xla_run():
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
     proc = subprocess.Popen(
         [sys.executable, "-c",
-         f"ARCHS = {list(XLA_ARCHS)!r}\n" + XLA_SCRIPT],
+         f"ARCHS = {list(XLA_ARCHS)!r}\nMLA_BATCHES = {MLA_BATCHES!r}\n"
+         f"MLA_LEN = {MLA_LEN}\n" + inspect.getsource(_mla_leaf).replace(
+             "def _mla_leaf", "def mla_leaf") + XLA_SCRIPT],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     yield proc
     if proc.poll() is None:
@@ -142,10 +185,14 @@ def xla_run():
 
 
 def _xla_result(proc) -> dict:
-    out, err = proc.communicate(timeout=300)
-    assert proc.returncode == 0, err[-3000:]
-    line = [ln for ln in out.splitlines() if ln.startswith("RESULT ")][0]
-    return json.loads(line[len("RESULT "):])
+    """The subprocess's result, read once and kept on ``proc``."""
+    if not hasattr(proc, "result"):
+        out, err = proc.communicate(timeout=300)
+        assert proc.returncode == 0, err[-3000:]
+        line = [ln for ln in out.splitlines()
+                if ln.startswith("RESULT ")][0]
+        proc.result = json.loads(line[len("RESULT "):])
+    return proc.result
 
 
 def _tdtype(jdt) -> torch.dtype:
@@ -300,6 +347,18 @@ def _ref_record_keys():
     return record, error
 
 
+def _decode_gathers(cfg, shape, ctx) -> int:
+    """The all-gathers of a decode step on SMALL_GRID where its caches'
+    sequence is cut: the combine of each attention layer, and the query
+    gather of each MLA layer whose heads are cut."""
+    axes = cache_seq_axes(cfg, SMALL_GRID, shape.global_batch)
+    if shape.kind != "decode" or \
+            math.prod(SMALL_GRID.shape[a] for a in axes) == 1:
+        return 0
+    return sum(1 + (k in MLA_KINDS and ctx.sharded("heads"))
+               for k in cfg.block_pattern if k in GQA_KINDS + MLA_KINDS)
+
+
 @pytest.mark.parametrize("kind", list(SMALL))
 @pytest.mark.parametrize("arch", LOWER_ARCHS)
 def test_lower_one_small_grid(arch, kind):
@@ -322,7 +381,8 @@ def test_lower_one_small_grid(arch, kind):
     ctx = DeviceContext(cfg, torch.device("cpu"), tp=2)
     if kind != "train":      # one forward
         assert coll["all-reduce"] > 0
-        assert coll["count"] == ctx.collectives_per_iteration() + 1
+        assert coll["count"] == ctx.collectives_per_iteration() + 1 + \
+            _decode_gathers(cfg, SMALL[kind], ctx)
     else:                    # + the gradient mean over the data ranks
         assert coll["count"] > ctx.collectives_per_iteration() + 1
 
@@ -389,6 +449,33 @@ def test_argument_bytes_and_options_against_reference(xla_run):
             got["args"][arch], arch
     assert [s for a in dryrun.build_parser()._actions
             for s in a.option_strings] == got["options"]
+
+
+def test_shard_cache_cuts_mla_latents_as_xla_places_them(xla_run):
+    """Each rank's ``shard_cache`` slice of reduced deepseek's MLA latents
+    is its device's shard of ``jax.device_put(whole, NamedSharding(mesh,
+    spec))`` on the (2, 2, 2) mesh, spec the reference's
+    ``cache_pspecs``'; ``unshard_cache`` joins them back."""
+    got = _xla_result(xla_run)["mla_shards"]
+    cfg = reduced(get_config("deepseek-v2-lite-16b"))
+    for batch in MLA_BATCHES:
+        whole = [MLACache(*(torch.from_numpy(_mla_leaf(cfg, batch, i, j))
+                            for j in range(2)))
+                 for i in range(cfg.num_layers)]
+        shards = [shard_cache(whole, cfg, SMALL_GRID, batch, r)
+                  for r in range(SMALL_GRID.size)]
+        for r, shard in enumerate(shards):
+            for i, entry in enumerate(shard):
+                for j, t in enumerate(entry):
+                    idx = got[str(batch)][f"{i}/{j}"][str(r)]
+                    want = whole[i][j][tuple(slice(a, b) for a, b in idx)]
+                    assert torch.equal(t, want), (batch, r, i, j)
+        # the sequence cut 2 (batch 4) or 8 (batch 1) ways
+        assert shards[0][0].ckv.shape[1] == MLA_LEN // (2 if batch > 1
+                                                        else 8)
+        back = unshard_cache(shards, cfg, SMALL_GRID, batch)
+        assert all(torch.equal(a, b) for ca, cb in zip(back, whole)
+                   for a, b in zip(ca, cb))
 
 
 # ------------------------------------------------------------ CLI, grid
