@@ -70,23 +70,52 @@ Phases (each raises on failure; nothing is swallowed):
              slab decode steps through gqa_decode_kernel (the slab
              duet_attention kernel, which must launch once a layer a
              step) against the plain path on a copy of the cache
-             (musicgen's logits (B, K, V)).
+             (musicgen's logits (B, K, V)). Last, the async engine's
+             CUDA graphs against its eager dispatches (fp32, TF32 off,
+             paged, kernels on, 3 slots and a 16-token budget, so that
+             chunk buckets recur): reduced qwen3-4b, zamba2-1.2b,
+             granite-moe-3b-a800m and deepseek-v2-lite-16b give
+             identical greedy streams and launch counts with graphs
+             replayed, and capture decode-only, prefill-only and fused
+             chunk buckets (duet ones for the GQA configs); one bucket of
+             zamba2 and deepseek (fused, prefill-only) and of granite-moe
+             (duet) is captured and replayed at other chunk starts,
+             slots and resume tokens, bitwise equal to a fresh eager
+             program (check_bucket_graphs); reduced qwen3-4b at
+             temperature 0.8 with the engine's generator registered with
+             each graph (CUDAGraph.register_generator_state; the streams
+             against the eager run's printed, not held).
 4. serve   — full qwen3-4b (36 layers, bf16, random weights from a seed)
              serves azure-conv requests on two paths, each with
              attn_kernel=True and strict_kernel=True and the launch counts
              reset to 0 just before it and read just after it:
              the paged path (4 of the 8 requests, those with the shortest
-             outputs, through the async engine, the sync engine, and the
-             async engine again with split_kv_threshold=256) and the slab
-             path (all 8 requests, outputs cut to 64 tokens; paged=False:
-             the sync and the async engine). The kernels line's launches sum both paths. Every
+             outputs, through the async engine replaying a CUDA graph per
+             dispatch bucket (the default), the async engine with every
+             dispatch eager, the sync engine, and the async engine again
+             with split_kv_threshold=256) and the slab path (all 8
+             requests, outputs cut to 64 tokens; paged=False: the sync and
+             the async engine). The kernels line's launches sum both paths. Every
              request must finish, the async runs must keep host_syncs <=
-             super_iterations, the paged async runs must make at least one
+             super_iterations, every async run on the one card must
+             replay graphs and account each dispatch as a capture, a
+             replay or an eager dispatch of a named rule, the graphed and
+             the eager paged async runs must give identical greedy streams
+             and launch counts, the paged async runs must make at least one
              duet dispatch, and every kernel of a path must have launched
-             on it. Wall-clock tokens/s on the card are printed as measured.
+             on it. Wall-clock tokens/s, captures, replays and the graph
+             pool's bytes are printed as measured.
              A profile step then times one full-width decode step of each
-             path and one fused duet super-iteration (kb 1, a 256-row
-             chunk), with the duet kernel's share. Then yi-9b, minicpm-2b,
+             path, one decode-only super-iteration (kb 1) eager and
+             replayed from its graph (with the host's runtime calls: one
+             graph launch and no kernel launch a replay), and one fused
+             duet super-iteration (kb 1, a 256-row chunk), with the duet
+             kernel's share; a replay's trace must hold each kernel as
+             often as its capture counted. Then qwen3-4b's duet, fused
+             and prefill-only buckets (a 256-row chunk) are each run
+             eagerly, captured and replayed at other chunk starts, slots
+             and resume tokens, each held bitwise to a fresh eager
+             program on a copy of the state. Then yi-9b, minicpm-2b,
              granite-20b, granite-moe-3b-a800m and deepseek-v2-lite-16b,
              one at a time at full depth (bf16, random weights from seed 0,
              their measured weight bytes and peak memory printed), each
@@ -208,9 +237,13 @@ Phases (each raises on failure; nothing is swallowed):
              4 layers (fp32, TF32 off, remat) as DP 2 x TP 2 (4
              processes) against DP 1 x TP 1 (run first in this process,
              then freed) on the same global batches (2 x 512), 3 WSD
-             steps: losses, lr and grad norms within 1e-4, the gathered
-             parameters within a tenth of the learning rate, the data
-             ranks' parameters equal. (c) Gradients: one step each of
+             steps: losses, lr and grad norms within 1e-4 and the data
+             ranks' parameters equal, free-running (the gathered
+             parameters logged, not held: Adam's m / sqrt(v) has no
+             scale); then forced from the same weights: each step's
+             gathered gradients within 1e-4 of their leaf's largest, and
+             the parameters after AdamW fed TP 1's gradients within a
+             tenth of the learning rate. (c) Gradients: one step each of
              zamba2-1.2b (12 layers: both shared attention blocks) and
              deepseek-v2-lite-16b (2 layers: MLA, then MLA with the
              MoE) at full width and TP 2 (a model group each, in the
@@ -310,6 +343,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -405,6 +439,45 @@ RECURRENT_PARITY_LAYERS = {"zamba2-1.2b": 6, "xlstm-350m": 4}
 # the chunked-versus-whole check: a prompt of CHUNKED_PROMPT tokens
 # prefilled in chunks of CHUNKED_CHUNK, then CHUNKED_DECODE decode steps
 CHUNKED_PROMPT, CHUNKED_CHUNK, CHUNKED_DECODE = 600, 256, 8
+# the parity phase's graphs against eager: reduced qwen3-4b and configs of
+# the block kinds beyond its own, fp32; reduced qwen3-4b sampling at
+# GRAPH_SAMPLING_TEMPERATURE; the bucket kinds each config's dispatch
+# buckets are checked in (check_bucket_graphs)
+GRAPH_PARITY_CONFIGS = {"qwen3-4b": (), "zamba2-1.2b": ("fused", "prefill"),
+                        "granite-moe-3b-a800m": ("duet",),
+                        "deepseek-v2-lite-16b": ("fused", "prefill")}
+# parity_graphs' engine and requests (rid, arrival s, prompt, output):
+# 3 slots and a 16-token budget cut the prompts into chunks whose buckets
+# recur, so fused, duet and prefill-only chunk buckets are captured and
+# replayed beside the decode-only ones (tests/test_torch_graphs.py's trace)
+GRAPH_PARITY_ENGINE = dict(max_slots=3, max_len=128, token_budget=16,
+                           page_size=32)
+GRAPH_PARITY_SPECS = tuple((i, 0.0003 * i, 40 + 5 * i, 4 + i)
+                           for i in range(5))
+# the dispatch-bucket check (check_bucket_graphs): slots, pages a slot's
+# table, page size, chunk rows, and (chunk start, its slot, resume token)
+# of each dispatch of one bucket: the eager warm-up, the capture, a replay
+BUCKET_SHAPE = dict(B=8, P=64, ps=16, chunk=256)
+BUCKET_DISPATCHES = ((512, 1, 7), (256, 3, 11), (640, 6, 13))
+# bucket kinds: (decode steps kb, finish, sample, duet). A finishing chunk
+# that does not sample is a resumed one: its slot decodes from the resume
+# token (override_tok)
+BUCKET_KINDS = {"duet": (1, True, False, True),
+                "fused": (2, True, True, False),
+                "prefill": (0, False, False, False)}
+# each wrapper's counter -> the __global__ functions it launches (a
+# replay's trace is held to the launches its capture counted)
+KERNEL_FUNCTIONS = {
+    "paged_decode": ("paged_decode_cluster_kernel",),
+    "paged_decode[block]": ("paged_decode_block_kernel",),
+    "paged_decode_splitkv": ("paged_decode_cluster_kernel",),
+    "paged_decode_splitkv[block]": ("paged_decode_block_kernel",),
+    "duet_attention": ("duet_attention_cluster_kernel",),
+    "duet_attention[block]": ("duet_attention_block_kernel",),
+    "duet_attention_paged": ("duet_attention_paged_kernel",),
+    "flash_prefill": ("flash_prefill_kernel", "flash_prefill_mma_kernel"),
+}
+GRAPH_SAMPLING_TEMPERATURE = 0.8
 # the slot-reuse run: zamba2 cut to its first 12 layers (2 shared_attn),
 # fp32, 2 slots, 4 requests of at most 32 output tokens
 REUSE_LAYERS, REUSE_SLOTS, REUSE_MAX_OUTPUT = 12, 2, 32
@@ -1181,6 +1254,251 @@ def phase_parity():
             parity_recurrent(name, RECURRENT_PARITY_LAYERS[name])
     for name in ("paligemma-3b", "musicgen-medium"):
         parity_frontend(name)
+    parity_graphs()
+
+
+def parity_graphs():
+    """The async engine's CUDA graphs against its eager dispatches, fp32
+    with TF32 off, paged, kernels on, on GRAPH_PARITY_ENGINE and
+    GRAPH_PARITY_SPECS' requests, whose chunk buckets recur: on reduced
+    qwen3-4b and the configs of the block kinds beyond its own
+    (GRAPH_PARITY_CONFIGS: Mamba2 with a shared GQA block, GQA with an
+    MoE, MLA with an MoE) greedy streams and launch counts identical, and
+    decode-only, prefill-only and fused chunk buckets captured (duet ones
+    where the engine fuses: GQA); then each config's bucket kinds held by
+    check_bucket_graphs; then reduced qwen3-4b sampling at
+    GRAPH_SAMPLING_TEMPERATURE, the engine's generator registered with
+    each graph (its streams against the eager run's printed, not held:
+    only temperature 0 is the reference's)."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import Model
+    from repro_torch.serving import AsyncDuetEngine, Request
+    card = card_line()
+
+    def reqs():
+        return [Request(rid=rid, arrival=a, prompt_len=p, output_len=o)
+                for rid, a, p, o in GRAPH_PARITY_SPECS]
+    for name, kinds in GRAPH_PARITY_CONFIGS.items():
+        t0 = time.time()
+        cfg = reduced(get_config(name))
+        model = Model.init(cfg, seed=0, dtype=torch.float32, device="cuda",
+                           attn_kernel=True)
+        got = {graphs: _serve_run(
+            f"{cfg.name} {'eager' if graphs is False else 'graphs'}",
+            AsyncDuetEngine, model, reqs(), card, GRAPH_PARITY_ENGINE,
+            graphs) for graphs in (None, False)}
+        _graphs_vs_eager(f"{cfg.name} ({cfg.num_layers} layers, fp32)",
+                         got[None], got[False])
+        want = {"decode", "prefill", "fused"} | (
+            {"duet"} if _is_gqa(cfg) else set())
+        if set(got[None]["captured"]) != want:
+            raise AssertionError(f"[parity] {cfg.name}: captured bucket "
+                                 f"kinds {got[None]['captured']}, not "
+                                 f"{sorted(want)}")
+        for kind in kinds:
+            check_bucket_graphs(model, kind, card)
+        if name == "qwen3-4b":
+            extra = {**GRAPH_PARITY_ENGINE,
+                     "temperature": GRAPH_SAMPLING_TEMPERATURE}
+            hot = {graphs: _serve_run(
+                f"{cfg.name} {'eager' if graphs is False else 'graphs'} "
+                f"temperature {GRAPH_SAMPLING_TEMPERATURE}",
+                AsyncDuetEngine, model, reqs(), card, extra, graphs)
+                for graphs in (None, False)}
+            log(f"[parity] {cfg.name} at temperature "
+                f"{GRAPH_SAMPLING_TEMPERATURE}: the generator registered "
+                f"with each graph; graphed and eager streams identical "
+                f"{hot[None]['streams'] == hot[False]['streams']} (not "
+                f"held) [{card}]")
+        log(f"[parity] {cfg.name} graphs: {time.time() - t0:.1f} s")
+        del model
+        torch.cuda.empty_cache()
+
+
+def _bucket_kind(key) -> str:
+    """The kind of the async engine's bucket ``key`` = (kb, width, chunk,
+    pwidth, finish, sample, duet): decode, prefill (no decode), fused
+    (decode then the chunk) or duet (one fused launch)."""
+    kb, _, chunk = key[:3]
+    return "duet" if key[-1] else "decode" if not chunk else \
+        "prefill" if not kb else "fused"
+
+
+def _bucket_world(model, rng):
+    """Page pools (BUCKET_SHAPE's slots' tables and one chunk table of P
+    pages each), recurrent state and decode inputs on the card, the
+    floating ones random, so a graph that read a wrong slot, page or
+    position would show it."""
+    from repro_torch.serving.kvcache import PagePoolConfig, init_page_pools
+    cfg = model.cfg
+    B, P, ps, chunk = (BUCKET_SHAPE[k] for k in ("B", "P", "ps", "chunk"))
+    gen = torch.Generator(device="cuda").manual_seed(int(rng.integers(99)))
+    pools = init_page_pools(cfg, PagePoolConfig(num_pages=(B + 1) * P + 1,
+                                                page_size=ps),
+                            model.dtype, device="cuda")
+    state = model.init_state_cache(B)
+    for group in [g for g in pools + state if g is not None]:
+        for t in group:
+            if t.is_floating_point():
+                t.copy_(torch.randn(t.shape, generator=gen, device="cuda"))
+    last_tok = torch.tensor(rng.integers(0, cfg.vocab_size, (B, 1)),
+                            dtype=torch.int32, device="cuda")
+    pos = torch.tensor(rng.integers(chunk, P * ps - 8, B),
+                       dtype=torch.int32, device="cuda")
+    return {"pools": pools, "state": state, "last_tok": last_tok,
+            "pos": pos}
+
+
+def _world_tensors(world):
+    out = [world["last_tok"], world["pos"]]
+    for group in world["pools"] + world["state"]:
+        if group is not None:
+            out.extend(group)
+    return out
+
+
+def _kernel_events(events, steps) -> dict:
+    """Launches a step of each of the port's kernels in a trace's device
+    events, by wrapper counter (wrappers that launch one function share
+    its count, listed under the first)."""
+    import re
+    fn_count = {}
+    for e in events:
+        m = re.search(r"(\w+_kernel)\s*[<(]", e.key)
+        if m:
+            fn_count[m.group(1)] = fn_count.get(m.group(1), 0) + e.count
+    return {fn: n / steps for fn, n in fn_count.items()
+            if any(fn in fns for fns in KERNEL_FUNCTIONS.values())}
+
+
+def _hold_trace(what, launches, events, steps, card):
+    """Hold the launches a bucket's capture counted (``launches``, by
+    wrapper) to the device kernel events of ``steps`` traced replays: each
+    kernel function as often a replay as the wrappers that launch it
+    counted. Replayed launches are capture-time counts; this is what shows
+    that the graph holds them."""
+    want = {}
+    for name, n in launches.items():
+        fn = KERNEL_FUNCTIONS[name][0]
+        want[fn] = want.get(fn, 0) + n
+    got = _kernel_events(events, steps)
+    flash = KERNEL_FUNCTIONS["flash_prefill"]
+    if flash[1] in got:      # one counter, two functions
+        got[flash[0]] = got.get(flash[0], 0) + got.pop(flash[1])
+    log(f"[graphs] {what}: a replay's kernels in the trace {got}, counted "
+        f"at capture {launches} [{card}]")
+    if got != {fn: float(n) for fn, n in want.items()}:
+        raise AssertionError(f"[graphs] {what}: the replayed graph's "
+                             f"kernels {got} differ from the launches "
+                             f"counted at its capture {launches}")
+
+
+def check_bucket_graphs(model, kind, card, steps: int = 2):
+    """One dispatch bucket of BUCKET_KINDS' ``kind`` on ``model``
+    (BUCKET_SHAPE, paged, the model's dtype): the engine's BucketProgram
+    run eagerly at BUCKET_DISPATCHES' first (chunk start, slot, resume
+    token), captured at the second and replayed at the third, each fed
+    other tables, active slots and chunk tokens through its static
+    buffers. The captured and the replayed dispatch are held bitwise to a
+    freshly built eager program on a copy of the state, given new tensors
+    and the scalars as host ints: tokens, the sampled token, every pool,
+    the recurrent state, ``pos`` and ``last_tok``; the capture's counted
+    launches to the fresh program's and to the trace of ``steps`` more
+    replays."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.lookahead import (BucketProgram, graph_pool_bytes,
+                                            make_superiter_fn)
+    from repro_torch.kernels import launch_counts
+    from repro_torch.kernels.ops import build_duet_schedule, duet_block_q
+    t0 = time.time()
+    cfg = model.cfg
+    B, P, chunk = (BUCKET_SHAPE[k] for k in ("B", "P", "chunk"))
+    kb, finish, sample, duet = BUCKET_KINDS[kind]
+    bq = duet_block_q(cfg.num_heads, cfg.num_kv_heads, cfg.head_dim) \
+        if duet else 1
+    kw = dict(paged=True, chunk=chunk, finish=finish, sample=sample,
+              duet_kernel=duet, duet_block_q=bq)
+    width = P if kb else 1
+    bucket = BucketProgram(make_superiter_fn(model, kb, **kw),
+                           torch.device("cuda"), B, width=width,
+                           chunk=chunk, pwidth=P)
+    order = None
+    if duet:
+        order = torch.tensor(build_duet_schedule(
+            [(b, 0) for b in range(B)], [(B, i) for i in range(chunk)],
+            block_q=bq).row_src, dtype=torch.int32, device="cuda")
+    rng = np.random.default_rng(len(kind))
+    world = _bucket_world(model, rng)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    pool = torch.cuda.graph_pool_handle()
+    what = (f"{cfg.name} {kind} bucket (kb {kb}, a {chunk}-row chunk, "
+            f"finish {finish}, sample {sample}; {cfg.num_layers} layers, "
+            f"B={B}, {str(model.dtype)[6:]})")
+    for i, (start, slot, override) in enumerate(BUCKET_DISPATCHES):
+        active = rng.random(B) < 0.8
+        active[slot] = False
+        tables = rng.permutation(np.arange(1, B * P + 1)).reshape(B, P) \
+            if kb else np.zeros((B, 1), np.int64)
+        pre_toks = rng.integers(0, cfg.vocab_size, (1, chunk))
+        pre_tbl = rng.permutation(np.arange(B * P + 1,
+                                            (B + 1) * P + 1))[None]
+        bucket.feed(active, tables, pre_toks, pre_tbl,
+                    (start, slot, override))
+        args = (world["pools"], world["state"], world["last_tok"],
+                world["pos"], bucket.tables, gen, bucket.active,
+                bucket.pre_toks, bucket.pre_tbl, bucket.pre_start,
+                bucket.pre_slot, bucket.override_tok) + (
+                    (order,) if duet else ())
+        if i == 0:
+            bucket.run(*args)
+            continue
+        before = copy.deepcopy(world)
+        got = bucket.capture(args, pool) if i == 1 else bucket.replay()
+        fresh = make_superiter_fn(model, kb, **kw)
+        counted = launch_counts()
+
+        def dev(a):
+            return torch.tensor(a, dtype=torch.int32, device="cuda")
+        want = fresh(before["pools"], before["state"], before["last_tok"],
+                     before["pos"], dev(tables), gen, torch.tensor(
+                         active, device="cuda"), dev(pre_toks),
+                     dev(pre_tbl), start, slot, override,
+                     *((order.clone(),) if duet else ()))
+        eager = {k: n - counted[k] for k, n in launch_counts().items()
+                 if n != counted[k]}
+        same = [torch.equal(got[0], want[0]),
+                (got[1] is None) == (want[1] is None) == (not sample)
+                and (got[1] is None or torch.equal(got[1], want[1]))]
+        same += [torch.equal(a, b) for a, b in zip(_world_tensors(world),
+                                                    _world_tensors(before))]
+        if finish:
+            same.append(int(world["pos"][slot]) == start + chunk)
+        if finish and not sample:
+            same.append(int(world["last_tok"][slot, 0]) == override)
+        if not all(same) or eager != bucket.launches:
+            raise AssertionError(
+                f"[graphs] {what}: the {'captured' if i == 1 else 'replayed'}"
+                f" dispatch at start {start}, slot {slot} differs from a "
+                f"fresh eager program: {same.count(False)} of {len(same)} "
+                f"outputs and tensors; launches {bucket.launches} vs "
+                f"{eager}")
+        del before, want
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            bucket.replay()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    _hold_trace(what, bucket.launches, [
+        e for e in prof.key_averages() if e.device_type == cuda], steps,
+        card)
+    log(f"[graphs] {what}: eager at (start, slot, resume) "
+        f"{BUCKET_DISPATCHES[0]}, captured at {BUCKET_DISPATCHES[1]} and "
+        f"replayed at {BUCKET_DISPATCHES[2]}, each bitwise equal to a fresh "
+        f"eager program (tokens, pools, state, pos, last_tok); launches a "
+        f"replay {bucket.launches}; graph pool {graph_pool_bytes(pool)} "
+        f"bytes; {time.time() - t0:.1f} s [{card}]")
+    del bucket, world
+    torch.cuda.empty_cache()
 
 
 def _is_gqa(cfg) -> bool:
@@ -1592,19 +1910,26 @@ def _requests(path, n=None, max_output=None):
     return reqs
 
 
-def _serve_run(label, cls, model, reqs, card, extra):
-    """One engine run at max_slots 8, max_len 1024, token budget 256, with
+def _serve_run(label, cls, model, reqs, card, extra, graphs=None):
+    """One engine run at max_slots 8, max_len 1024, token budget 256 (or
+    what ``extra`` sets), with
     the kernels on and strict; every request must finish with tokens in the
-    vocabulary, the async engine must keep host_syncs <= super_iterations
-    and, on the paged path, dispatch a fused duet step where the engine
-    fuses them (GQA blocks) and none where it does not (MLA). Returns the
-    greedy streams."""
+    vocabulary, the async engine must keep host_syncs <= super_iterations,
+    replay CUDA graphs (``graphs`` None: on, one device; False: every
+    dispatch eager), account every dispatch as a replay, a capture or an
+    eager dispatch of a named rule and, on the paged path, dispatch a
+    fused duet step where the engine fuses them (GQA blocks) and none where
+    it does not (MLA). Returns the greedy streams, the run's launches,
+    tokens/s and, for the async engine, its DispatchStats, graph pool
+    bytes and the kinds of the buckets it captured (_bucket_kind: kind ->
+    buckets)."""
     from repro_torch.kernels import launch_counts
     from repro_torch.serving import AsyncDuetEngine, EngineConfig
     cfg = model.cfg
-    ec = EngineConfig(max_slots=8, max_len=1024, token_budget=256,
-                      strict_kernel=True, **extra)
-    engine = cls(model, ec, seed=0, device="cuda")
+    ec = EngineConfig(**{"max_slots": 8, "max_len": 1024,
+                         "token_budget": 256, **extra}, strict_kernel=True)
+    kw = {"graphs": graphs} if cls is AsyncDuetEngine else {}
+    engine = cls(model, ec, seed=0, device="cuda", **kw)
     before = launch_counts()
     engine.submit(reqs)
     torch.cuda.synchronize()
@@ -1613,6 +1938,7 @@ def _serve_run(label, cls, model, reqs, card, extra):
     torch.cuda.synchronize()
     wall = time.time() - t0
     after = launch_counts()
+    launches = {k: after[k] - before[k] for k in after}
     summ = metrics.summary()
     n_tok = sum(len(r.output_tokens) for r in metrics.requests)
     if summ["num_finished"] != len(reqs):
@@ -1627,22 +1953,42 @@ def _serve_run(label, cls, model, reqs, card, extra):
     if engine.kernel_path != "cuda":
         raise AssertionError(f"[serve] {label}: kernel_path "
                              f"{engine.kernel_path}")
+    out = {"streams": {r.rid: list(r.output_tokens)
+                       for r in metrics.requests},
+           "launches": launches, "tokens_per_s": n_tok / wall}
     line = (f"[serve] {label}: {len(reqs)} requests, {n_tok} tokens "
             f"in {wall:.2f} s wall = {n_tok / wall:.1f} tokens/s "
-            f"measured on the card [{card}]; launches "
-            f"{ {k: after[k] - before[k] for k in after} }")
+            f"measured on the card [{card}]; launches {launches}")
     if cls is AsyncDuetEngine:
         st = engine.dstats
+        out["dstats"], out["pool_bytes"] = st, engine.graph_pool_bytes()
+        out["captured"] = {}
+        for key, prog in engine._programs.items():
+            if prog.graph is not None:
+                kind = _bucket_kind(key)
+                out["captured"][kind] = out["captured"].get(kind, 0) + 1
         if not 0 < st.host_syncs <= st.super_iterations:
             raise AssertionError(
                 f"[serve] {label}: host_syncs {st.host_syncs} > "
                 f"super_iterations {st.super_iterations}")
+        if engine.graphs != (graphs is not False) or (
+                engine.graphs and st.replays == 0):
+            raise AssertionError(f"[serve] {label}: graphs "
+                                 f"{engine.graphs}, replays {st.replays}")
+        if st.captures + st.replays + st.eager_dispatches != \
+                st.dispatches or sum(st.eager_reasons.values()) != \
+                st.eager_dispatches:
+            raise AssertionError(f"[serve] {label}: dispatches unaccounted "
+                                 f"for: {st}")
         line += (f"; super_iterations {st.super_iterations}, "
-                 f"host_syncs {st.host_syncs}")
+                 f"host_syncs {st.host_syncs}; dispatches {st.dispatches}: "
+                 f"{st.captures} captures, {st.replays} replays, "
+                 f"{st.eager_dispatches} eager {st.eager_reasons}; "
+                 f"captured buckets by kind {out['captured']}; graph "
+                 f"pool {out['pool_bytes'] / 1e6:.1f} MB")
         if ec.paged:
             duet = sum(1 for k in engine._programs if k[-1])
-            launched = after["duet_attention_paged"] - \
-                before["duet_attention_paged"]
+            launched = launches["duet_attention_paged"]
             if engine._duet_kernel and (duet == 0 or launched == 0):
                 raise AssertionError(f"[serve] {label}: no duet "
                                      "dispatch")
@@ -1657,7 +2003,23 @@ def _serve_run(label, cls, model, reqs, card, extra):
         f"{summ['mean_ttft_s']} s, mean TBT {summ['mean_tbt_s']} s")
     del engine
     torch.cuda.empty_cache()
-    return {r.rid: list(r.output_tokens) for r in metrics.requests}
+    return out
+
+
+def _graphs_vs_eager(what, graphed, eager):
+    """Hold a graphed async run to the same run with every dispatch
+    eager: identical greedy streams and kernel launches."""
+    same = graphed["streams"] == eager["streams"]
+    log(f"[serve] {what}: graphs vs eager greedy streams identical "
+        f"{same}, launch counts identical "
+        f"{graphed['launches'] == eager['launches']}; tokens/s "
+        f"{graphed['tokens_per_s']:.1f} with graphs, "
+        f"{eager['tokens_per_s']:.1f} eager; {graphed['dstats'].captures} "
+        f"captures, {graphed['dstats'].replays} replays, graph pool "
+        f"{graphed['pool_bytes']} bytes")
+    if not same or graphed["launches"] != eager["launches"]:
+        raise AssertionError(f"[serve] {what}: the graphed run differs from "
+                             "the eager one")
 
 
 def _path_counts(path, counts, cfg, split_kv=False):
@@ -1708,25 +2070,29 @@ def phase_serve():
         f"random from seed 0 in {time.time() - t0:.1f} s")
     card = card_line()
     paths = {
-        "paged": [("async", AsyncDuetEngine, {}),
-                  ("sync", DuetEngine, {}),
+        "paged": [("async", AsyncDuetEngine, {}, None),
+                  ("async eager", AsyncDuetEngine, {}, False),
+                  ("sync", DuetEngine, {}, None),
                   ("async split_kv_threshold=256", AsyncDuetEngine,
-                   {"split_kv_threshold": 256})],
-        "slab": [("slab sync", DuetEngine, {"paged": False}),
-                 ("slab async", AsyncDuetEngine, {"paged": False})],
+                   {"split_kv_threshold": 256}, None)],
+        "slab": [("slab sync", DuetEngine, {"paged": False}, None),
+                 ("slab async", AsyncDuetEngine, {"paged": False}, None)],
     }
-    outputs, counts = {}, {}
-    for path, runs in paths.items():
+    outputs, runs, counts = {}, {}, {}
+    for path, path_runs in paths.items():
         reset_launch_counts()        # this path's launches start here
-        for label, cls, extra in runs:
-            outputs[label] = _serve_run(label, cls, model, _requests(path),
-                                        card, extra)
+        for label, cls, extra, graphs in path_runs:
+            runs[label] = _serve_run(label, cls, model, _requests(path),
+                                     card, extra, graphs)
+            outputs[label] = runs[label]["streams"]
         # this path's launches end here
         _path_counts(path, counts, cfg, split_kv=path == "paged")
     if counts["flash_prefill"] != 0:
         raise AssertionError("[serve] flash_prefill launched "
                              f"{counts['flash_prefill']} times on a serving "
                              "path (the reference serves without it)")
+    _graphs_vs_eager(f"{cfg.name} paged async, bf16", runs["async"],
+                     runs["async eager"])
     for a_label, b_label in (("async", "sync"), ("slab async", "slab sync"),
                              ("slab sync", "sync")):
         a, b = outputs[a_label], outputs[b_label]
@@ -1740,7 +2106,10 @@ def phase_serve():
             f"{first}")
     for slab in (False, True):
         profile_decode(model, card, slab)
+    profile_replay(model, card)
     profile_duet(model, card)
+    for kind in BUCKET_KINDS:
+        check_bucket_graphs(model, kind, card)
     del model
     torch.cuda.empty_cache()
     for name in SERVED_CONFIGS:
@@ -1942,6 +2311,90 @@ def profile_decode(model, card, slab: bool, top: int = 8):
         f"[{card}]")
 
 
+def profile_replay(model, card, steps: int = 4):
+    """One decode-only super-iteration (kb 1: a decode step of 8 slots at
+    1000 tokens of context, the engine's paged program with its static
+    inputs) run eagerly and replayed from its CUDA graph: wall ms on the
+    host clock, device kernel ms (torch.profiler) and busy share of each,
+    the replay's device ms from CUDA events, and the host's runtime calls
+    a super-iteration: a replay must make one graph launch and no kernel
+    launch of its own (its outputs' copies are memcpys), and its trace
+    must hold each of the port's kernels as often as the capture counted
+    (_hold_trace)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.lookahead import (BucketProgram, graph_pool_bytes,
+                                            make_superiter_fn)
+    from repro_torch.serving.kvcache import PagePoolConfig, init_page_pools
+    cfg, B, P, ps, dev = model.cfg, 8, 64, 16, "cuda"
+    bucket = BucketProgram(make_superiter_fn(model, 1, paged=True),
+                           torch.device(dev), B, width=P)
+    bucket.feed(np.ones(B, bool), np.arange(1, B * P + 1).reshape(B, P))
+    pools = init_page_pools(cfg, PagePoolConfig(num_pages=B * P + 1,
+                                                page_size=ps),
+                            torch.bfloat16, device=dev)
+    state = model.init_state_cache(B)
+    last_tok = torch.zeros((B, 1), dtype=torch.int32, device=dev)
+    pos = torch.full((B,), 1000, dtype=torch.int32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    args = (pools, state, last_tok, pos, bucket.tables, gen, bucket.active,
+            None, None, bucket.pre_start, bucket.pre_slot,
+            bucket.override_tok)
+    bucket.run(*args)
+    pool = torch.cuda.graph_pool_handle()
+    t0 = time.time()
+    bucket.capture(args, pool)
+    torch.cuda.synchronize()
+    capture_ms = (time.time() - t0) * 1e3
+    pool_bytes = graph_pool_bytes(pool)
+    what = (f"{cfg.name} decode-only super-iteration, kb 1, "
+            f"{cfg.num_layers} layers, B={B}, ctx 1000, bf16")
+    for mode, call in (("eager", lambda: bucket.run(*args)),
+                       ("replayed", bucket.replay)):
+        def run():
+            pos.fill_(1000)          # every run decodes at the same depth
+            for _ in range(steps):
+                call()
+            torch.cuda.synchronize()
+        run()
+        t0 = time.time()
+        run()
+        wall = (time.time() - t0) / steps * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+        cuda = torch.autograd.DeviceType.CUDA
+        ev = prof.key_averages()
+        kernels = [e for e in ev if e.device_type == cuda]
+        host = {e.key: e.count for e in ev if e.device_type != cuda
+                and e.key.startswith(("cuda", "cu"))}
+        graph = sum(n for k, n in host.items() if "GraphLaunch" in k)
+        launch = sum(n for k, n in host.items() if "LaunchKernel" in k)
+        log_profile(f"{what}, {mode}", wall, kernels, steps, card,
+                    f"; host runtime calls a super-iteration: "
+                    f"{graph / steps:g} graph launches, {launch / steps:g} "
+                    f"kernel launches ({ {k: n / steps for k, n in host.items()} })",
+                    top=4)
+        if mode == "replayed":
+            # the one pos.fill_ a run is the only kernel the host launches
+            if graph != steps or launch > 1:
+                raise AssertionError(f"[profile] {what}: a replay made "
+                                     f"{graph / steps:g} graph and "
+                                     f"{launch / steps:g} kernel launches")
+            _hold_trace(what, bucket.launches, kernels, steps, card)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    pos.fill_(1000)
+    start.record()
+    for _ in range(steps):
+        bucket.graph.replay()
+    end.record()
+    end.synchronize()
+    log(f"[profile] {what}: replay {start.elapsed_time(end) / steps:.3f} ms "
+        f"on the device (CUDA events, back to back); capture "
+        f"{capture_ms:.1f} ms with its device sync; graph pool "
+        f"{pool_bytes} bytes [{card}]")
+    del bucket, pools
+
+
 def log_profile(what, wall, events, steps, card, extra="", top=8):
     """Print a profiled step: wall ms, device kernel ms and busy share, the
     kernels (and copies) launched a step, and the ``top`` kernels with the
@@ -2015,10 +2468,14 @@ def profile_duet(model, card):
     gen = torch.Generator(device=dev).manual_seed(0)
     state = model.init_state_cache(B)
 
+    # the chunk's start, slot and resume token, as the engine passes them
+    scalars = torch.tensor([512, 0, 0], dtype=torch.int32,
+                           device=dev).unbind(0)
+
     def run():
         for _ in range(steps):
             prog(pools, state, last_tok, pos, tables, gen, active, pre_toks,
-                 pre_tbl, 512, 0, 0, order)
+                 pre_tbl, *scalars, order)
         torch.cuda.synchronize()
 
     wall, events, _ = _profile(run, steps)
@@ -2862,19 +3319,24 @@ def phase_dp():
             raise AssertionError(f"[dp] elastic: replica {i} host_syncs "
                                  f"{st.host_syncs} > super_iterations "
                                  f"{st.super_iterations}")
+        if not (eng.graphs and st.replays > 0):
+            raise AssertionError(f"[dp] elastic: replica {i} replayed no "
+                                 f"CUDA graph ({st})")
     def events_of(obj):
         return [(e.action, e.replica, e.requeued, round(e.t, 3))
                 for e in obj.scale_events]
-    syncs = [(e.dstats.super_iterations, e.dstats.host_syncs)
-             for e in el.engines]
+    syncs = [(e.dstats.super_iterations, e.dstats.host_syncs,
+              e.dstats.captures, e.dstats.replays) for e in el.engines]
+    pool = el.engines[0].graph_pool_bytes()
     log(f"[dp] elastic (async replicas): scale events {events_of(el)}, "
         f"the ClusterSim's {events_of(el_sim)}; dispatch "
         f"{[d.replica for d in el.decisions]}, equal; "
         f"{len(el_m.requests)} requests each finished once, "
         f"{sum(r.preemptions for r in el_m.requests)} preempted and "
         f"recomputed; {el_tok} tokens in {el_wall:.2f} s wall = "
-        f"{el_tok / el_wall:.1f} tokens/s; (super_iterations, host_syncs) "
-        f"a replica {syncs} [{card}]")
+        f"{el_tok / el_wall:.1f} tokens/s; (super_iterations, host_syncs, "
+        f"captures, replays) a replica {syncs}, one graph pool of {pool} "
+        f"bytes [{card}]")
     del el
     _dp_free()
     peak = torch.cuda.max_memory_allocated() / 1e9
@@ -2994,14 +3456,38 @@ def _train_run(model, opt_cfg, data, steps, sync=False):
     return params, state, rows
 
 
+def _grads(model, params, batch, group=None):
+    """The loss of ``model`` (whose weights ``params`` are) on ``batch``
+    and each leaf's gradient (path -> tensor; the mean over the data
+    group ``group`` where one is given): a train step's gradients, kept so
+    a check can hold them or feed them to :func:`_fed_adamw`."""
+    from repro_torch.models.params import _leaves
+    from repro_torch.training.train_loop import _mean_over
+    leaves = list(_leaves(params))
+    loss = model.loss(batch)
+    got = list(torch.autograd.grad(loss, [t for _, t in leaves]))
+    if group is not None:
+        got = _mean_over(got, group)
+    return loss, dict(zip((p for p, _ in leaves), got))
+
+
+def _fed_adamw(opt_cfg, params, state, grads, ctx=None):
+    """One AdamW step of ``params`` fed ``grads`` (path -> tensor, moved
+    to each leaf's device): (params, state, metrics) as adamw_update."""
+    from repro_torch.models.params import _map
+    from repro_torch.training import adamw_update
+    return adamw_update(opt_cfg, _map(
+        lambda path, t: grads[path].to(t.device), params), state, params,
+        ctx=ctx)
+
+
 def _train_forced(cpu, card, opt_cfg, data, steps):
     """(b) of train_check: ``steps`` steps of the CPU's model and the
     card's from the same weights and batches, each side computing its own
     loss and gradients, then both sides' AdamW fed the CPU's gradients.
     Returns the largest gradient difference, each entry's relative to its
     leaf's largest |gradient| on the CPU, and both sides' parameters."""
-    from repro_torch.models.params import _leaves, _map
-    from repro_torch.training import adamw_update, init_adamw
+    from repro_torch.training import init_adamw
     from repro_torch.training.train_loop import batch_to
     models = (cpu, card)
     trees = [m.param_tree() for m in models]
@@ -3009,22 +3495,16 @@ def _train_forced(cpu, card, opt_cfg, data, steps):
     worst = 0.0
     for _ in range(steps):
         batch = next(data)
-        grads = []
-        for model, tree in zip(models, trees):
-            leaves = list(_leaves(tree))
-            loss = model.loss(batch_to(batch, model.device))
-            got = torch.autograd.grad(loss, [t for _, t in leaves])
-            grads.append({path: g.detach().cpu()
-                          for (path, _), g in zip(leaves, got)})
+        grads = [{path: g.detach().cpu() for path, g in _grads(
+            model, tree, batch_to(batch, model.device))[1].items()}
+                 for model, tree in zip(models, trees)]
         for path, want in grads[0].items():
             scale = want.abs().max().item()
             err = (grads[1][path] - want).abs().max().item()
             worst = max(worst, err / scale if scale else
                         (0.0 if err == 0 else float("inf")))
         for i, tree in enumerate(trees):
-            _, states[i], _ = adamw_update(opt_cfg, _map(
-                lambda path, t: grads[0][path].to(t.device), tree),
-                states[i], tree)
+            _, states[i], _ = _fed_adamw(opt_cfg, tree, states[i], grads[0])
     return worst, trees
 
 
@@ -3252,20 +3732,44 @@ def phase_grid():
     log(f"[grid] serve: both ranks' streams bitwise equal; {GRID_DP} x "
         f"TP {GRID_TP} done in {time.time() - t0:.1f} s")
     counts = ranks[0]["counts"]
-    # (b) the TP 1 reference, freed before the grid starts
+    # (b)
+    ranks = grid_train_check(card)
+    # (c)
+    for r, res in enumerate(ranks):
+        if "grads" in res:
+            log(f"[grid] {res['grads']} [{card}]")
+    return counts
+
+
+def grid_train_check(card):
+    """(b) DP 2 x TP 2 training against DP 1 x TP 1 (its reference run
+    first in this process and freed before the grid starts; its gradients
+    go to the ranks through files): the free-running steps' losses, lr and
+    grad norms within TRAIN_TOL, their gathered parameters logged; the
+    forced steps' gradients within GRID_GRAD_TOL of their leaf's largest
+    and their gathered parameters within TRAIN_PARAM_TOL_LR x lr. Returns
+    the ranks' results ((c) rides the same spawn)."""
+    from repro_torch.launch.mesh import run_ranks
     t0 = time.time()
-    rows, want = grid_train_reference(card)
-    ranks = run_ranks(grid_train_rank, GRID_TP, dp=GRID_DP,
-                      device=GRID_DEVICE, share_card=True, args=(card,))
+    with tempfile.TemporaryDirectory() as grad_dir:
+        rows, want = grid_train_reference(card, grad_dir)
+        ranks = run_ranks(grid_train_rank, GRID_TP, dp=GRID_DP,
+                          device=GRID_DEVICE, share_card=True,
+                          args=(card, grad_dir))
     got = ranks[0]["train"]
     worst = {k: max(abs(g[k] - w[k]) / abs(w[k])
                     for g, w in zip(got["rows"], rows))
              for k in ("loss", "lr", "grad_norm")}
-    err = max(np.abs(got["params"][k] - w).max() for k, w in want.items())
+    free = max(np.abs(got["params"][k] - w).max() for k, w in want.items())
+    worst["grads"] = max(res["forced"]["grads"] for res in ranks)
+    forced = max(np.abs(ranks[0]["forced"]["params"][k] - w).max()
+                 for k, w in want.items())
     del want
     for r, res in enumerate(ranks):
         log(f"[grid] train rank {r} (data {r // GRID_TP}, model "
-            f"{r % GRID_TP}): {res['train']['line']} [{card}]")
+            f"{r % GRID_TP}): {res['train']['line']}; forced steps: "
+            f"gradients {res['forced']['grads']:.2e} of their leaf's "
+            f"largest [{card}]")
         if res["train"]["rows"] != got["rows"]:
             raise AssertionError(f"[grid] train: rank {r}'s losses differ "
                                  "from rank 0's")
@@ -3277,18 +3781,19 @@ def phase_grid():
         f"{[round(r['loss'], 6) for r in rows]}; largest relative "
         f"difference loss {worst['loss']:.2e}, lr {worst['lr']:.2e}, grad "
         f"norm {worst['grad_norm']:.2e} (tol {TRAIN_TOL:.0e}); gathered "
-        f"parameters {err:.2e} (tol {TRAIN_PARAM_TOL_LR} x lr "
+        f"parameters free-running {free:.2e} (rounding through Adam, not "
+        f"held); forced: each step's gradients from the same weights "
+        f"{worst['grads']:.2e} of their leaf's largest (tol "
+        f"{GRID_GRAD_TOL:.0e}), gathered parameters after AdamW fed TP 1's "
+        f"gradients {forced:.2e} (tol {TRAIN_PARAM_TOL_LR} x lr "
         f"{TRAIN_LR:.0e}); the data ranks' parameters equal; "
         f"{time.time() - t0:.1f} s with the reference [{card}]")
-    if max(worst.values()) > TRAIN_TOL or \
-            err > TRAIN_PARAM_TOL_LR * TRAIN_LR:
+    if max(worst[k] for k in ("loss", "lr", "grad_norm")) > TRAIN_TOL or \
+            worst["grads"] > GRID_GRAD_TOL or \
+            forced > TRAIN_PARAM_TOL_LR * TRAIN_LR:
         raise AssertionError("[grid] the grid's train steps differ from "
                              "TP 1's")
-    # (c)
-    for r, res in enumerate(ranks):
-        if "grads" in res:
-            log(f"[grid] {res['grads']} [{card}]")
-    return counts
+    return ranks
 
 
 def grid_serve_rank(rank, card):
@@ -3383,19 +3888,40 @@ def _grid_opt(cfg):
                        warmup_steps=2, total_steps=GRID_TRAIN_STEPS)
 
 
-def grid_train_reference(card):
-    """(b)'s DP 1 x TP 1 run in this process: the metrics of each step and
-    the final parameters on the host; the card is freed after."""
+def grid_train_reference(card, grad_dir):
+    """(b)'s DP 1 x TP 1 run in this process (make_train_step's loss,
+    gradients and AdamW, split by :func:`_grads` and :func:`_fed_adamw`
+    so the gradients can be kept): the metrics
+    of each step and the final parameters on the host; each step's
+    gradients are written to ``grad_dir`` (``step<i>.pt``, leaf path ->
+    fp32 tensor) for the grid's forced steps. The card is freed after."""
     from repro_torch.data import data_iterator
     from repro_torch.models import Model
     from repro_torch.models.params import _leaves
+    from repro_torch.training import init_adamw
+    from repro_torch.training.train_loop import batch_to
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = _grid_train_cfg()
+    opt = _grid_opt(cfg)
     model = Model.init(cfg, seed=0, dtype=torch.float32,
                        device=GRID_DEVICE, requires_grad=True, remat=True)
-    params, _, rows = _train_run(model, _grid_opt(cfg), data_iterator(
-        cfg, TRAIN_SEQ, TRAIN_BATCH, seed=0), GRID_TRAIN_STEPS, sync=True)
+    params = model.param_tree()
+    state = init_adamw(params)
+    data = data_iterator(cfg, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    rows = []
+    for i in range(GRID_TRAIN_STEPS):
+        batch = batch_to(next(data), model.device)
+        t0 = time.time()
+        loss, grads = _grads(model, params, batch)
+        params, state, m = _fed_adamw(opt, params, state, grads, model.ctx)
+        torch.cuda.synchronize()
+        rows.append({"loss": float(loss.detach()), "lr": float(m["lr"]),
+                     "grad_norm": float(m["grad_norm"]),
+                     "ms": (time.time() - t0) * 1e3})
+        torch.save({"/".join(map(str, p)): g.cpu() for p, g in
+                    grads.items()}, os.path.join(grad_dir, f"step{i}.pt"))
+        del grads, loss
     want = {"/".join(map(str, p)): t.detach().cpu().numpy()
             for p, t in _leaves(params)}
     n = sum(w.size for w in want.values())
@@ -3404,23 +3930,77 @@ def grid_train_reference(card):
         f"of fp32 weights, gradients and moments), {GRID_TRAIN_STEPS} "
         f"steps at {TRAIN_BATCH} x {TRAIN_SEQ}: wall ms "
         f"{[round(r['ms'], 1) for r in rows]} [{card}]")
-    del model, params
+    del model, params, state
     torch.cuda.empty_cache()
     return rows, want
 
 
-def grid_train_rank(rank, card):
+def grid_train_rank(rank, card, grad_dir):
     """One rank of the 2 x 2 grid (a spawned process): (b) the train steps
-    of DP 2 x TP 2, then (c) one config's TP 2 gradients on this rank's
-    model group."""
+    of DP 2 x TP 2, free-running and then forced by TP 1's gradients, then
+    (c) one config's TP 2 gradients on this rank's model group."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     out = {"train": grid_train(rank)}
+    torch.cuda.empty_cache()
+    out["forced"] = grid_train_forced(rank, grad_dir)
     torch.cuda.empty_cache()
     name = list(GRID_GRAD_LAYERS)[rank.data_rank]
     line = grid_grads(rank, name)
     if line is not None:
         out["grads"] = line
+    return out
+
+
+def grid_train_forced(rank, grad_dir):
+    """(b) forced: GRID_TRAIN_STEPS steps of DP 2 x TP 2 from the same
+    weights as TP 1's steps, each computing its gradients (the data
+    group's mean, make_train_step's) and holding every entry of its slices
+    against TP 1's gradient of that step (read from ``grad_dir``),
+    relative to the whole leaf's largest |gradient|, then feeding AdamW
+    TP 1's gradients, cut to the rank's slices. Returns the largest
+    relative gradient difference and, on global rank 0, the gathered
+    parameters. Adam's m / sqrt(v) has no scale, so free-running parameters
+    part by a fraction of lr wherever a gradient sits at the rounding
+    noise; fed the same gradients, they must not."""
+    from repro_torch.data import data_iterator, shard_batch
+    from repro_torch.models import Model
+    from repro_torch.models.params import (_leaves, _shard_leaf,
+                                           gather_params, param_specs)
+    from repro_torch.training import init_adamw
+    from repro_torch.training.train_loop import batch_to
+    cfg = _grid_train_cfg()
+    ctx = rank.context(cfg)
+    model = Model.init(cfg, seed=0, dtype=torch.float32, ctx=ctx,
+                       requires_grad=True, remat=True)
+    opt = _grid_opt(cfg)
+    params = model.param_tree()
+    state = init_adamw(params)
+    specs = dict(_leaves(param_specs(cfg, ctx.tp)))
+    data = data_iterator(cfg, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    worst = 0.0
+    for i in range(GRID_TRAIN_STEPS):
+        batch = batch_to(shard_batch(next(data), rank.data_rank, GRID_DP),
+                         model.device)
+        loss, got = _grads(model, params, batch, rank.data_group)
+        ref = torch.load(os.path.join(grad_dir, f"step{i}.pt"), mmap=True)
+        fed = {}
+        for path, g in got.items():
+            full = ref["/".join(map(str, path))]
+            want = _shard_leaf(full, specs[path], ctx.tp, ctx.rank)
+            scale = full.abs().max().item()
+            err = (g.detach().cpu() - want).abs().max().item()
+            worst = max(worst, err / scale if scale else
+                        (0.0 if err == 0 else float("inf")))
+            fed[path] = want
+        params, state, _ = _fed_adamw(opt, params, state, fed, ctx)
+        del ref, fed, got, loss
+    full = gather_params(params, ctx)
+    out = {"grads": worst}
+    if rank.rank == 0:
+        out["params"] = {"/".join(map(str, p)): t.cpu().numpy()
+                         for p, t in _leaves(full)}
+    del full, model, params, state
     return out
 
 

@@ -64,7 +64,9 @@ host <-> device copies of the engines, and the tensor-parallel context.
   error, never a quiet move to the CPU; the CPU runs only when asked for.
 * :func:`to_device` — host numpy to the device without a host sync (pinned
   staging buffer + ``non_blocking``), so the async engine can upload
-  dispatch inputs while the previous program still runs.
+  dispatch inputs while the previous program still runs;
+  :func:`fill_from_host` does the same into a tensor that already exists
+  (the static inputs a captured CUDA graph reads).
 * :func:`fetch_to_host` — every tensor of one iteration copied back with a
   single blocking synchronisation (the port's ``jax.device_get``).
 """
@@ -326,6 +328,14 @@ class DeviceContext:
             out["share_card"] = self.share_card
         return out
 
+    @property
+    def collectives(self) -> bool:
+        """Whether a step under this context makes collectives: a model
+        group (tp > 1) or a sequence group, or a process group of its own
+        (a TP replica of the grid)."""
+        return (self.tp > 1 or self.seq > 1 or self.group is not None
+                or self.seq_group is not None)
+
     def collectives_per_iteration(self) -> int:
         """The reference's predicted count of all-reduces in one forward
         pass: one per sharded attention out-projection and per sharded
@@ -431,6 +441,17 @@ def to_device(arr, device: torch.device,
     if device.type == "cpu":
         return t
     return t.pin_memory().to(device, non_blocking=True)
+
+
+def fill_from_host(dst: torch.Tensor, arr) -> torch.Tensor:
+    """Copy host data into the existing tensor ``dst`` (its shape; cast to
+    its dtype) as :func:`to_device` uploads: through a pinned staging copy
+    without waiting for the device on CUDA, so the host array may be reused
+    at once. Returns ``dst``."""
+    src = torch.from_numpy(np.array(arr, copy=True)).to(dst.dtype)
+    if dst.device.type == "cpu":
+        return dst.copy_(src.reshape(dst.shape))
+    return dst.copy_(src.reshape(dst.shape).pin_memory(), non_blocking=True)
 
 
 def fetch_to_host(tensors: Sequence[torch.Tensor]) -> List[np.ndarray]:

@@ -2,22 +2,43 @@
 
 The paper records decode into CUDA Graphs and replays k of them without
 host synchronisation, with KV slots and metadata for all k steps
-preallocated. The reference compiles the k-step loop into one jitted
-program; here a "program" is a Python closure that enqueues the k steps
-eagerly: no step reads a device value on the host, so the host returns
-before the device finishes and the engine syncs only when it fetches the
-tokens. (CUDA Graph capture per dispatch bucket is later work.) The
+preallocated. The reference compiles each shape bucket's super-iteration
+into one jitted program (the k-step loop a ``lax.scan``) and caches it.
+Here :func:`make_superiter_fn` builds the program as a Python function
+that enqueues the k steps and the prefill chunk without reading a device
+value on the host, and :class:`BucketProgram` is one dispatch bucket of
+the async engine: that program plus the static tensors it reads. On a
+CUDA device the engine captures a bucket's program into a
+``torch.cuda.CUDAGraph`` on its second dispatch (the first runs eagerly
+and is the warm-up: the kernels are built, their occupancy queries
+cached) and replays the graph on every later one: one host call a
+super-iteration, the port's counterpart of the reference's jitted
+program. So that a graph bakes in no value of one dispatch, the chunk's
+start, its slot and the resume token are 0-d device tensors in the
+bucket's static buffers, filled before each replay; the page pools, the
+recurrent state and the decode inputs (``last_tok``, ``pos``) are read and
+written in place.
+
+What stays eager (``serving/async_engine.py`` counts each dispatch by its
+rule): the slab path's chunk, whose slab views are cut at ``start + S``,
+a shape that follows the host's start (the slab's decode-only buckets
+are captured); every engine under a collective group (TP, CP, the grid:
+gloo's all-reduces run on the host and cannot be captured); the
+synchronous engine's k-step programs (:func:`make_lookahead_fn`,
+:func:`make_paged_lookahead_fn`), which stay the eager oracle. The
 planner half (slot preallocation) lives in the serving engine's KV
-manager; this module provides the k-step decode program, the fused duet
-super-iteration and greedy/temperature sampling inside the loop.
+manager.
 """
 from __future__ import annotations
 
-from typing import TYPE_CHECKING, Optional
+from typing import TYPE_CHECKING, Dict, Optional
 
+import numpy as np
 import torch
 
-from repro_torch.models.attention import slot_views
+from repro_torch.core.device import fill_from_host
+from repro_torch.kernels import add_launch_counts, launch_counts
+from repro_torch.models.attention import slot_gather, slot_scatter, slot_views
 
 if TYPE_CHECKING:   # the model imports core.device; no runtime cycle
     from repro_torch.models.transformer import Model
@@ -72,8 +93,8 @@ def lookahead_decode(model: Model, cache, first_token: torch.Tensor,
 
 def make_lookahead_fn(model: Model, k: int, *, temperature: float = 0.0,
                       sliding: bool = False):
-    """The k-step slab decode program (one per k — the engine caches these
-    as the paper caches one CUDA Graph per batch shape)."""
+    """The k-step slab decode program (one per k, cached by the
+    synchronous engine, which runs it eagerly)."""
     def run(cache, first_token, start_pos, gen, active_mask):
         return lookahead_decode(model, cache, first_token, start_pos, k,
                                 gen=gen, temperature=temperature,
@@ -119,8 +140,8 @@ def lookahead_decode_paged(model: Model, pools, state,
 
 def make_paged_lookahead_fn(model: Model, k: int, *,
                             temperature: float = 0.0):
-    """The k-step paged decode program (one per k — the engine caches
-    these as the paper caches one CUDA Graph per batch shape)."""
+    """The k-step paged decode program (one per k, cached by the
+    synchronous engine, which runs it eagerly)."""
     def run(pools, state, first_token, start_pos, tables, gen, active_mask):
         return lookahead_decode_paged(
             model, pools, state, first_token, start_pos, tables, k, gen=gen,
@@ -133,15 +154,36 @@ def make_paged_lookahead_fn(model: Model, k: int, *,
 # one prefill chunk in a SINGLE program. All sampling — including the first
 # token of a finishing prefill — happens in-program, so the host never reads
 # a device value to build the next dispatch; decode input tokens and
-# positions stay resident on device (`last_tok`/`pos` threaded through
+# positions stay resident on device (`last_tok`/`pos`, updated in place by
 # successive programs).
 # ---------------------------------------------------------------------------
-def _set_row(t: torch.Tensor, row: int, value) -> torch.Tensor:
-    """Out-of-place ``t[row, ...] = value`` (value a python int or a 0-d
-    device tensor — either way no host sync)."""
+def _scalar(v, device) -> torch.Tensor:
+    """A per-dispatch scalar as a 0-d int32 tensor on ``device``: a tensor
+    as it is, a host int through a fill (a kernel argument, no copy and no
+    sync)."""
+    if isinstance(v, torch.Tensor):
+        return v
+    return torch.full((), v, dtype=torch.int32, device=device)
+
+
+def _set_row(t: torch.Tensor, row, value) -> torch.Tensor:
+    """Out-of-place ``t[row, ...] = value``: ``row`` a host int or a 0-d
+    device tensor (a device scatter), ``value`` a host int or a 0-d device
+    tensor — either way no host sync."""
     t = t.clone()
-    t[row] = value
+    if isinstance(row, torch.Tensor):
+        value = _scalar(value, t.device).to(t.dtype)
+        t.index_put_((row.reshape(1).long(),),
+                     value.expand((1,) + t.shape[1:]))
+    else:
+        t[row] = value
     return t
+
+
+def _store(buf: torch.Tensor, new: torch.Tensor):
+    """End a program: its new decode inputs into the engine's buffer."""
+    if new is not buf:
+        buf.copy_(new)
 
 
 def make_superiter_fn(model: Model, kb: int, *, paged: bool = True,
@@ -170,17 +212,23 @@ def make_superiter_fn(model: Model, kb: int, *, paged: bool = True,
 
       paged: run(pools, state, last_tok (B,1), pos (B,), tables (B,W), gen,
                  active (B,), pre_toks (1,C), pre_tbl (1,Wp),
-                 pre_start: int, pre_slot: int, override_tok: int
+                 pre_start, pre_slot, override_tok
                  [, order (T*duet_block_q,)])
-               -> (toks (B,kb), sampled, last_tok, pos, pools, state, gen)
       slab:  run(cache, last_tok, pos, gen, active, pre_toks, pre_start,
                  pre_slot, override_tok)
-               -> (toks (B,kb), sampled, last_tok, pos, cache, gen)
+      both -> (toks (B,kb), sampled)
 
-    ``sampled`` is the finishing prefill's next token (a 0-d device tensor)
-    or None: the host fetches it together with ``toks`` in the single
-    per-iteration sync. The chunk reads and writes only slot
-    ``pre_slot``'s row of the recurrent state (``slot_views``).
+    ``pre_start``, ``pre_slot`` and ``override_tok`` are 0-d int32 device
+    tensors (host ints are taken too); the slab chunk takes ``pre_start``
+    and ``pre_slot`` as host ints, since its slab views are cut at
+    ``pre_start + C``. The program updates ``last_tok``, ``pos``, the
+    pools, the state (or the slab cache) and ``gen`` in place and returns
+    only new tensors: what a captured graph replays has fixed addresses.
+    ``sampled`` is the finishing prefill's next token (a 0-d device
+    tensor) or None: the host fetches it together with ``toks`` in the
+    single per-iteration sync. The chunk reads and writes only slot
+    ``pre_slot``'s row of the recurrent state (``slot_gather`` /
+    ``slot_scatter``; the slab's ``slot_views``).
     """
     if kb == 0 and chunk == 0:
         raise ValueError("empty super-iteration")
@@ -201,6 +249,14 @@ def make_superiter_fn(model: Model, kb: int, *, paged: bool = True,
             pos = _set_row(pos, pre_slot, pre_start + chunk)
         return sampled, last_tok, pos
 
+    def _prefill_paged(pools, state, pre_toks, pre_tbl, pre_start,
+                       pre_slot):
+        rows = slot_gather(state, pre_slot)
+        logits, _, _ = model.prefill_paged(pre_toks, pools, rows, pre_tbl,
+                                           start_pos=pre_start)
+        slot_scatter(state, rows, pre_slot)
+        return logits
+
     if duet_kernel:
         # Algorithm-1 fused launch: decode step 1 and the whole prefill
         # chunk execute as ONE duet_attention_paged launch per layer
@@ -212,6 +268,9 @@ def make_superiter_fn(model: Model, kb: int, *, paged: bool = True,
                   order):
             B = last_tok.shape[0]
             dev = last_tok.device
+            pre_start, pre_slot, override_tok = (
+                _scalar(v, dev) for v in (pre_start, pre_slot,
+                                          override_tok))
             row_tok = torch.cat([last_tok[:, 0], pre_toks[0]])[:, None]
             row_pos = torch.cat([pos, pre_start + torch.arange(
                 chunk, dtype=pos.dtype, device=dev)])
@@ -221,25 +280,27 @@ def make_superiter_fn(model: Model, kb: int, *, paged: bool = True,
             row_tbl = torch.cat([
                 pad(tables, (0, Wm - W)),
                 pad(pre_tbl, (0, Wm - Wp)).expand(chunk, Wm)])
-            logits, pools, state = model.duet_step_paged(
+            logits, _, _ = model.duet_step_paged(
                 pools, state, row_tok, row_pos, row_tbl, order,
                 block_q=duet_block_q)
             # decode step 1 retires inside the duet launch
             nxt = _sample(logits[:B], gen, temperature)[:, None]
             nxt = torch.where(active[:, None], nxt, last_tok)
-            pos = torch.where(active, pos + 1, pos)
+            new_pos = torch.where(active, pos + 1, pos)
             toks = nxt
             if kb > 1:
-                rest, pools, state, pos = lookahead_decode_paged(
-                    model, pools, state, nxt, pos, tables, kb - 1, gen=gen,
-                    temperature=temperature, active_mask=active)
+                rest, _, _, new_pos = lookahead_decode_paged(
+                    model, pools, state, nxt, new_pos, tables, kb - 1,
+                    gen=gen, temperature=temperature, active_mask=active)
                 toks = torch.cat([nxt, rest], dim=1)
-            last_tok = torch.where(active[:, None], toks[:, -1:], last_tok)
+            new_tok = torch.where(active[:, None], toks[:, -1:], last_tok)
             # the chunk's last row carries the prefill logits
-            sampled, last_tok, pos = _finish(
-                logits[B + chunk - 1], last_tok, pos, pre_start, pre_slot,
-                override_tok)
-            return toks, sampled, last_tok, pos, pools, state, gen
+            sampled, new_tok, new_pos = _finish(
+                logits[B + chunk - 1], new_tok, new_pos, pre_start,
+                pre_slot, override_tok)
+            _store(last_tok, new_tok)
+            _store(pos, new_pos)
+            return toks, sampled
         return fused
 
     if not paged:
@@ -247,41 +308,141 @@ def make_superiter_fn(model: Model, kb: int, *, paged: bool = True,
                        pre_start, pre_slot, override_tok):
             toks = torch.zeros((last_tok.shape[0], 0), dtype=torch.int32,
                                device=last_tok.device)
-            sampled = None
+            sampled, new_tok, new_pos = None, last_tok, pos
             if kb > 0:
-                toks, cache, pos = lookahead_decode(
+                toks, _, new_pos = lookahead_decode(
                     model, cache, last_tok, pos, kb, gen=gen,
                     temperature=temperature, active_mask=active)
-                last_tok = torch.where(active[:, None], toks[:, -1:],
-                                       last_tok)
+                new_tok = torch.where(active[:, None], toks[:, -1:],
+                                      last_tok)
             if chunk > 0:
                 logits, _ = model.prefill(
                     pre_toks, cache=slot_views(cache, pre_slot),
                     start_pos=pre_start)
-                sampled, last_tok, pos = _finish(
-                    logits[0], last_tok, pos, pre_start, pre_slot,
+                sampled, new_tok, new_pos = _finish(
+                    logits[0], new_tok, new_pos, pre_start, pre_slot,
                     override_tok)
-            return toks, sampled, last_tok, pos, cache, gen
+            _store(last_tok, new_tok)
+            _store(pos, new_pos)
+            return toks, sampled
         return fused_slab
 
     def fused(pools, state, last_tok, pos, tables, gen, active, pre_toks,
               pre_tbl, pre_start, pre_slot, override_tok):
+        dev = last_tok.device
         toks = torch.zeros((last_tok.shape[0], 0), dtype=torch.int32,
-                           device=last_tok.device)
-        sampled = None
+                           device=dev)
+        sampled, new_tok, new_pos = None, last_tok, pos
         if kb > 0:
-            toks, pools, state, pos = lookahead_decode_paged(
+            toks, _, _, new_pos = lookahead_decode_paged(
                 model, pools, state, last_tok, pos, tables, kb, gen=gen,
                 temperature=temperature, active_mask=active)
             # feed the last generated token back as the next decode input;
             # the engine guarantees kb <= remaining output for every batch
             # member, so the final step is always a live token
-            last_tok = torch.where(active[:, None], toks[:, -1:], last_tok)
+            new_tok = torch.where(active[:, None], toks[:, -1:], last_tok)
         if chunk > 0:
-            logits, pools, _ = model.prefill_paged(
-                pre_toks, pools, slot_views(state, pre_slot), pre_tbl,
-                start_pos=pre_start)
-            sampled, last_tok, pos = _finish(
-                logits[0], last_tok, pos, pre_start, pre_slot, override_tok)
-        return toks, sampled, last_tok, pos, pools, state, gen
+            pre_start, pre_slot, override_tok = (
+                _scalar(v, dev) for v in (pre_start, pre_slot,
+                                          override_tok))
+            logits = _prefill_paged(pools, state, pre_toks, pre_tbl,
+                                    pre_start, pre_slot)
+            sampled, new_tok, new_pos = _finish(
+                logits[0], new_tok, new_pos, pre_start, pre_slot,
+                override_tok)
+        _store(last_tok, new_tok)
+        _store(pos, new_pos)
+        return toks, sampled
     return fused
+
+
+# ---------------------------------------------------------------------------
+# Dispatch buckets and their CUDA graphs
+# ---------------------------------------------------------------------------
+def graph_pool_bytes(pool) -> int:
+    """Device bytes the caching allocator holds in CUDA graph memory pool
+    ``pool`` (a ``torch.cuda.graph_pool_handle()``): its segments."""
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg["segment_pool_id"]) == tuple(pool))
+
+
+class BucketProgram:
+    """One dispatch bucket of the async engine: its super-iteration
+    program (:func:`make_superiter_fn`) and the static tensors the program
+    reads — the block tables (B, W), the active mask (B,), the chunk's
+    tokens (1, C) and block table (1, Wp), and the per-dispatch scalars
+    ``pre_start``, ``pre_slot``, ``override_tok`` (0-d int32 views of one
+    buffer). :meth:`feed` fills them from host arrays through pinned
+    staging (no wait on the device); :meth:`run` runs the program eagerly;
+    on a CUDA device :meth:`capture` records it into a CUDA graph and
+    :meth:`replay` launches that graph, one host call for the whole
+    super-iteration. The arguments handed to :meth:`capture` must be the
+    ones every later replay reads: the engine's pools, state, decode
+    inputs and generator and this bucket's static tensors."""
+
+    def __init__(self, fn, device: torch.device, slots: int, *,
+                 width: int = 1, chunk: int = 0, pwidth: int = 1,
+                 paged: bool = True):
+        def zeros(*shape, dtype=torch.int32):
+            return torch.zeros(shape, dtype=dtype, device=device)
+        self.fn = fn
+        self.tables = zeros(slots, width) if paged else None
+        self.active = zeros(slots, dtype=torch.bool)
+        self.pre_toks = zeros(1, chunk) if chunk else None
+        self.pre_tbl = zeros(1, pwidth) if paged and chunk else None
+        self.scalars = zeros(3)
+        self.pre_start, self.pre_slot, self.override_tok = \
+            self.scalars.unbind(0)
+        self.runs = 0                 # eager runs
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.outputs = None           # the graph's static outputs
+        self.launches: Dict[str, int] = {}   # kernel launches a replay
+
+    def feed(self, active, tables=None, pre_toks=None, pre_tbl=None,
+             scalars=(0, 0, 0)):
+        """Fill the static inputs for one dispatch from host arrays."""
+        fill_from_host(self.active, active)
+        for dst, arr in ((self.tables, tables), (self.pre_toks, pre_toks),
+                         (self.pre_tbl, pre_tbl)):
+            if dst is not None and arr is not None:
+                fill_from_host(dst, arr)
+        fill_from_host(self.scalars, np.asarray(scalars, np.int32))
+
+    def run(self, *args):
+        """One eager run of the program on ``args``."""
+        self.runs += 1
+        return self.fn(*args)
+
+    def capture(self, args, pool, gen: Optional[torch.Generator] = None):
+        """Capture the program on ``args`` into a CUDA graph in memory pool
+        ``pool`` (a side stream, as ``torch.cuda.graph`` takes it; it
+        synchronises the device first), then replay it once: this
+        dispatch's outputs. ``gen`` is registered with the graph when the
+        program samples from it. The kernel launches counted while
+        capturing are what every later replay adds. Raises if capture
+        fails; nothing runs eagerly in its place."""
+        graph = torch.cuda.CUDAGraph()
+        if gen is not None:
+            graph.register_generator_state(gen)
+        before = launch_counts()
+        with torch.cuda.graph(graph, pool=pool):
+            outputs = self.fn(*args)
+        after = launch_counts()
+        self.launches = {k: n - before[k] for k, n in after.items()
+                         if n != before[k]}
+        self.graph, self.outputs = graph, outputs
+        graph.replay()
+        return self._copies()
+
+    def replay(self):
+        """Replay the captured graph (its inputs fed): the outputs as new
+        tensors, copied on the stream right after the replay, since the
+        next replay of this graph overwrites its static outputs while the
+        engine may not have fetched them yet."""
+        self.graph.replay()
+        add_launch_counts(self.launches)
+        return self._copies()
+
+    def _copies(self):
+        toks, sampled = self.outputs
+        return toks.clone(), None if sampled is None else sampled.clone()

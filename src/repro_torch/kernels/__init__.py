@@ -51,10 +51,25 @@ def reset_launch_counts():
             counts[name] = 0
 
 
+def add_launch_counts(delta: Dict[str, int]):
+    """Add ``delta`` (launches per wrapper, as :func:`launch_counts` names
+    them) to the counters: a replayed CUDA graph launches the kernels its
+    capture recorded without calling their wrappers, so its replay adds
+    the launches counted while it was captured."""
+    for name, n in delta.items():
+        for counts in _COUNTERS:
+            if name in counts:
+                counts[name] += n
+                break
+        else:
+            raise KeyError(f"no launch counter named {name!r}")
+
+
 __all__ = [
     "DuetSchedule", "build_duet_schedule", "duet_attention",
     "duet_attention_paged", "flash_prefill", "pack_duet_queries",
     "paged_decode", "paged_decode_auto", "paged_decode_sharded",
     "paged_decode_splitkv",
     "unpack_duet_output", "launch_counts", "reset_launch_counts",
+    "add_launch_counts",
 ]

@@ -34,7 +34,11 @@ Two execution modes:
 * default — synchronous :class:`DuetEngine` (the token-equivalence oracle)
 * ``--stream`` — asynchronous :class:`AsyncDuetEngine` with open-loop
   arrival replay; per-token events print as JSON lines while generation is
-  still in flight.
+  still in flight. On one card each dispatch bucket's program is captured
+  into a CUDA graph and replayed (TP ranks dispatch every program eagerly;
+  the library's ``AsyncDuetEngine(..., graphs=False)`` turns graphs off);
+  ``dispatch_stats`` counts captures, replays and eager dispatches by
+  their rule.
 
 The summary's TTFT/TBT/throughput come from the engine's virtual clock, a
 TPU v5e roofline prediction (as in the reference), not from the card.

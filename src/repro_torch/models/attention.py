@@ -90,6 +90,27 @@ def slot_views(cache, slot: int):
             for c in cache]
 
 
+def slot_gather(cache, slot: torch.Tensor):
+    """The rows of slot ``slot`` (a 0-d device index: no host read, so a
+    captured CUDA graph reads it at replay) of every layer's entry (None
+    stays None), as copies of batch 1. A prefill into them changes the
+    copies; :func:`slot_scatter` writes them back."""
+    idx = slot.reshape(1).long()
+    return [None if c is None else type(c)(*(t.index_select(0, idx)
+                                              for t in c))
+            for c in cache]
+
+
+def slot_scatter(cache, rows, slot: torch.Tensor):
+    """Write :func:`slot_gather`'s ``rows`` back into slot ``slot`` of
+    ``cache``, in place."""
+    idx = slot.reshape(1).long()
+    for c, r in zip(cache, rows):
+        if c is not None:
+            for t, u in zip(c, r):
+                t.index_copy_(0, idx, u)
+
+
 def prefix_views(c, n: int):
     """The first ``n`` positions of one layer's slab cache as views."""
     return type(c)(*(t[:, :n] for t in c))

@@ -512,14 +512,18 @@ class Model(nn.Module):
         attention layers; e.g. ``slot_views`` of the engine's per-slot
         state), carried forward and written back in place;
         ``tables`` (B, P) int32 block tables covering the chunk's
-        positions; ``start_pos`` the chunk's first absolute position.
+        positions; ``start_pos`` the chunk's first absolute position, a
+        host int or a 0-d device tensor (read on the device: a captured
+        CUDA graph takes it at replay).
         Returns (last_position_logits, pools, state).
         """
         cfg = self.cfg
         self._text_only()
         x, _ = self._embed(tokens)
         B, S = x.shape[:2]
-        start = 0 if start_pos is None else int(start_pos)
+        start = 0 if start_pos is None else start_pos
+        if isinstance(start, torch.Tensor):
+            start = start.to(x.device, torch.long)
         positions = (start + torch.arange(S, device=x.device))[None, :] \
             .expand(B, S)
         for i, (p, kind) in enumerate(self._layers()):

@@ -8,12 +8,39 @@ streaming admission.
   the iteration's prefill chunk run as a single program
   (:func:`repro_torch.core.lookahead.make_superiter_fn`). All sampling
   happens in-program: the decode input tokens and slot positions live on
-  the device (``d_last_tok`` / ``d_pos``) and thread from one program to
-  the next, so the host never reads a device value to build the next
-  dispatch. Host inputs go up through pinned buffers without waiting for
-  the device. Programs are cached per shape bucket — (k bucket, block-table
-  width bucket, chunk length, finish/sample flags, duet) —
-  (``dstats.cache_hits``).
+  the device (``d_last_tok`` / ``d_pos``, updated in place) and thread
+  from one program to the next, so the host never reads a device value to
+  build the next dispatch. Host inputs go up through pinned buffers
+  without waiting for the device. Programs are cached per shape bucket —
+  (k bucket, block-table width bucket, chunk length, chunk table width,
+  finish/sample flags, duet) — (``dstats.cache_hits``); no per-dispatch
+  value enters the key.
+
+* **CUDA Graphs per dispatch bucket** (``graphs``; on by default for a
+  CUDA engine without collectives) — each bucket
+  (:class:`~repro_torch.core.lookahead.BucketProgram`) owns static input
+  tensors (tables, active mask, the chunk's tokens and table, and the
+  chunk's start, its slot and the resume token as 0-d device tensors),
+  filled before each dispatch. A bucket's first dispatch runs eagerly
+  (the warm-up), its second is captured into a ``torch.cuda.CUDAGraph``
+  in the engine's one memory pool and replayed, and every later one
+  replays the graph: the port's counterpart of the reference's jitted
+  program per bucket (``dstats.captures`` / ``replays``; a key seen once
+  is never captured). A replay's tokens are copied out on the stream at
+  once, since the next replay of that bucket overwrites the graph's
+  outputs before the engine fetches them. Launch counters count replays
+  (each adds the launches its capture recorded). What runs eagerly is
+  counted in ``dstats.eager_dispatches`` by its rule
+  (``dstats.eager_reasons``): a bucket's first dispatch (``warmup``); a
+  chunk on the slab path (``slab_chunk``: its slab views are cut at the
+  chunk's end, a shape that follows the host's start); every dispatch of
+  an engine under a collective group (``collectives``: TP, CP, the grid,
+  whose gloo all-reduces run on the host), on the CPU (``cpu``: the same
+  static buffers, no graph) or with ``graphs=False`` (``off``). Sampling
+  at ``temperature > 0`` is captured: each graph registers the engine's
+  generator, so a replay draws fresh numbers. ``graphs=True`` where capture cannot
+  happen raises, and so does a failed capture or replay: nothing falls
+  back. The synchronous engine stays eager, the oracle.
 
 * **Double-buffered host scheduling** — while iteration *i* executes on
   the device, the host plans iteration *i+1* from last-known loads:
@@ -21,7 +48,8 @@ streaming admission.
   bookkeeping (greedy decode makes completion deterministic from counts).
   Iteration *i*'s tokens come back in ONE blocking fetch when *i+1* has
   already been dispatched — at most one host sync per super-iteration
-  (``dstats.host_syncs``).
+  (``dstats.host_syncs``; a capture's own device sync is counted in
+  ``captures``).
 
 * **Streaming front-end** — :meth:`submit` accepts requests mid-run (from
   event callbacks, another thread, or an asyncio task) and the engine
@@ -38,14 +66,16 @@ import asyncio
 import threading
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Callable, Iterator, List, Optional, Sequence, Union
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import GQA_KINDS
-from repro_torch.core.device import DeviceLike, fetch_to_host
-from repro_torch.core.lookahead import make_superiter_fn
+from repro_torch.core.device import (DeviceLike, fetch_to_host,
+                                     resolve_device)
+from repro_torch.core.lookahead import (BucketProgram, graph_pool_bytes,
+                                        make_superiter_fn)
 from repro_torch.core.roofline import HardwareSpec, TPU_V5E
 from repro_torch.kernels.ops import build_duet_schedule, duet_block_q
 from repro_torch.models.transformer import Model
@@ -89,10 +119,35 @@ class DispatchStats:
     host_syncs: int = 0          # blocking device->host fetches
     cache_hits: int = 0          # dispatches served by a cached program
     cache_misses: int = 0        # dispatches that built a new bucket
+    captures: int = 0            # dispatches that captured their bucket's
+    #                              CUDA graph (a device sync each)
+    replays: int = 0             # dispatches that replayed a graph
+    eager_dispatches: int = 0    # dispatches run op by op from Python
+    eager_reasons: Dict[str, int] = field(default_factory=dict)  # by rule
 
     @property
     def syncs_per_super_iteration(self) -> float:
         return self.host_syncs / max(1, self.super_iterations)
+
+
+# why an engine dispatches nothing through CUDA graphs (DispatchStats'
+# eager_reasons keys), with what ``graphs=True`` raises there
+_NO_GRAPHS = {
+    "cpu": "CUDA graphs need a CUDA device",
+    "collectives": "the engine's context makes collectives (TP, CP or the "
+                   "grid): gloo's all-reduces run on the host and cannot be "
+                   "captured",
+}
+
+
+def graph_blocker(device: torch.device, ctx) -> Optional[str]:
+    """Why an engine on ``device`` under ``ctx`` cannot capture its
+    programs (a key of ``_NO_GRAPHS``), or None."""
+    if ctx.collectives:
+        return "collectives"
+    if device.type != "cuda":
+        return "cpu"
+    return None
 
 
 # ------------------------------------------------------------------ in-flight
@@ -136,8 +191,20 @@ class AsyncDuetEngine(DuetEngine):
 
     def __init__(self, model: Model, engine_cfg: EngineConfig,
                  hw: HardwareSpec = TPU_V5E, seed: int = 0,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, graphs: Optional[bool] = None):
+        # CUDA graphs: None = wherever capture can happen; True raises where
+        # it cannot
+        blocker = graph_blocker(resolve_device(device), model.ctx)
+        if graphs and blocker:
+            raise ValueError(f"graphs=True: {_NO_GRAPHS[blocker]}")
         super().__init__(model, engine_cfg, hw=hw, seed=seed, device=device)
+        self.graphs = blocker is None and graphs is not False
+        # the rule every dispatch of a graphless engine runs eagerly by
+        self._eager_rule = None if self.graphs else (blocker or "off")
+        # one memory pool for every bucket's graph (the router gives DP
+        # replicas on one card one pool)
+        self.graph_pool = (torch.cuda.graph_pool_handle() if self.graphs
+                           else None)
         B = engine_cfg.max_slots
         # device-resident decode inputs: next token + cache position per
         # slot, threaded between super-iteration programs
@@ -433,19 +500,51 @@ class AsyncDuetEngine(DuetEngine):
         self.now += self._iteration_span(plan, kb, t_d, t_p)
 
     # ---------------------------------------------------------------- device
-    def _program(self, key, kb, chunk, finish, sample, duet=False):
+    def _program(self, key) -> BucketProgram:
+        """The bucket of ``key`` = (kb, width, chunk, pwidth, finish,
+        sample, duet): built at its first dispatch with its static
+        inputs."""
         prog = self._programs.get(key)
         if prog is None:
             self.dstats.cache_misses += 1
-            prog = make_superiter_fn(
-                self.model, kb, paged=self.paged, chunk=chunk,
-                finish=finish, sample=sample,
-                temperature=self.ec.temperature, duet_kernel=duet,
-                duet_block_q=self._duet_bq)
+            kb, width, chunk, pwidth, finish, sample, duet = key
+            prog = BucketProgram(
+                make_superiter_fn(
+                    self.model, kb, paged=self.paged, chunk=chunk,
+                    finish=finish, sample=sample,
+                    temperature=self.ec.temperature, duet_kernel=duet,
+                    duet_block_q=self._duet_bq),
+                self.device, self.ec.max_slots, width=max(width, 1),
+                chunk=chunk, pwidth=max(pwidth, 1), paged=self.paged)
             self._programs[key] = prog
         else:
             self.dstats.cache_hits += 1
         return prog
+
+    def _execute(self, prog: BucketProgram, args, rule: Optional[str]):
+        """Run one dispatch of ``prog`` on ``args``: replay its graph,
+        capture it (its second dispatch) or run it eagerly, by ``rule``
+        (None on a graphed engine, else why this dispatch is eager)."""
+        st = self.dstats
+        if rule is None:
+            if prog.graph is not None:
+                st.replays += 1
+                return prog.replay()
+            if prog.runs:
+                st.captures += 1
+                return prog.capture(args, self.graph_pool,
+                                    self.gen if self.ec.temperature > 0
+                                    else None)
+            rule = "warmup"
+        st.eager_dispatches += 1
+        st.eager_reasons[rule] = st.eager_reasons.get(rule, 0) + 1
+        return prog.run(*args)
+
+    def graph_pool_bytes(self) -> int:
+        """Device bytes the engine's graph memory pool holds (0 without
+        graphs): the segments the caching allocator gave that pool."""
+        return 0 if self.graph_pool is None else \
+            graph_pool_bytes(self.graph_pool)
 
     def _duet_order(self, chunk: int) -> torch.Tensor:
         """Tile schedule for the fused duet launch: decode rows 0..B-1 one
@@ -482,8 +581,6 @@ class AsyncDuetEngine(DuetEngine):
                 pre_item
             finish = status in ("first", "resumed")
             sample = status == "first"
-            pre_toks = self._h2d(np.asarray(toks_np)[None, :])
-            pre_tbl = None if ptbl is None else self._h2d(ptbl)
             if finish and not sample:
                 # resume finish: the pre-preemption next token becomes the
                 # decode input — the _step drain gate must have caught us up
@@ -495,27 +592,34 @@ class AsyncDuetEngine(DuetEngine):
         else:
             chunk, finish, sample, pwidth = 0, False, False, 1
             start, pre_slot, override = 0, 0, 0
-            pre_toks = pre_tbl = None
+            toks_np = ptbl = None
 
         duet = (self._duet_kernel and self._duet_safe
                 and kb > 0 and chunk > 0)
         key = (kb, width if kb else 0, chunk, pwidth if chunk else 0,
                finish, sample, duet)
-        prog = self._program(key, kb, chunk, finish, sample, duet)
+        prog = self._program(key)
         self.dstats.dispatches += 1
+        prog.feed(active, tbl if self.paged else None,
+                  None if toks_np is None else np.asarray(toks_np)[None, :],
+                  ptbl, (start, pre_slot, override))
+        rule = self._eager_rule
         if self.paged:
-            pargs = (self.pools, self.cache, self.d_last_tok, self.d_pos,
-                     self._h2d(tbl), self.gen, self._h2d(active), pre_toks,
-                     pre_tbl, start, pre_slot, override)
+            args = (self.pools, self.cache, self.d_last_tok, self.d_pos,
+                    prog.tables, self.gen, prog.active, prog.pre_toks,
+                    prog.pre_tbl, prog.pre_start, prog.pre_slot,
+                    prog.override_tok)
             if duet:
-                pargs += (self._duet_order(chunk),)
-            (toks, sampled, self.d_last_tok, self.d_pos, self.pools,
-             self.cache, self.gen) = prog(*pargs)
+                args += (self._duet_order(chunk),)
         else:
-            (toks, sampled, self.d_last_tok, self.d_pos, self.cache,
-             self.gen) = prog(self.cache, self.d_last_tok, self.d_pos,
-                              self.gen, self._h2d(active), pre_toks, start,
-                              pre_slot, override)
+            # the slab chunk's views are cut at its start + C on the host
+            where = (start, pre_slot) if chunk else (prog.pre_start,
+                                                     prog.pre_slot)
+            args = (self.cache, self.d_last_tok, self.d_pos, self.gen,
+                    prog.active, prog.pre_toks, *where, prog.override_tok)
+            if chunk and rule is None:
+                rule = "slab_chunk"
+        toks, sampled = self._execute(prog, args, rule)
         if kb > 0:
             inf.toks_idx = len(inf.fetch)
             inf.fetch.append(toks)

@@ -413,6 +413,12 @@ class Router:
                              split_kv_threshold=model.split_kv_threshold),
                        engine_cfg, hw=hw, seed=seed, device=c.device)
             for c in ctx.split_replicas()]
+        # async replicas on one card capture their CUDA graphs into one
+        # memory pool (they replay in turn on its one stream)
+        pools: dict = {}
+        for e in self.engines:
+            if getattr(e, "graphs", False):
+                e.graph_pool = pools.setdefault(e.device, e.graph_pool)
         self._views = [_EngineView(e) for e in self.engines]
         self._pending: List[Request] = []
         self.decisions: List[RouterEvent] = []

@@ -375,6 +375,44 @@ def test_slab_engines_on_the_card_match_the_cpu(dev):
     assert runs["async"] == runs["cpu"]
 
 
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "slab"])
+def test_graphed_async_engine_matches_eager_on_the_card(dev, paged):
+    """Reduced qwen3-4b in fp32: the async engine replaying each bucket's
+    CUDA graph serves the same greedy tokens, makes the same kernel
+    launches and keeps at most one host sync a super-iteration as the same
+    engine with every dispatch eager; the slab path's chunks stay eager by
+    their rule."""
+    cfg = reduced(get_config("qwen3-4b"))
+    card = Model.init(cfg, seed=0, device=dev, attn_kernel=True)
+    specs = [(i, i * 0.0003, 20 + 7 * i, 6 + i) for i in range(5)]
+    kw = dict(max_slots=3, max_len=128, token_budget=48, page_size=8,
+              paged=paged)
+    runs = {}
+    for graphs in (None, False):
+        before = launch_counts()
+        eng = AsyncDuetEngine(card, EngineConfig(**kw), device=dev,
+                              graphs=graphs)
+        eng.submit([Request(rid=r, arrival=a, prompt_len=p, output_len=o)
+                    for r, a, p, o in specs])
+        metrics = eng.run()
+        after = launch_counts()
+        st = eng.dstats
+        runs[graphs] = ({r.rid: list(r.output_tokens)
+                         for r in metrics.requests},
+                        {k: after[k] - before[k] for k in after})
+        assert 0 < st.host_syncs <= st.super_iterations
+        assert st.captures + st.replays + st.eager_dispatches == \
+            st.dispatches
+        if graphs is None:
+            assert eng.graphs and st.replays > 0 and st.captures > 0
+            assert set(st.eager_reasons) <= {"warmup", "slab_chunk"}
+            assert ("slab_chunk" in st.eager_reasons) == (not paged)
+            assert eng.graph_pool_bytes() > 0
+        else:
+            assert st.eager_reasons == {"off": st.dispatches}
+    assert runs[None] == runs[False]
+
+
 # ---------------------------------------------------------------------------
 # every GQA head shape: rep > 16 (the block role), rep > 64 (head blocks),
 # reps that do not divide 64, Dh 256
