@@ -10,7 +10,34 @@ Phases (each raises on failure; nothing is swallowed):
 1. build   — compile every CUDA source of the port with nvcc (in
              parallel), print the build seconds and ptxas' registers and
              spills of each kernel, by name.
-2. kernels — hold each kernel against its plain PyTorch version on the card
+2. roofline — the card priced as itself (``core.roofline.card_spec``: its
+             TPCs, its datasheet peak; ``core.device.partition_curves``:
+             B(S) measured over SM counts). The sm_probe kernel (a
+             streaming read of 4 x the L2 with exactly n CTAs, one an SM)
+             against its plain version (each CTA's checksum, bitwise, its
+             sum against torch.sum, its CTAs on n distinct SMs) at 2, 66
+             and 132 CTAs, timed against its bound and torch.sum; then
+             the engines' path: partition_curves measured once, its
+             launches counted, B(u) printed at u = 1, 6, 13, 33, 66 TPCs
+             beside the linear and H100_LIKE shares, B(66) against
+             torch.sum's read of the same bytes. Then the roofline held to
+             the card (the counterpart of the reference's
+             benchmarks/fig8_roofline_accuracy.py): the prediction of an
+             engine on the card (its spec and measured curve), of the
+             analytic H100_LIKE and of the TPU v5e the CPU engines price,
+             beside the measured device ms of the same work, for
+             qwen3-4b at full width, bf16 (the async engine's bucket
+             programs replayed from their CUDA graphs: decode-only at B=8,
+             ctx 1000; a prefill-only chunk of 256 at 512; the kb=1 duet
+             super-iteration of both) and granite-moe-3b-a800m's
+             decode-only step. measured / predicted is printed, not held.
+             Last, what the card's torch offers the SM split (a report
+             for the next slice, printed, not held): green contexts'
+             SUPPORTED and, for GREEN_SMS SMs asked, the SMs the probe's
+             CTAs ran on from the green context's stream, one CTA for
+             each of those SMs timed from that stream and from the
+             default stream, and a CUDA graph of the probe captured on that stream.
+3. kernels — hold each kernel against its plain PyTorch version on the card
              at the serving path's shapes, at the small GQA/MQA/MHA,
              odd-length, dead-split and ragged shapes of the kernel tests
              and at the cluster decode kernels' edges, in fp32 and bf16
@@ -45,7 +72,7 @@ Phases (each raises on failure; nothing is swallowed):
              (the paged duet kernel's at C = 1, 2, 4, 8 with registers),
              with the role each decode kernel's CTAs take (granite-20b's
              too).
-3. parity  — full-width qwen3-4b cut to 4 layers, then yi-9b, minicpm-2b,
+4. parity  — full-width qwen3-4b cut to 4 layers, then yi-9b, minicpm-2b,
              granite-20b and granite-moe-3b-a800m cut to 2, fp32 with
              TF32 off: the kernel path's logits against the port's plain
              path for one paged prefill, one paged decode step, one duet
@@ -84,9 +111,15 @@ Phases (each raises on failure; nothing is swallowed):
              program (check_bucket_graphs); reduced qwen3-4b at
              temperature 0.8 with the engine's generator registered with
              each graph (CUDAGraph.register_generator_state; the streams
-             against the eager run's printed, not held).
-4. serve   — full qwen3-4b (36 layers, bf16, random weights from a seed)
-             serves azure-conv requests on two paths, each with
+             against the eager run's printed, not held). Last, the
+             card's Algorithm 1: reduced qwen3-4b, fp32, the async engine
+             on the engine tests' trace (3 slots, a 48-token budget),
+             priced by the card, at a TBT bound between its predicted
+             decode and mixed times, where it must take duet iterations
+             (each one's S_p, S_d in TPCs and k printed), and at the
+             default 0.1 s, where it takes none: greedy streams identical.
+5. serve   — full qwen3-4b (36 layers, bf16, random weights from a seed)
+             serves azure-conv requests (serve_qps()) on two paths, each with
              attn_kernel=True and strict_kernel=True and the launch counts
              reset to 0 just before it and read just after it:
              the paged path (4 of the 8 requests, those with the shortest
@@ -133,11 +166,13 @@ Phases (each raises on failure; nothing is swallowed):
              xlstm's none; a paged decode step of each is profiled.
              paligemma-3b serves text-only (as the reference's engines
              take it) through the async and the sync engine on both
-             paths. Last,
+             paths. Every single-device engine on the card must plan
+             with the card: its multiplexer's spec named as nvidia-smi
+             names the card, over its 66 TPCs. Last,
              slot reuse: zamba2 cut to 12 layers, fp32, the sync engine at
              2 slots serves 4 requests, and each stream must equal the
              request's stream served alone.
-5. tp      — tensor parallelism at TP = 2: two ranks (one process each,
+6. tp      — tensor parallelism at TP = 2: two ranks (one process each,
              spawned) share the one card over gloo (its collectives copy
              CUDA tensors through host memory and block the host, so the
              TP step is slower than TP 1 by construction: no TP speed is
@@ -182,7 +217,7 @@ Phases (each raises on failure; nothing is swallowed):
              1, zamba2's kernel_path is cuda_sharded and it launches
              paged_decode_sharded, deepseek (MLA: no kernel) launches
              none; tokens/s and the peak memory a rank are printed.
-6. dp      — data parallelism: full qwen3-4b (36 layers, bf16, random
+7. dp      — data parallelism: full qwen3-4b (36 layers, bf16, random
              weights from seed 0) as 2 replicas served from this one
              process on the one card (share_card: one weight tree, a
              page pool of 16-token pages each; one host thread and
@@ -196,7 +231,9 @@ Phases (each raises on failure; nothing is swallowed):
              prefix affinity on the same trace (outputs cut to 8): each
              pair's second member on its first's replica with the whole
              prefix matched, cluster hits >= 3 x 256, and the router's
-             (replica, matched) decisions the ClusterSim's; elastic over
+             (replica, matched) decisions the ClusterSim's (its replicas
+             priced as the engines: the card's spec, measured curve and
+             TPCs); elastic over
              async replicas on a burst of 8 requests (400 + 64), then
              silence: an up and a down that drains live requests, the
              scaling and dispatch sequences the ClusterSim's, every
@@ -208,7 +245,7 @@ Phases (each raises on failure; nothing is swallowed):
              router runs is printed. Then a paged decode step of each
              replica alone and of both in turn is profiled (device busy
              share a replica).
-7. train   — fp32 with TF32 off. First reduced minicpm-2b, 3 train steps
+8. train   — fp32 with TF32 off. First reduced minicpm-2b, 3 train steps
              (make_train_step: the loss, autograd, AdamW on its WSD
              schedule) on the card and on the CPU from the same weights
              and batches: losses, lr and grad norms within 1e-4, the
@@ -224,7 +261,7 @@ Phases (each raises on failure; nothing is swallowed):
              one is traced by torch.profiler. No kernel of the port runs
              here: the training forward is the plain blockwise attention,
              as the reference's.
-8. grid    — the (data, model) grid of ranks, every rank on the one card
+9. grid    — the (data, model) grid of ranks, every rank on the one card
              over gloo (share_card). (a) Serving: full qwen3-4b (36
              layers, bf16) as DP 2 x TP 2: 2 processes, each its rank of
              both replicas (a process group a replica), the async engine
@@ -253,7 +290,7 @@ Phases (each raises on failure; nothing is swallowed):
              card's name and power limit. Ranks sharing one card
              time-slice it and every collective copies through host
              memory: these numbers show parity and memory, not speed.
-9. dryrun  — the dry run (``launch/dryrun.py``: one rank of a grid run
+10. dryrun — the dry run (``launch/dryrun.py``: one rank of a grid run
              on shape-only tensors on the host, no device) held to one
              rank built on the card. (a) ``lower_one`` for every assigned
              arch at decode_32k on the 16 x 16 grid: each record's spec
@@ -287,7 +324,7 @@ Phases (each raises on failure; nothing is swallowed):
              no count of the kernels line. The records are those of the
              context-parallel layout (a decode rank holds its span of the
              GQA caches' sequence).
-10. cp     — context-parallel decode, every rank on card 0 over gloo.
+11. cp      — context-parallel decode, every rank on card 0 over gloo.
              (d) the slab duet_attention kernel alone with its
              log-sum-exp and the key offset, at paligemma-3b's rank span
              (8 rows, 8 / 1 / 256, 16,384 keys) and at granite-20b's
@@ -350,8 +387,8 @@ import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("build", "kernels", "parity", "serve", "tp", "dp", "train",
-          "grid", "dryrun", "cp")
+PHASES = ("build", "roofline", "kernels", "parity", "serve", "tp", "dp",
+          "train", "grid", "dryrun", "cp")
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -388,6 +425,10 @@ for _name in ("paged_decode", "paged_decode_splitkv", "duet_attention"):
 KERNEL_SOURCES["paged_decode_sharded"] = (
     "src/repro_torch/kernels/csrc/paged_decode.cu",
     "src/repro/kernels/ops.py:115")
+# the roofline's bandwidth probe replaces no TPU kernel: the reference
+# samples its B(S) table from the analytic spec at this line
+KERNEL_SOURCES["sm_probe"] = ("src/repro_torch/kernels/csrc/sm_probe.cu",
+                              "src/repro/core/multiplexer.py:130")
 # the serving path that must launch each kernel, of the role the config's
 # rep takes ("[block]" above 16 heads a group: granite-20b); split-KV runs
 # only in qwen3-4b's split_kv_threshold run; flash_prefill is on none (the
@@ -395,6 +436,12 @@ KERNEL_SOURCES["paged_decode_sharded"] = (
 PATH_OF = {"paged_decode": "paged", "paged_decode[block]": "paged",
            "paged_decode_splitkv": "paged", "duet_attention_paged": "paged",
            "duet_attention": "slab", "duet_attention[block]": "slab"}
+# the served traces' load: SERVE_RHO x the capacity of one replica as the
+# card prices it (serve_qps), so the requests overlap on the engines'
+# virtual clock whatever its prices, and the engines batch, fuse duet
+# steps and take the wall time they do (under the TPU v5e's prices these
+# runs took qps 4, a load of 1.46 by the same measure)
+SERVE_RHO = 1.5
 PAGED_MAX_OUTPUT = 160      # see phase_serve's requests()
 SLAB_MAX_OUTPUT = 64        # the same: keeps the script inside its limit
 # the registered configs whose GQA head shapes the kernels phase runs at
@@ -478,6 +525,15 @@ KERNEL_FUNCTIONS = {
     "flash_prefill": ("flash_prefill_kernel", "flash_prefill_mma_kernel"),
 }
 GRAPH_SAMPLING_TEMPERATURE = 0.8
+# the card's Algorithm 1 (parity_duet_split): reduced qwen3-4b, fp32, on the
+# engine tests' geometry and trace (tests/test_torch_engine.py's KW and
+# SPECS); the TBT bound at the first of SPLIT_FRACTIONS of the way from the
+# card's predicted decode time (the full decode batch at SPLIT_CTX tokens)
+# to its mixed time (that batch and a chunk of the rest of the budget)
+# that makes Algorithm 1 take duet iterations
+SPLIT_ENGINE = dict(max_slots=3, max_len=128, token_budget=48, page_size=8)
+SPLIT_SPECS = tuple((i, i * 0.0003, 20 + 7 * i, 6 + i) for i in range(5))
+SPLIT_CTX, SPLIT_FRACTIONS = 40, (0.5, 0.25, 0.75)
 # the slot-reuse run: zamba2 cut to its first 12 layers (2 shared_attn),
 # fp32, 2 slots, 4 requests of at most 32 output tokens
 REUSE_LAYERS, REUSE_SLOTS, REUSE_MAX_OUTPUT = 12, 2, 32
@@ -617,7 +673,312 @@ def ptxas_report(text: str):
 
 
 # ---------------------------------------------------------------------------
-# phase 2: kernels against their plain versions
+# phase 2: the card priced as itself
+# ---------------------------------------------------------------------------
+# the TPC counts whose measured bandwidth the phase prints
+ROOFLINE_TPCS = (1, 6, 13, 33, 66)
+# the shapes held to the card (the profile steps'): ROOFLINE_B decode rows
+# at ROOFLINE_CTX tokens of context, a chunk of ROOFLINE_CHUNK rows at
+# ROOFLINE_CHUNK_AT, pages of 16, tables of 64 pages; CUDA events around
+# ROOFLINE_REPLAYS back-to-back replays of each bucket's graph
+ROOFLINE_B, ROOFLINE_CTX, ROOFLINE_CHUNK, ROOFLINE_CHUNK_AT = 8, 1000, 256, 512
+ROOFLINE_REPLAYS = 10
+# the SM counts asked of a green context in the roofline phase's report
+GREEN_SMS = (32, 64)
+# the configs held and the bucket kinds of each
+ROOFLINE_SHAPES = {"qwen3-4b": ("decode", "prefill", "duet"),
+                   "granite-moe-3b-a800m": ("decode",)}
+
+
+def phase_roofline():
+    """The card's spec and measured curve, the sm_probe kernel against its
+    plain version, and the roofline's predictions against the card's
+    measured step times. Returns sm_probe's record for the kernels line,
+    its ``launches`` those of the engines' path (partition_curves)."""
+    card = card_line()
+    rec = roofline_probe(card)
+    roofline_accuracy(card)
+    green_contexts(card)
+    return rec
+
+
+def _stream_ms(fn, stream, reps=20):
+    """Mean device ms of ``fn()`` on ``stream`` (CUDA events on it, after
+    one warm-up call)."""
+    with torch.cuda.stream(stream):
+        fn()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record(stream)
+        for _ in range(reps):
+            out = fn()
+        end.record(stream)
+    end.synchronize()
+    return start.elapsed_time(end) / reps, out
+
+
+def green_contexts(card):
+    """What the card's torch offers for the SM split: a report, printed,
+    not held. Whether ``torch.cuda.green_contexts`` is SUPPORTED; then for
+    each of GREEN_SMS SMs asked: the sm_probe kernel at one CTA for every
+    SM of the card, launched on the green context's stream (the SMs its
+    CTAs ran on are the SMs the context really gives), and the rate of
+    one CTA for each of those SMs from the green context's stream and
+    from the default stream; then the probe captured into a CUDA graph on the green
+    context's stream and replayed (its checksum against torch.sum, and
+    the SMs the replay ran on)."""
+    from repro_torch.kernels import sm_probe as probe
+    from torch.cuda import green_contexts as gc
+    log(f"[green] torch {torch.__version__}: "
+        f"torch.cuda.green_contexts.SUPPORTED = {gc.SUPPORTED} [{card}]")
+    if not gc.SUPPORTED:
+        return
+    props = torch.cuda.get_device_properties(0)
+    sms = props.multi_processor_count
+    n = -(-4 * props.L2_cache_size // 16) * 4
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    buf = torch.randint(0, probe.MAX_VALUE, (n,), dtype=torch.int32,
+                        device="cuda", generator=gen)
+    nbytes, total = buf.numel() * buf.element_size(), int(buf.sum())
+    default = torch.cuda.current_stream()
+    for asked in GREEN_SMS:
+        # the stream lives only as long as its green context
+        green = gc.GreenContext.create(num_sms=asked, device_id=0)
+        stream = green.Stream()
+        ms, (got, smid) = _stream_ms(lambda: probe.sm_probe(buf, sms),
+                                     stream)
+        held = torch.unique(smid).numel()
+        # one wave of `held` CTAs on each stream: the same work and SMs,
+        # without the tail of a 132-CTA launch on fewer SMs
+        one, _ = _stream_ms(lambda: probe.sm_probe(buf, held), stream)
+        alone, _ = _stream_ms(lambda: probe.sm_probe(buf, held), default)
+        full, _ = _stream_ms(lambda: probe.sm_probe(buf, sms), default)
+        log(f"[green] {asked} SMs asked: the probe's {sms} CTAs from its "
+            f"stream ran on {held} distinct SMs, checksum "
+            f"{'equal to' if int(got.sum()) == total else 'NOT'} "
+            f"torch.sum, {ms:.4f} ms = {nbytes / ms / 1e6:.1f} GB/s; "
+            f"{held} CTAs from its stream {one:.4f} ms = "
+            f"{nbytes / one / 1e6:.1f} GB/s, from the default stream "
+            f"{alone:.4f} ms = {nbytes / alone / 1e6:.1f} GB/s; {sms} CTAs "
+            f"there {nbytes / full / 1e6:.1f} GB/s [{card}]")
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            got, smid = probe.sm_probe(buf, sms)
+        for label, replay_on in (("its stream", stream),
+                                 ("the default stream", default)):
+            with torch.cuda.stream(replay_on):
+                graph.replay()
+            torch.cuda.synchronize()
+            log(f"[green] {asked} SMs asked: a CUDA graph of the probe "
+                f"captured on its stream, replayed on {label}: checksum "
+                f"{'equal to' if int(got.sum()) == total else 'NOT'} "
+                f"torch.sum, on {torch.unique(smid).numel()} distinct SMs")
+        del graph, stream, green
+    del buf
+    torch.cuda.empty_cache()
+
+
+def _hold_card_pricing(engine, label, card):
+    """An engine on the one card plans with the card: its multiplexer's
+    spec is named as nvidia-smi names the card, over the card's TPCs
+    (SMs / 2)."""
+    props = torch.cuda.get_device_properties(engine.device)
+    mux = engine.mux
+    if mux.hw.name != card.split(", ")[0] or \
+            mux.total_units != props.multi_processor_count // 2:
+        raise AssertionError(f"[pricing] {label}: the engine plans with "
+                             f"{mux.hw.name} over {mux.total_units} units "
+                             f"on {card}")
+
+
+def roofline_probe(card):
+    """The sm_probe kernel at 2, half the SMs and every SM of the card
+    against its plain version: each CTA's int64 checksum bitwise, their
+    sum against torch.sum, the CTAs on as many distinct SMs; its time on
+    every SM beside the bound (the buffer's bytes at 3.35 TB/s), the
+    plain version and torch.sum. Then the engines' path: the card's curve
+    measured once by partition_curves (the cache emptied first), its
+    launches counted, and B(u) at ROOFLINE_TPCS beside the linear share
+    u / 66 and H100_LIKE's (u / 66)^0.32, B(66) beside torch.sum's rate
+    on the same bytes."""
+    from repro_torch.core import device as core_device
+    from repro_torch.core.roofline import H100_LIKE, card_spec
+    from repro_torch.kernels import sm_probe as probe
+    props = torch.cuda.get_device_properties(0)
+    spec, sms = card_spec(props), props.multi_processor_count
+    per_sm, smem = probe.occupancy()
+    log(f"[roofline] {spec.name}: {sms} SMs = {spec.num_units} TPCs; "
+        f"datasheet {spec.pi(spec.num_units) / 1e12:.1f} bf16 TFLOP/s and "
+        f"{spec.bw(spec.num_units) / 1e12:.2f} TB/s; L2 "
+        f"{props.L2_cache_size} B; sm_probe holds {per_sm} CTA an SM at "
+        f"{smem} B of shared memory a CTA [{card}]")
+    if per_sm != 1:
+        raise AssertionError(f"[roofline] sm_probe: {per_sm} CTAs an SM")
+    n = -(-4 * props.L2_cache_size // 16) * 4
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    buf = torch.randint(0, probe.MAX_VALUE, (n,), dtype=torch.int32,
+                        device="cuda", generator=gen)
+    nbytes, total = buf.numel() * buf.element_size(), int(buf.sum())
+    rec = {"name": "sm_probe", "max_abs_err": 0}
+    for ctas in (2, sms // 2, sms):
+        got, smid = probe.sm_probe(buf, ctas)
+        err = int((got - probe.sm_probe_plain(buf, ctas)).abs().max())
+        distinct = torch.unique(smid).numel()
+        log(f"[roofline] sm_probe at {ctas} CTAs over {nbytes} B: CTA "
+            f"checksums against the plain version max abs err {err}, their "
+            f"sum {int(got.sum())} against torch.sum {total}, on "
+            f"{distinct} distinct SMs")
+        if err or int(got.sum()) != total or distinct != ctas:
+            raise AssertionError(f"[roofline] sm_probe at {ctas} CTAs "
+                                 "disagrees with its plain version")
+    rec["ms"] = time_ms(lambda: probe.sm_probe(buf, sms), iters=10)
+    rec["plain_ms"] = time_ms(lambda: probe.sm_probe_plain(buf, sms),
+                              iters=3)
+    rec["library_ms"] = time_ms(lambda: torch.sum(buf), iters=10)
+    # torch's reads of the same bytes without the int64 promotion
+    reads = {"sum(dtype=int32)": time_ms(
+        lambda: buf.sum(dtype=torch.int32), iters=10),
+        "amax": time_ms(lambda: torch.amax(buf), iters=10)}
+    rec["bound_ms"], rec["bound_by"] = nbytes / HBM_BYTES_PER_S * 1e3, \
+        "bytes"
+    log(f"[roofline] sm_probe at {sms} CTAs: {rec['ms']:.4f} ms = "
+        f"{nbytes / rec['ms'] / 1e6:.1f} GB/s; bound {rec['bound_ms']:.4f} "
+        f"(bytes, {100 * rec['bound_ms'] / rec['ms']:.1f}%); plain "
+        f"{rec['plain_ms']:.4f}; torch.sum (int64, the same checksum) "
+        f"{rec['library_ms']:.4f} = {nbytes / rec['library_ms'] / 1e6:.1f}"
+        f" GB/s [{card}]")
+    del buf
+    torch.cuda.empty_cache()
+    core_device._CURVES.clear()
+    probe.launches["sm_probe"] = 0        # the engines' path starts here
+    t0 = time.time()
+    bw = core_device.partition_curves("cuda", spec)
+    rec["launches"] = probe.launches["sm_probe"]         # and ends here
+    log(f"[roofline] partition_curves: B(u) at u = 1..{spec.num_units} "
+        f"TPCs in {time.time() - t0:.2f} s, {rec['launches']} probe "
+        "launches; GB/s: "
+        + " ".join(f"{bw[u] / 1e9:.1f}" for u in sorted(bw)))
+    full = bw[spec.num_units]
+    for u in ROOFLINE_TPCS:
+        share = u / spec.num_units
+        log(f"[roofline] B({u:2d} TPCs = {2 * u:3d} SMs) = "
+            f"{bw[u] / 1e9:8.1f} GB/s, {100 * bw[u] / full:5.1f}% of "
+            f"B({spec.num_units}) (linear {100 * share:5.1f}%, H100_LIKE "
+            f"{100 * H100_LIKE.bw(u) / H100_LIKE.bw(spec.num_units):5.1f}"
+            f"%) [{card}]")
+    log(f"[roofline] B({spec.num_units}) {full / 1e9:.1f} GB/s against "
+        "torch's reads of the same bytes: "
+        + ", ".join(f"{k} {nbytes / ms / 1e6:.1f}" for k, ms in reads.items())
+        + f" GB/s; the datasheet's {HBM_BYTES_PER_S / 1e9:.0f} [{card}]")
+    return rec
+
+
+def _replay_ms(model, kind):
+    """Device ms of one replay of the async engine's ``kind`` bucket
+    (decode: kb 1; prefill: the chunk alone; duet: kb 1 and the chunk in
+    one duet launch a layer) at the ROOFLINE_* shapes, in the model's
+    dtype: the program run once eagerly, captured, replayed once, then
+    CUDA events around ROOFLINE_REPLAYS back-to-back replays (the decode
+    rows' context grows by one a replay)."""
+    from repro_torch.core.lookahead import BucketProgram, make_superiter_fn
+    from repro_torch.kernels.ops import build_duet_schedule, duet_block_q
+    from repro_torch.serving.kvcache import PagePoolConfig, init_page_pools
+    cfg, B, P, ps, dev = model.cfg, ROOFLINE_B, 64, 16, "cuda"
+    kb = 0 if kind == "prefill" else 1
+    chunk = 0 if kind == "decode" else ROOFLINE_CHUNK
+    duet = kind == "duet"
+    bq = duet_block_q(cfg.num_heads, cfg.num_kv_heads, cfg.head_dim) \
+        if duet else 1
+    bucket = BucketProgram(
+        make_superiter_fn(model, kb, paged=True, chunk=chunk,
+                          duet_kernel=duet, duet_block_q=bq),
+        torch.device(dev), B, width=P if kb else 1, chunk=chunk,
+        pwidth=P if chunk else 1)
+    pools = init_page_pools(cfg, PagePoolConfig(num_pages=(B + 1) * P + 1,
+                                                page_size=ps),
+                            model.dtype, device=dev)
+    state = model.init_state_cache(B)
+    bucket.feed(np.full(B, kb > 0),
+                np.arange(1, B * P + 1).reshape(B, P) if kb else None,
+                np.zeros((1, chunk), np.int32) if chunk else None,
+                np.arange(B * P + 1, (B + 1) * P + 1)[None] if chunk
+                else None, (ROOFLINE_CHUNK_AT, 0, 0))
+    last_tok = torch.zeros((B, 1), dtype=torch.int32, device=dev)
+    pos = torch.full((B,), ROOFLINE_CTX, dtype=torch.int32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    args = (pools, state, last_tok, pos, bucket.tables, gen, bucket.active,
+            bucket.pre_toks, bucket.pre_tbl, bucket.pre_start,
+            bucket.pre_slot, bucket.override_tok)
+    if duet:
+        args += (torch.tensor(build_duet_schedule(
+            [(b, 0) for b in range(B)], [(B, i) for i in range(chunk)],
+            block_q=bq).row_src, dtype=torch.int32, device=dev),)
+    bucket.run(*args)
+    pos.fill_(ROOFLINE_CTX)
+    bucket.capture(args, torch.cuda.graph_pool_handle())
+    pos.fill_(ROOFLINE_CTX)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(ROOFLINE_REPLAYS):
+        bucket.graph.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / ROOFLINE_REPLAYS
+    del bucket, pools, state
+    return ms
+
+
+def roofline_accuracy(card):
+    """The counterpart of the reference's fig8_roofline_accuracy on the
+    card: for each of ROOFLINE_SHAPES (full width and depth, bf16, random
+    weights from seed 0), the iteration an engine on the card prices
+    (``mux.predict_mixed``: the card's spec and measured curve over its
+    66 TPCs; the engine is held to plan with the card), the analytic
+    H100_LIKE's prediction at 66 TPCs and the TPU v5e's at one chip (what
+    the CPU engines price), beside the device ms of the same work
+    replayed from its CUDA graph, and measured / predicted. A
+    measurement: nothing here is held but the engine's pricing."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.roofline import (H100_LIKE, TPU_V5E, RequestLoad,
+                                           RooflineModel)
+    from repro_torch.models import Model
+    from repro_torch.serving import AsyncDuetEngine, EngineConfig
+    dec = [RequestLoad(q=1, c=ROOFLINE_CTX) for _ in range(ROOFLINE_B)]
+    pre = [RequestLoad(q=ROOFLINE_CHUNK, c=ROOFLINE_CHUNK_AT,
+                       phase="prefill")]
+    loads = {"decode": dec, "prefill": pre, "duet": dec + pre}
+    rows = []
+    for name, kinds in ROOFLINE_SHAPES.items():
+        cfg = get_config(name)
+        model = Model.init(cfg, seed=0, dtype=torch.bfloat16, device="cuda",
+                           attn_kernel=True)
+        engine = AsyncDuetEngine(model, EngineConfig(
+            max_slots=ROOFLINE_B, max_len=1024, token_budget=256,
+            page_size=16), seed=0, device="cuda")
+        _hold_card_pricing(engine, f"{name} roofline", card)
+        h100 = RooflineModel(cfg, H100_LIKE, page_size=16)
+        tpu = RooflineModel(cfg, TPU_V5E, page_size=16)
+        for kind in kinds:
+            pred = (engine.mux.predict_mixed(loads[kind]) * 1e3,
+                    h100.iteration_latency(loads[kind]) * 1e3,
+                    tpu.iteration_latency(loads[kind], units=1) * 1e3)
+            rows.append((f"{name} {kind}", pred, _replay_ms(model, kind)))
+        del engine, model
+        torch.cuda.empty_cache()
+    log(f"[roofline] predicted ms (the card's spec and curve at 66 TPCs; "
+        f"H100_LIKE at 66; TPU v5e at 1 chip) against the measured device "
+        f"ms of the same work (CUDA events, {ROOFLINE_REPLAYS} graph "
+        f"replays); measured / predicted. B={ROOFLINE_B} at ctx "
+        f"{ROOFLINE_CTX}, chunk {ROOFLINE_CHUNK} at {ROOFLINE_CHUNK_AT}, "
+        f"pages of 16, bf16 [{card}]")
+    for what, (card_p, h100_p, tpu_p), ms in rows:
+        log(f"[roofline] {what:36s} card {card_p:7.3f}  H100_LIKE "
+            f"{h100_p:7.3f}  TPU v5e {tpu_p:7.3f}  measured {ms:7.3f}  "
+            f"ratio {ms / card_p:5.2f} / {ms / h100_p:5.2f} / "
+            f"{ms / tpu_p:5.2f} [{card}]")
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 def _bound(nbytes: float, ops: float, dtype) -> tuple:
     t_bytes = nbytes / HBM_BYTES_PER_S
@@ -1233,7 +1594,7 @@ def report_occupancy(card):
 
 
 # ---------------------------------------------------------------------------
-# phase 3: logits parity, kernel path vs plain path
+# phase 4: logits parity, kernel path vs plain path
 # ---------------------------------------------------------------------------
 def phase_parity():
     """qwen3-4b cut to 4 layers, then each served config
@@ -1255,6 +1616,83 @@ def phase_parity():
     for name in ("paligemma-3b", "musicgen-medium"):
         parity_frontend(name)
     parity_graphs()
+    parity_duet_split()
+
+
+def parity_duet_split():
+    """The card's Algorithm 1 on reduced qwen3-4b, fp32, TF32 off: the
+    async engine on the paged kernel path (graphs on, strict), priced by
+    the card (held), serves SPLIT_SPECS at the default TBT bound of 0.1 s,
+    where it takes no duet iteration, and at a bound between its
+    predicted decode and mixed times (SPLIT_FRACTIONS), where it must take
+    some: each one's (S_p, S_d, k) printed, S_p + S_d the card's TPCs. The
+    greedy streams of the two runs must be identical: the split changes
+    the schedule (k decode steps a super-iteration), not the tokens."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.roofline import RequestLoad
+    from repro_torch.models import Model
+    from repro_torch.serving import AsyncDuetEngine, EngineConfig, Request
+    t0 = time.time()
+    card = card_line()
+    cfg = reduced(get_config("qwen3-4b"))
+    model = Model.init(cfg, seed=0, dtype=torch.float32, device="cuda",
+                       attn_kernel=True)
+
+    def serve(tbt):
+        engine = AsyncDuetEngine(model, EngineConfig(
+            **SPLIT_ENGINE, tbt_slo=tbt, strict_kernel=True), seed=0,
+            device="cuda")
+        _hold_card_pricing(engine, f"{cfg.name} at tbt_slo {tbt}", card)
+        parts, step = [], engine.mux.step
+
+        def record(pre, dec):
+            decision = step(pre, dec)
+            if decision.mode == "duet":
+                p = decision.partition
+                parts.append((p.s_prefill, p.s_decode, p.k))
+            return decision
+        engine.mux.step = record
+        engine.submit([Request(rid=r, arrival=a, prompt_len=p, output_len=o)
+                       for r, a, p, o in SPLIT_SPECS])
+        metrics = engine.run()
+        if metrics.summary()["num_finished"] != len(SPLIT_SPECS):
+            raise AssertionError(f"[parity] {cfg.name} at tbt_slo {tbt}: a "
+                                 "request did not finish")
+        return engine, {r.rid: list(r.output_tokens)
+                        for r in metrics.requests}, parts
+
+    engine, base, parts = serve(EngineConfig().tbt_slo)
+    if parts:
+        raise AssertionError(f"[parity] {cfg.name}: duet iterations {parts} "
+                             "at the default 0.1 s")
+    B = SPLIT_ENGINE["max_slots"]
+    dec = [RequestLoad(q=1, c=SPLIT_CTX) for _ in range(B)]
+    chunk = [RequestLoad(q=SPLIT_ENGINE["token_budget"] - B, c=0,
+                         phase="prefill")]
+    t_dec = engine.mux.predict_mixed(dec)
+    t_mix = engine.mux.predict_mixed(dec + chunk)
+    units = engine.mux.total_units
+    for frac in SPLIT_FRACTIONS:
+        tbt = t_dec + frac * (t_mix - t_dec)
+        engine, split, parts = serve(tbt)
+        if parts:
+            break
+    else:
+        raise AssertionError(f"[parity] {cfg.name}: no duet iteration at "
+                             f"any bound between {t_dec} and {t_mix} s")
+    log(f"[parity] {cfg.name} ({cfg.num_layers} layers, fp32), the card's "
+        f"Algorithm 1 over {units} TPCs: predicted decode {t_dec * 1e6:.3f}"
+        f" us, mixed {t_mix * 1e6:.3f} us; at tbt_slo {tbt * 1e6:.3f} us "
+        f"{len(parts)} duet iterations of "
+        f"{engine.mux.stats.iterations}, (S_p, S_d, k) {parts}; at 0.1 s "
+        f"none; greedy streams identical {split == base} [{card}], "
+        f"{time.time() - t0:.1f} s")
+    if split != base or any(s_p + s_d != units or min(s_p, s_d) < 1
+                            for s_p, s_d, _ in parts):
+        raise AssertionError(f"[parity] {cfg.name}: the duet-split run "
+                             "differs from the aggregated one")
+    del engine, model
+    torch.cuda.empty_cache()
 
 
 def parity_graphs():
@@ -1887,19 +2325,40 @@ def parity_for(name, n_layers, flash=False):
 
 
 # ---------------------------------------------------------------------------
-# phase 4: full-width serving through the engines
+# phase 5: full-width serving through the engines
 # ---------------------------------------------------------------------------
+def serve_qps():
+    """The served traces' arrival rate: SERVE_RHO / E[S], E[S] qwen3-4b's
+    mean azure-conv request (``request_cost``) under the card's datasheet
+    spec (``card_spec``) over its TPCs, at the engines' token budget and
+    pages. The datasheet's spec and not the measured curve, so that every
+    process of a TP or grid phase draws the same trace (the curve moves
+    by a few percent between measurements); the measured curve prices
+    the same request about 10% slower."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.roofline import card_spec
+    from repro_torch.serving.loadgen import (ServiceSpec, qps_for_rho,
+                                             request_cost)
+    from repro_torch.serving.traces import TRACES
+    spec = card_spec(torch.cuda.get_device_properties(0))
+    cost = request_cost(get_config("qwen3-4b"),
+                        ServiceSpec(trace=TRACES["azure-conv"]), spec,
+                        units=spec.num_units, token_budget=256,
+                        page_size=16)
+    return qps_for_rho(SERVE_RHO, cost)
+
+
 def _requests(path, n=None, max_output=None):
-    """The serve phase's azure-conv requests (8, qps 4, seed 0, clamped to
-    max_len 1024). The qwen3-4b paged path's three runs serve those of at
+    """The serve phase's azure-conv requests (8, serve_qps(), seed 0,
+    clamped to max_len 1024). The qwen3-4b paged path's three runs serve those of at
     most PAGED_MAX_OUTPUT output tokens (4 of the 8), which halves their
     decode steps, its slab path all 8 with outputs cut to SLAB_MAX_OUTPUT
     tokens; a served config's runs take the first ``n`` with outputs cut
     to ``max_output`` tokens."""
     from repro_torch.launch.serve import _clamp_lengths
     from repro_torch.serving.traces import synth_trace
-    reqs = _clamp_lengths(synth_trace("azure-conv", 8, 4.0, seed=0), 1024,
-                          True)
+    reqs = _clamp_lengths(synth_trace("azure-conv", 8, serve_qps(), seed=0),
+                          1024, True)
     if n is None and path == "paged":
         return [r for r in reqs if r.output_len <= PAGED_MAX_OUTPUT]
     if n is None:
@@ -1930,6 +2389,7 @@ def _serve_run(label, cls, model, reqs, card, extra, graphs=None):
                          "token_budget": 256, **extra}, strict_kernel=True)
     kw = {"graphs": graphs} if cls is AsyncDuetEngine else {}
     engine = cls(model, ec, seed=0, device="cuda", **kw)
+    _hold_card_pricing(engine, label, card)
     before = launch_counts()
     engine.submit(reqs)
     torch.cuda.synchronize()
@@ -1998,9 +2458,12 @@ def _serve_run(label, cls, model, reqs, card, extra, graphs=None):
                                      "fuse")
             line += f", duet buckets {duet}"
     log(line)
-    log(f"[serve] {label}: virtual-clock summary (TPU v5e roofline "
-        f"prediction, not a card measurement): mean TTFT "
-        f"{summ['mean_ttft_s']} s, mean TBT {summ['mean_tbt_s']} s")
+    log(f"[serve] {label}: virtual-clock summary (the roofline's "
+        f"prediction for {engine.mux.hw.name} over {engine.mux.total_units} "
+        f"TPCs, not a measurement): mean TTFT {summ['mean_ttft_s']} s, mean "
+        f"TBT {summ['mean_tbt_s']} s; duet iterations "
+        f"{engine.mux.stats.duet_iterations} of "
+        f"{engine.mux.stats.iterations}")
     del engine
     torch.cuda.empty_cache()
     return out
@@ -2069,6 +2532,8 @@ def phase_serve():
         f"{sum(b.numel() for b in model.buffers()) * 2 / 1e9:.2f} GB, "
         f"random from seed 0 in {time.time() - t0:.1f} s")
     card = card_line()
+    log(f"[serve] azure-conv arrivals at qps {serve_qps():.4f}: load "
+        f"{SERVE_RHO} of one replica as the card's datasheet prices it")
     paths = {
         "paged": [("async", AsyncDuetEngine, {}, None),
                   ("async eager", AsyncDuetEngine, {}, False),
@@ -2146,6 +2611,7 @@ def serve_slot_reuse(card):
 
     def serve(reqs):
         engine = DuetEngine(model, ec, seed=0, device="cuda")
+        _hold_card_pricing(engine, "slot reuse", card)
         engine.submit(reqs)
         metrics = engine.run()
         if metrics.summary()["num_finished"] != len(reqs):
@@ -2490,7 +2956,7 @@ def profile_duet(model, card):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: tensor parallelism, two ranks on the one card over gloo
+# phase 6: tensor parallelism, two ranks on the one card over gloo
 # ---------------------------------------------------------------------------
 TP = 2
 TP_PARITY_LAYERS = 4
@@ -3067,7 +3533,7 @@ def tp_block_serve(rank, name, card):
 
 
 # ---------------------------------------------------------------------------
-# phase 6: data parallelism, two replicas on the one card
+# phase 7: data parallelism, two replicas on the one card
 # ---------------------------------------------------------------------------
 DP = 2
 # the engines of the dp phase: the serve phase's geometry (pages of 16)
@@ -3077,11 +3543,12 @@ DP_ENGINE = dict(max_slots=8, max_len=1024, token_budget=256,
 # DP_SHARED-token prefix (16 full pages) before a body of DP_BODY + 16 g
 # tokens (prompts of 392 to 424), DP_OUTPUT output tokens each; the pair's
 # second member arrives DP_PAIR_GAP virtual seconds after the first, when
-# the first's prefill (about 0.03 s of virtual time) is done and its
-# prefix cached, and the groups overlap (a request decodes for about 0.7
-# s), so an engine batches several requests a step
+# the first's prefill (about 0.015 s on the card's virtual clock) is done
+# and its prefix cached, and the groups overlap (a request decodes for
+# about 0.2 s on the card's clock), so an engine batches several requests
+# a step
 DP_GROUPS, DP_SHARED, DP_BODY, DP_OUTPUT = 3, 256, 136, 64
-DP_GROUP_GAP, DP_PAIR_GAP = 0.2, 0.1
+DP_GROUP_GAP, DP_PAIR_GAP = 0.1, 0.05
 # the prefix-affinity run checks routing and prefix hits, not tokens/s:
 # the same pair trace with outputs cut to this many tokens
 DP_PREFIX_OUTPUT = 8
@@ -3089,8 +3556,8 @@ DP_PREFIX_OUTPUT = 8
 # seconds apart, then silence. The scale-up threshold is crossed by the
 # third arrival; the scale-down fires while replica 1 still holds live
 # requests, which are drained and recomputed on replica 0 (the port's
-# ClusterSim at this geometry: up at 0.006 s, down at 0.508 s with 3
-# requeued)
+# ClusterSim at this geometry, priced by the card: up at 0.006 s, down at
+# about 0.201 s with 3 requeued)
 DP_BURST, DP_BURST_GAP, DP_BURST_PROMPT, DP_BURST_OUTPUT = 8, 0.002, 400, 64
 DP_ELASTIC = dict(min_replicas=1, max_replicas=DP, scale_up_tokens=1000,
                   scale_down_tokens=200, cooldown_s=0.05,
@@ -3135,10 +3602,11 @@ def _dp_check(label, metrics, reqs, vocab):
     return streams, sum(len(t) for t in streams.values())
 
 
-def _dp_one(model, ec, reqs):
+def _dp_one(model, ec, reqs, card):
     """One sync engine on ``reqs``: (streams, tokens, wall s)."""
     from repro_torch.serving import DuetEngine
     engine = DuetEngine(model, ec, seed=0, device="cuda")
+    _hold_card_pricing(engine, "one engine", card)
     engine.submit(copy.deepcopy(reqs))
     torch.cuda.synchronize()
     t0 = time.time()
@@ -3160,6 +3628,8 @@ def _dp_router(model, ec, ctx, reqs, policy, cls, elastic=None):
                     seed=0, elastic=elastic)
     if any(e.kernel_path != "cuda" for e in router.engines):
         raise AssertionError("[dp] a replica's kernel_path is not cuda")
+    for i, e in enumerate(router.engines):
+        _hold_card_pricing(e, f"{policy} router replica {i}", card_line())
     router.submit(copy.deepcopy(reqs))
     events = []
     torch.cuda.synchronize()
@@ -3181,19 +3651,47 @@ def _dp_free():
 
 def _dp_sim(cfg, reqs, policy, elastic=None):
     """The port's ClusterSim on ``reqs``, its replicas priced as the
-    engines' (pages of 16, the engines' token budget and batch)."""
+    engines' (the card's spec and measured curve over its TPCs, pages of
+    16, the engines' token budget and batch; the admission ledger's bytes
+    a replica as before, spread over the TPCs)."""
+    from repro_torch.serving.engine import device_pricing
     from repro_torch.serving.router import ElasticConfig
     from repro_torch.serving.simulator import (ClusterSim, SimConfig,
                                                make_duet_instance)
+    hw = device_pricing(torch.device("cuda"))
+    units = hw.num_units
     sim = ClusterSim(
         lambda i: make_duet_instance(
-            cfg, SimConfig(units=1, tp=1, page_size=16),
-            token_budget=DP_ENGINE["token_budget"],
+            cfg, SimConfig(units=units, tp=1, page_size=16,
+                           hbm_per_unit=SimConfig.hbm_per_unit / units),
+            hw=hw, token_budget=DP_ENGINE["token_budget"],
             max_batch=DP_ENGINE["max_slots"]),
         n=DP, policy=policy,
         elastic=None if elastic is None else ElasticConfig(**elastic))
     sim.run(copy.deepcopy(reqs))
     return sim
+
+
+def cli_rate(stderr, card):
+    """The serve CLI's --rho line: its E[S] must be the mean request's
+    cost as the engines price it (``device_pricing``: the card's spec and
+    measured curve over its TPCs), beside the TPU v5e's."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.roofline import TPU_V5E
+    from repro_torch.serving.engine import device_pricing
+    from repro_torch.serving.loadgen import ServiceSpec, request_cost
+    from repro_torch.serving.traces import TRACES
+    line = next(ln for ln in stderr.splitlines() if "rho=" in ln)
+    got = float(line.split("E[S]=")[1].split("s")[0])
+    cfg, hw = get_config("qwen3-4b"), device_pricing(torch.device("cuda"))
+    service = ServiceSpec(trace=TRACES["azure-conv"], mix="mixture")
+    want = request_cost(cfg, service, hw, units=hw.num_units)
+    tpu = request_cost(cfg, service, TPU_V5E)
+    log(f"[dp] CLI {line.removeprefix('warning: ')}; the engines' pricing "
+        f"gives E[S] {want:.6f} s (the TPU v5e's {tpu:.6f} s) [{card}]")
+    if abs(got - want) > 5e-5:
+        raise AssertionError(f"[dp] CLI: E[S] {got} s, not the engines' "
+                             f"{want:.6f} s")
 
 
 def phase_dp():
@@ -3234,10 +3732,10 @@ def phase_dp():
     pairs = _dp_pairs(cfg.vocab_size)
     # the references: one engine on every request, and one engine on each
     # of round-robin's shards (not counted: the DP path starts below)
-    one, one_tok, one_wall = _dp_one(model, ec, pairs)
+    one, one_tok, one_wall = _dp_one(model, ec, pairs, card)
     indep = {}
     for shard in (pairs[0::2], pairs[1::2]):
-        indep.update(_dp_one(model, ec, shard)[0])
+        indep.update(_dp_one(model, ec, shard, card)[0])
     _dp_free()
     torch.cuda.reset_peak_memory_stats()
 
@@ -3341,11 +3839,13 @@ def phase_dp():
     _dp_free()
     peak = torch.cuda.max_memory_allocated() / 1e9
     # (d) the serve CLI (its own model: ours stays for the timings below)
-    buf = io.StringIO()
+    buf, err = io.StringIO(), io.StringIO()
     t0 = time.time()
-    with contextlib.redirect_stdout(buf):
+    with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
         serve_cli.main(DP_CLI)
     cli_wall = time.time() - t0
+    sys.stderr.write(err.getvalue())
+    cli_rate(err.getvalue(), card)
     out = buf.getvalue()
     summ = json.loads(out[out.index("{\n"):])
     events = [json.loads(ln) for ln in out[:out.index("{\n")].splitlines()]
@@ -3364,7 +3864,8 @@ def phase_dp():
         f"(model init included), dispatch "
         f"{summ['router']['dispatch_counts']}, prefix hit tokens "
         f"{summ['prefix_cache']['hit_tokens']}, mesh {summ['mesh']}; "
-        "virtual clock (TPU v5e roofline prediction, not the card): mean "
+        "virtual clock (the card's roofline prediction, not a "
+        "measurement): mean "
         f"TTFT {summ['mean_ttft_s']:.4f} s, mean TBT "
         f"{summ['mean_tbt_s']:.4f} s [{card}]")
     counts = launch_counts()         # the DP path's launches end here
@@ -3423,7 +3924,7 @@ def profile_dp(model, ctx, card):
 
 
 # ---------------------------------------------------------------------------
-# phase 7: training
+# phase 8: training
 # ---------------------------------------------------------------------------
 def phase_train():
     """The reduced train step on the card against the CPU, then
@@ -3687,7 +4188,7 @@ def train_dryrun(cfg, peak: int, card):
 
 
 # ---------------------------------------------------------------------------
-# phase 8: the (data, model) grid of ranks on the one card
+# phase 9: the (data, model) grid of ranks on the one card
 # ---------------------------------------------------------------------------
 GRID_DP, GRID_TP = 2, 2
 # (a) serving: qwen3-4b at full width and depth, DP 2 x TP 2
@@ -4129,7 +4630,7 @@ def grid_grads(rank, name):
 
 
 # ---------------------------------------------------------------------------
-# phase 9: the dry run, and one of its ranks built on the card
+# phase 10: the dry run, and one of its ranks built on the card
 # ---------------------------------------------------------------------------
 DRYRUN_SHAPE = "decode_32k"
 # (b) the measured rank: DRYRUN_ARCH's decode_32k rank 0 on (data 16,
@@ -4494,7 +4995,7 @@ def dryrun_tp(card):
 
 
 # ---------------------------------------------------------------------------
-# phase 10: context-parallel decode
+# phase 11: context-parallel decode
 # ---------------------------------------------------------------------------
 # (a) CP_ARCH at full width and depth, bf16, at TP CP_TP: its one KV head
 # does not divide the model axis, so the cache's sequence is cut over it
@@ -5059,12 +5560,15 @@ def run_phases(phases):
         t_phase = time.time()
         if phase == "build":
             phase_build()
+        elif phase == "roofline":
+            main_rec["sm_probe"] = phase_roofline()
+            counts["sm_probe"] = main_rec["sm_probe"]["launches"]
         elif phase == "kernels":
-            main_rec = phase_kernels()
+            main_rec.update(phase_kernels())
         elif phase == "parity":
             phase_parity()
         elif phase == "serve":
-            counts = phase_serve()
+            counts.update(phase_serve())
         elif phase == "tp":
             main_rec["paged_decode_sharded"], tp_counts = phase_tp()
             for name, n in tp_counts.items():

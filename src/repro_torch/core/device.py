@@ -60,6 +60,9 @@ host <-> device copies of the engines, and the tensor-parallel context.
   span. Only the slab decode step runs on that layout; the paged engines
   and TP serving keep the whole sequence, as the reference's engines do.
 
+* :func:`partition_curves` — the card's B(S) table for the multiplexer,
+  measured with the ``sm_probe`` kernel over S SMs, once per process and
+  card.
 * :func:`resolve_device` — ``None`` means the card. Without CUDA that is an
   error, never a quiet move to the CPU; the CPU runs only when asked for.
 * :func:`to_device` — host numpy to the device without a host sync (pinned
@@ -72,7 +75,7 @@ host <-> device copies of the engines, and the tensor-parallel context.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -308,6 +311,24 @@ class DeviceContext:
         out = out.view((self.tp,) + tuple(x.shape))
         return torch.movedim(out, 0, dim).flatten(dim, dim + 1)
 
+    def from_first_rank(self, make: Callable[[], Sequence[float]],
+                        n: int) -> List[float]:
+        """``n`` floats that the model group's first rank makes with
+        ``make()`` (only it calls it), the same on every rank of the group:
+        one broadcast (a host tensor over gloo, a device tensor over nccl).
+        ``make()`` itself at tp 1. Every rank of the group must call it."""
+        if self.tp == 1:
+            return [float(x) for x in make()]
+        dist = torch.distributed
+        dev = self.device if self.backend == "nccl" else torch.device("cpu")
+        buf = torch.empty((n,), dtype=torch.float64, device=dev)
+        if self.rank == 0:
+            buf.copy_(torch.tensor([float(x) for x in make()],
+                                   dtype=torch.float64))
+        src = 0 if self.group is None else dist.get_global_rank(self.group, 0)
+        dist.broadcast(buf, src=src, group=self.group)
+        return buf.tolist()
+
     def copy_leaves(self, params, keys) -> "_Leaves":
         """``params`` (a weight mapping) with its leaves at ``keys`` (those
         present) through :meth:`copy_to_model`: the whole weights a
@@ -410,6 +431,79 @@ class _CopyToModel(torch.autograd.Function):
         torch.distributed.all_reduce(grad, group=ctx.group)
         ctx.grad_all_reduces += 1
         return grad, None
+
+
+# the probe's buffer against the card's L2, and its timed launches at each
+# SM count (CUDA events around them, back to back, behind a spin kernel of
+# _PROBE_HOLD cycles so the host's pace does not show)
+_PROBE_L2_MULTIPLE = 4
+_PROBE_REPS = 32
+_PROBE_HOLD = 4_000_000
+_CURVES: Dict[Tuple[int, int], Dict[int, float]] = {}
+
+
+def partition_curves(device: DeviceLike, spec) -> Dict[int, float]:
+    """The card's bandwidth curve, the multiplexer's ``bw_table``: bytes/s
+    keyed by TPC count u = 1 .. ``spec.num_units`` (a
+    :class:`HardwareSpec` of the card, ``roofline.card_spec``).
+
+    ``bw_table[u]``: the bytes/s the ``sm_probe`` kernel reads from HBM
+    with exactly 2u CTAs, one to an SM, over an int32 buffer of
+    _PROBE_L2_MULTIPLE x the card's L2 (the mean of _PROBE_REPS launches
+    after one warm-up). The probe places SMs, not whole TPCs or GPCs: the
+    block scheduler spreads the CTAs over the GPCs, where a green context
+    would hand out whole TPCs. Each launch's CTA sums are held to
+    ``torch.sum`` of the buffer, and its CTAs to 2u distinct SMs; a
+    mismatch raises, as a failed build or launch does.
+
+    The multiplexer's ``pi_table`` stays ``spec.pi(u)``: linear in SMs,
+    as the paper's Fig. 3 shows it. Pi is not measured: tensor-core work
+    of our own on exactly 2u SMs would price ``mma.sync`` in a kernel of
+    ours, not the cuBLAS GEMMs the model's projections run, whose rate Pi
+    stands for.
+
+    Measured once per process and card, then cached. A device that is
+    not a CUDA card raises."""
+    from repro_torch.kernels.sm_probe import MAX_VALUE, sm_probe
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"partition_curves measures a CUDA card, not "
+                         f"{device}")
+    device = resolve_device(device)
+    key = (device.index, spec.num_units)
+    if key in _CURVES:
+        return _CURVES[key]
+    props = torch.cuda.get_device_properties(device)
+    n = -(-_PROBE_L2_MULTIPLE * props.L2_cache_size // 16) * 4
+    events, last = {}, {}
+    with torch.cuda.device(device):
+        gen = torch.Generator(device=device).manual_seed(0)
+        buf = torch.randint(0, MAX_VALUE, (n,), dtype=torch.int32,
+                            device=device, generator=gen)
+        want = int(buf.sum())
+        for u in range(1, spec.num_units + 1):
+            sm_probe(buf, 2 * u)                      # warm-up
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(_PROBE_HOLD)
+            start.record()
+            for _ in range(_PROBE_REPS):
+                partial, smid = sm_probe(buf, 2 * u)
+            end.record()
+            events[u], last[u] = (start, end), (partial, smid)
+        torch.cuda.synchronize(device)
+    for u, (partial, smid) in last.items():
+        total, distinct = int(partial.sum()), torch.unique(smid).numel()
+        if total != want or distinct != 2 * u:
+            raise RuntimeError(
+                f"sm_probe at {2 * u} SMs: checksum {total} against "
+                f"torch.sum {want}, on {distinct} distinct SMs")
+    nbytes = buf.numel() * buf.element_size()
+    bw = {u: nbytes * _PROBE_REPS / (s.elapsed_time(e) / 1e3)
+          for u, (s, e) in events.items()}
+    del buf
+    _CURVES[key] = bw
+    return bw
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:

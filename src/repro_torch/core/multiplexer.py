@@ -4,12 +4,16 @@ scheduler consumes: *aggregated* execution by default, *duet* (spatially
 multiplexed) execution only when a TBT violation is predicted.
 
 The controller also owns the profiled Π(S)/B(S) tables. The paper profiles
-these with microbenchmarks at engine start; here they default to analytic
-TPU curves (linear per chip — DESIGN.md §2) sampled at every integer unit
-count, and the roofline consults the *tables* (piecewise-linear) for every
-latency estimate — so a real deployment drops measured values in via the
-``pi_table``/``bw_table`` constructor args and Algorithm 1 runs against
-them unchanged.
+these with microbenchmarks at engine start; without tables they are
+sampled from the analytic spec at every integer unit count, and the
+roofline consults the *tables* (piecewise-linear) for every latency
+estimate — so measured values dropped in via the ``pi_table``/``bw_table``
+constructor args run through Algorithm 1 unchanged. The engines on a CUDA
+card do that: their units are the card's TPCs, B(S) is the card's own
+curve measured over SM counts by the ``sm_probe`` kernel
+(``core.device.partition_curves``) and Π(S) the datasheet's peak linear
+in SMs (``roofline.card_spec``). On the CPU the engines plan with the
+reference's analytic TPU v5e curves (linear per chip — DESIGN.md §2).
 """
 from __future__ import annotations
 
@@ -93,10 +97,12 @@ class AdaptiveMultiplexer:
 
     Args:
       cfg: architecture being served.
-      hw: hardware spec (defaults to TPU v5e).
+      hw: hardware spec (defaults to TPU v5e; the engines pass the spec
+        of the device they run on).
       total_units: partitionable units available to this replica (chips in
-        its slice; 1 when the engine runs a single chip and partitioning
-        happens at kernel-grid granularity — see kernels/duet_attention).
+        its slice, or a card's TPCs; 1 when the engine runs a single chip
+        and partitioning happens at kernel-grid granularity — see
+        kernels/duet_attention).
       tbt_slo: decode TBT bound (s).
       tp: tensor-parallel degree inside the replica.
       mesh: the device mesh the replica executes on (an object with a

@@ -1,4 +1,4 @@
-"""Attention-aware roofline analytical model (paper §4.1), adapted to TPU.
+"""Attention-aware roofline analytical model (paper §4.1).
 
 Operators are classed exactly as in the paper:
 
@@ -9,14 +9,21 @@ Operators are classed exactly as in the paper:
                     the paper — SSM scan / recurrent-state operators so the
                     model covers the assigned SSM/hybrid/xLSTM families)
   * communication — tensor-parallel AllReduce, ring formulation (paper
-                    eq. t_allreduce) with ICI in place of NVLink
+                    eq. t_allreduce)
 
 Latency of an operator on a partition of ``u`` units is
 ``max(F / Pi(u), B / Bw(u))``; per-request attention terms are summed over the
-batch (the paper's t_attn). Hardware curves: on GPU the paper profiles
-superlinear HBM-bandwidth scaling over SMs; on TPU the partition unit is a
-chip with dedicated HBM, so both curves are linear and the nonlinearity moves
-into the collective term (DESIGN.md §2).
+batch (the paper's t_attn).
+
+What is priced: the engines on a CUDA card price that card
+(:func:`card_spec`): its TPCs (two SMs each) are the partition units, the
+datasheet's bf16 peak and HBM rate are spread over them, and the
+multiplexer reads B(S) from the card's own measured curve
+(``core.device.partition_curves``: superlinear over SMs, paper Fig. 3a)
+and Pi(S) linear in SMs. ``TPU_V5E`` (a unit is a chip with its own HBM,
+so both curves are linear) and ``H100_LIKE`` are the reference's specs,
+kept as they are: the CPU engines price ``TPU_V5E``, as the reference
+does, so their virtual clocks equal its.
 """
 from __future__ import annotations
 
@@ -46,6 +53,11 @@ class HardwareSpec:
     # small partitions — modelled as u^gamma normalised, used only by the
     # Fig. 3 reproduction benchmark.
     bw_gamma: float = 1.0
+    # units one device holds: 1 where a device is one unit (a TPU chip;
+    # below it the engines partition kernel-grid slots), the TPCs of a
+    # GPU card from card_spec (an engine's replica spans its devices'
+    # units)
+    units_per_device: int = 1
 
     def pi(self, units: float) -> float:
         return self.peak_flops * units
@@ -68,6 +80,35 @@ H100_LIKE = HardwareSpec("h100_like", peak_flops=989e12 / 66,
                          hbm_bw=3.35e12 / 66,
                          ici_bw=450e9, ici_links=1, num_units=66,
                          alpha=3e-6, bw_gamma=0.32)
+
+
+# datasheet values of the cards the port prices, by the card's name
+# (torch.cuda.get_device_properties(...).name, as nvidia-smi gives it): dense bf16 tensor-core FLOP/s and HBM bytes/s of the whole card
+# (NVIDIA's H100 datasheet, SXM5 80 GB part)
+CARD_DATASHEET = {
+    "NVIDIA H100 80GB HBM3": (989.4e12, 3.35e12),
+}
+
+
+def card_spec(props) -> HardwareSpec:
+    """The :class:`HardwareSpec` of a CUDA card from its device properties
+    (duck-typed: ``.name``, ``.multi_processor_count``; the object
+    ``torch.cuda.get_device_properties`` returns). Its units are TPCs
+    (SMs / 2: 66 on the H100 SXM); the datasheet's peak FLOP/s and HBM
+    bytes/s are spread evenly over them; the NVLink terms are
+    ``H100_LIKE``'s. A card missing from :data:`CARD_DATASHEET` raises:
+    nothing falls back to another card's prices."""
+    if props.name not in CARD_DATASHEET:
+        raise ValueError(
+            f"no datasheet values for the card {props.name!r} (known: "
+            f"{sorted(CARD_DATASHEET)}); add its dense bf16 FLOP/s and "
+            "HBM bytes/s to roofline.CARD_DATASHEET")
+    flops, hbm = CARD_DATASHEET[props.name]
+    tpcs = props.multi_processor_count // 2
+    return HardwareSpec(props.name, peak_flops=flops / tpcs,
+                        hbm_bw=hbm / tpcs, ici_bw=H100_LIKE.ici_bw,
+                        ici_links=H100_LIKE.ici_links, num_units=tpcs,
+                        alpha=H100_LIKE.alpha, units_per_device=tpcs)
 
 
 @dataclass(frozen=True)

@@ -12,6 +12,12 @@ and a public dispatcher in ops.py:
                          step's kernel path)
   flash_prefill        — causal GQA flash attention with a query offset
                          for chunked prefill
+  sm_probe             — a streaming read over exactly n SMs: the
+                         roofline's measured bandwidth curve B(S)
+                         (``core.device.partition_curves``; its own
+                         counter, ``sm_probe.launches``, outside
+                         :func:`launch_counts`, which counts the serving
+                         steps' kernels)
 
 ``paged_decode_auto`` picks the plain or split-KV decode kernel from the
 table capacity; where tensor parallelism cuts the KV heads it routes

@@ -30,11 +30,12 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 SOURCES = ("paged_decode", "duet_attention_paged", "duet_attention",
-           "flash_prefill")
+           "flash_prefill", "sm_probe")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # argtypes of each C entry point: every pointer and the stream as c_void_p
 SIGNATURES = {
     "paged_decode": {
@@ -52,6 +53,10 @@ SIGNATURES = {
     "flash_prefill": {
         "flash_prefill_launch": [_P] * 4 + [_I] * 8 + [_F, _I, _P],
         "flash_prefill_occupancy": [_I, _P],
+    },
+    "sm_probe": {
+        "sm_probe_launch": [_P, _L, _P, _P, _I, _P],
+        "sm_probe_occupancy": [_P],
     },
 }
 

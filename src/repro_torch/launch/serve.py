@@ -40,8 +40,10 @@ Two execution modes:
   ``dispatch_stats`` counts captures, replays and eager dispatches by
   their rule.
 
-The summary's TTFT/TBT/throughput come from the engine's virtual clock, a
-TPU v5e roofline prediction (as in the reference), not from the card.
+The summary's TTFT/TBT/throughput come from the engine's virtual clock:
+the roofline's prediction for the card (its TPCs and its measured
+bandwidth curve; a TPU v5e's with ``--device cpu``, as in the
+reference), not a measurement of the card.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \\
@@ -78,7 +80,8 @@ from repro_torch.launch.mesh import run_ranks
 from repro_torch.models.transformer import Model
 from repro_torch.serving.async_engine import (AsyncDuetEngine, FinishEvent,
                                               TokenEvent)
-from repro_torch.serving.engine import DuetEngine, EngineConfig
+from repro_torch.serving.engine import (DuetEngine, EngineConfig,
+                                        device_pricing)
 from repro_torch.serving.kvcache import DEFAULT_PAGE_SIZE, KV_QUANT_MODES
 from repro_torch.serving.loadgen import (ARRIVAL_PROCESSES, SERVICE_MIXES,
                                          ArrivalSpec, LoadGenerator,
@@ -246,9 +249,11 @@ def _elastic_geometry(args):
         check_interval=args.scale_interval)
 
 
-def _trace(args, cfg, dp: int):
+def _trace(args, cfg, dp: int, hw):
     """The trace: the seeded open-loop generator when any stochastic load
-    knob is non-default, ``synth_trace`` otherwise."""
+    knob is non-default, ``synth_trace`` otherwise. ``--rho`` prices a
+    request's E[S] with ``hw``, the spec the engines plan with
+    (``device_pricing``), over a replica's units."""
     if (args.arrival == "poisson" and args.service_mix == "lognormal"
             and args.rho is None):
         return synth_trace(args.trace, args.num_requests, args.qps,
@@ -256,7 +261,8 @@ def _trace(args, cfg, dp: int):
     qps = args.qps
     service = ServiceSpec(trace=TRACES[args.trace], mix=args.service_mix)
     if args.rho is not None:
-        cost = request_cost(cfg, service, units=max(1, args.tp),
+        cost = request_cost(cfg, service, hw,
+                            units=max(1, args.tp) * hw.units_per_device,
                             tp=args.tp, token_budget=args.token_budget)
         qps = qps_for_rho(args.rho, cost, replicas=dp)
         _warn(f"rho={args.rho}: roofline E[S]={cost:.4f}s -> "
@@ -359,7 +365,7 @@ def serve(rank, args):
     model = Model.init(cfg, seed=args.seed, dtype=dtype, ctx=ctx,
                        attn_kernel=args.attn_kernel)
 
-    reqs = _trace(args, cfg, dp)
+    reqs = _trace(args, cfg, dp, device_pricing(device, ctx))
     reqs = _apply_shared_prefix(reqs, args.shared_prefix_len,
                                 cfg.vocab_size, args.seed,
                                 every=args.shared_prefix_every)

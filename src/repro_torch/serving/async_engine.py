@@ -76,7 +76,7 @@ from repro_torch.core.device import (DeviceLike, fetch_to_host,
                                      resolve_device)
 from repro_torch.core.lookahead import (BucketProgram, graph_pool_bytes,
                                         make_superiter_fn)
-from repro_torch.core.roofline import HardwareSpec, TPU_V5E
+from repro_torch.core.roofline import HardwareSpec
 from repro_torch.kernels.ops import build_duet_schedule, duet_block_q
 from repro_torch.models.transformer import Model
 from repro_torch.serving.engine import DuetEngine, EngineConfig
@@ -190,7 +190,7 @@ class AsyncDuetEngine(DuetEngine):
     """
 
     def __init__(self, model: Model, engine_cfg: EngineConfig,
-                 hw: HardwareSpec = TPU_V5E, seed: int = 0,
+                 hw: Optional[HardwareSpec] = None, seed: int = 0,
                  device: DeviceLike = None, graphs: Optional[bool] = None):
         # CUDA graphs: None = wherever capture can happen; True raises where
         # it cannot

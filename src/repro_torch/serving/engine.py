@@ -5,10 +5,21 @@ look-ahead decode (k-step programs, §4.3).
 Execution vs time accounting: the engine *computes real tokens* with the
 PyTorch model on its device (the CUDA card, or the CPU when asked for).
 The engine clock advances by the attention-aware roofline prediction, not
-wall time, and that roofline is priced for a TPU v5e (``hw=TPU_V5E``, as in
-the JAX reference), so TTFT/TBT/throughput in ``ServingMetrics`` are TPU v5e
-predictions that equal the reference's on the same trace — they are not
-measurements of the card.
+wall time, and the multiplexer plans with the same roofline. What it
+prices (``hw=None``, the default) is the device it runs on:
+
+* on a CUDA card, the card (``roofline.card_spec``): its TPCs are the
+  partition units, Algorithm 1 splits a replica's TPCs (``units`` cards,
+  or ``tp`` ranks, of 66 TPCs on the H100) between prefill and decode,
+  Pi(S) is the datasheet's bf16 peak linear in SMs and B(S) the curve the
+  card measures over SM counts (``core.device.partition_curves``). So
+  TTFT/TBT/throughput in ``ServingMetrics`` are the card's roofline
+  predictions (held to its measured step times by ``chip_smoke.py``'s
+  roofline phase), not measurements of the card;
+* on the CPU, a TPU v5e (``TPU_V5E``, as in the JAX reference), so the
+  virtual clock equals the reference's on the same trace.
+
+An explicit ``hw`` is taken as given (``device_pricing`` gives the default).
 
 KV memory (``EngineConfig.paged``):
 
@@ -46,11 +57,14 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.device import (DeviceContext, DeviceLike,
-                                     resolve_device, to_device)
+                                     partition_curves, resolve_device,
+                                     to_device)
 from repro_torch.core.lookahead import (make_lookahead_fn,
                                         make_paged_lookahead_fn)
-from repro_torch.core.multiplexer import AdaptiveMultiplexer
-from repro_torch.core.roofline import HardwareSpec, RooflineModel, TPU_V5E
+from repro_torch.core.multiplexer import (AdaptiveMultiplexer,
+                                          TabulatedPartitionCurves)
+from repro_torch.core.roofline import (HardwareSpec, RooflineModel, TPU_V5E,
+                                       card_spec)
 from repro_torch.models.attention import slot_views
 from repro_torch.models.transformer import Model, reset_slot_state
 from repro_torch.serving.kvcache import (DEFAULT_PAGE_SIZE, HostPoolConfig,
@@ -77,7 +91,7 @@ class EngineConfig:
     max_len: int = 2048          # sizes the default pool (max_slots*max_len)
     token_budget: int = 512
     tbt_slo: float = 0.1
-    units: int = 1               # chips in this replica
+    units: int = 1               # devices (chips, cards) in this replica
     tp: int = 1
     page_size: int = DEFAULT_PAGE_SIZE
     temperature: float = 0.0
@@ -112,9 +126,30 @@ class EngineConfig:
     KERNEL_PATHS = ("torch", "cuda", "cuda_sharded")
 
 
+def device_pricing(device: torch.device,
+                   ctx: Optional[DeviceContext] = None) -> HardwareSpec:
+    """What an engine on ``device`` prices when it is given no ``hw``: on a
+    CUDA card the card, ``card_spec``'s TPCs with Pi(S) linear in SMs and
+    B(S) the card's measured curve (``partition_curves``; under TP the
+    model group's first rank measures and every rank takes its curve, so
+    every rank plans alike), as a ``TabulatedPartitionCurves`` that grows
+    linearly past one card; on the CPU a TPU v5e, as the reference. The
+    serve CLI prices its ``--rho`` load with it."""
+    if device.type != "cuda":
+        return TPU_V5E
+    spec = card_spec(torch.cuda.get_device_properties(device))
+
+    def measure():
+        return partition_curves(device, spec).values()
+    curve = measure() if ctx is None else \
+        ctx.from_first_rank(measure, spec.num_units)
+    bw = dict(enumerate(curve, start=1))
+    return TabulatedPartitionCurves(spec, {u: spec.pi(u) for u in bw}, bw)
+
+
 class DuetEngine:
     def __init__(self, model: Model, engine_cfg: EngineConfig,
-                 hw: HardwareSpec = TPU_V5E, seed: int = 0,
+                 hw: Optional[HardwareSpec] = None, seed: int = 0,
                  device: DeviceLike = None):
         self.device = resolve_device(device)
         if model.device != self.device:
@@ -132,6 +167,8 @@ class DuetEngine:
         self._tp = self.ctx.tp if self.ctx.tp > 1 else engine_cfg.tp
         self.cfg: ArchConfig = model.cfg
         self.ec = engine_cfg
+        if hw is None:
+            hw = device_pricing(self.device, self.ctx)
         self.hw = hw
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
         self.paged = engine_cfg.paged
@@ -208,10 +245,11 @@ class DuetEngine:
                                           engine_cfg.max_len)
         # the multiplexer plans with the geometry the ranks execute: the
         # context sets the communication term's TP degree, and a TP replica
-        # spans tp devices
+        # spans tp devices, each of hw.units_per_device units (a card's
+        # TPCs; one TPU chip, partitioned below at grid granularity)
+        units = max(engine_cfg.units, self._tp) * hw.units_per_device
         self.mux = AdaptiveMultiplexer(
-            self.cfg, hw=hw,
-            total_units=max(engine_cfg.units, self._tp),
+            self.cfg, hw=hw, total_units=units,
             tbt_slo=engine_cfg.tbt_slo, tp=self._tp,
             page_size=ps if self.paged else 1,
             mesh=self.ctx if self.ctx.tp > 1 else None)

@@ -49,8 +49,9 @@ dispatch policies) is a copy of the reference's, shared with the port's
 ``ClusterSim``; ``tests/test_torch_simulator.py`` pins it to the
 reference's decision tables.
 
-Time model: replicas advance on the same virtual clock the engines use (a
-TPU v5e roofline prediction by default, as in the reference). The router
+Time model: replicas advance on the same virtual clock the engines use
+(the roofline's prediction for the device: the card's own on the card, a
+TPU v5e's on the CPU, as in the reference). The router
 steps every replica to each request's arrival time
 (:meth:`DuetEngine.service_until`) *before* routing it, so load and
 prefix-index observations are the true replica state at route time — the
@@ -65,7 +66,7 @@ from dataclasses import dataclass
 from typing import Iterator, List, Optional, Sequence, Union
 
 from repro_torch.core.device import DeviceContext
-from repro_torch.core.roofline import HardwareSpec, TPU_V5E
+from repro_torch.core.roofline import HardwareSpec
 from repro_torch.models.params import _map
 from repro_torch.models.transformer import Model
 from repro_torch.serving.engine import DuetEngine, EngineConfig
@@ -328,7 +329,7 @@ class Router:
                  replicas: Optional[int] = None,
                  policy: Union[str, DispatchPolicy] = "round-robin",
                  engine_cls=DuetEngine,
-                 hw: HardwareSpec = TPU_V5E, seed: int = 0,
+                 hw: Optional[HardwareSpec] = None, seed: int = 0,
                  elastic: Optional[ElasticConfig] = None):
         """Args:
             model: the served model; each replica gets a :class:`Model`
@@ -339,7 +340,10 @@ class Router:
                 each replica (the same rank of its own TP group) takes
                 them on its device: never cut twice, and no whole tree is
                 built. The port's engines take no separate ``params``.
-            engine_cfg / hw / seed: forwarded to every replica engine.
+            engine_cfg / hw / seed: forwarded to every replica engine
+                (``hw`` None: each prices its device, the card or, on the
+                CPU, a TPU v5e; replicas on one card share its measured
+                curve).
             ctx: cluster device context (``DeviceContext.for_replicas``, or
                 under TP the rank's context with ``dp`` replicas, e.g.
                 ``Rank.context(cfg, dp=...)``); ``split_replicas`` gives

@@ -11,6 +11,8 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config, reduced
+from repro_torch.core.device import partition_curves
+from repro_torch.core.roofline import card_spec
 from repro_torch.kernels import (build_duet_schedule, launch_counts,
                                  pack_duet_queries, unpack_duet_output)
 from repro_torch.kernels.duet_attention import (duet_attention,
@@ -24,10 +26,13 @@ from repro_torch.kernels.paged_decode import (paged_decode,
                                               paged_decode_plain,
                                               paged_decode_splitkv,
                                               paged_decode_splitkv_plain)
+from repro_torch.kernels.sm_probe import (MAX_VALUE, sm_probe,
+                                          sm_probe_plain)
 from repro_torch.launch.mesh import run_ranks
 from repro_torch.models import Model
 from repro_torch.serving import (AsyncDuetEngine, DuetEngine, EngineConfig,
                                  Request)
+from repro_torch.serving.engine import device_pricing
 
 pytestmark = pytest.mark.cuda
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -310,10 +315,49 @@ def test_flash_prefill_bf16_matches_its_tile_schedule(dev, B, Sq, Sk, H, G,
                                    rtol=TOL["bfloat16"])
 
 
+def _card_pricing(dev):
+    """What an engine on ``dev`` prices (the card's spec and measured
+    curve), for a CPU engine planning as the card's do."""
+    return dict(hw=device_pricing(dev))
+
+
+def test_sm_probe_matches_plain_on_the_card(dev):
+    """The bandwidth probe's CTA checksums equal its plain version's at 1,
+    2, 7 and every SM, and its CTAs run on as many distinct SMs."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rng = np.random.default_rng(0)
+    host = torch.from_numpy(rng.integers(0, MAX_VALUE, 4 * 300_001)
+                            .astype(np.int32))
+    buf = host.to(dev)
+    for ctas in (1, 2, 7, sms):
+        got, smid = sm_probe(buf, ctas)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), sm_probe_plain(host, ctas))
+        assert torch.unique(smid).numel() == ctas
+    with pytest.raises(ValueError, match="CTAs on a card"):
+        sm_probe(buf, sms + 1)
+
+
+def test_engines_on_the_card_price_the_card(dev):
+    """hw=None on the card: both engines plan with the card's spec over its
+    TPCs and the measured curve partition_curves holds."""
+    cfg = reduced(get_config("qwen3-4b"))
+    card = Model.init(cfg, seed=0, device=dev, attn_kernel=True)
+    spec = card_spec(torch.cuda.get_device_properties(dev))
+    curve = partition_curves(dev, spec)
+    for cls in (DuetEngine, AsyncDuetEngine):
+        eng = cls(card, EngineConfig(max_slots=3, max_len=128), device=dev)
+        assert eng.mux.hw.name == spec.name == torch.cuda.get_device_name(dev)
+        assert eng.mux.total_units == spec.num_units
+        assert eng.mux.bw_table == curve
+        assert eng.mux.pi_table == {u: spec.pi(u) for u in curve}
+
+
 def test_engines_on_the_card_match_the_cpu(dev):
     """Reduced qwen3-4b in fp32: the sync and async engines through the
     CUDA kernels (the async one with fused duet steps) give the plain CPU
-    path's greedy tokens and the same ServingMetrics summary."""
+    path's greedy tokens and the same ServingMetrics summary, the CPU
+    engine priced as the card's are."""
     cfg = reduced(get_config("qwen3-4b"))
     cpu = Model.init(cfg, seed=0, device="cpu", attn_kernel=True)
     card = Model.init(cfg, seed=0, device="cpu", attn_kernel=True).to(dev)
@@ -325,7 +369,8 @@ def test_engines_on_the_card_match_the_cpu(dev):
             ("sync", DuetEngine, card, dev),
             ("async", AsyncDuetEngine, card, dev)):
         before = launch_counts()
-        eng = cls(model, EngineConfig(**kw), device=device)
+        eng = cls(model, EngineConfig(**kw), device=device,
+                  **(_card_pricing(dev) if device == "cpu" else {}))
         eng.submit([Request(rid=r, arrival=a, prompt_len=p, output_len=o)
                     for r, a, p, o in specs])
         metrics = eng.run()
@@ -359,7 +404,8 @@ def test_slab_engines_on_the_card_match_the_cpu(dev):
             ("sync", DuetEngine, card, dev),
             ("async", AsyncDuetEngine, card, dev)):
         before = launch_counts()
-        eng = cls(model, EngineConfig(**kw), device=device)
+        eng = cls(model, EngineConfig(**kw), device=device,
+                  **(_card_pricing(dev) if device == "cpu" else {}))
         eng.submit([Request(rid=r, arrival=a, prompt_len=p, output_len=o)
                     for r, a, p, o in specs])
         metrics = eng.run()
