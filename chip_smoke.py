@@ -30,14 +30,67 @@ Phases (each raises on failure; nothing is swallowed):
              programs replayed from their CUDA graphs: decode-only at B=8,
              ctx 1000; a prefill-only chunk of 256 at 512; the kb=1 duet
              super-iteration of both) and granite-moe-3b-a800m's
-             decode-only step. measured / predicted is printed, not held.
-             Last, what the card's torch offers the SM split (a report
-             for the next slice, printed, not held): green contexts'
-             SUPPORTED and, for GREEN_SMS SMs asked, the SMs the probe's
-             CTAs ran on from the green context's stream, one CTA for
-             each of those SMs timed from that stream and from the
-             default stream, and a CUDA graph of the probe captured on that stream.
-3. kernels — hold each kernel against its plain PyTorch version on the card
+             decode-only step; replays are timed behind a spin, so the
+             card's time is read and not the host's pace. measured /
+             predicted is printed, not held. The curve and the engine
+             here are those of an engine that does not split: no green
+             context exists before the green check, which replays the
+             qwen3-4b decode bucket with no split, with an SmSplit alive
+             and after it is closed, GREEN_ROUNDS times in turn, and
+             holds the median ratio to the no-split reading within
+             GREEN_TOL (beside a graph of one-element adds that reads the
+             card's launch pace). Then the split engine's curve, B(S) on
+             the green contexts of every split the driver can cut,
+             printed beside the spread curve at every even TPC count.
+             Last, what the card's torch offers (printed, not held):
+             green contexts' SUPPORTED and, for GREEN_SMS SMs asked of
+             torch's own GreenContext.create, the SMs the probe's CTAs ran
+             on from its stream, one CTA for each of those SMs timed from
+             that stream and from the default stream, and a CUDA graph of
+             the probe captured on that stream; then two of torch's
+             contexts of 64 SMs at once, and the SMs they share.
+3. split   — the SM split executed (core.device.SmSplit: two green
+             contexts cut from the card's SMs in one driver call,
+             kernels/csrc/green_split.cu; core.lookahead.fork_join). The
+             driver's granularity (the smallest group and the step, the
+             card multiplexer's unit_step). Algorithm 1's pick for
+             full-width qwen3-4b at a TBT bound midway between the card's
+             priced decode step and mixed iteration (8 decode rows at
+             ctx 1000, a chunk of 256 at 512). (a) SmSplits at that S_d
+             and at SPLIT_OTHER_SD: each side's SMs (the probe's %smid at
+             one CTA for every SM of the card on both streams at once)
+             as many as asked and disjoint (held), each side's read rate
+             alone and with the other side reading (printed), and the
+             clusters cudaOccupancyMaxActiveClusters reports with each
+             side's stream against the card's. (b) Parity, full-width
+             qwen3-4b cut to SPLIT_PARITY_LAYERS layers, fp32 with TF32
+             off and bf16: the split bucket (SPLIT_KB decode steps of 8
+             rows at ctx about 1000 on S_d, a finishing chunk of 256 at
+             512 on S_p), run eagerly and replayed from its CUDA graph,
+             against the sequential program on the whole card: tokens,
+             decode inputs and pools bitwise, or (with the reason: the
+             decode kernel's cluster size on S_d's SMs) within PARITY_TOL
+             x max|value| in fp32 (bf16: ATTN_BF16_TOL, tokens printed);
+             and the prefill-only program's logits (the chunk on the
+             paged duet kernel) against the plain path's. (c) Timing,
+             printed only, full width, bf16, replayed behind a spin:
+             the split, fused and sequential super-iterations and the
+             prefill-only bucket (23.66-23.72 ms on plain attention,
+             PERF.md §5), SPLIT_ROUNDS rounds in turn with split / fused
+             by round; each half alone on its context and with the
+             other running, beside the card's t_d(S_d) and t_p(S_p),
+             twice. (d) Serving SPLIT_PAIRS pairs of requests of
+             SPLIT_PROMPT + SPLIT_OUTPUT tokens (the second arriving
+             once the first decodes, pairs apart), at a bound between
+             the priced decode step and mixed iteration: the async
+             engine (split on) must make split dispatches, capture and
+             replay a split bucket, keep host_syncs <= super_iterations
+             and, on the 4-layer fp32 model, serve the greedy streams of
+             the sync engine priced alike; bf16 full-width tokens/s with
+             the split on and off (priced alike). The split-on bf16
+             run's launches, counted in that run alone, join the
+             kernels line.
+4. kernels — hold each kernel against its plain PyTorch version on the card
              at the serving path's shapes, at the small GQA/MQA/MHA,
              odd-length, dead-split and ragged shapes of the kernel tests
              and at the cluster decode kernels' edges, in fp32 and bf16
@@ -72,7 +125,7 @@ Phases (each raises on failure; nothing is swallowed):
              (the paged duet kernel's at C = 1, 2, 4, 8 with registers),
              with the role each decode kernel's CTAs take (granite-20b's
              too).
-4. parity  — full-width qwen3-4b cut to 4 layers, then yi-9b, minicpm-2b,
+5. parity  — full-width qwen3-4b cut to 4 layers, then yi-9b, minicpm-2b,
              granite-20b and granite-moe-3b-a800m cut to 2, fp32 with
              TF32 off: the kernel path's logits against the port's plain
              path for one paged prefill, one paged decode step, one duet
@@ -118,16 +171,17 @@ Phases (each raises on failure; nothing is swallowed):
              decode and mixed times, where it must take duet iterations
              (each one's S_p, S_d in TPCs and k printed), and at the
              default 0.1 s, where it takes none: greedy streams identical.
-5. serve   — full qwen3-4b (36 layers, bf16, random weights from a seed)
+6. serve   — full qwen3-4b (36 layers, bf16, random weights from a seed)
              serves azure-conv requests (serve_qps()) on two paths, each with
              attn_kernel=True and strict_kernel=True and the launch counts
              reset to 0 just before it and read just after it:
              the paged path (4 of the 8 requests, those with the shortest
-             outputs, through the async engine replaying a CUDA graph per
-             dispatch bucket (the default), the async engine with every
-             dispatch eager, the sync engine, and the async engine again
+             outputs, cut to 64 tokens, through the async engine
+             replaying a CUDA graph per dispatch bucket (the default),
+             the async engine with every dispatch eager, the sync engine,
+             and the async engine again
              with split_kv_threshold=256) and the slab path (all 8
-             requests, outputs cut to 64 tokens; paged=False: the sync and
+             requests, outputs cut to 32 tokens; paged=False: the sync and
              the async engine). The kernels line's launches sum both paths. Every
              request must finish, the async runs must keep host_syncs <=
              super_iterations, every async run on the one card must
@@ -150,9 +204,10 @@ Phases (each raises on failure; nothing is swallowed):
              and resume tokens, each held bitwise to a fresh eager
              program on a copy of the state. Then yi-9b, minicpm-2b,
              granite-20b, granite-moe-3b-a800m and deepseek-v2-lite-16b,
-             one at a time at full depth (bf16, random weights from seed 0,
+             one at a time at full width cut to SERVE_LAYERS' depths
+             (bf16, random weights from seed 0,
              their measured weight bytes and peak memory printed), each
-             serve 4 requests of at most 32 output tokens through the
+             serve 4 requests of at most 16 output tokens through the
              async engine on the paged path (the duet kernel on for the
              GQA configs; deepseek's MLA runs no kernel, and its paths
              must launch none) and on the slab path, each path's launch
@@ -172,7 +227,7 @@ Phases (each raises on failure; nothing is swallowed):
              slot reuse: zamba2 cut to 12 layers, fp32, the sync engine at
              2 slots serves 4 requests, and each stream must equal the
              request's stream served alone.
-6. tp      — tensor parallelism at TP = 2: two ranks (one process each,
+7. tp      — tensor parallelism at TP = 2: two ranks (one process each,
              spawned) share the one card over gloo (its collectives copy
              CUDA tensors through host memory and block the host, so the
              TP step is slower than TP 1 by construction: no TP speed is
@@ -186,10 +241,10 @@ Phases (each raises on failure; nothing is swallowed):
              full-width qwen3-4b cut to 4 layers, fp32, TF32 off: the TP 2
              kernel path's logits (paged prefill, paged decode, duet step
              at the engine's tiles) against TP 1's within 1e-4 x
-             max|logit|, both ranks' bitwise equal. (c) full qwen3-4b
-             (36 layers, bf16) serves the paged path's 4 requests, outputs
-             cut to 32 tokens, through the async and then the sync engine
-             (kernels on, strict), the
+             max|logit|, both ranks' bitwise equal. (c) qwen3-4b at
+             full width cut to 12 layers, bf16, serves the paged path's
+             4 requests, outputs cut to 32 tokens, through the async and
+             then the sync engine (kernels on, strict), the
              launch counts reset just before and read just after: every
              request finishes, kernel_path is cuda_sharded, both ranks'
              streams are equal, host_syncs <= super_iterations, a duet
@@ -207,8 +262,8 @@ Phases (each raises on failure; nothing is swallowed):
              freed) within 1e-4 x max|logit|, both ranks bitwise equal,
              each forward's all-reduces = collectives_per_iteration + 1.
              (e) paged_decode_sharded at granite-moe's 12 / 4 and zamba2's
-             16 / 16 rank shards (Dh 64), as (a) at S = 1. (f) full
-             deepseek-v2-lite-16b and zamba2-1.2b (bf16, every layer)
+             16 / 16 rank shards (Dh 64), as (a) at S = 1. (f)
+             deepseek-v2-lite-16b and zamba2-1.2b at (d)'s depths (bf16)
              serve 4 azure-conv requests (outputs cut to 16) through the
              async engine on the paged path, the launch counts reset just
              before and read just after: every request finishes, both
@@ -217,14 +272,14 @@ Phases (each raises on failure; nothing is swallowed):
              1, zamba2's kernel_path is cuda_sharded and it launches
              paged_decode_sharded, deepseek (MLA: no kernel) launches
              none; tokens/s and the peak memory a rank are printed.
-7. dp      — data parallelism: full qwen3-4b (36 layers, bf16, random
+8. dp      — data parallelism: full qwen3-4b (36 layers, bf16, random
              weights from seed 0) as 2 replicas served from this one
              process on the one card (share_card: one weight tree, a
              page pool of 16-token pages each; one host thread and
              torch's one stream serve both), through the Router (kernels
              on, strict). One sync engine serves a pair trace (3 groups
              of 2 requests sharing a 256-token prefix, prompts of 392 to
-             424, 64 outputs), and one engine each of round-robin's
+             424, 32 outputs), and one engine each of round-robin's
              shards; then, the launch counts reset: round-robin over the
              2 replicas, whose streams must equal the independent
              engines' exactly (wall tokens/s beside the one engine's);
@@ -245,7 +300,7 @@ Phases (each raises on failure; nothing is swallowed):
              router runs is printed. Then a paged decode step of each
              replica alone and of both in turn is profiled (device busy
              share a replica).
-8. train   — fp32 with TF32 off. First reduced minicpm-2b, 3 train steps
+9. train   — fp32 with TF32 off. First reduced minicpm-2b, 3 train steps
              (make_train_step: the loss, autograd, AdamW on its WSD
              schedule) on the card and on the CPU from the same weights
              and batches: losses, lr and grad norms within 1e-4, the
@@ -261,19 +316,20 @@ Phases (each raises on failure; nothing is swallowed):
              one is traced by torch.profiler. No kernel of the port runs
              here: the training forward is the plain blockwise attention,
              as the reference's.
-9. grid    — the (data, model) grid of ranks, every rank on the one card
-             over gloo (share_card). (a) Serving: full qwen3-4b (36
-             layers, bf16) as DP 2 x TP 2: 2 processes, each its rank of
-             both replicas (a process group a replica), the async engine
+10. grid    — the (data, model) grid of ranks, every rank on the one card
+             over gloo (share_card). (a) Serving: qwen3-4b at full
+             width cut to 8 layers, bf16, as DP 2 x TP 2: 2 processes,
+             each its rank of both replicas (a process group a replica),
+             the async engine
              on the paged kernel path, 4 azure-conv requests cut to 16
              tokens, round-robin: both ranks' streams bitwise equal, each
              replica's streams equal a TP 2 engine serving its requests
              alone, every request finished, at most one host sync a
              super-iteration; paged_decode_sharded's launches join the
              kernels line. (b) Training: minicpm-2b at full width cut to
-             4 layers (fp32, TF32 off, remat) as DP 2 x TP 2 (4
+             2 layers (fp32, TF32 off, remat) as DP 2 x TP 2 (4
              processes) against DP 1 x TP 1 (run first in this process,
-             then freed) on the same global batches (2 x 512), 3 WSD
+             then freed) on the same global batches (2 x 512), 2 WSD
              steps: losses, lr and grad norms within 1e-4 and the data
              ranks' parameters equal, free-running (the gathered
              parameters logged, not held: Adam's m / sqrt(v) has no
@@ -281,7 +337,8 @@ Phases (each raises on failure; nothing is swallowed):
              gathered gradients within 1e-4 of their leaf's largest, and
              the parameters after AdamW fed TP 1's gradients within a
              tenth of the learning rate. (c) Gradients: one step each of
-             zamba2-1.2b (12 layers: both shared attention blocks) and
+             zamba2-1.2b (6 layers: five Mamba2, a shared attention
+             block) and
              deepseek-v2-lite-16b (2 layers: MLA, then MLA with the
              MoE) at full width and TP 2 (a model group each, in the
              same 4 processes): every gathered gradient leaf against
@@ -290,7 +347,7 @@ Phases (each raises on failure; nothing is swallowed):
              card's name and power limit. Ranks sharing one card
              time-slice it and every collective copies through host
              memory: these numbers show parity and memory, not speed.
-10. dryrun — the dry run (``launch/dryrun.py``: one rank of a grid run
+11. dryrun — the dry run (``launch/dryrun.py``: one rank of a grid run
              on shape-only tensors on the host, no device) held to one
              rank built on the card. (a) ``lower_one`` for every assigned
              arch at decode_32k on the 16 x 16 grid: each record's spec
@@ -324,7 +381,7 @@ Phases (each raises on failure; nothing is swallowed):
              no count of the kernels line. The records are those of the
              context-parallel layout (a decode rank holds its span of the
              GQA caches' sequence).
-11. cp      — context-parallel decode, every rank on card 0 over gloo.
+12. cp      — context-parallel decode, every rank on card 0 over gloo.
              (d) the slab duet_attention kernel alone with its
              log-sum-exp and the key offset, at paligemma-3b's rank span
              (8 rows, 8 / 1 / 256, 16,384 keys) and at granite-20b's
@@ -387,8 +444,8 @@ import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("build", "roofline", "kernels", "parity", "serve", "tp", "dp",
-          "train", "grid", "dryrun", "cp")
+PHASES = ("build", "roofline", "split", "kernels", "parity", "serve", "tp",
+          "dp", "train", "grid", "dryrun", "cp")
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -443,7 +500,11 @@ PATH_OF = {"paged_decode": "paged", "paged_decode[block]": "paged",
 # runs took qps 4, a load of 1.46 by the same measure)
 SERVE_RHO = 1.5
 PAGED_MAX_OUTPUT = 160      # see phase_serve's requests()
-SLAB_MAX_OUTPUT = 64        # the same: keeps the script inside its limit
+PAGED_CUT_OUTPUT = 64       # the same: keep the script inside its limit
+SLAB_MAX_OUTPUT = 32
+# the profiled steps of a decode, replay or duet profile (each traced run
+# costs the host seconds of the profiler's own work a step)
+PROFILE_STEPS = 2
 # the registered configs whose GQA head shapes the kernels phase runs at
 # the main path's shapes: granite-20b's MQA (rep 48, every CTA on the
 # 64-row block; its bf16 records are the block roles' in the kernels
@@ -477,9 +538,15 @@ TRAIN_ARCH = "minicpm-2b"
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 8, 2, 512, 3e-4
 TRAIN_CHECK_STEPS, TRAIN_CHECK_SEQ, TRAIN_CHECK_LR = 3, 64, 1e-3
 TRAIN_TOL, TRAIN_PARAM_TOL_LR = 1e-4, 0.1
-# each served config's runs (outputs of 32 keep the whole script inside
+# each served config's runs (outputs of 16 keep the whole script inside
 # its time limit on a slow host)
-SERVE_REQUESTS, SERVE_MAX_OUTPUT = 4, 32
+SERVE_REQUESTS, SERVE_MAX_OUTPUT = 4, 16
+# and their depths, about a quarter of each (the same): zamba2's 12 hold 2
+# shared_attn blocks, xlstm's 8 two sLSTM blocks, deepseek's 7 its dense
+# MLA layer and 6 MLA + MoE layers
+SERVE_LAYERS = {"yi-9b": 12, "minicpm-2b": 10, "granite-20b": 13,
+                "granite-moe-3b-a800m": 8, "deepseek-v2-lite-16b": 7,
+                "zamba2-1.2b": 12, "xlstm-350m": 8, "paligemma-3b": 6}
 # the recurrent configs' parity depth: zamba2's first 6 layers (5 mamba2
 # + 1 shared_attn), xlstm's first 4 (3 mlstm + 1 slstm)
 RECURRENT_PARITY_LAYERS = {"zamba2-1.2b": 6, "xlstm-350m": 4}
@@ -625,6 +692,34 @@ def time_cold_ms(fn, iters: int = 10, stats=None) -> float:
     return _held(run, HOLD_CYCLES, stats)
 
 
+# a CUDA graph's replays are queued behind a spin of GRAPH_HOLD_CYCLES
+# (about 25 ms at the H100's clock; longer where the host has not queued
+# them all by its end), so the card's time is timed, not the host's pace
+GRAPH_HOLD_CYCLES = 50_000_000
+
+
+def _graph_ms(replay, reps: int, reset=None) -> float:
+    """Mean device ms of one ``replay()``: CUDA events around ``reps``
+    back-to-back replays queued behind a spin (``_held``); ``reset()``
+    runs before each try (a decode graph's positions grow a replay)."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+
+    def run(hold):
+        if reset is not None:
+            reset()
+        torch.cuda._sleep(hold)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            replay()
+        host_ms = (time.perf_counter() - t0) * 1e3 / reps
+        end.record()
+        ahead = not start.query()
+        end.synchronize()
+        return start.elapsed_time(end) / reps, ahead, host_ms
+    return _held(run, GRAPH_HOLD_CYCLES, None)
+
+
 def _time_kernel(kernel, rec):
     """A kernel's hot and cold ms into ``rec``, with the host's ms to queue
     one hot call and whether the card stayed ahead of the host in both."""
@@ -685,6 +780,13 @@ ROOFLINE_B, ROOFLINE_CTX, ROOFLINE_CHUNK, ROOFLINE_CHUNK_AT = 8, 1000, 256, 512
 ROOFLINE_REPLAYS = 10
 # the SM counts asked of a green context in the roofline phase's report
 GREEN_SMS = (32, 64)
+# the green check: GREEN_CHECK's decode bucket replayed with no split, with
+# an SmSplit of GREEN_SD TPCs alive and after it is closed, GREEN_ROUNDS
+# times in turn; the median of each round's ratio to the round's no-split
+# time must lie within GREEN_TOL of 1. A graph of GREEN_CANARY one-element
+# adds, timed beside it, reads the card's launch pace
+GREEN_CHECK, GREEN_SD, GREEN_ROUNDS, GREEN_TOL = "qwen3-4b", 32, 5, 0.03
+GREEN_CANARY = 3000
 # the configs held and the bucket kinds of each
 ROOFLINE_SHAPES = {"qwen3-4b": ("decode", "prefill", "duet"),
                    "granite-moe-3b-a800m": ("decode",)}
@@ -696,8 +798,9 @@ def phase_roofline():
     measured step times. Returns sm_probe's record for the kernels line,
     its ``launches`` those of the engines' path (partition_curves)."""
     card = card_line()
-    rec = roofline_probe(card)
+    rec, spread = roofline_probe(card)
     roofline_accuracy(card)
+    split_curve(card, spread)
     green_contexts(card)
     return rec
 
@@ -767,12 +870,29 @@ def green_contexts(card):
                                  ("the default stream", default)):
             with torch.cuda.stream(replay_on):
                 graph.replay()
-            torch.cuda.synchronize()
+            # the primary context's device sync does not wait for work on
+            # a green context's stream
+            replay_on.synchronize()
             log(f"[green] {asked} SMs asked: a CUDA graph of the probe "
                 f"captured on its stream, replayed on {label}: checksum "
                 f"{'equal to' if int(got.sum()) == total else 'NOT'} "
                 f"torch.sum, on {torch.unique(smid).numel()} distinct SMs")
         del graph, stream, green
+    # two of torch's contexts at once: each call cuts the whole card afresh
+    greens = [gc.GreenContext.create(num_sms=64, device_id=0)
+              for _ in range(2)]
+    sets = []
+    for green in greens:
+        stream = green.Stream()
+        with torch.cuda.stream(stream):
+            _, smid = probe.sm_probe(buf, sms)
+        stream.synchronize()
+        sets.append(set(smid.tolist()))
+    log(f"[green] two torch GreenContext.create(num_sms=64) at once: "
+        f"{len(sets[0])} and {len(sets[1])} SMs, {len(sets[0] & sets[1])} "
+        f"shared (the port's SmSplit cuts the card once, "
+        f"kernels/csrc/green_split.cu) [{card}]")
+    del greens, stream
     del buf
     torch.cuda.empty_cache()
 
@@ -796,10 +916,11 @@ def roofline_probe(card):
     sum against torch.sum, the CTAs on as many distinct SMs; its time on
     every SM beside the bound (the buffer's bytes at 3.35 TB/s), the
     plain version and torch.sum. Then the engines' path: the card's curve
+    (of every engine that does not split: no green context is made yet)
     measured once by partition_curves (the cache emptied first), its
     launches counted, and B(u) at ROOFLINE_TPCS beside the linear share
     u / 66 and H100_LIKE's (u / 66)^0.32, B(66) beside torch.sum's rate
-    on the same bytes."""
+    on the same bytes. Returns (sm_probe's record, the curve)."""
     from repro_torch.core import device as core_device
     from repro_torch.core.roofline import H100_LIKE, card_spec
     from repro_torch.kernels import sm_probe as probe
@@ -869,16 +990,37 @@ def roofline_probe(card):
         "torch's reads of the same bytes: "
         + ", ".join(f"{k} {nbytes / ms / 1e6:.1f}" for k, ms in reads.items())
         + f" GB/s; the datasheet's {HBM_BYTES_PER_S / 1e9:.0f} [{card}]")
-    return rec
+    return rec, bw
 
 
-def _replay_ms(model, kind):
-    """Device ms of one replay of the async engine's ``kind`` bucket
-    (decode: kb 1; prefill: the chunk alone; duet: kb 1 and the chunk in
-    one duet launch a layer) at the ROOFLINE_* shapes, in the model's
-    dtype: the program run once eagerly, captured, replayed once, then
-    CUDA events around ROOFLINE_REPLAYS back-to-back replays (the decode
-    rows' context grows by one a replay)."""
+def split_curve(card, spread):
+    """B(u) as an engine that runs the SM split measures it
+    (``partition_curves(..., split=True)``: the sm_probe kernel on the
+    green contexts of every split the driver cuts, one CTA an SM of the
+    context, straight lines between the points), printed beside the
+    curve of the engines that do not split (2u CTAs placed by the block
+    scheduler) at every even TPC count."""
+    from repro_torch.core import device as core_device
+    from repro_torch.core.roofline import card_spec
+    spec = card_spec(torch.cuda.get_device_properties(0))
+    t0 = time.time()
+    green = core_device.partition_curves("cuda", spec, split=True)
+    log(f"[roofline] B(u) GB/s at u TPCs: 2u CTAs on the default stream "
+        f"placed by the block scheduler (the curve of every engine that "
+        f"does not split) | the green contexts of the driver's splits (the "
+        f"split engine's; measured in {time.time() - t0:.2f} s) [{card}]")
+    for u in range(2, spec.num_units + 1, 2):
+        log(f"[roofline]   u {u:2d}: spread {spread[u] / 1e9:8.1f} | green "
+            f"{green[u] / 1e9:8.1f} ({100 * green[u] / spread[u]:5.1f}%)")
+
+
+def _replayer(model, kind):
+    """The async engine's ``kind`` bucket (decode: kb 1; prefill: the
+    chunk alone; duet: kb 1 and the chunk in one duet launch a layer) at
+    the ROOFLINE_* shapes, in the model's dtype, run once eagerly and
+    captured; returns a function giving the device ms of one replay
+    (:func:`_graph_ms` over ROOFLINE_REPLAYS back-to-back replays; the
+    decode rows' context grows by one a replay and is reset before)."""
     from repro_torch.core.lookahead import BucketProgram, make_superiter_fn
     from repro_torch.kernels.ops import build_duet_schedule, duet_block_q
     from repro_torch.serving.kvcache import PagePoolConfig, init_page_pools
@@ -915,16 +1057,66 @@ def _replay_ms(model, kind):
     bucket.run(*args)
     pos.fill_(ROOFLINE_CTX)
     bucket.capture(args, torch.cuda.graph_pool_handle())
-    pos.fill_(ROOFLINE_CTX)
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    for _ in range(ROOFLINE_REPLAYS):
-        bucket.graph.replay()
-    end.record()
-    end.synchronize()
-    ms = start.elapsed_time(end) / ROOFLINE_REPLAYS
-    del bucket, pools, state
-    return ms
+
+    def replay_ms():
+        # args holds what the graph reads (pools, state, decode inputs):
+        # the closure keeps it alive as long as the graph may replay
+        return _graph_ms(bucket.graph.replay, ROOFLINE_REPLAYS,
+                         reset=lambda: args[3].fill_(ROOFLINE_CTX))
+    return replay_ms
+
+
+def green_check(model, first_ms, card):
+    """Does an SmSplit slow later work on the primary context? The
+    roofline's decode bucket of ``model`` replayed (held device ms) with
+    no split, with one SmSplit of GREEN_SD TPCs alive (the replay on the
+    default stream) and after it is closed, GREEN_ROUNDS times in turn,
+    beside a graph of GREEN_CANARY one-element adds. Within a round the
+    three readings lie a second apart, so each ratio to the round's
+    no-split reading compares one state of the card; the card's pace
+    also moves by itself between levels about 12% apart that last
+    seconds (PERF.md §6), which a ratio across rounds would read
+    as the split's. Held: the median ratio of each kind within GREEN_TOL
+    of 1."""
+    from repro_torch.core.device import SmSplit
+    decode_ms = _replayer(model, "decode")
+    tiny = torch.zeros(1, device="cuda")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tiny.add_(1)
+    torch.cuda.current_stream().wait_stream(side)
+    canary = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(canary):
+        for _ in range(GREEN_CANARY):
+            tiny.add_(1)
+
+    def reading():
+        return decode_ms(), _graph_ms(canary.replay, 5)
+    rounds = []
+    for _ in range(GREEN_ROUNDS):
+        none = reading()
+        split = SmSplit("cuda", GREEN_SD)
+        alive = reading()
+        split.close()
+        rounds.append((none, alive, reading()))
+    log(f"[roofline] green check, {GREEN_CHECK} decode bucket replayed "
+        f"(device ms; the roofline's first reading {first_ms:.3f}) and "
+        f"{GREEN_CANARY} one-element adds (ms), per round: no split | "
+        f"SmSplit of {GREEN_SD} TPCs alive | closed [{card}]")
+    for none, alive, closed in rounds:
+        log("[roofline]   " + " | ".join(
+            f"{d:7.3f} ({c:.3f})" for d, c in (none, alive, closed)))
+    for i, label in ((1, "alive"), (2, "closed")):
+        ratio = float(np.median([r[i][0] / r[0][0] for r in rounds]))
+        log(f"[roofline] green check: decode replay with a split {label} / "
+            f"without, median of {GREEN_ROUNDS} rounds {ratio:.4f} (held "
+            f"within {GREEN_TOL}) [{card}]")
+        if abs(ratio - 1) > GREEN_TOL:
+            raise AssertionError(f"[roofline] a split {label} moves the "
+                                 f"primary context's decode by {ratio:.4f}")
+    del canary, decode_ms
+    torch.cuda.empty_cache()
 
 
 def roofline_accuracy(card):
@@ -951,9 +1143,11 @@ def roofline_accuracy(card):
         cfg = get_config(name)
         model = Model.init(cfg, seed=0, dtype=torch.bfloat16, device="cuda",
                            attn_kernel=True)
+        # the rows are programs of an engine that does not split: its
+        # pricing, and no green context before the green check below
         engine = AsyncDuetEngine(model, EngineConfig(
             max_slots=ROOFLINE_B, max_len=1024, token_budget=256,
-            page_size=16), seed=0, device="cuda")
+            page_size=16), seed=0, device="cuda", sm_split=False)
         _hold_card_pricing(engine, f"{name} roofline", card)
         h100 = RooflineModel(cfg, H100_LIKE, page_size=16)
         tpu = RooflineModel(cfg, TPU_V5E, page_size=16)
@@ -961,7 +1155,10 @@ def roofline_accuracy(card):
             pred = (engine.mux.predict_mixed(loads[kind]) * 1e3,
                     h100.iteration_latency(loads[kind]) * 1e3,
                     tpu.iteration_latency(loads[kind], units=1) * 1e3)
-            rows.append((f"{name} {kind}", pred, _replay_ms(model, kind)))
+            rows.append((f"{name} {kind}", pred,
+                         _replayer(model, kind)()))
+        if name == GREEN_CHECK:
+            green_check(model, rows[-len(kinds)][2], card)
         del engine, model
         torch.cuda.empty_cache()
     log(f"[roofline] predicted ms (the card's spec and curve at 66 TPCs; "
@@ -978,7 +1175,616 @@ def roofline_accuracy(card):
 
 
 # ---------------------------------------------------------------------------
-# phase 3: kernels against their plain versions
+# phase 3: the SM split executed
+# ---------------------------------------------------------------------------
+# the parity model (full-width qwen3-4b cut to SPLIT_PARITY_LAYERS layers)
+# and the super-iteration's decode steps there
+SPLIT_PARITY_LAYERS, SPLIT_KB = 4, 2
+# (c) reads every bucket SPLIT_ROUNDS times
+SPLIT_ROUNDS = 4
+# the S_d (TPCs) whose contexts (a) holds apart beside Algorithm 1's pick
+SPLIT_OTHER_SD = (8, 32)
+# the serve runs: SPLIT_PAIRS pairs of requests of SPLIT_PROMPT prompt
+# tokens and SPLIT_OUTPUT output tokens; a pair's second request arrives
+# SPLIT_LAG priced iterations after its first (once the first's prompt is
+# in), pairs SPLIT_GAP iterations apart (each pair served alone), so that
+# every pair's second chunk meets the same one decode row: one split
+# bucket that recurs and replays. At the first TBT bound of
+# SPLIT_FRACTIONS (of the way from the priced decode step of that row to
+# the mixed iteration with the chunk beside it) that makes the engine
+# split; an iteration is priced with the engine's overheads
+SPLIT_PAIRS, SPLIT_PROMPT, SPLIT_OUTPUT = 8, 200, 24
+SPLIT_LAG, SPLIT_GAP = 1.5, 60
+# the world of (b) and (c): ROOFLINE_B decode rows at about ROOFLINE_CTX
+# tokens of context in slots 0..B-1, the chunk of ROOFLINE_CHUNK rows at
+# ROOFLINE_CHUNK_AT in slot B, tables of SPLIT_PAGES pages of 16
+SPLIT_PAGES = 64
+
+
+def phase_split():
+    """The SM split executed on the card (module docstring, phase 3).
+    Returns the launches of its serving path (the split-on bf16 run)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.device import sm_granularity
+    from repro_torch.models import Model
+    card = card_line()
+    sms, low, step = sm_granularity("cuda")
+    log(f"[split] the driver cuts green-context groups of {low} + k x "
+        f"{step} SMs off {sms}: the card multiplexer's unit_step "
+        f"{step // 2} TPCs [{card}]")
+    t0 = time.time()
+    model = Model.init(get_config("qwen3-4b"), seed=0,
+                       dtype=torch.bfloat16, device="cuda", attn_kernel=True)
+    torch.cuda.synchronize()
+    log(f"[split] qwen3-4b, 36 layers, bf16, random from seed 0 in "
+        f"{time.time() - t0:.1f} s")
+    pick = split_pick(model, card)
+    split_apart(card, (pick["s_d"],) + SPLIT_OTHER_SD)
+    split_parity(card, pick["s_d"])
+    split_timing(model, card, pick)
+    counts = split_serve(model, card)
+    del model
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _split_loads():
+    from repro_torch.core.roofline import RequestLoad
+    dec = [RequestLoad(q=1, c=ROOFLINE_CTX) for _ in range(ROOFLINE_B)]
+    pre = [RequestLoad(q=ROOFLINE_CHUNK, c=ROOFLINE_CHUNK_AT,
+                       phase="prefill")]
+    return dec, pre
+
+
+def split_pick(model, card):
+    """Algorithm 1 on the card for full-width qwen3-4b: an engine's
+    multiplexer (the card's spec, measured curve and unit_step) at a TBT
+    bound midway between its priced decode step (ROOFLINE_B rows at
+    ROOFLINE_CTX) and its priced mixed iteration (those rows and a chunk
+    of ROOFLINE_CHUNK at ROOFLINE_CHUNK_AT) must pick duet, at an S_d the
+    driver can cut. Returns the pick (S_d, S_p, k) and the multiplexer
+    that priced it."""
+    from repro_torch.core.device import card_unit_step
+    from repro_torch.serving import AsyncDuetEngine, EngineConfig
+    engine = AsyncDuetEngine(model, EngineConfig(
+        max_slots=ROOFLINE_B, max_len=1024, token_budget=256,
+        page_size=16), seed=0, device="cuda")
+    _hold_card_pricing(engine, "qwen3-4b split", card)
+    mux = engine.mux
+    dec, pre = _split_loads()
+    t_dec, t_mix = mux.predict_mixed(dec), mux.predict_mixed(dec + pre)
+    mux.tbt_slo = (t_dec + t_mix) / 2
+    decision = mux.step(pre, dec)
+    part = decision.partition
+    step = card_unit_step("cuda")
+    if decision.mode != "duet" or part.s_decode % step or \
+            mux.unit_step != step or not engine.sm_split:
+        raise AssertionError(f"[split] Algorithm 1 at {mux.tbt_slo} s: "
+                             f"{decision} (unit_step {mux.unit_step}, "
+                             f"sm_split {engine.sm_split})")
+    pick = {"s_d": part.s_decode, "s_p": part.s_prefill, "k": part.k,
+            "mux": mux}
+    log(f"[split] qwen3-4b priced on the card: decode step {t_dec * 1e3:.3f}"
+        f" ms, mixed iteration {t_mix * 1e3:.3f} ms; at tbt_slo "
+        f"{mux.tbt_slo * 1e3:.3f} ms Algorithm 1 picks (S_p, S_d, k) = "
+        f"({part.s_prefill}, {part.s_decode}, {part.k}) TPCs: t_d(S_d) "
+        f"{part.t_decode * 1e3:.3f} ms, t_p(S_p) {part.t_prefill * 1e3:.3f}"
+        f" ms [{card}]")
+    del engine
+    return pick
+
+
+def split_apart(card, s_ds):
+    """(a) SmSplits at each of ``s_ds``: each side's SMs (held by
+    SmSplit itself: the probe's %smid at one CTA for every SM on both
+    streams at once) as many as asked and disjoint, held again here;
+    each side's read rate alone and with the other side reading at once
+    (one CTA an SM of its context, 4 x the L2); the clusters of
+    paged_decode (qwen3-4b's decode at bf16, tables of 64 pages) that
+    its occupancy query reports with each side's stream (what a launch
+    there sizes with) against the card's."""
+    import importlib
+    from repro_torch.core.device import SmSplit, probe_rate
+    from repro_torch.kernels import sm_probe as probe
+    pd = importlib.import_module("repro_torch.kernels.paged_decode")
+
+    def clusters(**on):
+        return [pd.occupancy(0, torch.bfloat16, 128, 4, SPLIT_PAGES, C,
+                             **on)[0] for C in (1, 2, 4, 8)]
+    props = torch.cuda.get_device_properties(0)
+    n = -(-4 * props.L2_cache_size // 16) * 4
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    bufs = [torch.randint(0, probe.MAX_VALUE, (n,), dtype=torch.int32,
+                          device="cuda", generator=gen) for _ in range(2)]
+    nbytes = n * 4
+    card_clusters = clusters()
+    for s_d in s_ds:
+        split = SmSplit("cuda", s_d)
+        sides = split.streams()
+        sets = split.smids
+        if sets["decode"] & sets["prefill"] or any(
+                len(sets[h]) != split.sms[h] for h in sides) or \
+                split.sms["decode"] != 2 * s_d:
+            ran = [len(v) for v in sets.values()]
+            raise AssertionError(f"[split] (a) S_d {s_d}: {split.sms}, "
+                                 f"SMs ran on {ran}")
+        alone = {h: probe_rate(bufs[i], split.sms[h], st, reps=10)[0]
+                 for i, (h, st) in enumerate(sides.items())}
+        # both at once: each side's events on its own stream
+        main = torch.cuda.current_stream()
+        fork = torch.cuda.Event()
+        torch.cuda._sleep(4_000_000)
+        fork.record(main)
+        marks = {}
+        for i, (h, st) in enumerate(sides.items()):
+            st.wait_event(fork)
+            with torch.cuda.stream(st):
+                a, b = (torch.cuda.Event(enable_timing=True)
+                        for _ in range(2))
+                a.record(st)
+                for _ in range(10):
+                    probe.sm_probe(bufs[i], split.sms[h])
+                b.record(st)
+            marks[h] = (a, b)
+        torch.cuda.synchronize()
+        both = {h: nbytes * 10 / (a.elapsed_time(b) / 1e3)
+                for h, (a, b) in marks.items()}
+        held = {h: clusters(stream=st.cuda_stream)
+                for h, st in sides.items()}
+        log(f"[split] (a) S_d {s_d} TPCs: decode context {split.sms['decode']}"
+            f" SMs, prefill context {split.sms['prefill']} SMs, disjoint "
+            f"(the probe ran on {len(sets['decode'])} and "
+            f"{len(sets['prefill'])} distinct SMs, none shared); read "
+            f"GB/s alone / at once: decode {alone['decode'] / 1e9:.1f} / "
+            f"{both['decode'] / 1e9:.1f}, prefill {alone['prefill'] / 1e9:.1f}"
+            f" / {both['prefill'] / 1e9:.1f} (sum "
+            f"{sum(both.values()) / 1e9:.1f}); paged_decode's clusters of C "
+            f"= 1, 2, 4, 8 resident with each stream: decode "
+            f"{held['decode']}, prefill {held['prefill']}, the card "
+            f"{card_clusters} [{card}]")
+        split.close()
+    del bufs
+    torch.cuda.empty_cache()
+
+
+def _split_world(model, seed):
+    """Pools (random), decode inputs and the static inputs of one split
+    super-iteration: ROOFLINE_B decode rows in slots 0..B-1 at contexts
+    ROOFLINE_CTX - 4 .. + 3, slot B the chunk's (inactive in the decode
+    steps), each slot SPLIT_PAGES pages of 16. As the engine's, the
+    decode tables hold the null page for an inactive slot: a decode row
+    never reads the pages the chunk writes meanwhile."""
+    from repro_torch.serving.kvcache import PagePoolConfig, init_page_pools
+    cfg, B, P = model.cfg, ROOFLINE_B, SPLIT_PAGES
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    pools = init_page_pools(cfg, PagePoolConfig(
+        num_pages=(B + 1) * P + 1, page_size=16), model.dtype, device="cuda")
+    for group in pools:
+        for t in group:
+            t.copy_(torch.randn(t.shape, generator=gen, device="cuda"))
+    rng = np.random.default_rng(seed)
+    return {
+        "pools": pools, "state": model.init_state_cache(B + 1),
+        "last_tok": torch.tensor(rng.integers(0, cfg.vocab_size, (B + 1, 1)),
+                                 dtype=torch.int32, device="cuda"),
+        "pos": torch.tensor(ROOFLINE_CTX - 4 + np.arange(B + 1) % 8,
+                            dtype=torch.int32, device="cuda"),
+        "active": np.arange(B + 1) < B,
+        "tables": np.arange(1, (B + 1) * P + 1).reshape(B + 1, P)
+        * (np.arange(B + 1) < B)[:, None],
+        "pre_tbl": np.arange(B * P + 1, (B + 1) * P + 1)[None],
+        "pre_toks": rng.integers(0, cfg.vocab_size,
+                                 (1, ROOFLINE_CHUNK)).astype(np.int32),
+        "scalars": (ROOFLINE_CHUNK_AT, B, 0)}
+
+
+def _split_bucket(model, world, kind, kb, split=None):
+    """One bucket of ``kind`` (split, fused, sequential, prefill, decode)
+    fed with ``world``'s static inputs; a split bucket runs on ``split``,
+    a fused one keeps its tile order as ``order``."""
+    from repro_torch.core.lookahead import BucketProgram, make_superiter_fn
+    from repro_torch.kernels.ops import build_duet_schedule, duet_block_q
+    cfg, B, P = model.cfg, ROOFLINE_B + 1, SPLIT_PAGES
+    kb = 0 if kind == "prefill" else kb
+    chunk = 0 if kind == "decode" else ROOFLINE_CHUNK
+    bq = duet_block_q(cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
+    fn = make_superiter_fn(model, kb, chunk=chunk, finish=bool(chunk),
+                           sample=bool(chunk), duet_kernel=kind == "fused",
+                           duet_block_q=bq, split=kind == "split")
+    bucket = BucketProgram(fn, torch.device("cuda"), B, width=P,
+                           chunk=chunk, pwidth=P,
+                           split=split if kind == "split" else None)
+    bucket.feed(world["active"], world["tables"],
+                world["pre_toks"] if chunk else None,
+                world["pre_tbl"] if chunk else None, world["scalars"])
+    bucket.order = None if kind != "fused" else torch.tensor(
+        build_duet_schedule([(b, 0) for b in range(B)],
+                            [(B, i) for i in range(chunk)],
+                            block_q=bq).row_src,
+        dtype=torch.int32, device="cuda")
+    return bucket
+
+
+def _split_args(bucket, world):
+    """A bucket's arguments over a fresh copy of ``world``'s pools and
+    decode inputs (returned too)."""
+    w = copy.deepcopy({k: world[k] for k in ("pools", "state", "last_tok",
+                                             "pos")})
+    args = (w["pools"], w["state"], w["last_tok"], w["pos"], bucket.tables,
+            torch.Generator(device="cuda").manual_seed(0), bucket.active,
+            bucket.pre_toks, bucket.pre_tbl, bucket.pre_start,
+            bucket.pre_slot, bucket.override_tok)
+    if bucket.order is not None:
+        args += (bucket.order,)
+    return args, w
+
+
+def _split_outputs(out, w):
+    toks, sampled = out
+    return [toks, sampled, w["last_tok"], w["pos"]] + [
+        t for g in w["pools"] for t in g]
+
+
+def split_parity(card, s_d):
+    """(b) The split bucket, eager and replayed, against the sequential
+    program, and the prefill-only chunk on the kernel against the plain
+    path, on full-width qwen3-4b cut to SPLIT_PARITY_LAYERS layers, fp32
+    (TF32 off) and bf16."""
+    import importlib
+    from repro_torch.core.device import SmSplit
+    pd = importlib.import_module("repro_torch.kernels.paged_decode")
+    from repro_torch.models import Model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = _cut("qwen3-4b", SPLIT_PARITY_LAYERS)
+    split = SmSplit("cuda", s_d)
+    for dtype in (torch.float32, torch.bfloat16):
+        model = Model.init(cfg, seed=0, dtype=dtype, device="cuda",
+                           attn_kernel=True)
+        world = _split_world(model, 5)
+        seq = _split_bucket(model, world, "sequential", SPLIT_KB)
+        args, w = _split_args(seq, world)
+        want = _split_outputs(seq.run(*args), w)
+        got = {}
+        bucket = _split_bucket(model, world, "split", SPLIT_KB, split)
+        args, w = _split_args(bucket, world)
+        got["eager"] = _split_outputs(bucket.run(*args), w)
+        args, w = _split_args(bucket, world)
+        got["replayed"] = _split_outputs(
+            bucket.capture(args, torch.cuda.graph_pool_handle()), w)
+        torch.cuda.synchronize()
+        # the decode kernel's cluster size on S_d's SMs and on the card
+        # (the one difference in arithmetic between the two programs)
+        q = torch.empty((ROOFLINE_B + 1, cfg.num_heads, cfg.head_dim),
+                        dtype=dtype, device="cuda")
+        kp = world["pools"][0][0]
+        tbl = torch.empty((ROOFLINE_B + 1, SPLIT_PAGES), dtype=torch.int32,
+                          device="cuda")
+        c_card = pd.cluster_for(q, kp, tbl)
+        with torch.cuda.stream(split.decode_stream):
+            c_ctx = pd.cluster_for(q, kp, tbl)
+        name = f"{dtype}".replace("torch.", "")
+        for how, outs in got.items():
+            same_toks = all(torch.equal(a, b) for a, b in
+                            zip(outs[:4], want[:4]))
+            bitwise = same_toks and all(
+                torch.equal(a, b) for a, b in zip(outs[4:], want[4:]))
+            err = max((a.float() - b.float()).abs().max().item()
+                      for a, b in zip(outs[4:], want[4:]))
+            scale = max(b.float().abs().max().item() for b in want[4:])
+            # bf16: the pools' K/V are rounded to bf16 after a different
+            # summation order, a few ulps through the layers
+            tol = (PARITY_TOL if dtype == torch.float32
+                   else TOL[torch.bfloat16]) * scale
+            log(f"[split] (b) {name} split bucket {how} (decode on "
+                f"{split.sms['decode']} SMs, chunk on {split.sms['prefill']})"
+                f" against the sequential program on the card: "
+                f"{'bitwise equal' if bitwise else 'not bitwise'}; tokens "
+                f"and decode inputs {'equal' if same_toks else 'DIFFER'}; "
+                f"pools max abs err {err:.3e} (tol {tol:.3e}); the decode "
+                f"kernel's cluster C on S_d's SMs {c_ctx}, on the card "
+                f"{c_card}"
+                + ("" if bitwise else ": a different C splits the keys "
+                   "over other CTAs, so the combine sums in another order")
+                + f" [{card}]")
+            if not bitwise and (err > tol or (
+                    dtype == torch.float32 and not same_toks)):
+                raise AssertionError(f"[split] (b) {name} split {how} "
+                                     "differs from the sequential program")
+        # the graph runs what the eager split ran: the same kernels at the
+        # same cluster sizes on the same SMs
+        replay_eager = all(torch.equal(a, b) for a, b in
+                           zip(got["replayed"], got["eager"]))
+        log(f"[split] (b) {name} split bucket replayed against its eager "
+            f"run: {'bitwise equal' if replay_eager else 'DIFFERS'}")
+        if not replay_eager:
+            raise AssertionError(f"[split] (b) {name} split replay differs "
+                                 "from its eager run")
+        # the prefill-only chunk on the kernel against the plain path
+        plain = copy.copy(model)
+        plain.attn_kernel = False
+        logits = {}
+        for label, m in (("kernel", model), ("plain", plain)):
+            pools = copy.deepcopy(world["pools"])
+            tbl = torch.tensor(world["pre_tbl"], dtype=torch.int32,
+                               device="cuda")
+            logits[label], _, _ = m.prefill_paged(
+                torch.tensor(world["pre_toks"], device="cuda"), pools,
+                m.init_state_cache(1), tbl, start_pos=ROOFLINE_CHUNK_AT)
+        if dtype == torch.float32:
+            _check_parity("qwen3-4b", SPLIT_PARITY_LAYERS, cfg, [
+                ("prefill-only chunk (256 at 512) on duet_attention_paged "
+                 "vs the plain path", logits["kernel"], logits["plain"])])
+        else:
+            err = (logits["kernel"].float() - logits["plain"].float()).abs()
+            same = torch.equal(logits["kernel"].argmax(-1),
+                               logits["plain"].argmax(-1))
+            log(f"[split] (b) bf16 prefill-only chunk on the kernel vs the "
+                f"plain path: max abs logit err {err.max().item():.3e}, "
+                f"argmax {'equal' if same else 'differs'} (printed: bf16 "
+                "rounds the two attentions' sums differently)")
+        del model, plain, world, seq, bucket
+        torch.cuda.empty_cache()
+    split.close()
+
+
+def split_timing(model, card, pick):
+    """(c) Device ms, full width, bf16, CUDA graphs replayed (held,
+    :func:`_graph_ms`): the split, fused and sequential super-iterations
+    (pick's k decode steps and the chunk), the prefill-only and
+    decode-only buckets, all captured first, then read SPLIT_ROUNDS times
+    in turn (the order reversed every other round), so that each kind is
+    read in each of the card's paces (PERF.md §6) and split beside
+    fused within a second in every round; then each half captured alone
+    on its context's stream, timed alone and with the other half running
+    on the other context, beside the card's t_d(S_d) and t_p(S_p).
+    Printed, not held."""
+    from repro_torch.core.device import SmSplit
+    split = SmSplit("cuda", pick["s_d"])
+    k = pick["k"]
+    world = _split_world(model, 7)
+    # replays that keep every decode row inside its SPLIT_PAGES pages
+    reps = max(1, min(4, (SPLIT_PAGES * 16 - ROOFLINE_CTX - 4) // k - 1))
+    kinds = ("split", "fused", "sequential", "prefill", "decode")
+    buckets = {}
+    for kind in kinds:
+        bucket = _split_bucket(model, world, kind, k, split)
+        args, w = _split_args(bucket, world)
+        bucket.run(*args)
+        w["pos"].copy_(world["pos"])
+        bucket.capture(args, torch.cuda.graph_pool_handle())
+        buckets[kind] = (bucket, args, w)
+    ms = {kind: [] for kind in kinds}
+    for r in range(SPLIT_ROUNDS):
+        for kind in kinds if r % 2 == 0 else kinds[::-1]:
+            bucket, _, w = buckets[kind]
+            ms[kind].append(_graph_ms(
+                bucket.graph.replay, reps,
+                reset=lambda w=w: w["pos"].copy_(world["pos"])))
+    del buckets
+    torch.cuda.empty_cache()
+    ratios = [a / b for a, b in zip(ms["split"], ms["fused"])]
+    log(f"[split] (c) replayed device ms, {SPLIT_ROUNDS} rounds: "
+        + "; ".join(f"{kind} " + ", ".join(f"{v:.3f}" for v in ms[kind])
+                    for kind in kinds)
+        + "; split / fused by round " + ", ".join(f"{r:.3f}" for r in ratios)
+        + f" [{card}]")
+    ms = {kind: float(np.median(v)) for kind, v in ms.items()}
+    mux, dec, pre = pick["mux"], *_split_loads()
+    t_d = mux.model.iteration_latency(dec, units=pick["s_d"]) * 1e3
+    t_p = mux.model.iteration_latency(pre, units=pick["s_p"]) * 1e3
+    log(f"[split] (c) medians, qwen3-4b bf16, {ROOFLINE_B} decode "
+        f"rows at ctx ~{ROOFLINE_CTX}, chunk {ROOFLINE_CHUNK} at "
+        f"{ROOFLINE_CHUNK_AT}, k {k}: split on (S_p, S_d) = ({pick['s_p']}, "
+        f"{pick['s_d']}) TPCs {ms['split']:.3f}; fused duet launch "
+        f"{ms['fused']:.3f}; sequential {ms['sequential']:.3f}; prefill-only "
+        f"bucket {ms['prefill']:.3f} (plain attention: 23.66-23.72, PERF.md §5); "
+        f"decode-only ({k} steps) {ms['decode']:.3f}; the card's price "
+        f"max(k t_d(S_d), t_p(S_p)) = max({k} x {t_d:.3f}, {t_p:.3f}) "
+        f"[{card}]")
+    # each half alone on its context, and with the other running
+    from repro_torch.core.lookahead import make_superiter_fn
+    halves = make_superiter_fn(model, k, chunk=ROOFLINE_CHUNK, finish=True,
+                               sample=True, split=True)
+    args, w = _split_args(_split_bucket(model, world, "split", k, split),
+                          world)
+    (pools, state, last_tok, pos, tables, gen, active, pre_toks, pre_tbl,
+     pre_start, pre_slot, override_tok) = args
+    work = {"decode": lambda: halves.decode(pools, state, last_tok, pos,
+                                            tables, gen, active),
+            "prefill": lambda: halves.prefill(pools, state, pre_toks,
+                                              pre_tbl, pre_start, pre_slot,
+                                              override_tok)}
+    graphs = {}
+    for half, stream in split.streams().items():
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            work[half]()
+        stream.synchronize()
+        graphs[half] = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graphs[half], stream=stream):
+            work[half]()
+    torch.cuda.synchronize()
+
+    def run(reps):
+        main = torch.cuda.current_stream()
+        fork = torch.cuda.Event()
+        torch.cuda._sleep(4_000_000)
+        fork.record(main)
+        marks = {}
+        for half, stream in split.streams().items():
+            if not reps.get(half):
+                continue
+            stream.wait_event(fork)
+            with torch.cuda.stream(stream):
+                a, b = (torch.cuda.Event(enable_timing=True)
+                        for _ in range(2))
+                a.record(stream)
+                for _ in range(reps[half]):
+                    graphs[half].replay()
+                b.record(stream)
+            marks[half] = (a, b)
+        torch.cuda.synchronize()
+        return {h: a.elapsed_time(b) / reps[h] for h, (a, b) in
+                marks.items()}
+    for _ in range(2):           # twice: the card's pace may move between
+        _halves_once(run, k, split, t_d, t_p, card)
+    del graphs, world, w, args, work
+    torch.cuda.empty_cache()
+    split.close()
+
+
+def _halves_once(run, k, split, t_d, t_p, card):
+    alone = {**run({"decode": 4}), **run({"prefill": 4})}
+    n_dec = max(1, round(3 * alone["prefill"] / alone["decode"]))
+    both = run({"decode": n_dec, "prefill": 3})
+    log(f"[split] (c) halves captured alone on their contexts, replayed: "
+        f"decode half ({k} steps on {split.sms['decode']} SMs) "
+        f"{alone['decode'] / k:.3f} ms a step alone, {both['decode'] / k:.3f}"
+        f" with the chunk running (t_d(S_d) {t_d:.3f}); prefill half (the "
+        f"chunk on {split.sms['prefill']} SMs) {alone['prefill']:.3f} ms "
+        f"alone, {both['prefill']:.3f} with the decode steps running "
+        f"(t_p(S_p) {t_p:.3f}); {n_dec} decode replays beside 3 chunks "
+        f"[{card}]")
+
+
+def _split_requests(unit):
+    from repro_torch.serving import Request
+    return [Request(rid=2 * pair + second,
+                    arrival=(pair * SPLIT_GAP + second * SPLIT_LAG) * unit,
+                    prompt_len=SPLIT_PROMPT, output_len=SPLIT_OUTPUT)
+            for pair in range(SPLIT_PAIRS) for second in (0, 1)]
+
+
+def _split_serve_run(label, cls, model, card, slo, unit, **kw):
+    """One serve run of _split_requests(unit) at max_slots 8, max_len 1024,
+    token budget 256, pages of 16, kernels on and strict, at TBT bound
+    ``slo``: every request must finish; the async engine must keep
+    host_syncs <= super_iterations. The kernels' launch counts are reset
+    just before the run, so they read this run's alone after it. Returns
+    (streams, tokens/s, the engine's dstats or None, its spec)."""
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.serving import AsyncDuetEngine, EngineConfig
+    engine = cls(model, EngineConfig(max_slots=8, max_len=1024,
+                                     token_budget=256, page_size=16,
+                                     tbt_slo=slo, strict_kernel=True),
+                 seed=0, device="cuda", **kw)
+    _hold_card_pricing(engine, label, card)
+    reqs = _split_requests(unit)
+    engine.submit(reqs)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.time()
+    metrics = engine.run()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    n_tok = sum(len(r.output_tokens) for r in metrics.requests)
+    if metrics.summary()["num_finished"] != len(reqs):
+        raise AssertionError(f"[split] {label}: a request did not finish")
+    line = (f"[split] (d) {label} at tbt_slo {slo * 1e3:.4f} ms: "
+            f"{len(reqs)} requests, {n_tok} tokens in {wall:.2f} s = "
+            f"{n_tok / wall:.1f} tokens/s; duet iterations "
+            f"{engine.mux.stats.duet_iterations} of "
+            f"{engine.mux.stats.iterations}")
+    st = None
+    if cls is AsyncDuetEngine:
+        st = engine.dstats
+        line += (f"; super_iterations {st.super_iterations}, host_syncs "
+                 f"{st.host_syncs}; split dispatches {st.split_dispatches},"
+                 f" split captures {st.split_captures}, split replays "
+                 f"{st.split_replays}; captures {st.captures}, replays "
+                 f"{st.replays}")
+        if not 0 < st.host_syncs <= st.super_iterations:
+            raise AssertionError(f"[split] {label}: host_syncs "
+                                 f"{st.host_syncs} > super_iterations")
+    log(line + f" [{card}]")
+    streams = {r.rid: list(r.output_tokens) for r in metrics.requests}
+    hw = engine.hw
+    del engine
+    torch.cuda.empty_cache()
+    return streams, n_tok / wall, st, hw
+
+
+def _split_serve_slos(model):
+    """TBT bounds SPLIT_FRACTIONS of the way from the card's priced decode
+    step to its priced mixed iteration for ``model`` at the served
+    requests' scale (one decode row at SPLIT_PROMPT tokens beside a chunk
+    of SPLIT_PROMPT), priced as the engine that splits prices, and the
+    requests' time unit (that mixed iteration with the engine's
+    overheads)."""
+    from repro_torch.core.roofline import RequestLoad
+    from repro_torch.serving import AsyncDuetEngine, EngineConfig
+    ec = EngineConfig(max_slots=8, max_len=1024, token_budget=256,
+                      page_size=16)
+    mux = AsyncDuetEngine(model, ec, device="cuda").mux
+    dec = [RequestLoad(q=1, c=SPLIT_PROMPT)]
+    pre = [RequestLoad(q=SPLIT_PROMPT, c=0, phase="prefill")]
+    t_dec, t_mix = mux.predict_mixed(dec), mux.predict_mixed(dec + pre)
+    return ([t_dec + f * (t_mix - t_dec) for f in SPLIT_FRACTIONS],
+            t_mix + ec.sched_overhead + ec.dispatch_overhead)
+
+
+def _split_on(label, model, card):
+    """The async engine with the split on at the first bound of
+    _split_serve_slos where it splits and a split bucket is captured and
+    replayed; raises if none does. Returns (the bound, the time unit, the
+    run)."""
+    from repro_torch.serving import AsyncDuetEngine
+    slos, unit = _split_serve_slos(model)
+    for slo in slos:
+        run = _split_serve_run(label, AsyncDuetEngine, model, card, slo,
+                               unit)
+        st = run[2]
+        if st.split_dispatches and st.split_captures and st.split_replays:
+            return slo, unit, run
+    raise AssertionError(f"[split] (d) {label}: no split bucket captured "
+                         "and replayed at any bound between the priced "
+                         "decode and mixed times")
+
+
+def split_serve(model, card):
+    """(d) Serving where Algorithm 1 splits: qwen3-4b cut to
+    SPLIT_PARITY_LAYERS layers in fp32 (TF32 off), the async engine with
+    the split on against the sync engine priced alike (streams held
+    equal), then full-width bf16 with the split on (its launches, counted
+    in that run alone: this phase's serving path) and off, tokens/s
+    printed; at a bound between each model's priced decode step and mixed
+    iteration where the split-on engine makes split dispatches and
+    captures and replays a split bucket (held), with host_syncs <=
+    super_iterations."""
+    from repro_torch.models import Model
+    from repro_torch.serving import AsyncDuetEngine, DuetEngine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    small = Model.init(_cut("qwen3-4b", SPLIT_PARITY_LAYERS), seed=0,
+                       dtype=torch.float32, device="cuda", attn_kernel=True)
+    slo, unit, (split_streams, _, _, hw) = _split_on(
+        "fp32 4 layers, async, split on", small, card)
+    sync_streams, _, _, _ = _split_serve_run(
+        "fp32 4 layers, sync", DuetEngine, small, card, slo, unit, hw=hw)
+    same = split_streams == sync_streams
+    log(f"[split] (d) fp32 4-layer greedy streams, async split on vs sync: "
+        f"identical {same}")
+    if not same:
+        raise AssertionError("[split] (d) the split engine's fp32 streams "
+                             "differ from the sync engine's")
+    del small
+    torch.cuda.empty_cache()
+    slo, unit, (_, on_rate, _, hw) = _split_on(
+        "bf16 full, async, split on", model, card)
+    counts = {}                    # the split-on run's launches alone
+    _path_counts("split paged", counts, model.cfg)
+    _, off_rate, _, _ = _split_serve_run(
+        "bf16 full, async, split off", AsyncDuetEngine, model, card, slo,
+        unit, hw=hw, sm_split=False)
+    log(f"[split] (d) bf16 full-width tokens/s at tbt_slo {slo * 1e3:.4f} "
+        f"ms: split on {on_rate:.1f}, split off (the fused duet launch, "
+        f"priced alike) {off_rate:.1f}; one run each, graph captures "
+        f"included [{card}]")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 4: kernels against their plain versions
 # ---------------------------------------------------------------------------
 def _bound(nbytes: float, ops: float, dtype) -> tuple:
     t_bytes = nbytes / HBM_BYTES_PER_S
@@ -1594,7 +2400,7 @@ def report_occupancy(card):
 
 
 # ---------------------------------------------------------------------------
-# phase 4: logits parity, kernel path vs plain path
+# phase 5: logits parity, kernel path vs plain path
 # ---------------------------------------------------------------------------
 def phase_parity():
     """qwen3-4b cut to 4 layers, then each served config
@@ -2325,7 +3131,7 @@ def parity_for(name, n_layers, flash=False):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: full-width serving through the engines
+# phase 6: full-width serving through the engines
 # ---------------------------------------------------------------------------
 def serve_qps():
     """The served traces' arrival rate: SERVE_RHO / E[S], E[S] qwen3-4b's
@@ -2352,15 +3158,19 @@ def _requests(path, n=None, max_output=None):
     """The serve phase's azure-conv requests (8, serve_qps(), seed 0,
     clamped to max_len 1024). The qwen3-4b paged path's three runs serve those of at
     most PAGED_MAX_OUTPUT output tokens (4 of the 8), which halves their
-    decode steps, its slab path all 8 with outputs cut to SLAB_MAX_OUTPUT
-    tokens; a served config's runs take the first ``n`` with outputs cut
+    decode steps, with outputs cut to PAGED_CUT_OUTPUT tokens; its slab
+    path all 8 with outputs cut to SLAB_MAX_OUTPUT tokens; a served
+    config's runs take the first ``n`` with outputs cut
     to ``max_output`` tokens."""
     from repro_torch.launch.serve import _clamp_lengths
     from repro_torch.serving.traces import synth_trace
     reqs = _clamp_lengths(synth_trace("azure-conv", 8, serve_qps(), seed=0),
                           1024, True)
     if n is None and path == "paged":
-        return [r for r in reqs if r.output_len <= PAGED_MAX_OUTPUT]
+        reqs = [r for r in reqs if r.output_len <= PAGED_MAX_OUTPUT]
+        for r in reqs:
+            r.output_len = min(r.output_len, PAGED_CUT_OUTPUT)
+        return reqs
     if n is None:
         n, max_output = len(reqs), SLAB_MAX_OUTPUT
     reqs = reqs[:n]
@@ -2452,7 +3262,10 @@ def _serve_run(label, cls, model, reqs, card, extra, graphs=None):
             if engine._duet_kernel and (duet == 0 or launched == 0):
                 raise AssertionError(f"[serve] {label}: no duet "
                                      "dispatch")
-            if not engine._duet_kernel and (duet or launched):
+            # a config with GQA layers among others fuses no duet step,
+            # but its chunks' GQA attention runs the paged duet kernel
+            # with no decode rows
+            if not engine._duet_kernel and duet:
                 raise AssertionError(f"[serve] {label}: a duet dispatch "
                                      "on a config the engine does not "
                                      "fuse")
@@ -2490,28 +3303,27 @@ def _path_counts(path, counts, cfg, split_kv=False):
     ``counts`` and fail if a kernel of the path, of the role the config's
     rep takes (split-KV where ``split_kv``), never launched. A config
     with GQA layers among others (zamba2's shared_attn beside Mamba2)
-    runs the decode kernels but no fused duet step, so its paths must not
-    launch ``duet_attention_paged``; a config without GQA layers (MLA,
-    xLSTM) runs no kernel, so its paths must launch none."""
+    runs the decode kernels and no fused duet step, but its prefill
+    chunks' GQA attention runs ``duet_attention_paged`` with no decode
+    rows, so its paged path launches that too; a config without GQA
+    layers (MLA, xLSTM) runs no kernel, so its paths must launch none."""
     from repro_torch.configs.base import GQA_KINDS
     from repro_torch.kernels import launch_counts
     from repro_torch.kernels.ops import cta_role
     got = launch_counts()
     log(f"[serve] {path} path launches: {got}")
     gqa = any(k in GQA_KINDS for k in cfg.block_pattern)
-    fused = _is_gqa(cfg)
     block = cta_role(cfg.num_heads // cfg.num_kv_heads) == "block"
     for name, n in got.items():
         counts[name] = counts.get(name, 0) + n
         needed = (gqa and PATH_OF.get(name) == path.split()[-1]
-                  and (fused if name == "duet_attention_paged"
-                       else name.endswith("[block]") == block)
+                  and (name == "duet_attention_paged"
+                       or name.endswith("[block]") == block)
                   and (split_kv or "splitkv" not in name))
         if needed and n <= 0:
             raise AssertionError(f"[serve] kernel {name} was never "
                                  f"launched on the {path} path")
-        if n and (not gqa or (name == "duet_attention_paged"
-                              and not fused)):
+        if n and not gqa:
             raise AssertionError(f"[serve] kernel {name} launched {n} "
                                  f"times on the path {path}, which must "
                                  "not launch it")
@@ -2643,7 +3455,8 @@ def serve_slot_reuse(card):
 
 
 def serve_config(name, counts, card):
-    """One served config at full depth, bf16, random weights from seed 0
+    """One served config at full width cut to SERVE_LAYERS, bf16, random
+    weights from seed 0
     (``Model.init`` draws each leaf on the card, in fp32, and casts it
     before the next, so the peak stays near the weights' own bytes), alone
     on the card: a paged run through the async engine (the fused duet
@@ -2654,13 +3467,12 @@ def serve_config(name, counts, card):
     peak allocated memory after both runs; an MoE config with GQA blocks
     (granite-moe) and the recurrent configs then profile one paged decode
     step. A recurrent config also prints its per-slot state bytes."""
-    from repro_torch.configs import get_config
     from repro_torch.configs.base import RECURRENT_KINDS
     from repro_torch.kernels import reset_launch_counts
     from repro_torch.kernels.ops import duet_block_q
     from repro_torch.models import Model
     from repro_torch.serving import AsyncDuetEngine, DuetEngine
-    cfg = get_config(name)
+    cfg = _cut(name, SERVE_LAYERS[name])
     t0 = time.time()
     torch.cuda.reset_peak_memory_stats()
     model = Model.init(cfg, seed=0, dtype=torch.bfloat16, device="cuda",
@@ -2731,7 +3543,7 @@ def profile_decode(model, card, slab: bool, top: int = 8):
     from repro_torch.core.lookahead import lookahead_decode
     from repro_torch.models.transformer import RECURRENT
     from repro_torch.serving.kvcache import PagePoolConfig, init_page_pools
-    cfg, B, P, ps, steps = model.cfg, 8, 64, 16, 4
+    cfg, B, P, ps, steps = model.cfg, 8, 64, 16, PROFILE_STEPS
     pos = torch.full((B,), 1000, dtype=torch.int32, device="cuda")
     tok = torch.zeros((B, 1), dtype=torch.int32, device="cuda")
     if slab:
@@ -2777,7 +3589,7 @@ def profile_decode(model, card, slab: bool, top: int = 8):
         f"[{card}]")
 
 
-def profile_replay(model, card, steps: int = 4):
+def profile_replay(model, card, steps: int = PROFILE_STEPS):
     """One decode-only super-iteration (kb 1: a decode step of 8 slots at
     1000 tokens of context, the engine's paged program with its static
     inputs) run eagerly and replayed from its CUDA graph: wall ms on the
@@ -2912,7 +3724,7 @@ def profile_duet(model, card):
     from repro_torch.core.lookahead import make_superiter_fn
     from repro_torch.kernels.ops import build_duet_schedule, duet_block_q
     from repro_torch.serving.kvcache import PagePoolConfig, init_page_pools
-    cfg, B, P, ps, chunk, steps = model.cfg, 8, 64, 16, 256, 4
+    cfg, B, P, ps, chunk, steps = model.cfg, 8, 64, 16, 256, PROFILE_STEPS
     dev = "cuda"
     bq = duet_block_q(cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
     prog = make_superiter_fn(model, 1, paged=True, chunk=chunk,
@@ -2956,14 +3768,16 @@ def profile_duet(model, card):
 
 
 # ---------------------------------------------------------------------------
-# phase 6: tensor parallelism, two ranks on the one card over gloo
+# phase 7: tensor parallelism, two ranks on the one card over gloo
 # ---------------------------------------------------------------------------
 TP = 2
 TP_PARITY_LAYERS = 4
-# the TP serve runs' outputs are cut to this many tokens: gloo's host
-# round trips on one card make a TP step about 4x a TP 1 step's wall (32
-# keeps the whole script inside its time limit on a slow host)
-TP_MAX_OUTPUT = 32
+# the TP serve runs' outputs are cut to this many tokens, and qwen3-4b to
+# this many layers: gloo's host round trips on one card make a TP step
+# about 4x a TP 1 step's wall (both keep the whole script inside its time
+# limit on a slow host). At 16 tokens the first request is done before
+# the next arrives on the engine's clock, and no duet step is left to check
+TP_MAX_OUTPUT, TP_SERVE_LAYERS = 32, 12
 # (d): every other block kind and both frontends at full width, the depth
 # cut to this many layers (zamba2's 12 hold its 2 shared_attn blocks)
 TP_BLOCK_LAYERS = {"deepseek-v2-lite-16b": 4, "granite-moe-3b-a800m": 4,
@@ -2971,7 +3785,7 @@ TP_BLOCK_LAYERS = {"deepseek-v2-lite-16b": 4, "granite-moe-3b-a800m": 4,
                    "musicgen-medium": 4}
 # (e): the sharded decode at these configs' rank shards too
 TP_SHARD_CONFIGS = ("granite-moe-3b-a800m", "zamba2-1.2b")
-# (f): full width and depth at TP 2, 4 requests of at most 16 tokens
+# (f): full width at TP 2 at (d)'s depths, 4 requests of at most 16 tokens
 TP_SERVED = ("deepseek-v2-lite-16b", "zamba2-1.2b")
 TP_SERVE_REQUESTS, TP_SERVE_MAX_OUTPUT = 4, 16
 
@@ -3044,7 +3858,7 @@ def phase_tp():
                             torch.from_numpy(a["logits"][what]),
                             torch.from_numpy(want))])
         log(f"[tp] {name} ({n_layers} layers): {a['line']}")
-    # (f) full width and depth
+    # (f) full width at (d)'s depths
     for name in TP_SERVED:
         a, b = (res["served"][name] for res in ranks)
         if a["streams"] != b["streams"]:
@@ -3226,16 +4040,16 @@ def tp_parity(rank):
 
 
 def tp_serve(rank):
-    """Full qwen3-4b at TP (36 layers, bf16, kernels on, strict): the
-    paged path's requests through the async and then the sync engine, the
-    launch counts reset just before and read just after; then one decode
+    """qwen3-4b at full width cut to TP_SERVE_LAYERS, at TP (bf16, kernels
+    on, strict): the paged path's requests through the async and then the
+    sync engine, the launch counts reset just before and read just after;
+    then one decode
     step profiled on rank 0 (every rank runs it)."""
-    from repro_torch.configs import get_config
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models import Model
     from repro_torch.serving import AsyncDuetEngine, DuetEngine, \
         EngineConfig
-    cfg = get_config("qwen3-4b")
+    cfg = _cut("qwen3-4b", TP_SERVE_LAYERS)
     ctx = rank.context(cfg)
     model = Model.init(cfg, seed=0, dtype=torch.bfloat16, ctx=ctx,
                        attn_kernel=True)
@@ -3308,7 +4122,7 @@ def tp_profile(rank, model, ctx):
     torch.profiler on rank 0 (where gloo's host copies show among the top
     ops), and the all-reduces one step makes."""
     from repro_torch.serving.kvcache import PagePoolConfig, init_page_pools
-    cfg, B, P, ps, steps = model.cfg, 8, 64, 16, 4
+    cfg, B, P, ps, steps = model.cfg, 8, 64, 16, PROFILE_STEPS
     pools = init_page_pools(cfg, PagePoolConfig(num_pages=B * P + 1,
                                                 page_size=ps),
                             torch.bfloat16, device=ctx.device,
@@ -3444,16 +4258,15 @@ def tp_block_parity(rank, name, n_layers):
 
 
 def tp_block_serve(rank, name, card):
-    """(f) One config at full width and depth, bf16, kernels on, strict,
-    at TP 2: TP_SERVE_REQUESTS azure-conv requests (outputs cut to
-    TP_SERVE_MAX_OUTPUT) through the async engine on the paged path, the
+    """(f) One config at full width cut to TP_BLOCK_LAYERS, bf16, kernels
+    on, strict, at TP 2: TP_SERVE_REQUESTS azure-conv requests (outputs cut
+    to TP_SERVE_MAX_OUTPUT) through the async engine on the paged path, the
     launch counts reset just before and read just after; then one decode
     step profiled on rank 0 (every rank runs it) with its all-reduces."""
-    from repro_torch.configs import get_config
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models import Model
     from repro_torch.serving import AsyncDuetEngine, EngineConfig
-    cfg = get_config(name)
+    cfg = _cut(name, TP_BLOCK_LAYERS[name])
     ctx = rank.context(cfg)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
@@ -3533,7 +4346,7 @@ def tp_block_serve(rank, name, card):
 
 
 # ---------------------------------------------------------------------------
-# phase 7: data parallelism, two replicas on the one card
+# phase 8: data parallelism, two replicas on the one card
 # ---------------------------------------------------------------------------
 DP = 2
 # the engines of the dp phase: the serve phase's geometry (pages of 16)
@@ -3544,10 +4357,10 @@ DP_ENGINE = dict(max_slots=8, max_len=1024, token_budget=256,
 # tokens (prompts of 392 to 424), DP_OUTPUT output tokens each; the pair's
 # second member arrives DP_PAIR_GAP virtual seconds after the first, when
 # the first's prefill (about 0.015 s on the card's virtual clock) is done
-# and its prefix cached, and the groups overlap (a request decodes for
-# about 0.2 s on the card's clock), so an engine batches several requests
-# a step
-DP_GROUPS, DP_SHARED, DP_BODY, DP_OUTPUT = 3, 256, 136, 64
+# and its prefix cached, and a pair's members overlap (a request decodes
+# for about 0.1 s on the card's clock), so an engine batches several
+# requests a step
+DP_GROUPS, DP_SHARED, DP_BODY, DP_OUTPUT = 3, 256, 136, 32
 DP_GROUP_GAP, DP_PAIR_GAP = 0.1, 0.05
 # the prefix-affinity run checks routing and prefix hits, not tokens/s:
 # the same pair trace with outputs cut to this many tokens
@@ -3892,7 +4705,7 @@ def profile_dp(model, ctx, card):
     torch.profiler. The replicas share the weights and have a pool each."""
     from repro_torch.models import Model
     from repro_torch.serving.kvcache import PagePoolConfig, init_page_pools
-    cfg, B, P, ps, steps = model.cfg, 8, 64, 16, 4
+    cfg, B, P, ps, steps = model.cfg, 8, 64, 16, PROFILE_STEPS
     tree = model.param_tree()
     replicas = []
     for c in ctx.split_replicas():
@@ -3924,7 +4737,7 @@ def profile_dp(model, ctx, card):
 
 
 # ---------------------------------------------------------------------------
-# phase 8: training
+# phase 9: training
 # ---------------------------------------------------------------------------
 def phase_train():
     """The reduced train step on the card against the CPU, then
@@ -4188,20 +5001,20 @@ def train_dryrun(cfg, peak: int, card):
 
 
 # ---------------------------------------------------------------------------
-# phase 9: the (data, model) grid of ranks on the one card
+# phase 10: the (data, model) grid of ranks on the one card
 # ---------------------------------------------------------------------------
 GRID_DP, GRID_TP = 2, 2
-# (a) serving: qwen3-4b at full width and depth, DP 2 x TP 2
-GRID_SERVE_ARCH = "qwen3-4b"
+# (a) serving: qwen3-4b at full width cut to GRID_SERVE_LAYERS, DP 2 x TP 2
+GRID_SERVE_ARCH, GRID_SERVE_LAYERS = "qwen3-4b", 8
 GRID_SERVE_REQUESTS, GRID_SERVE_MAX_OUTPUT = 4, 16
 # (b) training: TRAIN_ARCH at full width, cut to this depth, at TRAIN_BATCH
 # x TRAIN_SEQ, TRAIN_LR on its WSD schedule
-GRID_TRAIN_LAYERS, GRID_TRAIN_STEPS = 4, 3
+GRID_TRAIN_LAYERS, GRID_TRAIN_STEPS = 2, 2
 # (c) gradients at TP 2 against TP 1: the configs whose sharded blocks
 # read whole leaves (Mamba2's B/C and conv, the shared block's q/k norms;
 # MLA's latent projection, norm and rope key, the MoE router), at full
 # width cut to this depth, one batch of GRID_GRAD_SHAPE
-GRID_GRAD_LAYERS = {"zamba2-1.2b": 12, "deepseek-v2-lite-16b": 2}
+GRID_GRAD_LAYERS = {"zamba2-1.2b": 6, "deepseek-v2-lite-16b": 2}
 GRID_GRAD_SHAPE = (2, 512)
 GRID_GRAD_TOL = 1e-4        # relative to the leaf's largest |gradient|
 # where the ranks and the TP 1 references run (a rehearsal on the CPU sets
@@ -4299,16 +5112,16 @@ def grid_train_check(card):
 
 def grid_serve_rank(rank, card):
     """(a) One rank of DP 2 x TP 2 serving (a spawned process): its rank
-    of both replicas of GRID_SERVE_ARCH, bf16, kernels on and strict.
+    of both replicas of GRID_SERVE_ARCH cut to GRID_SERVE_LAYERS, bf16,
+    kernels on and strict.
     Each replica's round-robin share of the requests is first served
     alone by a TP 2 engine over the default group; then the router serves
     them all, the launch counts reset just before and read just after."""
-    from repro_torch.configs import get_config
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models import Model
     from repro_torch.serving import AsyncDuetEngine, EngineConfig
     from repro_torch.serving.router import Router
-    cfg = get_config(GRID_SERVE_ARCH)
+    cfg = _cut(GRID_SERVE_ARCH, GRID_SERVE_LAYERS)
     ctx = rank.context(cfg, dp=GRID_DP, share_card=True)
     model = Model.init(cfg, seed=0, dtype=torch.bfloat16, ctx=ctx,
                        attn_kernel=True)
@@ -4630,7 +5443,7 @@ def grid_grads(rank, name):
 
 
 # ---------------------------------------------------------------------------
-# phase 10: the dry run, and one of its ranks built on the card
+# phase 11: the dry run, and one of its ranks built on the card
 # ---------------------------------------------------------------------------
 DRYRUN_SHAPE = "decode_32k"
 # (b) the measured rank: DRYRUN_ARCH's decode_32k rank 0 on (data 16,
@@ -4995,7 +5808,7 @@ def dryrun_tp(card):
 
 
 # ---------------------------------------------------------------------------
-# phase 11: context-parallel decode
+# phase 12: context-parallel decode
 # ---------------------------------------------------------------------------
 # (a) CP_ARCH at full width and depth, bf16, at TP CP_TP: its one KV head
 # does not divide the model axis, so the cache's sequence is cut over it
@@ -5563,6 +6376,9 @@ def run_phases(phases):
         elif phase == "roofline":
             main_rec["sm_probe"] = phase_roofline()
             counts["sm_probe"] = main_rec["sm_probe"]["launches"]
+        elif phase == "split":
+            for name, n in phase_split().items():
+                counts[name] = counts.get(name, 0) + n
         elif phase == "kernels":
             main_rec.update(phase_kernels())
         elif phase == "parity":

@@ -60,9 +60,17 @@ host <-> device copies of the engines, and the tensor-parallel context.
   span. Only the slab decode step runs on that layout; the paged engines
   and TP serving keep the whole sequence, as the reference's engines do.
 
+* :class:`SmSplit` — Algorithm 1's (S_p, S_d) made real on one card: two
+  green contexts of disjoint SMs, 2·S_d for decode and the rest for
+  prefill, each with a stream of its own (``kernels/csrc/green_split.cu``
+  cuts the card's SM resource once). :func:`sm_granularity` is the
+  driver's step between the SM counts it cuts (8 SMs, 4 TPCs, on the
+  H100), the multiplexer's ``unit_step`` on the card.
 * :func:`partition_curves` — the card's B(S) table for the multiplexer,
-  measured with the ``sm_probe`` kernel over S SMs, once per process and
-  card.
+  measured with the ``sm_probe`` kernel once per process and card: over
+  2u SMs placed by the block scheduler for an engine that does not split
+  (no green context is made), on the green contexts of every split the
+  driver can cut for one that does.
 * :func:`resolve_device` — ``None`` means the card. Without CUDA that is an
   error, never a quiet move to the CPU; the CPU runs only when asked for.
 * :func:`to_device` — host numpy to the device without a host sync (pinned
@@ -440,21 +448,184 @@ _PROBE_L2_MULTIPLE = 4
 _PROBE_REPS = 32
 _PROBE_HOLD = 4_000_000
 _CURVES: Dict[Tuple[int, int], Dict[int, float]] = {}
+_GRANULARITY: Dict[int, Tuple[int, int, int]] = {}
+# SMs a TPC on the cards the port prices (roofline.card_spec's unit)
+SMS_PER_TPC = 2
 
 
-def partition_curves(device: DeviceLike, spec) -> Dict[int, float]:
+def sm_granularity(device: DeviceLike) -> Tuple[int, int, int]:
+    """(the card's SMs, the smallest SM group the driver cuts off it for a
+    green context, the step between the group sizes it cuts), asked of
+    ``cuDevSmResourceSplitByCount`` once per process and card (132, 8, 8
+    on the H100). A device that is not a CUDA card raises."""
+    from repro_torch.kernels import green_split
+    device = resolve_device(device)
+    if device.type != "cuda":
+        raise ValueError(f"green contexts need a CUDA card, not {device}")
+    if device.index not in _GRANULARITY:
+        _GRANULARITY[device.index] = green_split.granularity(device.index)
+    return _GRANULARITY[device.index]
+
+
+def card_unit_step(device: DeviceLike) -> int:
+    """The multiplexer's ``unit_step`` on the card, in TPCs: the driver's
+    step between SM group sizes (4 TPCs on the H100), so that Algorithm 1
+    picks only S_d that :class:`SmSplit` can cut. Raises where the
+    smallest group is not one step (Algorithm 1 starts its S_d at one
+    step)."""
+    _, low, step = sm_granularity(device)
+    if low != step or step % SMS_PER_TPC:
+        raise ValueError(f"the driver cuts SM groups of {low} + k x {step} "
+                         "SMs; Algorithm 1's S_d runs over multiples of one "
+                         "step of whole TPCs")
+    return step // SMS_PER_TPC
+
+
+class SmSplit:
+    """Algorithm 1's (S_p, S_d) on one card: a green context of exactly
+    2·``s_d`` SMs for the decode half and one of the card's other SMs for
+    the prefill half, cut from the card's SM resource in one driver call
+    (``kernels/csrc/green_split.cu``), so their SM sets are disjoint, each
+    with a non-blocking stream of its own (``decode_stream``,
+    ``prefill_stream``: ``torch.cuda.ExternalStream``).
+
+    Two ``torch.cuda.green_contexts.GreenContext.create`` calls each cut
+    the whole card afresh and overlap (64 SMs asked twice gave the same 64
+    on the H100), so the port cuts once itself. At construction the
+    ``sm_probe`` kernel runs one CTA for every SM of the card on each
+    stream: the SMs each side ran on (``smids``) must be as many as it was
+    cut and disjoint from the other's; anything else raises, as a failed
+    driver call does. Nothing falls back to the whole card.
+
+    While the split lives its streams are registered with
+    ``kernels.ops.SPLIT_STREAMS``: a kernel launched on one sizes its
+    clusters on that context's SMs. Keep the object alive as long as any
+    work or CUDA graph uses its streams (a collected split's contexts are
+    destroyed); :meth:`close` ends it after draining both streams."""
+
+    def __init__(self, device: DeviceLike, s_d: int):
+        from repro_torch.kernels import green_split
+        from repro_torch.kernels.ops import SPLIT_STREAMS
+        device = resolve_device(device)
+        card, low, step = sm_granularity(device)
+        want = SMS_PER_TPC * s_d
+        if want < low or (want - low) % step or want >= card:
+            raise ValueError(
+                f"SmSplit: S_d = {s_d} TPCs ({want} SMs) is not a group the "
+                f"driver cuts off {card} SMs ({low} + k x {step}, leaving "
+                "some for prefill)")
+        handles = green_split.create(device.index, want)
+        if handles[2] != want or handles[2] + handles[5] != card:
+            green_split.destroy(handles)
+            raise RuntimeError(f"SmSplit: {want} SMs asked, the driver cut "
+                               f"{handles[2]} and {handles[5]} of {card}")
+        self._handles = handles
+        self.device, self.s_d = device, s_d
+        self.s_p = (card - want) // SMS_PER_TPC
+        self.sms = {"decode": handles[2], "prefill": handles[5]}
+        self.decode_stream = torch.cuda.ExternalStream(handles[1],
+                                                       device=device)
+        self.prefill_stream = torch.cuda.ExternalStream(handles[4],
+                                                        device=device)
+        SPLIT_STREAMS[handles[1]] = handles[2]
+        SPLIT_STREAMS[handles[4]] = handles[5]
+        self.smids = self._held_apart(card)
+
+    def streams(self) -> Dict[str, torch.cuda.Stream]:
+        return {"decode": self.decode_stream,
+                "prefill": self.prefill_stream}
+
+    def _held_apart(self, card: int) -> Dict[str, frozenset]:
+        """The SMs each side's stream runs on, from the probe's %smid at
+        one CTA for every SM of the card on both streams at once; raises
+        unless each side ran on exactly its SMs and the sides share
+        none."""
+        from repro_torch.kernels.sm_probe import VEC, sm_probe
+        buf = torch.zeros((card * 1024 * VEC,), dtype=torch.int32,
+                          device=self.device)
+        main = torch.cuda.current_stream(self.device)
+        smid = {}
+        for side, stream in self.streams().items():
+            stream.wait_stream(main)
+            with torch.cuda.stream(stream):
+                smid[side] = sm_probe(buf, card)[1]
+        for stream in self.streams().values():
+            stream.synchronize()
+        sets = {side: frozenset(s.tolist()) for side, s in smid.items()}
+        shared = sets["decode"] & sets["prefill"]
+        if shared or any(len(sets[s]) != self.sms[s] for s in sets):
+            self.close()
+            raise RuntimeError(
+                f"SmSplit: the decode context ({self.sms['decode']} SMs) ran "
+                f"on {len(sets['decode'])}, the prefill context "
+                f"({self.sms['prefill']}) on {len(sets['prefill'])}, "
+                f"{len(shared)} SMs shared")
+        return sets
+
+    def close(self):
+        """Drain both streams, then destroy the contexts and streams."""
+        from repro_torch.kernels import green_split
+        from repro_torch.kernels.ops import forget_split_streams
+        if self._handles is None:
+            return
+        for stream in self.streams().values():
+            stream.synchronize()
+        forget_split_streams([s.cuda_stream for s in self.streams().values()])
+        handles, self._handles = self._handles, None
+        green_split.destroy(handles)
+
+
+def probe_rate(buf: torch.Tensor, ctas: int, stream=None,
+               reps: int = _PROBE_REPS) -> Tuple[float, torch.Tensor,
+                                                 torch.Tensor]:
+    """bytes/s the ``sm_probe`` kernel reads ``buf`` at with ``ctas`` CTAs
+    launched on ``stream`` (the current stream by default): CUDA events on
+    that stream around ``reps`` back-to-back launches, after one warm-up,
+    behind a spin kernel of _PROBE_HOLD cycles. Returns (rate, the last
+    launch's CTA sums, the SMs its CTAs ran on). Synchronises the
+    stream."""
+    from repro_torch.kernels.sm_probe import sm_probe
+    stream = stream or torch.cuda.current_stream(buf.device)
+    with torch.cuda.stream(stream):
+        sm_probe(buf, ctas)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(_PROBE_HOLD)
+        start.record(stream)
+        for _ in range(reps):
+            partial, smid = sm_probe(buf, ctas)
+        end.record(stream)
+    end.synchronize()
+    nbytes = buf.numel() * buf.element_size()
+    return nbytes * reps / (start.elapsed_time(end) / 1e3), partial, smid
+
+
+def partition_curves(device: DeviceLike, spec,
+                     split: bool = False) -> Dict[int, float]:
     """The card's bandwidth curve, the multiplexer's ``bw_table``: bytes/s
     keyed by TPC count u = 1 .. ``spec.num_units`` (a
-    :class:`HardwareSpec` of the card, ``roofline.card_spec``).
+    :class:`HardwareSpec` of the card, ``roofline.card_spec``), the bytes/s
+    the ``sm_probe`` kernel reads from HBM with one CTA an SM
+    (:func:`probe_rate`: an int32 buffer of _PROBE_L2_MULTIPLE x the
+    card's L2, the mean of _PROBE_REPS launches after one warm-up).
 
-    ``bw_table[u]``: the bytes/s the ``sm_probe`` kernel reads from HBM
-    with exactly 2u CTAs, one to an SM, over an int32 buffer of
-    _PROBE_L2_MULTIPLE x the card's L2 (the mean of _PROBE_REPS launches
-    after one warm-up). The probe places SMs, not whole TPCs or GPCs: the
-    block scheduler spreads the CTAs over the GPCs, where a green context
-    would hand out whole TPCs. Each launch's CTA sums are held to
-    ``torch.sum`` of the buffer, and its CTAs to 2u distinct SMs; a
-    mismatch raises, as a failed build or launch does.
+    ``split`` False, the curve of every engine that does not split: 2u
+    CTAs on the current stream for each u, placed by the block scheduler
+    over the GPCs. No green context is made.
+
+    ``split`` True, the curve of an engine that runs the SM split:
+    measured on the green contexts of every :class:`SmSplit` the driver
+    can cut (its groups of ``low + k x step`` SMs, :func:`sm_granularity`,
+    and each one's remainder: every multiple of 4 SMs from 4 to 128 on the
+    H100), one CTA for each of a context's SMs launched on its stream, and
+    the whole card's on the current stream. The points lie 2 TPCs apart;
+    ``bw_table`` needs every u, so a TPC count between two points reads
+    the straight line between them, and one below the first point the
+    line from zero.
+
+    Each launch's CTA sums are held to ``torch.sum`` of the buffer, and its
+    CTAs to as many distinct SMs as asked; a mismatch raises, as a failed
+    build, launch or split does.
 
     The multiplexer's ``pi_table`` stays ``spec.pi(u)``: linear in SMs,
     as the paper's Fig. 3 shows it. Pi is not measured: tensor-core work
@@ -462,46 +633,51 @@ def partition_curves(device: DeviceLike, spec) -> Dict[int, float]:
     ours, not the cuBLAS GEMMs the model's projections run, whose rate Pi
     stands for.
 
-    Measured once per process and card, then cached. A device that is
-    not a CUDA card raises."""
-    from repro_torch.kernels.sm_probe import MAX_VALUE, sm_probe
+    Measured once per process, card and kind, then cached. A device that
+    is not a CUDA card raises."""
+    from repro_torch.kernels.sm_probe import MAX_VALUE
     device = torch.device(device)
     if device.type != "cuda":
         raise ValueError(f"partition_curves measures a CUDA card, not "
                          f"{device}")
     device = resolve_device(device)
-    key = (device.index, spec.num_units)
+    key = (device.index, spec.num_units, split)
     if key in _CURVES:
         return _CURVES[key]
     props = torch.cuda.get_device_properties(device)
     n = -(-_PROBE_L2_MULTIPLE * props.L2_cache_size // 16) * 4
-    events, last = {}, {}
+    rates: Dict[int, float] = {}         # SMs -> bytes/s
     with torch.cuda.device(device):
         gen = torch.Generator(device=device).manual_seed(0)
         buf = torch.randint(0, MAX_VALUE, (n,), dtype=torch.int32,
                             device=device, generator=gen)
         want = int(buf.sum())
-        for u in range(1, spec.num_units + 1):
-            sm_probe(buf, 2 * u)                      # warm-up
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            torch.cuda._sleep(_PROBE_HOLD)
-            start.record()
-            for _ in range(_PROBE_REPS):
-                partial, smid = sm_probe(buf, 2 * u)
-            end.record()
-            events[u], last[u] = (start, end), (partial, smid)
-        torch.cuda.synchronize(device)
-    for u, (partial, smid) in last.items():
-        total, distinct = int(partial.sum()), torch.unique(smid).numel()
-        if total != want or distinct != 2 * u:
-            raise RuntimeError(
-                f"sm_probe at {2 * u} SMs: checksum {total} against "
-                f"torch.sum {want}, on {distinct} distinct SMs")
-    nbytes = buf.numel() * buf.element_size()
-    bw = {u: nbytes * _PROBE_REPS / (s.elapsed_time(e) / 1e3)
-          for u, (s, e) in events.items()}
+
+        def measure(sms, stream=None):
+            rate, partial, smid = probe_rate(buf, sms, stream)
+            total, distinct = int(partial.sum()), torch.unique(smid).numel()
+            if total != want or distinct != sms:
+                raise RuntimeError(
+                    f"sm_probe on {sms} SMs: checksum {total} against "
+                    f"torch.sum {want}, on {distinct} distinct SMs")
+            rates.setdefault(sms, rate)
+        if split:
+            card, low, step = sm_granularity(device)
+            for group in range(low, card, step):
+                cut = SmSplit(device, group // SMS_PER_TPC)
+                for side, stream in cut.streams().items():
+                    measure(cut.sms[side], stream)
+                cut.close()
+            measure(card)
+        else:
+            for u in range(1, spec.num_units + 1):
+                measure(SMS_PER_TPC * u)
     del buf
+    points = sorted((sms / SMS_PER_TPC, r) for sms, r in rates.items())
+    us = np.arange(1, spec.num_units + 1, dtype=np.float64)
+    xs = np.array([0.0] + [u for u, _ in points])
+    ys = np.array([0.0] + [r for _, r in points])
+    bw = {int(u): float(b) for u, b in zip(us, np.interp(us, xs, ys))}
     _CURVES[key] = bw
     return bw
 

@@ -31,7 +31,7 @@ manager.
 """
 from __future__ import annotations
 
-from typing import TYPE_CHECKING, Dict, Optional
+from typing import TYPE_CHECKING, Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -186,10 +186,77 @@ def _store(buf: torch.Tensor, new: torch.Tensor):
         buf.copy_(new)
 
 
+class SplitHalves(NamedTuple):
+    """The split super-iteration (``make_superiter_fn(..., split=True)``):
+    the paged sequential program's two halves, each writing only tensors
+    of its own, and the join that merges them into the engine's decode
+    inputs. The sequential program is these halves run in turn on one
+    stream, then the join.
+
+      decode(pools, state, last_tok, pos, tables, gen, active)
+          -> (toks (B,kb), new_tok (B,1), new_pos (B,))
+      prefill(pools, state, pre_toks, pre_tbl, pre_start, pre_slot,
+              override_tok) -> (tok, sampled)
+      join(last_tok, pos, new_tok, new_pos, tok, pre_start, pre_slot)
+
+    The halves read ``last_tok`` and ``pos`` and write disjoint pages (the
+    engine dispatches a split only where no decode request finishes inside
+    the iteration, so the chunk never takes over a page the decode steps
+    write; an inactive decode row's table row is the null page, so no
+    decode row reads the chunk's pages while the chunk writes them) and
+    disjoint rows of the state; neither writes ``last_tok`` or
+    ``pos``, which the join alone stores (the chunk's slot's row from the
+    prefill half, every other row from the decode half). So the halves
+    commute: run in either order, or at once on two streams
+    (:func:`fork_join`), they give the sequential program's result."""
+    decode: Callable
+    prefill: Callable
+    join: Callable
+
+
+def fork_join(halves: SplitHalves, split, args):
+    """The split program with each half on its green context's stream of
+    ``split`` (a ``core.device.SmSplit``), at once: an event recorded on
+    the current stream, each context's stream waiting on it and running
+    its half, the current stream waiting on both halves' events, then the
+    join on the current stream. Inside ``torch.cuda.graph`` the two
+    streams join the capture, so the graph holds both halves on their
+    SMs; outside, the same launches run eagerly. The per-dispatch scalars
+    are made on the current stream before the fork, and every tensor a
+    half makes is read across streams only after its event. Returns
+    (toks, sampled)."""
+    (pools, state, last_tok, pos, tables, gen, active, pre_toks, pre_tbl,
+     pre_start, pre_slot, override_tok) = args
+    dev = last_tok.device
+    pre_start, pre_slot, override_tok = (
+        _scalar(v, dev) for v in (pre_start, pre_slot, override_tok))
+    main = torch.cuda.current_stream(dev)
+    fork = torch.cuda.Event()
+    fork.record(main)
+    work = {"decode": lambda: halves.decode(pools, state, last_tok, pos,
+                                            tables, gen, active),
+            "prefill": lambda: halves.prefill(pools, state, pre_toks,
+                                              pre_tbl, pre_start, pre_slot,
+                                              override_tok)}
+    out = {}
+    for half, stream in split.streams().items():
+        stream.wait_event(fork)
+        with torch.cuda.stream(stream):
+            out[half] = work[half]()
+            done = torch.cuda.Event()
+            done.record(stream)
+        main.wait_event(done)
+    toks, new_tok, new_pos = out["decode"]
+    tok, sampled = out["prefill"]
+    halves.join(last_tok, pos, new_tok, new_pos, tok, pre_start, pre_slot)
+    return toks, sampled
+
+
 def make_superiter_fn(model: Model, kb: int, *, paged: bool = True,
                       chunk: int = 0, finish: bool = False,
                       sample: bool = False, temperature: float = 0.0,
-                      duet_kernel: bool = False, duet_block_q: int = 1):
+                      duet_kernel: bool = False, duet_block_q: int = 1,
+                      split: bool = False):
     """Build one fused duet super-iteration program.
 
     Bucket parameters (the engine's dispatch cache keys on them plus the
@@ -206,6 +273,9 @@ def make_superiter_fn(model: Model, kb: int, *, paged: bool = True,
                 launch per layer (paged only; needs kb > 0 and chunk > 0)
       duet_block_q — rows of one tile of that launch; ``order`` is the
                 schedule's ``row_src`` built with it
+      split   — return the sequential program's two halves and their join
+                (:class:`SplitHalves`; paged, kb > 0 and chunk > 0): the
+                SM split runs them at once on two green contexts
 
     Signatures (B = engine slot count, W/Wp = block-table width buckets,
     C = chunk):
@@ -235,6 +305,9 @@ def make_superiter_fn(model: Model, kb: int, *, paged: bool = True,
     if duet_kernel and (not paged or kb == 0 or chunk == 0):
         raise ValueError("duet_kernel needs paged mode with both phases "
                          "(kb > 0 and chunk > 0)")
+    if split and (duet_kernel or not paged or kb == 0 or chunk == 0):
+        raise ValueError("split needs paged mode with both phases (kb > 0 "
+                         "and chunk > 0) and no fused duet launch")
 
     def _finish(logits_row, last_tok, pos, pre_start, pre_slot,
                 override_tok):
@@ -256,6 +329,39 @@ def make_superiter_fn(model: Model, kb: int, *, paged: bool = True,
                                            start_pos=pre_start)
         slot_scatter(state, rows, pre_slot)
         return logits
+
+    # the paged sequential program's halves: k decode steps, the chunk,
+    # and the join that stores the decode inputs both leave
+    def decode(pools, state, last_tok, pos, tables, gen, active):
+        toks, _, _, new_pos = lookahead_decode_paged(
+            model, pools, state, last_tok, pos, tables, kb, gen=gen,
+            temperature=temperature, active_mask=active)
+        # feed the last generated token back as the next decode input;
+        # the engine guarantees kb <= remaining output for every batch
+        # member, so the final step is always a live token
+        new_tok = torch.where(active[:, None], toks[:, -1:], last_tok)
+        return toks, new_tok, new_pos
+
+    def prefill(pools, state, pre_toks, pre_tbl, pre_start, pre_slot,
+                override_tok):
+        logits = _prefill_paged(pools, state, pre_toks, pre_tbl, pre_start,
+                                pre_slot)
+        if not finish:
+            return None, None
+        if sample:
+            tok = torch.argmax(logits[0]).to(torch.int32)
+            return tok, tok
+        return override_tok, None
+
+    def join(last_tok, pos, new_tok, new_pos, tok, pre_start, pre_slot):
+        if chunk > 0 and finish:
+            new_tok = _set_row(new_tok, pre_slot, tok)
+            new_pos = _set_row(new_pos, pre_slot, pre_start + chunk)
+        _store(last_tok, new_tok)
+        _store(pos, new_pos)
+
+    if split:
+        return SplitHalves(decode, prefill, join)
 
     if duet_kernel:
         # Algorithm-1 fused launch: decode step 1 and the whole prefill
@@ -329,29 +435,20 @@ def make_superiter_fn(model: Model, kb: int, *, paged: bool = True,
 
     def fused(pools, state, last_tok, pos, tables, gen, active, pre_toks,
               pre_tbl, pre_start, pre_slot, override_tok):
-        dev = last_tok.device
+        # the halves in turn on one stream: the split program's order
         toks = torch.zeros((last_tok.shape[0], 0), dtype=torch.int32,
-                           device=dev)
-        sampled, new_tok, new_pos = None, last_tok, pos
+                           device=last_tok.device)
+        new_tok, new_pos, tok, sampled = last_tok, pos, None, None
         if kb > 0:
-            toks, _, _, new_pos = lookahead_decode_paged(
-                model, pools, state, last_tok, pos, tables, kb, gen=gen,
-                temperature=temperature, active_mask=active)
-            # feed the last generated token back as the next decode input;
-            # the engine guarantees kb <= remaining output for every batch
-            # member, so the final step is always a live token
-            new_tok = torch.where(active[:, None], toks[:, -1:], last_tok)
+            toks, new_tok, new_pos = decode(pools, state, last_tok, pos,
+                                            tables, gen, active)
         if chunk > 0:
             pre_start, pre_slot, override_tok = (
-                _scalar(v, dev) for v in (pre_start, pre_slot,
-                                          override_tok))
-            logits = _prefill_paged(pools, state, pre_toks, pre_tbl,
-                                    pre_start, pre_slot)
-            sampled, new_tok, new_pos = _finish(
-                logits[0], new_tok, new_pos, pre_start, pre_slot,
-                override_tok)
-        _store(last_tok, new_tok)
-        _store(pos, new_pos)
+                _scalar(v, last_tok.device) for v in (pre_start, pre_slot,
+                                                      override_tok))
+            tok, sampled = prefill(pools, state, pre_toks, pre_tbl,
+                                   pre_start, pre_slot, override_tok)
+        join(last_tok, pos, new_tok, new_pos, tok, pre_start, pre_slot)
         return toks, sampled
     return fused
 
@@ -378,13 +475,30 @@ class BucketProgram:
     :meth:`replay` launches that graph, one host call for the whole
     super-iteration. The arguments handed to :meth:`capture` must be the
     ones every later replay reads: the engine's pools, state, decode
-    inputs and generator and this bucket's static tensors."""
+    inputs and generator and this bucket's static tensors.
+
+    A split bucket (``fn`` a :class:`SplitHalves`, ``split`` the
+    ``core.device.SmSplit`` it runs on) forks and joins in every run
+    (:func:`fork_join`): its eager warm-up runs both halves on the split's
+    two streams, and its capture records both streams' work into the one
+    graph, so a replay is still one ``cudaGraphLaunch`` whose decode half
+    runs on S_d's SMs and prefill half on S_p's. The bucket keeps its
+    split alive."""
 
     def __init__(self, fn, device: torch.device, slots: int, *,
                  width: int = 1, chunk: int = 0, pwidth: int = 1,
-                 paged: bool = True):
+                 paged: bool = True, split=None):
         def zeros(*shape, dtype=torch.int32):
             return torch.zeros(shape, dtype=dtype, device=device)
+        if isinstance(fn, SplitHalves):
+            if split is None:
+                raise ValueError("a split program runs on an SmSplit's two "
+                                 "green contexts; none was given")
+            halves = fn
+
+            def fn(*args):
+                return fork_join(halves, split, args)
+        self.split = split
         self.fn = fn
         self.tables = zeros(slots, width) if paged else None
         self.active = zeros(slots, dtype=torch.bool)

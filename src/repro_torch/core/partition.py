@@ -99,8 +99,11 @@ def decide(model: RooflineModel,
     t_mixed = model.iteration_latency(mixed, units=total_units)
     if t_mixed <= tbt_slo or not prefill_reqs or not decode_reqs:
         return ScheduleDecision(mode="aggregated", t_mixed=t_mixed)
+    # S_d at multiples of the step (the reference starts at 1 unit; the
+    # same at its unit_step 1): on the card, only splits the driver can cut
     part = optimize_partition(model, prefill_reqs, decode_reqs, total_units,
-                              tbt_slo, unit_step=unit_step)
+                              tbt_slo, unit_step=unit_step,
+                              min_decode_units=unit_step)
     if part is None:
         return ScheduleDecision(mode="aggregated", t_mixed=t_mixed)
     return ScheduleDecision(mode="duet", t_mixed=t_mixed, partition=part)

@@ -58,6 +58,11 @@ class HardwareSpec:
     # GPU card from card_spec (an engine's replica spans its devices'
     # units)
     units_per_device: int = 1
+    # the step of the partitions the device can make, in units: Algorithm
+    # 1's S_d runs over its multiples (1 for the reference's specs and an
+    # engine that does not split; for the engine that runs the SM split
+    # the driver's green-context granularity, 4 TPCs on the H100)
+    unit_step: int = 1
 
     def pi(self, units: float) -> float:
         return self.peak_flops * units
@@ -90,14 +95,16 @@ CARD_DATASHEET = {
 }
 
 
-def card_spec(props) -> HardwareSpec:
+def card_spec(props, unit_step: int = 1) -> HardwareSpec:
     """The :class:`HardwareSpec` of a CUDA card from its device properties
     (duck-typed: ``.name``, ``.multi_processor_count``; the object
     ``torch.cuda.get_device_properties`` returns). Its units are TPCs
     (SMs / 2: 66 on the H100 SXM); the datasheet's peak FLOP/s and HBM
     bytes/s are spread evenly over them; the NVLink terms are
-    ``H100_LIKE``'s. A card missing from :data:`CARD_DATASHEET` raises:
-    nothing falls back to another card's prices."""
+    ``H100_LIKE``'s; ``unit_step`` the TPCs between the SM splits the
+    card can make (``core.device.card_unit_step``). A card missing from
+    :data:`CARD_DATASHEET` raises: nothing falls back to another card's
+    prices."""
     if props.name not in CARD_DATASHEET:
         raise ValueError(
             f"no datasheet values for the card {props.name!r} (known: "
@@ -108,7 +115,8 @@ def card_spec(props) -> HardwareSpec:
     return HardwareSpec(props.name, peak_flops=flops / tpcs,
                         hbm_bw=hbm / tpcs, ici_bw=H100_LIKE.ici_bw,
                         ici_links=H100_LIKE.ici_links, num_units=tpcs,
-                        alpha=H100_LIKE.alpha, units_per_device=tpcs)
+                        alpha=H100_LIKE.alpha, units_per_device=tpcs,
+                        unit_step=unit_step)
 
 
 @dataclass(frozen=True)

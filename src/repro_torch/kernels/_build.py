@@ -30,7 +30,10 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 SOURCES = ("paged_decode", "duet_attention_paged", "duet_attention",
-           "flash_prefill", "sm_probe")
+           "flash_prefill", "sm_probe", "green_split")
+# flags of one source beyond NVCC_FLAGS: the green contexts' shim calls the
+# driver API
+EXTRA_FLAGS = {"green_split": ["-lcuda"]}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -40,15 +43,15 @@ _L = ctypes.c_longlong
 SIGNATURES = {
     "paged_decode": {
         "paged_decode_launch": [_P] * 6 + [_I] * 7 + [_F, _I, _P],
-        "paged_decode_occupancy": [_I] * 5 + [_P],
+        "paged_decode_occupancy": [_I] * 5 + [_P, _P],
     },
     "duet_attention_paged": {
         "duet_attention_paged_launch": [_P] * 7 + [_I] * 8 + [_F, _I, _P],
-        "duet_attention_paged_occupancy": [_I] * 5 + [_P],
+        "duet_attention_paged_occupancy": [_I] * 5 + [_P, _P],
     },
     "duet_attention": {
         "duet_attention_launch": [_P] * 7 + [_I] * 7 + [_F, _I, _P],
-        "duet_attention_occupancy": [_I] * 4 + [_P],
+        "duet_attention_occupancy": [_I] * 4 + [_P, _P],
     },
     "flash_prefill": {
         "flash_prefill_launch": [_P] * 4 + [_I] * 8 + [_F, _I, _P],
@@ -57,6 +60,11 @@ SIGNATURES = {
     "sm_probe": {
         "sm_probe_launch": [_P, _L, _P, _P, _I, _P],
         "sm_probe_occupancy": [_P],
+    },
+    "green_split": {
+        "green_split_granularity": [_I, _P],
+        "green_split_create": [_I, _I, _P],
+        "green_split_destroy": [_P] * 4,
     },
 }
 
@@ -81,7 +89,7 @@ def _digest(name: str) -> str:
     h = hashlib.sha256()
     for path in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
         h.update(path.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + EXTRA_FLAGS.get(name, [])).encode())
     return h.hexdigest()[:12]
 
 
@@ -98,7 +106,7 @@ def _start_build(name: str):
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-           str(CSRC / f"{name}.cu")]
+           str(CSRC / f"{name}.cu"), *EXTRA_FLAGS.get(name, [])]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out

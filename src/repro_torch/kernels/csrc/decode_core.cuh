@@ -667,10 +667,12 @@ cudaError_t launch_cluster(void (*kernel)(Params...), dim3 grid, int C,
 }
 
 // How many clusters of C CTAs of ``kernel`` (with ``smem`` bytes each) the
-// card holds at once (cudaOccupancyMaxActiveClusters).
+// SMs of ``stream``'s context hold at once (cudaOccupancyMaxActiveClusters:
+// with a green context's stream in the configuration it counts that
+// context's SMs; the null stream, the whole card).
 template <class Cf, typename... Params>
 cudaError_t max_active_clusters(void (*kernel)(Params...), int C, size_t smem,
-                                int* n) {
+                                int* n, cudaStream_t stream) {
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -680,6 +682,7 @@ cudaError_t max_active_clusters(void (*kernel)(Params...), int C, size_t smem,
   cfg.gridDim = dim3(1, 1, C);
   cfg.blockDim = dim3(Cf::THREADS);
   cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = 1;

@@ -185,7 +185,7 @@ static cudaError_t launch_slab(const void* q, const void* row_pos,
 }
 
 static cudaError_t slab_occupancy(int Dh, int rows, int C, int dtype,
-                                  int* res) {
+                                  int* res, cudaStream_t stream) {
   if (C < 1 || C > dcore::MAX_CLUSTER || rows < 1)
     return cudaErrorInvalidValue;
   if (rows > dcore::MAX_ROWS)            // the block role
@@ -197,7 +197,8 @@ static cudaError_t slab_occupancy(int Dh, int rows, int C, int dtype,
       res[2] = Bc::MMA ? (pcore::NSTAGE - 1) * pcore::MmaCfg<DH>::STAGE_BYTES
                        : 0;
       return dcore::max_active_clusters<Bc>(
-          duet_attention_block_kernel<T, DH>, C, (size_t)res[1], &res[0]);
+          duet_attention_block_kernel<T, DH>, C, (size_t)res[1], &res[0],
+          stream);
     });
   return dcore::dispatch(dtype, Dh, rows, [&](auto cf) {
     using Cf = decltype(cf);
@@ -205,7 +206,7 @@ static cudaError_t slab_occupancy(int Dh, int rows, int C, int dtype,
     res[2] = (dcore::NSTAGE - 1) * Cf::STAGE_BYTES;
     return dcore::max_active_clusters<Cf>(
         duet_attention_cluster_kernel<typename Cf::T, Cf::DH, Cf::NRB>, C,
-        (size_t)res[1], &res[0]);
+        (size_t)res[1], &res[0], stream);
   });
 }
 
@@ -226,10 +227,13 @@ int duet_attention_launch(const void* q, const void* row_pos,
 
 // duet_attention_launch's occupancy for ``rows`` (= bq * heads of a head
 // block) query rows per CTA, of the role it launches (the block role above
-// 16 rows): res = {clusters of C CTAs the card holds at once, dynamic
-// shared memory bytes per CTA, bytes the ring loads ahead}.
-int duet_attention_occupancy(int Dh, int rows, int C, int dtype, void* res) {
-  return (int)slab_occupancy(Dh, rows, C, dtype, static_cast<int*>(res));
+// 16 rows): res = {clusters of C CTAs the SMs of ``stream``'s context
+// (null: the card) hold at once, dynamic shared memory bytes per CTA,
+// bytes the ring loads ahead}.
+int duet_attention_occupancy(int Dh, int rows, int C, int dtype, void* res,
+                             void* stream) {
+  return (int)slab_occupancy(Dh, rows, C, dtype, static_cast<int*>(res),
+                             static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -215,7 +215,7 @@ cudaError_t launch_duet(const void* q, const void* row_pos,
 }
 
 cudaError_t duet_occupancy(int Dh, int ps, int P, int C, int dtype,
-                           int* res) {
+                           int* res, cudaStream_t stream) {
   if (C < 1 || C > dcore::MAX_CLUSTER) return cudaErrorInvalidValue;
   return pcore::dispatch_t_dh(dtype, Dh, [&](auto tt, auto dh) {
     using T = std::remove_pointer_t<decltype(tt)>;
@@ -227,7 +227,7 @@ cudaError_t duet_occupancy(int Dh, int ps, int P, int C, int dtype,
     if (e != cudaSuccess) return e;
     res[2] = attr.numRegs;
     return dcore::max_active_clusters<typename DuetCfg<T, DH>::Big>(
-        kernel, C, (size_t)res[1], &res[0]);
+        kernel, C, (size_t)res[1], &res[0], stream);
   });
 }
 
@@ -249,11 +249,13 @@ int duet_attention_paged_launch(const void* q, const void* row_pos,
 }
 
 // duet_attention_paged_launch's residency for tables of width P over pages
-// of ps tokens: res = {clusters of C CTAs the card holds at once, dynamic
-// shared memory bytes per CTA, registers per thread}.
+// of ps tokens: res = {clusters of C CTAs the SMs of ``stream``'s context
+// (null: the card) hold at once, dynamic shared memory bytes per CTA,
+// registers per thread}.
 int duet_attention_paged_occupancy(int Dh, int ps, int P, int C, int dtype,
-                                   void* res) {
-  return (int)duet_occupancy(Dh, ps, P, C, dtype, static_cast<int*>(res));
+                                   void* res, void* stream) {
+  return (int)duet_occupancy(Dh, ps, P, C, dtype, static_cast<int*>(res),
+                             static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -180,7 +180,7 @@ static cudaError_t launch_paged(const void* q, const void* k, const void* v,
 }
 
 static cudaError_t paged_occupancy(int Dh, int rows, int P, int C, int dtype,
-                                   int* res) {
+                                   int* res, cudaStream_t stream) {
   if (C < 1 || C > dcore::MAX_CLUSTER || rows < 1)
     return cudaErrorInvalidValue;
   if (rows > dcore::MAX_ROWS)                            // the block role
@@ -192,7 +192,8 @@ static cudaError_t paged_occupancy(int Dh, int rows, int P, int C, int dtype,
       res[2] = Bc::MMA ? (pcore::NSTAGE - 1) * pcore::MmaCfg<DH>::STAGE_BYTES
                        : 0;
       return dcore::max_active_clusters<Bc>(
-          paged_decode_block_kernel<T, DH>, C, (size_t)res[1], &res[0]);
+          paged_decode_block_kernel<T, DH>, C, (size_t)res[1], &res[0],
+          stream);
     });
   return dcore::dispatch(dtype, Dh, rows, [&](auto cf) {
     using Cf = decltype(cf);
@@ -200,7 +201,7 @@ static cudaError_t paged_occupancy(int Dh, int rows, int P, int C, int dtype,
     res[2] = (dcore::NSTAGE - 1) * Cf::STAGE_BYTES;
     return dcore::max_active_clusters<Cf>(
         paged_decode_cluster_kernel<typename Cf::T, Cf::DH, Cf::NRB>, C,
-        (size_t)res[1], &res[0]);
+        (size_t)res[1], &res[0], stream);
   });
 }
 
@@ -220,11 +221,13 @@ int paged_decode_launch(const void* q, const void* k, const void* v,
 
 // paged_decode_launch's occupancy for ``rows`` (= rep) query rows of a
 // group, of the role it launches (the block role above 16 rows): res =
-// {clusters of C CTAs the card holds at once, dynamic shared memory bytes
-// per CTA, bytes the ring loads ahead}.
+// {clusters of C CTAs the SMs of ``stream``'s context (null: the card)
+// hold at once, dynamic shared memory bytes per CTA, bytes the ring loads
+// ahead}.
 int paged_decode_occupancy(int Dh, int rows, int P, int C, int dtype,
-                           void* res) {
-  return (int)paged_occupancy(Dh, rows, P, C, dtype, static_cast<int*>(res));
+                           void* res, void* stream) {
+  return (int)paged_occupancy(Dh, rows, P, C, dtype, static_cast<int*>(res),
+                              static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

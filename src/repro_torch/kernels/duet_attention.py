@@ -66,7 +66,7 @@ from repro_torch.kernels.ops import (DENOM_EPS, DUET_DECODE_ROWS,
                                      NEG_INF, SPLIT_KEYS, cluster_size,
                                      cluster_spans, cta_role,
                                      default_sm_scale, gqa_split_heads,
-                                     head_split)
+                                     head_split, split_stream_kw)
 
 launches = {"duet_attention": 0, "duet_attention[block]": 0,
             "duet_attention_paged": 0}
@@ -300,16 +300,18 @@ def slab_role(block_q: int, rep: int) -> str:
 
 
 @functools.lru_cache(maxsize=None)
-def occupancy(device: int, dtype, Dh: int, rows: int, C: int):
+def occupancy(device: int, dtype, Dh: int, rows: int, C: int,
+              stream: int = 0):
     """(clusters of C CTAs the card runs at once, shared memory bytes per
     CTA, bytes each CTA's ring loads ahead) of the slab
     :func:`duet_attention` kernel of the role ``rows`` (block_q times the
     heads of a head block) query rows per CTA take
-    (cudaOccupancyMaxActiveClusters; a host query, no device sync)."""
+    (cudaOccupancyMaxActiveClusters; a host query, no device sync); on
+    ``stream``'s green context where it is an SM split's."""
     res = (ctypes.c_int * 3)()
     with torch.cuda.device(device):
         err = _build.load("duet_attention").duet_attention_occupancy(
-            Dh, rows, C, _DTYPES[dtype], ctypes.addressof(res))
+            Dh, rows, C, _DTYPES[dtype], ctypes.addressof(res), stream)
     _build.check(err, "duet_attention occupancy")
     return tuple(res)
 
@@ -322,9 +324,11 @@ def cluster_for(q, tile_slot, k_slab, block_q) -> int:
     hb, hpc = head_split(H // G, block_q)
     dev = q.device.index if q.device.index is not None else \
         torch.cuda.current_device()
+    on = split_stream_kw(q.device)
     return cluster_size(
         tile_slot.shape[0] * G * hb, -(-S // SPLIT_KEYS),
-        lambda C: C * occupancy(dev, q.dtype, Dh, block_q * hpc, C)[0])
+        lambda C: C * occupancy(dev, q.dtype, Dh, block_q * hpc, C,
+                                **on)[0])
 
 
 def _launch(q, row_pos, tile_slot, k_slab, v_slab, block_q, return_lse):
@@ -352,17 +356,19 @@ def _launch(q, row_pos, tile_slot, k_slab, v_slab, block_q, return_lse):
 
 
 @functools.lru_cache(maxsize=None)
-def paged_occupancy(device: int, dtype, Dh: int, ps: int, P: int, C: int):
+def paged_occupancy(device: int, dtype, Dh: int, ps: int, P: int, C: int,
+                    stream: int = 0):
     """(clusters of C CTAs the card runs at once, shared memory bytes per
     CTA, registers per thread) of the :func:`duet_attention_paged` kernel
     for tables of width P over pages of ps tokens
     (cudaOccupancyMaxActiveClusters, cudaFuncGetAttributes; a host query,
-    no device sync)."""
+    no device sync); on ``stream``'s green context where it is an SM
+    split's."""
     res = (ctypes.c_int * 3)()
     with torch.cuda.device(device):
         err = _build.load(
             "duet_attention_paged").duet_attention_paged_occupancy(
-            Dh, ps, P, C, _DTYPES[dtype], ctypes.addressof(res))
+            Dh, ps, P, C, _DTYPES[dtype], ctypes.addressof(res), stream)
     _build.check(err, "duet_attention_paged occupancy")
     return tuple(res)
 
@@ -378,9 +384,10 @@ def paged_cluster_for(q, tile_slot, k_pages, tables) -> int:
     hb, _ = head_split(H // G, q.shape[0] // max(T, 1))
     dev = q.device.index if q.device.index is not None else \
         torch.cuda.current_device()
+    on = split_stream_kw(q.device)
     return cluster_size(
         T * G * hb, -(-P * ps // SPLIT_KEYS),
-        lambda C: C * paged_occupancy(dev, q.dtype, Dh, ps, P, C)[0])
+        lambda C: C * paged_occupancy(dev, q.dtype, Dh, ps, P, C, **on)[0])
 
 
 def _launch_paged(q, row_pos, tile_slot, k_pages, v_pages, tables, block_q):
@@ -389,6 +396,11 @@ def _launch_paged(q, row_pos, tile_slot, k_pages, v_pages, tables, block_q):
                   (k_pages, v_pages), {"tables": tables}, block_q)
     N, ps, G, _ = k_pages.shape
     C = paged_cluster_for(q, tile_slot, k_pages, tables)
+    on = split_stream_kw(q.device)
+    if on and paged_occupancy(q.device.index, q.dtype, Dh, ps,
+                              tables.shape[1], C, **on)[0] < 1:
+        raise ValueError("duet_attention_paged: the SMs of the current "
+                         f"green context cannot hold a cluster of {C} CTAs")
     out = torch.empty_like(q)
     lib = _build.load("duet_attention_paged")
     err = lib.duet_attention_paged_launch(

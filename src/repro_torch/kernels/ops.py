@@ -100,6 +100,39 @@ def cluster_size(ctas: int, max_units: int, holds) -> int:
     return C
 
 
+# The SM split's streams (``core.device.SmSplit`` registers each of its
+# green contexts' streams while it lives): raw handle -> the context's SMs.
+# A launch on one sizes its clusters on that context's SMs
+# (cudaOccupancyMaxActiveClusters with the stream in its configuration
+# counts them) and refuses a cluster the context cannot hold.
+SPLIT_STREAMS: dict = {}
+
+
+def split_stream_kw(device) -> dict:
+    """``{"stream": handle}`` when the current stream on ``device`` is one
+    of an SM split's green-context streams (the occupancy queries' keyword),
+    else ``{}``. Makes no CUDA call while no split exists."""
+    if not SPLIT_STREAMS:
+        return {}
+    handle = torch.cuda.current_stream(device).cuda_stream
+    return {"stream": handle} if handle in SPLIT_STREAMS else {}
+
+
+def forget_split_streams(handles):
+    """A split's streams are destroyed: drop them, and the kernels'
+    cached occupancy answers, which key on the raw handle that a later
+    stream (of another context) may take again."""
+    import sys
+    for handle in handles:
+        SPLIT_STREAMS.pop(handle, None)
+    for module, names in (("paged_decode", ("occupancy",)),
+                          ("duet_attention", ("occupancy",
+                                              "paged_occupancy"))):
+        for name in names:
+            getattr(sys.modules[f"repro_torch.kernels.{module}"],
+                    name).cache_clear()
+
+
 # A CTA of every kernel holds the (row, head) pairs of one (tile, KV
 # group): up to DUET_DECODE_ROWS of them on the cluster decode core
 # (csrc/decode_core.cuh), more (up to DUET_TILE_ROWS) on the 64-row

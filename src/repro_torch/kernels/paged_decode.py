@@ -55,7 +55,7 @@ from repro_torch.kernels.ops import (CLUSTER_MAX, DENOM_EPS,
                                      MASKED_M_THRESHOLD, NEG_INF,
                                      cluster_size, cluster_spans, cta_role,
                                      default_sm_scale, gqa_repeat_kv,
-                                     head_split)
+                                     head_split, split_stream_kw)
 
 launches = {"paged_decode": 0, "paged_decode[block]": 0,
             "paged_decode_splitkv": 0, "paged_decode_splitkv[block]": 0}
@@ -189,16 +189,19 @@ def _stream(t):
 
 
 @functools.lru_cache(maxsize=None)
-def occupancy(device: int, dtype, Dh: int, rows: int, P: int, C: int):
+def occupancy(device: int, dtype, Dh: int, rows: int, P: int, C: int,
+              stream: int = 0):
     """(clusters of C CTAs the card runs at once, shared memory bytes per
     CTA, bytes each CTA's ring loads ahead) of the :func:`paged_decode`
     kernel of the role (``ops.cta_role(rows)``) that ``rows`` = rep query
     rows of a group take, for tables of width P
-    (cudaOccupancyMaxActiveClusters; a host query, no device sync)."""
+    (cudaOccupancyMaxActiveClusters; a host query, no device sync). With
+    ``stream`` an SM split's green-context stream (a raw handle), the
+    clusters its context's SMs run at once."""
     res = (ctypes.c_int * 3)()
     with torch.cuda.device(device):
         err = _build.load("paged_decode").paged_decode_occupancy(
-            Dh, rows, P, C, _DTYPES[dtype], ctypes.addressof(res))
+            Dh, rows, P, C, _DTYPES[dtype], ctypes.addressof(res), stream)
     _build.check(err, "paged_decode occupancy")
     return tuple(res)
 
@@ -211,8 +214,9 @@ def cluster_for(q, k_pages, tables) -> int:
     hb, _ = head_split(H // G, 1)
     dev = q.device.index if q.device.index is not None else \
         torch.cuda.current_device()
+    on = split_stream_kw(q.device)
     return cluster_size(B * G * hb, P, lambda C: C * occupancy(
-        dev, q.dtype, Dh, H // G, P, C)[0])
+        dev, q.dtype, Dh, H // G, P, C, **on)[0])
 
 
 def _launch(name, q, k_pages, v_pages, tables, lengths, C):
@@ -220,6 +224,11 @@ def _launch(name, q, k_pages, v_pages, tables, lengths, C):
     CTAs (inputs checked by the caller), counted as ``name``'s."""
     B, H, Dh = q.shape
     _, ps, G, _ = k_pages.shape
+    on = split_stream_kw(q.device)
+    if on and occupancy(q.device.index, q.dtype, Dh, H // G,
+                        tables.shape[1], C, **on)[0] < 1:
+        raise ValueError(f"{name}: the SMs of the current green context "
+                         f"cannot hold a cluster of {C} CTAs")
     out = torch.empty_like(q)
     err = _build.load("paged_decode").paged_decode_launch(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),

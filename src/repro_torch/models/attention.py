@@ -522,13 +522,32 @@ def gqa_decode_paged(params, cfg: ArchConfig, x: torch.Tensor,
 def gqa_prefill_paged(params, cfg: ArchConfig, x: torch.Tensor,
                       positions: torch.Tensor, k_pages: torch.Tensor,
                       v_pages: torch.Tensor, table: torch.Tensor, *,
-                      ctx=None):
+                      packing=None, ctx=None):
     """Chunked prefill against the paged pool: write the chunk's K/V into
     the request's pages, attend chunk queries over the gathered table
-    (previous chunks + this chunk). x (B,L,D); positions (B,L) absolute."""
+    (previous chunks + this chunk). x (B,L,D); positions (B,L) absolute.
+
+    With ``packing`` (:func:`prefill_packing` of the chunk) the attention
+    runs as one ``duet_attention_paged`` launch with no decode rows: the
+    chunk's rows in tiles of the packing's block_q, each tile reading its
+    row's chain through ``table`` (the CUDA kernel on the card, its plain
+    version on the CPU). Without it, the reference's plain path: the
+    gathered table attended in PyTorch."""
     q, k, v = _project_qkv(params, cfg, x, positions, ctx=ctx)
     _paged_write(k_pages, k, table, positions)
     _paged_write(v_pages, v, table, positions)
+    if packing is not None:
+        B, L, H, Dh = q.shape
+        src, row_pos, tile_slot, dst = packing
+        rows = kernel_ops.duet_attention_paged(
+            q.reshape(B * L, H, Dh).index_select(0, src), row_pos,
+            tile_slot, k_pages.to(q.dtype), v_pages.to(q.dtype),
+            table.to(torch.int32).contiguous(),
+            block_q=src.shape[0] // tile_slot.shape[0])
+        out = rows.new_empty((B * L + 1, H, Dh)).index_copy_(
+            0, dst, rows)[:B * L].reshape(B, L, H, Dh)
+        out = torch.einsum("bshe,hed->bsd", out, params["w_o"])
+        return _reduce_heads(out, ctx), (k_pages, v_pages)
     kg = _paged_gather(k_pages, table).to(q.dtype)
     vg = _paged_gather(v_pages, table).to(q.dtype)
     kpos = torch.arange(kg.shape[1], device=x.device)
@@ -540,6 +559,35 @@ def gqa_prefill_paged(params, cfg: ArchConfig, x: torch.Tensor,
     out = _attend(q, kg, vg, positions, mask_fn, x.dtype)
     out = torch.einsum("bshe,hed->bsd", out, params["w_o"])
     return _reduce_heads(out, ctx), (k_pages, v_pages)
+
+
+def prefill_packing(positions: torch.Tensor, block_q: int):
+    """The tile layout of prefill chunks attended with no decode rows, as
+    device index tensors built on the device (no host data, so a captured
+    CUDA graph takes it): the rows of ``positions`` (B, L) in tiles of
+    ``block_q`` rows, each batch row's tiles in turn, its last tile padded;
+    tile t reads table row b of its batch row. The order is
+    ``ops.build_duet_schedule([], [(b, pos) ...], block_q=block_q)``'s
+    ``row_src``, the reference's schedule with an empty decode list.
+    Returns (src, row_pos, tile_slot, dst) as :func:`duet_packing`
+    does."""
+    B, L = positions.shape
+    dev = positions.device
+    per = -(-L // block_q)                       # tiles a batch row
+    col = torch.arange(per * block_q, device=dev)
+    live = (col < L)[None, :].expand(B, -1)
+    base = torch.arange(B, device=dev)[:, None] * L
+    order = torch.where(live, base + col[None, :],
+                        torch.full_like(live, -1, dtype=torch.long))
+    order = order.reshape(-1)
+    live = live.reshape(-1)
+    src = order.clamp(min=0)
+    row_pos = torch.where(live, positions.reshape(-1).long()
+                          .index_select(0, src), torch.full_like(src, -1))
+    tile_slot = torch.arange(B, device=dev).repeat_interleave(per)
+    dst = torch.where(live, order, torch.full_like(order, B * L))
+    return (src, row_pos[:, None].to(torch.int32).contiguous(),
+            tile_slot.to(torch.int32).contiguous(), dst)
 
 
 def duet_packing(order: torch.Tensor, pos: torch.Tensor, block_q: int):

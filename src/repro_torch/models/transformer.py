@@ -89,6 +89,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import GQA_KINDS, MLA_KINDS, ArchConfig
 from repro_torch.core.device import (DeviceContext, DeviceLike,
                                      resolve_device)
+from repro_torch.kernels.ops import duet_block_q
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import xlstm as xlstm_mod
@@ -526,6 +527,14 @@ class Model(nn.Module):
             start = start.to(x.device, torch.long)
         positions = (start + torch.arange(S, device=x.device))[None, :] \
             .expand(B, S)
+        # the kernel path: each GQA layer's chunk attention is one
+        # duet_attention_paged launch with no decode rows, in the fused duet
+        # step's tiles
+        packing = attn_mod.prefill_packing(positions, duet_block_q(
+            cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)) \
+            if self.attn_kernel and any(k in GQA_KINDS
+                                        for k in cfg.block_pattern) \
+            else None
         for i, (p, kind) in enumerate(self._layers()):
             if kind in RECURRENT:
                 x, new = self._recurrent(i, x, state[i], decode=False)
@@ -539,7 +548,7 @@ class Model(nn.Module):
             else:
                 out, pools[i] = attn_mod.gqa_prefill_paged(
                     p["attn"], cfg, h, positions, *pools[i], tables,
-                    ctx=self.ctx)
+                    packing=packing, ctx=self.ctx)
             x = self._mlp_block(p, kind, x + out)
         x = rms_norm(x, self.params["final_norm"], cfg.norm_eps)
         logits = self._logits(x[:, -1:])

@@ -13,8 +13,8 @@ streaming admission.
   build the next dispatch. Host inputs go up through pinned buffers
   without waiting for the device. Programs are cached per shape bucket —
   (k bucket, block-table width bucket, chunk length, chunk table width,
-  finish/sample flags, duet) — (``dstats.cache_hits``); no per-dispatch
-  value enters the key.
+  finish/sample flags, the SM split's S_d, duet) —
+  (``dstats.cache_hits``); no per-dispatch value enters the key.
 
 * **CUDA Graphs per dispatch bucket** (``graphs``; on by default for a
   CUDA engine without collectives) — each bucket
@@ -41,6 +41,31 @@ streaming admission.
   generator, so a replay draws fresh numbers. ``graphs=True`` where capture cannot
   happen raises, and so does a failed capture or replay: nothing falls
   back. The synchronous engine stays eager, the oracle.
+
+* **The SM split** (``sm_split``; on by default where it can run) — a
+  duet-mode iteration runs its k decode steps and its prefill chunk at
+  once on two green contexts of disjoint SMs, 2·S_d and 2·S_p of them,
+  the (S_p, S_d) Algorithm 1 chose in the card's TPCs
+  (:class:`~repro_torch.core.device.SmSplit`, one per S_d, kept for the
+  engine's life). The bucket's program is the sequential program cut in
+  two halves (``make_superiter_fn(..., split=True)``) that fork from the
+  engine's stream onto the two contexts' streams and join back; both
+  halves are captured into the bucket's one CUDA graph, so a replay stays
+  one ``cudaGraphLaunch``. The bucket key gains S_d. Where a decode
+  request finishes inside the iteration (``_duet_safe`` False) the chunk
+  may take over its pages, so that iteration runs the sequential program
+  on the whole card, as it does without the split. ``dstats`` counts
+  split dispatches by ``"S_p:S_d"``, their captures and replays. The
+  virtual clock is the same either way: it already charges
+  ``max(kb·t_d(S_d), t_p(S_p))``. ``sm_split=None`` turns the split on
+  for a CUDA engine on one device, paged, on the kernel path with every
+  block GQA attention; ``True`` raises elsewhere (``split_blocker``);
+  ``False`` keeps the fused duet launch. Only an engine that splits
+  prices the split: given no ``hw`` it plans with
+  ``device_pricing(..., split=True)`` (B(S) on the split's green
+  contexts, Algorithm 1's S_d at the driver's step); a given ``hw`` must
+  plan over one card's TPCs at that step. Every other engine makes no
+  green context.
 
 * **Double-buffered host scheduling** — while iteration *i* executes on
   the device, the host plans iteration *i+1* from last-known loads:
@@ -72,14 +97,15 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import GQA_KINDS
-from repro_torch.core.device import (DeviceLike, fetch_to_host,
-                                     resolve_device)
+from repro_torch.core.device import (DeviceLike, SmSplit, card_unit_step,
+                                     fetch_to_host, resolve_device)
 from repro_torch.core.lookahead import (BucketProgram, graph_pool_bytes,
                                         make_superiter_fn)
 from repro_torch.core.roofline import HardwareSpec
 from repro_torch.kernels.ops import build_duet_schedule, duet_block_q
 from repro_torch.models.transformer import Model
-from repro_torch.serving.engine import DuetEngine, EngineConfig
+from repro_torch.serving.engine import (DuetEngine, EngineConfig,
+                                        device_pricing)
 from repro_torch.serving.request import Phase, Request, ServingMetrics
 from repro_torch.serving.scheduler import IterationPlan
 
@@ -124,6 +150,11 @@ class DispatchStats:
     replays: int = 0             # dispatches that replayed a graph
     eager_dispatches: int = 0    # dispatches run op by op from Python
     eager_reasons: Dict[str, int] = field(default_factory=dict)  # by rule
+    # SM-split dispatches by "S_p:S_d" (TPCs), and those that captured
+    # or replayed their bucket's graph
+    split_dispatches: Dict[str, int] = field(default_factory=dict)
+    split_captures: int = 0
+    split_replays: int = 0
 
     @property
     def syncs_per_super_iteration(self) -> float:
@@ -147,6 +178,42 @@ def graph_blocker(device: torch.device, ctx) -> Optional[str]:
         return "collectives"
     if device.type != "cuda":
         return "cpu"
+    return None
+
+
+# why an engine cannot run the SM split, with what ``sm_split=True`` raises
+# there
+_NO_SPLIT = {
+    "cpu": "the SM split needs a CUDA card's green contexts",
+    "collectives": "the engine's context makes collectives (TP, CP or the "
+                   "grid): those keep the fused duet launch",
+    "slab": "the SM split runs the paged programs",
+    "kernel": "the SM split's chunk runs on the kernel path and needs every "
+              "block GQA attention (the fused duet launch's condition)",
+    "pricing": "the engine does not plan over one card's TPCs at the "
+               "driver's split granularity",
+}
+
+
+def split_blocker(device: torch.device, model: Model,
+                  engine_cfg: EngineConfig, hw) -> Optional[str]:
+    """Why an engine cannot run the SM split (a key of ``_NO_SPLIT``), or
+    None: where no CUDA graph can be captured (the CPU, collectives), the
+    split cannot run either. ``hw`` None is priced for the split
+    (``device_pricing(..., split=True)``); a given ``hw`` must already
+    plan over one card's TPCs at the driver's step."""
+    blocker = graph_blocker(device, model.ctx)
+    if blocker:
+        return blocker
+    if not engine_cfg.paged:
+        return "slab"
+    if not (model.attn_kernel
+            and all(k in GQA_KINDS for k in model.cfg.block_pattern)):
+        return "kernel"
+    if max(engine_cfg.units, engine_cfg.tp) != 1 or hw is not None and (
+            getattr(hw, "units_per_device", 1) < 2
+            or getattr(hw, "unit_step", 1) != card_unit_step(device)):
+        return "pricing"
     return None
 
 
@@ -191,12 +258,23 @@ class AsyncDuetEngine(DuetEngine):
 
     def __init__(self, model: Model, engine_cfg: EngineConfig,
                  hw: Optional[HardwareSpec] = None, seed: int = 0,
-                 device: DeviceLike = None, graphs: Optional[bool] = None):
+                 device: DeviceLike = None, graphs: Optional[bool] = None,
+                 sm_split: Optional[bool] = None):
         # CUDA graphs: None = wherever capture can happen; True raises where
         # it cannot
         blocker = graph_blocker(resolve_device(device), model.ctx)
         if graphs and blocker:
             raise ValueError(f"graphs=True: {_NO_GRAPHS[blocker]}")
+        # the SM split: None = wherever it can run; True raises where it
+        # cannot. Only an engine that splits prices the split (the green
+        # contexts' B(S), the driver's unit step) and makes green contexts
+        no_split = split_blocker(resolve_device(device), model, engine_cfg,
+                                 hw)
+        if sm_split and no_split:
+            raise ValueError(f"sm_split=True: {_NO_SPLIT[no_split]}")
+        self.sm_split = no_split is None and sm_split is not False
+        if self.sm_split and hw is None:
+            hw = device_pricing(resolve_device(device), split=True)
         super().__init__(model, engine_cfg, hw=hw, seed=seed, device=device)
         self.graphs = blocker is None and graphs is not False
         # the rule every dispatch of a graphless engine runs eagerly by
@@ -227,6 +305,9 @@ class AsyncDuetEngine(DuetEngine):
                                      self.cfg.num_kv_heads,
                                      self.cfg.head_dim)
         self._duet_safe = True
+        # one SmSplit per S_d, made at its first dispatch and kept for the
+        # engine's life (its buckets' graphs use its streams)
+        self._sm_splits: dict = {}
         self._programs: dict = {}
         self.dstats = DispatchStats()
         # _pending/_all/_epoch bookkeeping lives in the base engine; the
@@ -488,9 +569,11 @@ class AsyncDuetEngine(DuetEngine):
         # one program; extra chunks ride prefill-only programs (more
         # dispatches, still zero extra host syncs)
         inf = _Inflight(dec_items=dec_items)
+        part = plan.decision.partition if plan.mode == "duet" else None
         if ran or pre_items:
             self._dispatch(inf, kb if ran else 0, dec_args,
-                           pre_items[0] if pre_items else None, t_p)
+                           pre_items[0] if pre_items else None, t_p,
+                           part)
             for item in pre_items[1:]:
                 self._dispatch(inf, 0, None, item, t_p)
         self._attach_tier_captures(inf)
@@ -502,20 +585,27 @@ class AsyncDuetEngine(DuetEngine):
     # ---------------------------------------------------------------- device
     def _program(self, key) -> BucketProgram:
         """The bucket of ``key`` = (kb, width, chunk, pwidth, finish,
-        sample, duet): built at its first dispatch with its static
-        inputs."""
+        sample, S_d, duet): built at its first dispatch with its static
+        inputs; S_d > 0 is a split bucket on the engine's SmSplit of S_d
+        TPCs."""
         prog = self._programs.get(key)
         if prog is None:
             self.dstats.cache_misses += 1
-            kb, width, chunk, pwidth, finish, sample, duet = key
+            kb, width, chunk, pwidth, finish, sample, s_d, duet = key
+            split = None
+            if s_d:
+                split = self._sm_splits.get(s_d)
+                if split is None:
+                    split = self._sm_splits[s_d] = SmSplit(self.device, s_d)
             prog = BucketProgram(
                 make_superiter_fn(
                     self.model, kb, paged=self.paged, chunk=chunk,
                     finish=finish, sample=sample,
                     temperature=self.ec.temperature, duet_kernel=duet,
-                    duet_block_q=self._duet_bq),
+                    duet_block_q=self._duet_bq, split=bool(s_d)),
                 self.device, self.ec.max_slots, width=max(width, 1),
-                chunk=chunk, pwidth=max(pwidth, 1), paged=self.paged)
+                chunk=chunk, pwidth=max(pwidth, 1), paged=self.paged,
+                split=split)
             self._programs[key] = prog
         else:
             self.dstats.cache_hits += 1
@@ -529,9 +619,12 @@ class AsyncDuetEngine(DuetEngine):
         if rule is None:
             if prog.graph is not None:
                 st.replays += 1
+                st.split_replays += prog.split is not None
                 return prog.replay()
             if prog.runs:
                 st.captures += 1
+                if prog.split is not None:
+                    st.split_captures += 1
                 return prog.capture(args, self.graph_pool,
                                     self.gen if self.ec.temperature > 0
                                     else None)
@@ -564,8 +657,10 @@ class AsyncDuetEngine(DuetEngine):
         return order
 
     def _dispatch(self, inf: _Inflight, kb: int, dec_args, pre_item,
-                  t_p: float):
+                  t_p: float, part=None):
         """Launch one fused program; capture its output handles in `inf`.
+        ``part`` is the iteration's duet partition, if any: with both
+        phases and the split on, the program runs on its (S_p, S_d).
         Everything here is host->device only — no blocking reads."""
         # flush tier migrations first: promoted pages must hold their
         # content before this program can read them, and pending demotion
@@ -594,12 +689,17 @@ class AsyncDuetEngine(DuetEngine):
             start, pre_slot, override = 0, 0, 0
             toks_np = ptbl = None
 
-        duet = (self._duet_kernel and self._duet_safe
-                and kb > 0 and chunk > 0)
+        both = self._duet_safe and kb > 0 and chunk > 0
+        s_d = part.s_decode if both and self.sm_split and part else 0
+        duet = both and self._duet_kernel and not s_d
         key = (kb, width if kb else 0, chunk, pwidth if chunk else 0,
-               finish, sample, duet)
+               finish, sample, s_d, duet)
         prog = self._program(key)
         self.dstats.dispatches += 1
+        if s_d:
+            where = f"{part.s_prefill}:{s_d}"
+            split = self.dstats.split_dispatches
+            split[where] = split.get(where, 0) + 1
         prog.feed(active, tbl if self.paged else None,
                   None if toks_np is None else np.asarray(toks_np)[None, :],
                   ptbl, (start, pre_slot, override))

@@ -57,8 +57,8 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.device import (DeviceContext, DeviceLike,
-                                     partition_curves, resolve_device,
-                                     to_device)
+                                     card_unit_step, partition_curves,
+                                     resolve_device, to_device)
 from repro_torch.core.lookahead import (make_lookahead_fn,
                                         make_paged_lookahead_fn)
 from repro_torch.core.multiplexer import (AdaptiveMultiplexer,
@@ -127,20 +127,28 @@ class EngineConfig:
 
 
 def device_pricing(device: torch.device,
-                   ctx: Optional[DeviceContext] = None) -> HardwareSpec:
+                   ctx: Optional[DeviceContext] = None,
+                   split: bool = False) -> HardwareSpec:
     """What an engine on ``device`` prices when it is given no ``hw``: on a
     CUDA card the card, ``card_spec``'s TPCs with Pi(S) linear in SMs and
     B(S) the card's measured curve (``partition_curves``; under TP the
     model group's first rank measures and every rank takes its curve, so
     every rank plans alike), as a ``TabulatedPartitionCurves`` that grows
     linearly past one card; on the CPU a TPU v5e, as the reference. The
-    serve CLI prices its ``--rho`` load with it."""
+    serve CLI prices its ``--rho`` load with it.
+
+    ``split`` is for an engine that runs the SM split (one card): B(S)
+    measured on the split's green contexts, and ``unit_step`` the TPCs
+    between the SM groups the driver cuts (``card_unit_step``), so that
+    Algorithm 1 picks only splits the card can make. Without it no green
+    context is made and Algorithm 1 steps by one TPC."""
     if device.type != "cuda":
         return TPU_V5E
-    spec = card_spec(torch.cuda.get_device_properties(device))
+    spec = card_spec(torch.cuda.get_device_properties(device),
+                     unit_step=card_unit_step(device) if split else 1)
 
     def measure():
-        return partition_curves(device, spec).values()
+        return partition_curves(device, spec, split).values()
     curve = measure() if ctx is None else \
         ctx.from_first_rank(measure, spec.num_units)
     bw = dict(enumerate(curve, start=1))
@@ -251,6 +259,7 @@ class DuetEngine:
         self.mux = AdaptiveMultiplexer(
             self.cfg, hw=hw, total_units=units,
             tbt_slo=engine_cfg.tbt_slo, tp=self._tp,
+            unit_step=getattr(hw, "unit_step", 1),
             page_size=ps if self.paged else 1,
             mesh=self.ctx if self.ctx.tp > 1 else None)
         self.policy = DuetPolicy(self.mux,

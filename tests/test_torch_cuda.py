@@ -340,24 +340,34 @@ def test_sm_probe_matches_plain_on_the_card(dev):
 
 def test_engines_on_the_card_price_the_card(dev):
     """hw=None on the card: both engines plan with the card's spec over its
-    TPCs and the measured curve partition_curves holds."""
+    TPCs and the measured curve partition_curves holds: the curve over SMs
+    placed by the block scheduler at a step of one TPC for an engine that
+    does not split, the green contexts' curve at the driver's step for the
+    async engine that splits."""
+    from repro_torch.core.device import card_unit_step
     cfg = reduced(get_config("qwen3-4b"))
     card = Model.init(cfg, seed=0, device=dev, attn_kernel=True)
     spec = card_spec(torch.cuda.get_device_properties(dev))
-    curve = partition_curves(dev, spec)
-    for cls in (DuetEngine, AsyncDuetEngine):
-        eng = cls(card, EngineConfig(max_slots=3, max_len=128), device=dev)
+    curves = {False: partition_curves(dev, spec),
+              True: partition_curves(dev, spec, split=True)}
+    ec = EngineConfig(max_slots=3, max_len=128)
+    for eng in (DuetEngine(card, ec, device=dev),
+                AsyncDuetEngine(card, ec, device=dev, sm_split=False),
+                AsyncDuetEngine(card, ec, device=dev)):
+        split = getattr(eng, "sm_split", False)
         assert eng.mux.hw.name == spec.name == torch.cuda.get_device_name(dev)
         assert eng.mux.total_units == spec.num_units
-        assert eng.mux.bw_table == curve
-        assert eng.mux.pi_table == {u: spec.pi(u) for u in curve}
+        assert eng.mux.unit_step == (card_unit_step(dev) if split else 1)
+        assert eng.mux.bw_table == curves[split]
+        assert eng.mux.pi_table == {u: spec.pi(u) for u in curves[split]}
 
 
 def test_engines_on_the_card_match_the_cpu(dev):
     """Reduced qwen3-4b in fp32: the sync and async engines through the
-    CUDA kernels (the async one with fused duet steps) give the plain CPU
-    path's greedy tokens and the same ServingMetrics summary, the CPU
-    engine priced as the card's are."""
+    CUDA kernels (the async one with fused duet steps: a given spec at a
+    step of one TPC keeps the SM split off) give the plain CPU path's
+    greedy tokens and the same ServingMetrics summary, every engine
+    priced as the card's engines that do not split are."""
     cfg = reduced(get_config("qwen3-4b"))
     cpu = Model.init(cfg, seed=0, device="cpu", attn_kernel=True)
     card = Model.init(cfg, seed=0, device="cpu", attn_kernel=True).to(dev)
@@ -370,13 +380,14 @@ def test_engines_on_the_card_match_the_cpu(dev):
             ("async", AsyncDuetEngine, card, dev)):
         before = launch_counts()
         eng = cls(model, EngineConfig(**kw), device=device,
-                  **(_card_pricing(dev) if device == "cpu" else {}))
+                  **_card_pricing(dev))
         eng.submit([Request(rid=r, arrival=a, prompt_len=p, output_len=o)
                     for r, a, p, o in specs])
         metrics = eng.run()
         after = launch_counts()
         runs[label] = ({r.rid: list(r.output_tokens)
                         for r in metrics.requests}, metrics.summary())
+        assert not getattr(eng, "sm_split", False)
         if device != "cpu":
             assert eng.kernel_path == "cuda"
             assert after["paged_decode"] > before["paged_decode"]
@@ -405,13 +416,14 @@ def test_slab_engines_on_the_card_match_the_cpu(dev):
             ("async", AsyncDuetEngine, card, dev)):
         before = launch_counts()
         eng = cls(model, EngineConfig(**kw), device=device,
-                  **(_card_pricing(dev) if device == "cpu" else {}))
+                  **_card_pricing(dev))
         eng.submit([Request(rid=r, arrival=a, prompt_len=p, output_len=o)
                     for r, a, p, o in specs])
         metrics = eng.run()
         after = launch_counts()
         runs[label] = ({r.rid: list(r.output_tokens)
                         for r in metrics.requests}, metrics.summary())
+        assert not getattr(eng, "sm_split", False)
         if device != "cpu":
             assert eng.kernel_path == "cuda"
             assert after["duet_attention"] > before["duet_attention"]
@@ -663,8 +675,9 @@ def test_recurrent_engines_on_the_card_match_the_cpu(dev, name, paged):
     (mLSTM + sLSTM), fp32, five requests on three slots (slots reused):
     the sync and async engines on the card give the CPU's greedy tokens.
     zamba2's decode runs paged_decode (paged) or the slab duet_attention
-    (slab) and never duet_attention_paged (no fused duet step beside
-    recurrent blocks); xlstm launches no kernel."""
+    (slab), never a fused duet step beside recurrent blocks; its paged
+    prefill chunks' shared attention runs duet_attention_paged with no
+    decode rows; xlstm launches no kernel."""
     cfg = reduced(get_config(name), num_layers=4)
     specs = [(0, 0.0, 20, 6), (1, 0.0003, 27, 1), (2, 0.0006, 34, 8),
              (3, 0.0009, 41, 9), (4, 0.0012, 30, 10)]
@@ -687,8 +700,9 @@ def test_recurrent_engines_on_the_card_match_the_cpu(dev, name, paged):
         if device != "cpu":
             assert (after[kernel] > before[kernel]) == \
                 (name == "zamba2-1.2b")
-            assert after["duet_attention_paged"] == \
-                before["duet_attention_paged"]
+            assert (after["duet_attention_paged"]
+                    > before["duet_attention_paged"]) == \
+                (name == "zamba2-1.2b" and paged)
         if cls is AsyncDuetEngine:
             assert 0 < eng.dstats.host_syncs <= eng.dstats.super_iterations
     assert runs["sync"] == runs["cpu"]
@@ -884,3 +898,89 @@ def test_frontend_kernel_path_matches_plain_on_the_card(dev, name):
     assert launch_counts()["duet_attention"] - before == 3 * cfg.num_layers
     if audio:
         assert tuple(lk.shape) == (B, cfg.num_codebooks, cfg.padded_vocab)
+
+
+@pytest.mark.parametrize("s_d", [4, 32, 56])
+def test_sm_split_contexts_are_disjoint_on_the_card(dev, s_d):
+    """An SmSplit's two green contexts: the probe at one CTA for every SM
+    of the card on each stream runs on exactly 2 x S_d and the rest of
+    the SMs, none shared; two torch GreenContext.create calls, by
+    contrast, cut the card afresh each."""
+    from repro_torch.core.device import SmSplit, sm_granularity
+    sms, low, step = sm_granularity(dev)
+    split = SmSplit(dev, s_d)
+    try:
+        assert split.sms == {"decode": 2 * s_d, "prefill": sms - 2 * s_d}
+        assert len(split.smids["decode"]) == 2 * s_d
+        assert len(split.smids["prefill"]) == sms - 2 * s_d
+        assert not split.smids["decode"] & split.smids["prefill"]
+    finally:
+        split.close()
+    with pytest.raises(ValueError, match="not a group"):
+        SmSplit(dev, (low + step) // 2 + 1)
+
+
+def test_split_bucket_replay_equals_its_eager_run(dev):
+    """A split bucket (reduced qwen3-4b, fp32, kernels on: 2 decode steps
+    on S_d's SMs and a finishing chunk on S_p's) replayed from its CUDA
+    graph gives its eager run's tokens, decode inputs and pools bitwise,
+    and the sequential program's tokens."""
+    from repro_torch.core.device import SmSplit
+    from repro_torch.core.lookahead import BucketProgram, make_superiter_fn
+    from repro_torch.serving.kvcache import PagePoolConfig, init_page_pools
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced(get_config("qwen3-4b"))
+    model = Model.init(cfg, seed=0, dtype=torch.float32, device=dev,
+                       attn_kernel=True)
+    B, P, chunk = 4, 8, 24
+    rng = np.random.default_rng(0)
+
+    def world():
+        pools = init_page_pools(cfg, PagePoolConfig(
+            num_pages=(B + 1) * P + 1, page_size=8), torch.float32,
+            device=dev)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        for group in pools:
+            for t in group:
+                t.copy_(torch.randn(t.shape, generator=gen, device=dev))
+        return (pools, model.init_state_cache(B + 1),
+                torch.arange(B + 1, dtype=torch.int32,
+                             device=dev)[:, None] + 7,
+                torch.full((B + 1,), 40, dtype=torch.int32, device=dev))
+    # the chunk's slot B is inactive in the decode steps: its decode table
+    # row is the null page, as the engine's, so no decode row reads the
+    # pages the chunk writes meanwhile
+    tables = np.arange(1, (B + 1) * P + 1).reshape(B + 1, P)
+    feed = (np.arange(B + 1) < B, tables * (np.arange(B + 1) < B)[:, None],
+            rng.integers(0, cfg.vocab_size, (1, chunk)), tables[-1:],
+            (16, B, 0))
+    split = SmSplit(dev, 32)
+    outs = {}
+    try:
+        for label in ("sequential", "eager", "replayed"):
+            fn = make_superiter_fn(model, 2, chunk=chunk, finish=True,
+                                   sample=True, split=label != "sequential")
+            bucket = BucketProgram(fn, dev, B + 1, width=P, chunk=chunk,
+                                   pwidth=P, split=None if label ==
+                                   "sequential" else split)
+            bucket.feed(*feed)
+            w = world()
+            args = (*w, bucket.tables, None, bucket.active, bucket.pre_toks,
+                    bucket.pre_tbl, bucket.pre_start, bucket.pre_slot,
+                    bucket.override_tok)
+            if label == "replayed":
+                bucket.run(*args)
+                w = world()
+                args = (*w, *args[4:])
+                out = bucket.capture(args, torch.cuda.graph_pool_handle())
+            else:
+                out = bucket.run(*args)
+            torch.cuda.synchronize()
+            outs[label] = [out[0], out[1], w[2], w[3]] + [
+                t for g in w[0] for t in g]
+    finally:
+        split.close()
+    for a, b in zip(outs["replayed"], outs["eager"]):
+        assert torch.equal(a, b)
+    for a, b in zip(outs["eager"][:2], outs["sequential"][:2]):
+        assert torch.equal(a, b)

@@ -317,10 +317,11 @@ def test_graphs_true_raises_under_tensor_parallelism(models):
 
 
 def test_bucket_key_holds_no_per_dispatch_scalar(jax_setup, monkeypatch):
-    """(d) Every key is (kb, width, chunk, pwidth, finish, sample, duet):
-    bucket shapes and flags only. A key dispatched at several starts,
-    slots and resume tokens is one bucket, and a dispatch's scalars never
-    show up among its key's fields."""
+    """(d) Every key is (kb, width, chunk, pwidth, finish, sample, S_d,
+    duet): bucket shapes and flags only (S_d, the SM split's decode TPCs,
+    0 on the CPU, which does not split). A key dispatched at several
+    starts, slots and resume tokens is one bucket, and a dispatch's
+    scalars never show up among its key's fields."""
     forward, tcfg, tmodel = jax_setup
     seen = _feeds(monkeypatch)
     eng = AsyncDuetEngine(tmodel, EngineConfig(**KW), device="cpu")
@@ -328,7 +329,8 @@ def test_bucket_key_holds_no_per_dispatch_scalar(jax_setup, monkeypatch):
                 for rid, a, p, o in SPECS])
     eng.run()
     for key, prog in eng._programs.items():
-        kb, width, chunk, pwidth, finish, sample, duet = key
+        kb, width, chunk, pwidth, finish, sample, s_d, duet = key
+        assert s_d == 0
         assert all(isinstance(v, int) for v in (kb, width, chunk, pwidth))
         assert all(isinstance(v, bool) for v in (finish, sample, duet))
         assert prog.tables.shape == (KW["max_slots"], max(width, 1))
