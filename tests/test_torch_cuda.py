@@ -984,3 +984,117 @@ def test_split_bucket_replay_equals_its_eager_run(dev):
         assert torch.equal(a, b)
     for a, b in zip(outs["eager"][:2], outs["sequential"][:2]):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the paged main path's kernels (paged_decode, split-KV, duet_attention_paged)
+# at skewed contexts: masking, repeatability, capture, a green context
+# ---------------------------------------------------------------------------
+def _paged_case(dev, seed=11, ps=16):
+    """qwen3-4b's heads, contexts 5, 17, 33, 300 and 2000: a decode batch and
+    a duet launch (those rows beside a 40-row chunk at 500, engine tiles of
+    16 rows, a pad tile) over one pool, bf16."""
+    rng = np.random.default_rng(seed)
+    H, G, Dh, P = 32, 8, 128, -(-2048 // ps)
+    lens = (5, 17, 33, 300, 2000)
+    B = len(lens)
+    N = (B + 1) * P + 1
+    kp = _randn(rng, (N, ps, G, Dh), "bfloat16", dev)
+    vp = _randn(rng, (N, ps, G, Dh), "bfloat16", dev)
+    tables = torch.tensor(1 + rng.permutation(N - 1).reshape(B + 1, P),
+                          dtype=torch.int32, device=dev)
+    q = _randn(rng, (B, H, Dh), "bfloat16", dev)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    sched = build_duet_schedule([(b, n - 1) for b, n in enumerate(lens)],
+                                [(B, 500 + i) for i in range(40)],
+                                block_q=16)
+    dq = pack_duet_queries(sched, _randn(rng, (B + 40, H, Dh), "bfloat16",
+                                         dev))
+    dq = torch.cat([dq, torch.ones_like(dq[:16])]).contiguous()
+    row_pos = torch.tensor(np.concatenate([sched.row_pos, [-1] * 16]),
+                           dtype=torch.int32, device=dev)[:, None]
+    tile_slot = torch.tensor(np.concatenate([sched.tile_slot, [-1]]),
+                             dtype=torch.int32, device=dev)
+    return dict(decode=(q, kp, vp, tables[:B].contiguous(), lengths),
+                duet=(dq, row_pos.contiguous(), tile_slot, kp, vp, tables))
+
+
+def _paged_calls(case):
+    """The three wrappers of the paged main path on a case."""
+    d, u = case["decode"], case["duet"]
+    return (lambda: paged_decode(*d),
+            lambda: paged_decode_splitkv(*d, num_splits=4),
+            lambda: duet_attention_paged(*u, block_q=16))
+
+
+@pytest.mark.parametrize("ps", [16, 12])
+def test_paged_kernels_mask_nan_past_each_length(dev, ps):
+    """NaN written into every key past a request's length in its last page
+    (and past each decode row's position) must not reach the outputs,
+    which stay finite and within ATTN_TOL of the plain versions on the
+    clean pools: keys past a length are zero-filled, not read."""
+    case = _paged_case(dev, ps=ps)
+    q, kp, vp, tables, lengths = case["decode"]
+    clean = (kp.clone(), vp.clone())
+    for b, n in enumerate(lengths.tolist()):
+        pid = int(tables[b, (n - 1) // ps])
+        kp[pid, n - (n - 1) // ps * ps:] = float("nan")
+        vp[pid, n - (n - 1) // ps * ps:] = float("nan")
+    wants = (paged_decode_plain(q, *clean, tables, lengths),
+             paged_decode_splitkv_plain(q, *clean, tables, lengths,
+                                        num_splits=4),
+             duet_attention_paged_plain(*case["duet"][:3], *clean,
+                                        case["duet"][5], block_q=16))
+    for call, want in zip(_paged_calls(case), wants):
+        got = call()
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, want, **ATTN_TOL["bfloat16"])
+
+
+def test_paged_kernels_are_bitwise_repeatable(dev):
+    """Two launches on the same inputs give the same bits: each split's
+    partials combine in a fixed order."""
+    for call in _paged_calls(_paged_case(dev)):
+        a = call()
+        b = call()
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)
+
+
+def test_paged_kernels_replay_bitwise_from_a_graph(dev):
+    """Each launch captured in a CUDA graph replays its eager run's bits,
+    twice."""
+    for call in _paged_calls(_paged_case(dev)):
+        eager = call()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = call()
+        for _ in range(2):
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(out, eager)
+
+
+def test_paged_kernels_launch_on_a_64_sm_split_stream(dev):
+    """On an SM split's 64-SM green context each launch (its clusters
+    sized to that context) is counted and matches its plain version."""
+    from repro_torch.core.device import SmSplit
+    case = _paged_case(dev)
+    wants = (paged_decode_plain(*case["decode"]),
+             paged_decode_splitkv_plain(*case["decode"], num_splits=4),
+             duet_attention_paged_plain(*case["duet"], block_q=16))
+    names = ("paged_decode", "paged_decode_splitkv", "duet_attention_paged")
+    before = launch_counts()
+    split = SmSplit(dev, 32)
+    try:
+        assert split.sms["decode"] == 64
+        with torch.cuda.stream(split.decode_stream):
+            gots = [call() for call in _paged_calls(case)]
+        split.decode_stream.synchronize()
+    finally:
+        split.close()
+    after = launch_counts()
+    for name, got, want in zip(names, gots, wants):
+        assert after[name] - before.get(name, 0) == 1
+        torch.testing.assert_close(got, want, **ATTN_TOL["bfloat16"])
