@@ -198,7 +198,9 @@ Phases (each raises on failure; nothing is swallowed):
              graph launch and no kernel launch a replay), and one fused
              duet super-iteration (kb 1, a 256-row chunk), with the duet
              kernel's share; a replay's trace must hold each kernel as
-             often as its capture counted. Then qwen3-4b's duet, fused
+             often as its capture counted (a trace short of that, and
+             over it nowhere, is a record the profiler lost and is taken
+             again, TRACE_TRIES times at most). Then qwen3-4b's duet, fused
              and prefill-only buckets (a 256-row chunk) are each run
              eagerly, captured and replayed at other chunk starts, slots
              and resume tokens, each held bitwise to a fresh eager
@@ -787,9 +789,18 @@ GREEN_SMS = (32, 64)
 # adds, timed beside it, reads the card's launch pace
 GREEN_CHECK, GREEN_SD, GREEN_ROUNDS, GREEN_TOL = "qwen3-4b", 32, 5, 0.03
 GREEN_CANARY = 3000
-# the configs held and the bucket kinds of each
+# the configs held and the bucket kinds of each; granite-20b at its
+# SERVE_LAYERS depth (ROOFLINE_LAYERS), a decode step whose every attention
+# launch takes the block role (rep 48), at contexts of 2000 over tables of
+# 128 pages (ROOFLINE_WORLD: context, table width), so that its
+# paged_decode runs the warpgroup block (tables of at least
+# ops.PAGED_WG_MIN_KEYS keys)
 ROOFLINE_SHAPES = {"qwen3-4b": ("decode", "prefill", "duet"),
-                   "granite-moe-3b-a800m": ("decode",)}
+                   "granite-moe-3b-a800m": ("decode",),
+                   "granite-20b": ("decode",)}
+ROOFLINE_LAYERS = {"granite-20b": 13}
+ROOFLINE_WORLD = {"granite-20b": (2000, 128)}
+ROOFLINE_PAGES = 64
 
 
 def phase_roofline():
@@ -1014,17 +1025,18 @@ def split_curve(card, spread):
             f"{green[u] / 1e9:8.1f} ({100 * green[u] / spread[u]:5.1f}%)")
 
 
-def _replayer(model, kind):
+def _replayer(model, kind, ctx=ROOFLINE_CTX, P=ROOFLINE_PAGES):
     """The async engine's ``kind`` bucket (decode: kb 1; prefill: the
     chunk alone; duet: kb 1 and the chunk in one duet launch a layer) at
-    the ROOFLINE_* shapes, in the model's dtype, run once eagerly and
-    captured; returns a function giving the device ms of one replay
-    (:func:`_graph_ms` over ROOFLINE_REPLAYS back-to-back replays; the
-    decode rows' context grows by one a replay and is reset before)."""
+    the ROOFLINE_* shapes (decode rows at ``ctx`` over tables of P pages),
+    in the model's dtype, run once eagerly and captured; returns a function
+    giving the device ms of one replay (:func:`_graph_ms` over
+    ROOFLINE_REPLAYS back-to-back replays; the decode rows' context grows
+    by one a replay and is reset before)."""
     from repro_torch.core.lookahead import BucketProgram, make_superiter_fn
     from repro_torch.kernels.ops import build_duet_schedule, duet_block_q
     from repro_torch.serving.kvcache import PagePoolConfig, init_page_pools
-    cfg, B, P, ps, dev = model.cfg, ROOFLINE_B, 64, 16, "cuda"
+    cfg, B, ps, dev = model.cfg, ROOFLINE_B, 16, "cuda"
     kb = 0 if kind == "prefill" else 1
     chunk = 0 if kind == "decode" else ROOFLINE_CHUNK
     duet = kind == "duet"
@@ -1045,7 +1057,7 @@ def _replayer(model, kind):
                 np.arange(B * P + 1, (B + 1) * P + 1)[None] if chunk
                 else None, (ROOFLINE_CHUNK_AT, 0, 0))
     last_tok = torch.zeros((B, 1), dtype=torch.int32, device=dev)
-    pos = torch.full((B,), ROOFLINE_CTX, dtype=torch.int32, device=dev)
+    pos = torch.full((B,), ctx, dtype=torch.int32, device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     args = (pools, state, last_tok, pos, bucket.tables, gen, bucket.active,
             bucket.pre_toks, bucket.pre_tbl, bucket.pre_start,
@@ -1055,14 +1067,14 @@ def _replayer(model, kind):
             [(b, 0) for b in range(B)], [(B, i) for i in range(chunk)],
             block_q=bq).row_src, dtype=torch.int32, device=dev),)
     bucket.run(*args)
-    pos.fill_(ROOFLINE_CTX)
+    pos.fill_(ctx)
     bucket.capture(args, torch.cuda.graph_pool_handle())
 
     def replay_ms():
         # args holds what the graph reads (pools, state, decode inputs):
         # the closure keeps it alive as long as the graph may replay
         return _graph_ms(bucket.graph.replay, ROOFLINE_REPLAYS,
-                         reset=lambda: args[3].fill_(ROOFLINE_CTX))
+                         reset=lambda: args[3].fill_(ctx))
     return replay_ms
 
 
@@ -1134,19 +1146,23 @@ def roofline_accuracy(card):
                                            RooflineModel)
     from repro_torch.models import Model
     from repro_torch.serving import AsyncDuetEngine, EngineConfig
-    dec = [RequestLoad(q=1, c=ROOFLINE_CTX) for _ in range(ROOFLINE_B)]
+    import importlib
+    pd = importlib.import_module("repro_torch.kernels.paged_decode")
     pre = [RequestLoad(q=ROOFLINE_CHUNK, c=ROOFLINE_CHUNK_AT,
                        phase="prefill")]
-    loads = {"decode": dec, "prefill": pre, "duet": dec + pre}
     rows = []
     for name, kinds in ROOFLINE_SHAPES.items():
-        cfg = get_config(name)
+        ctx, P = ROOFLINE_WORLD.get(name, (ROOFLINE_CTX, ROOFLINE_PAGES))
+        dec = [RequestLoad(q=1, c=ctx) for _ in range(ROOFLINE_B)]
+        loads = {"decode": dec, "prefill": pre, "duet": dec + pre}
+        cfg = (_cut(name, ROOFLINE_LAYERS[name]) if name in ROOFLINE_LAYERS
+               else get_config(name))
         model = Model.init(cfg, seed=0, dtype=torch.bfloat16, device="cuda",
                            attn_kernel=True)
         # the rows are programs of an engine that does not split: its
         # pricing, and no green context before the green check below
         engine = AsyncDuetEngine(model, EngineConfig(
-            max_slots=ROOFLINE_B, max_len=1024, token_budget=256,
+            max_slots=ROOFLINE_B, max_len=16 * P, token_budget=256,
             page_size=16), seed=0, device="cuda", sm_split=False)
         _hold_card_pricing(engine, f"{name} roofline", card)
         h100 = RooflineModel(cfg, H100_LIKE, page_size=16)
@@ -1155,8 +1171,19 @@ def roofline_accuracy(card):
             pred = (engine.mux.predict_mixed(loads[kind]) * 1e3,
                     h100.iteration_latency(loads[kind]) * 1e3,
                     tpu.iteration_latency(loads[kind], units=1) * 1e3)
-            rows.append((f"{name} {kind}", pred,
-                         _replayer(model, kind)()))
+            before = dict(pd.block_launches)
+            replay = _replayer(model, kind, ctx, P)
+            blocks = {k: v - before[k] for k, v in pd.block_launches.items()}
+            if any(blocks.values()):
+                # the block-role launches of its eager run and capture, by
+                # block: granite-20b's must have run the warpgroup block
+                log(f"[roofline] {name} {kind} (ctx {ctx}, tables of {P} "
+                    f"pages): paged_decode block-role launches by block "
+                    f"{blocks} [{card}]")
+                if name in ROOFLINE_WORLD and not blocks["warpgroup"]:
+                    raise AssertionError(f"[roofline] {name} {kind}: no "
+                                         f"warpgroup-block launch")
+            rows.append((f"{name} {kind}", pred, replay()))
         if name == GREEN_CHECK:
             green_check(model, rows[-len(kinds)][2], card)
         del engine, model
@@ -1165,8 +1192,10 @@ def roofline_accuracy(card):
         f"H100_LIKE at 66; TPU v5e at 1 chip) against the measured device "
         f"ms of the same work (CUDA events, {ROOFLINE_REPLAYS} graph "
         f"replays); measured / predicted. B={ROOFLINE_B} at ctx "
-        f"{ROOFLINE_CTX}, chunk {ROOFLINE_CHUNK} at {ROOFLINE_CHUNK_AT}, "
-        f"pages of 16, bf16 [{card}]")
+        f"{ROOFLINE_CTX} over {ROOFLINE_PAGES} pages, chunk "
+        f"{ROOFLINE_CHUNK} at {ROOFLINE_CHUNK_AT}, pages of 16, bf16, full "
+        f"depth but {ROOFLINE_LAYERS} layers, (ctx, pages) "
+        f"{ROOFLINE_WORLD} [{card}]")
     for what, (card_p, h100_p, tpu_p), ms in rows:
         log(f"[roofline] {what:36s} card {card_p:7.3f}  H100_LIKE "
             f"{h100_p:7.3f}  TPU v5e {tpu_p:7.3f}  measured {ms:7.3f}  "
@@ -1289,7 +1318,7 @@ def split_apart(card, s_ds):
     pd = importlib.import_module("repro_torch.kernels.paged_decode")
 
     def clusters(**on):
-        return [pd.occupancy(0, torch.bfloat16, 128, 4, SPLIT_PAGES, C,
+        return [pd.occupancy(0, torch.bfloat16, 128, 4, SPLIT_PAGES, "mma", C,
                              **on)[0] for C in (1, 2, 4, 8)]
     props = torch.cuda.get_device_properties(0)
     n = -(-4 * props.L2_cache_size // 16) * 4
@@ -1840,8 +1869,9 @@ def _check(name, got, want, dtype, label, record, tol=None):
 def check_decode(rng, label, dtype, B, H, G, Dh, N, ps, P, splits=None,
                  lengths=None, distinct=False):
     from repro_torch.kernels.paged_decode import (
-        paged_decode, paged_decode_cluster_plain, paged_decode_plain,
-        paged_decode_splitkv, paged_decode_splitkv_plain, splitkv_spans)
+        paged_decode, paged_decode_block_plain, paged_decode_cluster_plain,
+        paged_decode_plain, paged_decode_splitkv, paged_decode_splitkv_plain,
+        paged_engine, splitkv_spans)
     q, kp, vp, tables, ln = _decode_inputs(rng, B, H, G, Dh, N, ps, P, dtype,
                                            lengths, distinct)
     if splits is None:
@@ -1856,7 +1886,10 @@ def check_decode(rng, label, dtype, B, H, G, Dh, N, ps, P, splits=None,
             q, kp, vp, tables, ln, num_splits=splits)
     if splits is None:
         from repro_torch.kernels.paged_decode import cluster_for
-        label += f" C={cluster_for(q, kp, tables)}"
+        C = cluster_for(q, kp, tables)
+    else:
+        C = splitkv_spans(P, splits)[0]
+    label += f" C={C}" if splits is None else ""
     from repro_torch.kernels.ops import cta_role
     role = cta_role(H // G)
     rec = {"name": name if role == "decode" else f"{name}[{role}]",
@@ -1864,15 +1897,19 @@ def check_decode(rng, label, dtype, B, H, G, Dh, N, ps, P, splits=None,
     tol = ATTN_BF16_TOL if dtype == torch.bfloat16 else None
     got = kernel()
     torch.cuda.synchronize()
-    if splits is not None:
-        # the algorithm the kernel runs: the live pages in C = S spans
-        C = splitkv_spans(P, splits)[0]
-        _check(name, got, paged_decode_cluster_plain(
-            q, kp, vp, tables, ln, cluster=C), dtype, label + " (spans)",
-            rec, tol)
+    # the algorithm the kernel runs: the live pages in C spans (split-KV:
+    # C = S), on the warpgroup block in its tiles of whole pages
+    walk = None
+    if role == "block" and paged_engine(dtype, Dh, P * ps) == "warpgroup":
+        walk = paged_decode_block_plain
+    elif splits is not None:
+        walk = paged_decode_cluster_plain
+    if walk is not None:
+        _check(name, got, walk(q, kp, vp, tables, ln, cluster=C), dtype,
+               label + " (spans)", rec, tol)
         span_err = rec["max_abs_err"]
     _check(name, got, plain(), dtype, label, rec, tol)
-    if splits is not None:
+    if walk is not None:
         rec["max_abs_err"] = max(rec["max_abs_err"], span_err)
     elt = q.element_size()
     live = int(ln.long().sum().item())
@@ -2034,6 +2071,85 @@ def check_duet_slab(rng, label, dtype, Ns, S, G, H, Dh, decode_rows,
     rec["library_ms"] = time_ms(lambda: fn(qq, k, v, attn_mask=mask))
     del k, v
     return rec
+
+
+# the block roles' head shapes (one KV head; rep 96 and 128 split into
+# head blocks) and head dims the warpgroup block takes, held once each in
+# bf16 (check_block_sweep), and split-KV's split counts there: any count
+# up to 8 (ops.num_splits_for), so cluster sizes that are not powers of two
+BLOCK_SWEEP = [(rep, Dh) for rep in (48, 96, 128) for Dh in (64, 128, 256)]
+BLOCK_SPLITS = (3, 4, 7)
+
+
+def check_block_sweep(rng, card):
+    """Every block-role shape of BLOCK_SWEEP in bf16, at tables and slabs of
+    4096 keys (8 requests of 256..4096 tokens, pages of 16): paged_decode
+    and split-KV (S of BLOCK_SPLITS) against their plain versions and,
+    where the launch takes the warpgroup block, the block's walk in plain
+    PyTorch (the kernel's spans, tiles and rank-order combine), within
+    ATTN_BF16_TOL; the slab duet_attention's one-row tiles with the
+    log-sum-exp (prefill_core.cuh's block) against its plain version
+    (lse: LSE_BF16_TOL). Checks only: nothing is timed."""
+    from repro_torch.kernels.duet_attention import (duet_attention,
+                                                    duet_attention_plain)
+    from repro_torch.kernels.paged_decode import (
+        cluster_for, paged_decode, paged_decode_block_plain,
+        paged_decode_plain, paged_decode_splitkv, paged_decode_splitkv_plain,
+        paged_engine)
+    B, ps, P, S = 8, 16, 256, 4096
+    lens = np.linspace(256, 4096, B).astype(np.int64)
+    bf16 = torch.bfloat16
+    for rep, Dh in BLOCK_SWEEP:
+        q, kp, vp, tables, ln = _decode_inputs(rng, B, rep, 1, Dh,
+                                               B * P + 1, ps, P, bf16, lens,
+                                               True)
+        wg = paged_engine(bf16, Dh, P * ps) == "warpgroup"
+        rec = {}
+        errs = []
+        C = cluster_for(q, kp, tables)
+        calls = [("paged", paged_decode(q, kp, vp, tables, ln),
+                  paged_decode_plain(q, kp, vp, tables, ln), C)]
+        for n in BLOCK_SPLITS:
+            calls.append((f"split-KV S={n}", paged_decode_splitkv(
+                q, kp, vp, tables, ln, num_splits=n),
+                paged_decode_splitkv_plain(q, kp, vp, tables, ln,
+                                           num_splits=n), n))
+        for what, got, want, ranks in calls:
+            torch.cuda.synchronize()
+            wants = [want] + ([paged_decode_block_plain(
+                q, kp, vp, tables, ln, cluster=ranks)] if wg else [])
+            for w in wants:
+                _check(f"paged_decode {what}", got, w, bf16,
+                       f"rep {rep} Dh {Dh}", rec, ATTN_BF16_TOL)
+                errs.append(rec["max_abs_err"])
+        ks = torch.from_numpy(rng.standard_normal((B, S, 1, Dh), np.float32)
+                              ).to("cuda", bf16)
+        vs = torch.from_numpy(rng.standard_normal((B, S, 1, Dh), np.float32)
+                              ).to("cuda", bf16)
+        qs = q.contiguous()
+        row_pos = torch.tensor(lens - 1, dtype=torch.int32,
+                               device="cuda")[:, None].contiguous()
+        slot = torch.arange(B, dtype=torch.int32, device="cuda")
+        got, lse = duet_attention(qs, row_pos, slot, ks, vs, block_q=1,
+                                  return_lse=True)
+        torch.cuda.synchronize()
+        want, wlse = duet_attention_plain(qs, row_pos, slot, ks, vs,
+                                          block_q=1, return_lse=True)
+        _check("duet_attention", got, want, bf16, f"rep {rep} Dh {Dh}",
+               rec, ATTN_BF16_TOL)
+        errs.append(rec["max_abs_err"])
+        _check("duet_attention lse", lse, wlse, bf16, f"rep {rep} Dh {Dh}",
+               rec, LSE_BF16_TOL)
+        log(f"[kernels] block roles bf16 rep {rep} Dh {Dh} "
+            f"({-(-rep // 64)} head block{'s' if rep > 64 else ''}), 8 "
+            f"requests of 256..4096: paged (C={C}) and split-KV (S="
+            f"{', '.join(map(str, BLOCK_SPLITS))}) on the "
+            f"{'warpgroup' if wg else 'mma.sync'} block, slab with lse on "
+            f"the mma.sync block: max abs err {max(errs):.3e} (tol "
+            f"{ATTN_BF16_TOL[0]:.0e}/{ATTN_BF16_TOL[1]:.0e}), lse "
+            f"{rec['max_abs_err']:.3e} [{card}]")
+        del kp, vp, ks, vs
+    torch.cuda.empty_cache()
 
 
 def check_flash(rng, label, dtype, B, Sq, Sk, H, G, Dh, q_offset,
@@ -2307,7 +2423,27 @@ def phase_kernels():
                 rng, f"rep {Hs} 4 decode + 20 chunk bq=1", dtype,
                 5 * (2048 // ps) + 1, ps, Gs, Hs, Ds, 2048 // ps, edge4,
                 chunk20, bq=1, pad_tile=True, library=bf16))
+    # the block roles at longer contexts (bf16, granite-20b's heads; paged
+    # on the warpgroup block, the slab on prefill_core's): 8 requests of
+    # 1024..4096 tokens, and 32 of 1024..8192, 75.5 MB of K and V (more
+    # than the 50 MB L2), paged (pages of 16) and slab (8192 a slot)
+    g20 = get_config("granite-20b")
+    mid_lens = np.linspace(1024, 4096, 8).astype(np.int64)
+    records.append(check_decode(
+        rng, "granite-20b B=8 ctx 1024-4096", torch.bfloat16, 8,
+        g20.num_heads, g20.num_kv_heads, g20.head_dim, 8 * 256 + 1, 16, 256,
+        lengths=mid_lens, distinct=True))
+    long_lens = np.linspace(1024, 8192, 32).astype(np.int64)
+    records.append(check_decode(
+        rng, "granite-20b long B=32 ctx 1024-8192", torch.bfloat16, 32,
+        g20.num_heads, g20.num_kv_heads, g20.head_dim, 32 * 512 + 1, 16, 512,
+        lengths=long_lens, distinct=True))
+    records.append(check_duet_slab(
+        rng, "granite-20b long slab 32 decode ctx 1024-8192", torch.bfloat16,
+        32, 8192, g20.num_kv_heads, g20.num_heads, g20.head_dim,
+        [(b, int(c) - 1) for b, c in enumerate(long_lens)], [], bq=1))
     card = card_line()
+    check_block_sweep(rng, card)
     for rec in records:
         log(f"[kernels] {rec['name']:27s} {rec['dtype']:15s} "
             f"{rec['case']:44s} max_abs_err={rec['max_abs_err']:.3e} "
@@ -2337,6 +2473,7 @@ def report_occupancy(card):
     from repro_torch.kernels.duet_attention import occupancy as slab_occ
     from repro_torch.kernels.paged_decode import cluster_for as paged_c
     from repro_torch.kernels.paged_decode import occupancy as paged_occ
+    from repro_torch.kernels.paged_decode import paged_engine
     dev = torch.cuda.current_device()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     B, G, rep, Dh, P, S = 8, 8, 4, 128, 128, 1024
@@ -2347,7 +2484,8 @@ def report_occupancy(card):
     ks = torch.empty((B, S, G, Dh), dtype=bf16, device="cuda")
     tiles = torch.empty((B,), dtype=torch.int32, device="cuda")
     picks = {"paged_decode": (paged_c(q, kp, tables), lambda C: paged_occ(
-                 dev, bf16, Dh, rep, P, C)),
+                 dev, bf16, Dh, rep, P, paged_engine(bf16, Dh, 16 * P),
+                 C)),
              "duet_attention": (slab_c(q, tiles, ks, 1), lambda C: slab_occ(
                  dev, bf16, Dh, rep, C))}
     from repro_torch.kernels.flash_prefill import occupancy as flash_occ
@@ -2367,7 +2505,9 @@ def report_occupancy(card):
     picks["duet_attention"] += (slab_role(1, rep), G)
     picks["paged_decode granite"] = (
         paged_c(qg, kg, tables),
-        lambda C: paged_occ(dev, bf16, Dh, 48, P, C), paged_role(48), 1)
+        lambda C: paged_occ(dev, bf16, Dh, 48, P,
+                            paged_engine(bf16, Dh, 16 * P), C),
+        paged_role(48), 1)
     picks["duet_attention granite"] = (
         slab_c(qg, tiles, ksg, 1),
         lambda C: slab_occ(dev, bf16, Dh, 48, C), slab_role(1, 48), 1)
@@ -2615,26 +2755,45 @@ def _kernel_events(events, steps) -> dict:
             if any(fn in fns for fns in KERNEL_FUNCTIONS.values())}
 
 
-def _hold_trace(what, launches, events, steps, card):
+# The profiler can lose a device record of a replay (one run on an H100
+# read 35.5 launches a replay of a kernel that the graph holds 36 times,
+# which no static graph can do): a trace that shows fewer launches than
+# the capture counted, and none more, is taken again, TRACE_TRIES times at
+# most. A graph that lacks a kernel is short in every trace, and one that
+# holds more fails at once.
+TRACE_TRIES = 3
+
+
+def _hold_trace(what, launches, trace, steps, card):
     """Hold the launches a bucket's capture counted (``launches``, by
-    wrapper) to the device kernel events of ``steps`` traced replays: each
-    kernel function as often a replay as the wrappers that launch it
-    counted. Replayed launches are capture-time counts; this is what shows
-    that the graph holds them."""
+    wrapper) to the device kernel events of ``steps`` traced replays
+    (``trace()`` runs them under the profiler and returns its device
+    events): each kernel function as often a replay as the wrappers that
+    launch it counted. Replayed launches are capture-time counts; this is
+    what shows that the graph holds them."""
     want = {}
     for name, n in launches.items():
         fn = KERNEL_FUNCTIONS[name][0]
-        want[fn] = want.get(fn, 0) + n
-    got = _kernel_events(events, steps)
+        want[fn] = want.get(fn, 0) + float(n)
     flash = KERNEL_FUNCTIONS["flash_prefill"]
-    if flash[1] in got:      # one counter, two functions
-        got[flash[0]] = got.get(flash[0], 0) + got.pop(flash[1])
-    log(f"[graphs] {what}: a replay's kernels in the trace {got}, counted "
-        f"at capture {launches} [{card}]")
-    if got != {fn: float(n) for fn, n in want.items()}:
-        raise AssertionError(f"[graphs] {what}: the replayed graph's "
-                             f"kernels {got} differ from the launches "
-                             f"counted at its capture {launches}")
+    for tries in range(1, TRACE_TRIES + 1):
+        events = trace()
+        got = _kernel_events(events, steps)
+        if flash[1] in got:      # one counter, two functions
+            got[flash[0]] = got.get(flash[0], 0) + got.pop(flash[1])
+        log(f"[graphs] {what}: a replay's kernels in the trace {got}, "
+            f"counted at capture {launches} (trace {tries}/{TRACE_TRIES}) "
+            f"[{card}]")
+        if got == want:
+            return
+        short = all(got.get(fn, 0) <= n for fn, n in want.items()) and \
+            set(got) <= set(want)
+        if not short:
+            break
+    raise AssertionError(f"[graphs] {what}: the replayed graph's "
+                         f"kernels {got} differ from the launches "
+                         f"counted at its capture {launches} (trace "
+                         f"{tries}/{TRACE_TRIES})")
 
 
 def check_bucket_graphs(model, kind, card, steps: int = 2):
@@ -2727,14 +2886,14 @@ def check_bucket_graphs(model, kind, card, steps: int = 2):
                 f"outputs and tensors; launches {bucket.launches} vs "
                 f"{eager}")
         del before, want
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            bucket.replay()
-        torch.cuda.synchronize()
-    cuda = torch.autograd.DeviceType.CUDA
-    _hold_trace(what, bucket.launches, [
-        e for e in prof.key_averages() if e.device_type == cuda], steps,
-        card)
+    def trace():
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                bucket.replay()
+            torch.cuda.synchronize()
+        cuda = torch.autograd.DeviceType.CUDA
+        return [e for e in prof.key_averages() if e.device_type == cuda]
+    _hold_trace(what, bucket.launches, trace, steps, card)
     log(f"[graphs] {what}: eager at (start, slot, resume) "
         f"{BUCKET_DISPATCHES[0]}, captured at {BUCKET_DISPATCHES[1]} and "
         f"replayed at {BUCKET_DISPATCHES[2]}, each bitwise equal to a fresh "
@@ -3658,7 +3817,16 @@ def profile_replay(model, card, steps: int = PROFILE_STEPS):
                 raise AssertionError(f"[profile] {what}: a replay made "
                                      f"{graph / steps:g} graph and "
                                      f"{launch / steps:g} kernel launches")
-            _hold_trace(what, bucket.launches, kernels, steps, card)
+            traces = [kernels]
+
+            def trace():
+                if traces:
+                    return traces.pop()
+                with profile(activities=[ProfilerActivity.CUDA]) as again:
+                    run()
+                return [e for e in again.key_averages()
+                        if e.device_type == cuda]
+            _hold_trace(what, bucket.launches, trace, steps, card)
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     pos.fill_(1000)
     start.record()

@@ -31,9 +31,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 SOURCES = ("paged_decode", "duet_attention_paged", "duet_attention",
            "flash_prefill", "sm_probe", "green_split")
-# flags of one source beyond NVCC_FLAGS: the green contexts' shim calls the
+# flags of one source beyond NVCC_FLAGS: the green contexts' shim and the
+# warpgroup block's TMA tensor maps (cuTensorMapEncodeTiled) call the
 # driver API
-EXTRA_FLAGS = {"green_split": ["-lcuda"]}
+EXTRA_FLAGS = {"green_split": ["-lcuda"], "paged_decode": ["-lcuda"]}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -42,8 +43,8 @@ _L = ctypes.c_longlong
 # argtypes of each C entry point: every pointer and the stream as c_void_p
 SIGNATURES = {
     "paged_decode": {
-        "paged_decode_launch": [_P] * 6 + [_I] * 7 + [_F, _I, _P],
-        "paged_decode_occupancy": [_I] * 5 + [_P, _P],
+        "paged_decode_launch": [_P] * 6 + [_I] * 8 + [_F, _I, _I, _P],
+        "paged_decode_occupancy": [_I] * 6 + [_P, _P],
     },
     "duet_attention_paged": {
         "duet_attention_paged_launch": [_P] * 7 + [_I] * 8 + [_F, _I, _P],

@@ -640,14 +640,28 @@ __device__ __forceinline__ void decode_cluster(
   cluster_combine<NRB, DH, THREADS>(c_m, nrows, write_out, write_lse);
 }
 
+// Shared memory above 48 KB and clusters above the portable 8 CTAs are
+// allowed per kernel, before a launch or an occupancy query.
+template <typename... Params>
+cudaError_t allow(void (*kernel)(Params...), int C, size_t smem) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  if (C > MAX_CLUSTER)
+    return cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return cudaSuccess;
+}
+
 // Launch ``kernel`` (Cf's instantiation) on grid with cluster dims
 // (1, 1, C).
 template <class Cf, typename... Params, typename... Args>
 cudaError_t launch_cluster(void (*kernel)(Params...), dim3 grid, int C,
                            size_t smem, cudaStream_t stream, Args... args) {
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  {
+    const cudaError_t e = allow(kernel, C, smem);
     if (e != cudaSuccess) return e;
   }
   cudaLaunchConfig_t cfg = {};
@@ -673,9 +687,8 @@ cudaError_t launch_cluster(void (*kernel)(Params...), dim3 grid, int C,
 template <class Cf, typename... Params>
 cudaError_t max_active_clusters(void (*kernel)(Params...), int C, size_t smem,
                                 int* n, cudaStream_t stream) {
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  {
+    const cudaError_t e = allow(kernel, C, smem);
     if (e != cudaSuccess) return e;
   }
   cudaLaunchConfig_t cfg = {};

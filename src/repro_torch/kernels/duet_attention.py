@@ -173,7 +173,7 @@ def duet_tile_plan(row_pos, tile_slot, *, block_q: int, rep: int):
     return plan
 
 
-def _online(qt, lim, chunks, k_chain, v_chain, qs, dtype):
+def online_tiles(qt, lim, chunks, k_chain, v_chain, qs, dtype):
     """Online softmax in the log2 domain of rows qt (G,n,Dh) (row i sees
     keys <= lim[i]) over the key chunks in order (each a (k,) tensor of key
     positions), P rounded to ``dtype`` before P V. Returns (m in log2
@@ -200,7 +200,7 @@ def _online(qt, lim, chunks, k_chain, v_chain, qs, dtype):
                         torch.full_like(m, NEG_INF)), l, acc)
 
 
-def _combine(m, l, acc):
+def rank_combine(m, l, acc):
     """Log-sum-exp combine of (m, l, acc) partials stacked on dim 0, in
     that order (a partial whose max is at or below MASKED_M_THRESHOLD
     weighs 0)."""
@@ -248,9 +248,9 @@ def duet_attention_paged_tiled_plain(q, row_pos, tile_slot, k_pages, v_pages,
             k0, k1 = u0 * SPLIT_KEYS, min(u1 * SPLIT_KEYS, n_keys)
             chunks = [keys[s:min(s + BLOCK_N, k1)]
                       for s in range(k0, k1, BLOCK_N)]
-            parts.append(_online(qt, lim, chunks, k_chain, v_chain, qs,
-                                 q.dtype))
-        _, l, acc = _combine(*(torch.stack(x) for x in zip(*parts)))
+            parts.append(online_tiles(qt, lim, chunks, k_chain, v_chain,
+                                      qs, q.dtype))
+        _, l, acc = rank_combine(*(torch.stack(x) for x in zip(*parts)))
         o = acc / l.clamp(min=DENOM_EPS)[..., None]
         out[rows] = o.reshape(G, nlive, rep, Dh).permute(1, 0, 2, 3) \
             .reshape(nlive, H, Dh).to(q.dtype)

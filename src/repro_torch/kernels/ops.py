@@ -84,17 +84,20 @@ CLUSTER_MAX = 8          # the portable cluster size
 SPLIT_KEYS = 64          # the duet kernels' split unit (keys)
 
 
-def cluster_size(ctas: int, max_units: int, holds) -> int:
+def cluster_size(ctas: int, max_units: int, holds,
+                 cap: int = CLUSTER_MAX) -> int:
     """C for a launch of ``ctas`` (request or tile, KV group) clusters: the
-    largest power of two, at most :data:`CLUSTER_MAX` and at most
-    ``max_units`` (the split units of the longest row; the host passes a
-    bound that needs no device read: the table's width in pages, or the
-    64-key units of the slab or of the table), whose grid of ``ctas * C``
-    CTAs the card runs in one wave. ``holds(C)`` is how many CTAs of
-    clusters of C the card runs at once (cudaOccupancyMaxActiveClusters).
-    1 when the grid already fills the card."""
+    largest power of two, at most ``cap`` (:data:`CLUSTER_MAX`, or up to
+    :data:`BLOCK_CLUSTER_MAX` for the warpgroup block, :func:`cluster_cap`)
+    and at most ``max_units`` (the split units of the longest row; the
+    host passes a bound that needs no device read: the table's width in
+    pages, or the 64-key units of the slab or of the table), whose grid of
+    ``ctas * C`` CTAs the card runs in one wave. ``holds(C)`` is how many
+    CTAs of clusters of C the card runs at once
+    (cudaOccupancyMaxActiveClusters). 1 when the grid already fills the
+    card."""
     C = 1
-    while (2 * C <= min(CLUSTER_MAX, max_units)
+    while (2 * C <= min(cap, max_units)
            and ctas * 2 * C <= holds(2 * C)):
         C *= 2
     return C
@@ -163,6 +166,59 @@ def cta_role(pairs: int) -> str:
     64-row tensor-core block) above. The paged duet kernel reads each
     tile's live rows on the card and calls its block role "prefill"."""
     return "decode" if pairs <= DUET_DECODE_ROWS else "block"
+
+
+# The block role (a CTA of more than 16 (row, head) pairs) has two
+# blocks: the warpgroup block (csrc/wg_block.cuh: wgmma, TMA copies on an
+# mbarrier ring) for paged_decode in bf16 at a head dim of WG_HEAD_DIMS
+# over tables of at least PAGED_WG_MIN_KEYS keys (its width times the page
+# size), and prefill_core.cuh's mma.sync / CUDA-core block elsewhere: fp32
+# (no tensor-core type of its precision), Dh 32 (a row fills no 128-byte
+# swizzled row), shorter tables (a rank walks a tile or two, and the
+# warpgroup block read slower: block_role_sweep.py), the slab
+# duet_attention's block role (the warpgroup block won no measured serving
+# shape there) and the prefill tiles. The warpgroup block takes clusters
+# of up to BLOCK_CLUSTER_MAX (a non-portable size) where a launch's
+# clusters of that size hold at most BLOCK_WIDE_CTAS CTAs (granite-20b's
+# batches of up to 4), else CLUSTER_MAX like every other kernel: at a
+# batch of 8, clusters of 16 (128 CTAs) read slower than clusters of 8
+# (64 CTAs) at equal contexts, the combine's reads growing with C while a
+# rank's span shrinks to a tile or two; at batches of 1-4 they read
+# faster (block_role_sweep.py).
+BLOCK_CLUSTER_MAX = 16
+BLOCK_WIDE_CTAS = 64
+WG_HEAD_DIMS = (64, 128, 256)
+PAGED_WG_MIN_KEYS = 2048
+BLOCK_TILE = 64          # rows of the warpgroup block's K/V tile
+
+
+def cluster_cap(pairs: int, engine: str, clusters: int) -> int:
+    """The largest cluster a launch of ``clusters`` clusters (request or
+    tile, KV group, head block) whose CTAs hold ``pairs`` (row, head) pairs
+    may take on ``engine``'s block (``paged_decode.paged_engine``):
+    :data:`BLOCK_CLUSTER_MAX` on the warpgroup block's block role where
+    that many CTAs a cluster give at most :data:`BLOCK_WIDE_CTAS` CTAs,
+    :data:`CLUSTER_MAX` otherwise. Host-known values only."""
+    if (cta_role(pairs) == "block" and engine == "warpgroup"
+            and clusters * BLOCK_CLUSTER_MAX <= BLOCK_WIDE_CTAS):
+        return BLOCK_CLUSTER_MAX
+    return CLUSTER_MAX
+
+
+def block_tile_keys(page_size: int) -> Tuple[int, int, int]:
+    """(keys a tile, rows a TMA box, rows a box slot) of the warpgroup
+    block over pages of ``page_size`` rows: up to 64 rows a page,
+    64 // slot whole pages a tile at slots of the page size
+    rounded up to 8 rows (64 keys at pages of 16, 48 at pages of 12);
+    longer pages, one box a tile of the largest divisor of the page size
+    up to 64. The CUDA source restates it (``wgb::tiles_for``)."""
+    if page_size <= BLOCK_TILE:
+        slot = -(-page_size // 8) * 8
+        return BLOCK_TILE // slot * page_size, page_size, slot
+    d = BLOCK_TILE
+    while page_size % d:
+        d -= 1
+    return d, d, BLOCK_TILE
 
 
 def duet_block_q(num_heads: int, num_kv_heads: int, head_dim: int) -> int:

@@ -30,12 +30,18 @@ of the whole table, the CPU path.
 
 A group of more than 16 query heads (rep > 16: granite-20b's 48) does not
 fit the decode core's row buckets; its CTAs take the "block" role
-(:func:`~repro_torch.kernels.ops.cta_role`): the 64-row tensor-core block
-of ``csrc/prefill_core.cuh`` over the same spans, with the same combine,
-and head blocks of at most 64 heads
-(:func:`~repro_torch.kernels.ops.head_split`) above rep 64. The role
-follows rep alone, so the host picks the kernel, and :func:`occupancy` /
-:func:`cluster_for` price the one launched.
+(:func:`~repro_torch.kernels.ops.cta_role`): a 64-row block over the same
+kind of spans, with the same combine, and head blocks of at most 64 heads
+(:func:`~repro_torch.kernels.ops.head_split`) above rep 64. In bf16 at Dh
+64-256 over tables of at least 2048 keys it is the warpgroup block of
+``csrc/wg_block.cuh`` (wgmma, the pages copied by TMA onto an mbarrier
+ring; clusters of up to 16 where they give at most 64 CTAs, granite-20b's
+batches of up to 4, else of up to 8: ``ops.cluster_cap``;
+:func:`paged_decode_block_plain` is its walk in plain PyTorch), else the
+block of ``csrc/prefill_core.cuh`` (:func:`paged_engine`). The role and
+block follow rep, dtype, Dh and the table's keys, so the host picks the
+kernel, and :func:`occupancy` / :func:`cluster_for` price the one
+launched.
 
 On a CPU tensor each wrapper runs its plain PyTorch version; on a CUDA
 tensor it launches the kernel or raises. :data:`launches` counts kernel
@@ -51,16 +57,24 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.duet_attention import online_tiles, rank_combine
 from repro_torch.kernels.ops import (CLUSTER_MAX, DENOM_EPS,
                                      MASKED_M_THRESHOLD, NEG_INF,
+                                     PAGED_WG_MIN_KEYS, WG_HEAD_DIMS,
+                                     block_tile_keys, cluster_cap,
                                      cluster_size, cluster_spans, cta_role,
                                      default_sm_scale, gqa_repeat_kv,
-                                     head_split, split_stream_kw)
+                                     gqa_split_heads, head_split,
+                                     split_stream_kw)
 
 launches = {"paged_decode": 0, "paged_decode[block]": 0,
             "paged_decode_splitkv": 0, "paged_decode_splitkv[block]": 0}
+# the block-role launches of both wrappers by the block they ran
+# (paged_engine): which block a serving path's steps took
+block_launches = {"warpgroup": 0, "mma": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+LOG2E = 1.4426950408889634
 
 
 # ---------------------------------------------------------------------------
@@ -156,9 +170,56 @@ def paged_decode_cluster_plain(q, k_pages, v_pages, tables, lengths, *,
                          valid.reshape(B, cluster, L))
 
 
+def paged_decode_block_plain(q, k_pages, v_pages, tables, lengths, *,
+                             cluster: int):
+    """The warpgroup block role's walk (rep > 16, bf16 on the card) in
+    plain PyTorch: each request's live pages cut into ``cluster`` spans
+    (:func:`~repro_torch.kernels.ops.cluster_spans`, up to
+    ``ops.BLOCK_CLUSTER_MAX`` ranks), each span walked in tiles of
+    ``ops.block_tile_keys(ps)`` keys (whole pages) from its first key by
+    one online softmax (P rounded to q's dtype), the ranks' partials
+    combined in rank order."""
+    B, H, Dh = q.shape
+    N, ps, G, _ = k_pages.shape
+    P = tables.shape[1]
+    tk = block_tile_keys(ps)[0]
+    qs = default_sm_scale(Dh) * LOG2E
+    out = torch.empty_like(q)
+    for b, n in enumerate(lengths.tolist()):
+        n = max(n, 0)
+        live = min(P, -(-n // ps))
+        keys = torch.arange(min(n, live * ps), device=q.device)
+        page = tables[b].long()[keys // ps]
+        k_chain = k_pages[page, keys % ps].float()
+        v_chain = v_pages[page, keys % ps].float()
+        qt = gqa_split_heads(q[b].float(), G)               # (G, rep, Dh)
+        lim = torch.full((H // G,), n - 1, device=q.device)
+        parts = []
+        for p0, p1 in cluster_spans(live, cluster):
+            k0, k1 = p0 * ps, min(p1 * ps, n)
+            parts.append(online_tiles(
+                qt, lim, [keys[s:min(s + tk, k1)] for s in range(k0, k1, tk)],
+                k_chain, v_chain, qs, q.dtype))
+        _, l, acc = rank_combine(*(torch.stack(x) for x in zip(*parts)))
+        out[b] = (acc / l.clamp(min=DENOM_EPS)[..., None]).reshape(
+            H, Dh).to(q.dtype)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # CUDA launches
 # ---------------------------------------------------------------------------
+def paged_engine(dtype, Dh: int, keys: int) -> str:
+    """The block a :func:`paged_decode` block-role CTA runs over tables of
+    ``keys`` keys (width times page size): "warpgroup" (csrc/wg_block.cuh)
+    in bf16 at a head dim of ``ops.WG_HEAD_DIMS`` from
+    ``ops.PAGED_WG_MIN_KEYS`` keys, else "mma" (prefill_core.cuh's).
+    Host-known values only; the CUDA source takes the answer as its
+    ``wg`` argument."""
+    return ("warpgroup" if dtype == torch.bfloat16 and Dh in WG_HEAD_DIMS
+            and keys >= PAGED_WG_MIN_KEYS else "mma")
+
+
 def _check_inputs(q, k_pages, v_pages, tables, lengths):
     B, H, Dh = q.shape
     N, ps, G, Dk = k_pages.shape
@@ -189,55 +250,66 @@ def _stream(t):
 
 
 @functools.lru_cache(maxsize=None)
-def occupancy(device: int, dtype, Dh: int, rows: int, P: int, C: int,
-              stream: int = 0):
+def occupancy(device: int, dtype, Dh: int, rows: int, P: int, engine: str,
+              C: int, stream: int = 0):
     """(clusters of C CTAs the card runs at once, shared memory bytes per
     CTA, bytes each CTA's ring loads ahead) of the :func:`paged_decode`
     kernel of the role (``ops.cta_role(rows)``) that ``rows`` = rep query
-    rows of a group take, for tables of width P
+    rows of a group take, for tables of width P, the block role on
+    ``engine``'s block (:func:`paged_engine`)
     (cudaOccupancyMaxActiveClusters; a host query, no device sync). With
     ``stream`` an SM split's green-context stream (a raw handle), the
     clusters its context's SMs run at once."""
     res = (ctypes.c_int * 3)()
     with torch.cuda.device(device):
         err = _build.load("paged_decode").paged_decode_occupancy(
-            Dh, rows, P, C, _DTYPES[dtype], ctypes.addressof(res), stream)
+            Dh, rows, P, C, _DTYPES[dtype], int(engine == "warpgroup"),
+            ctypes.addressof(res), stream)
     _build.check(err, "paged_decode occupancy")
     return tuple(res)
 
 
 def cluster_for(q, k_pages, tables) -> int:
     """The cluster size :func:`paged_decode` launches these inputs with: one
-    wave of its B x G x head-block clusters of the role it takes."""
+    wave of its B x G x head-block clusters of the role and block it
+    takes, from shapes alone."""
     B, H, Dh = q.shape
-    G, P = k_pages.shape[2], tables.shape[1]
+    ps, G = k_pages.shape[1:3]
+    P = tables.shape[1]
     hb, _ = head_split(H // G, 1)
     dev = q.device.index if q.device.index is not None else \
         torch.cuda.current_device()
     on = split_stream_kw(q.device)
+    engine = paged_engine(q.dtype, Dh, P * ps)
     return cluster_size(B * G * hb, P, lambda C: C * occupancy(
-        dev, q.dtype, Dh, H // G, P, C, **on)[0])
+        dev, q.dtype, Dh, H // G, P, engine, C, **on)[0],
+        cap=cluster_cap(H // G, engine, B * G * hb))
 
 
 def _launch(name, q, k_pages, v_pages, tables, lengths, C):
-    """One launch of the kernel of the role rep takes with clusters of C
-    CTAs (inputs checked by the caller), counted as ``name``'s."""
+    """One launch of the kernel of the role rep takes (and, for the block
+    role, the block :func:`paged_engine` picks) with clusters of C CTAs
+    (inputs checked by the caller), counted as ``name``'s."""
     B, H, Dh = q.shape
-    _, ps, G, _ = k_pages.shape
+    N, ps, G, _ = k_pages.shape
+    P = tables.shape[1]
     on = split_stream_kw(q.device)
-    if on and occupancy(q.device.index, q.dtype, Dh, H // G,
-                        tables.shape[1], C, **on)[0] < 1:
+    engine = paged_engine(q.dtype, Dh, P * ps)
+    if on and occupancy(q.device.index, q.dtype, Dh, H // G, P, engine, C,
+                        **on)[0] < 1:
         raise ValueError(f"{name}: the SMs of the current green context "
                          f"cannot hold a cluster of {C} CTAs")
     out = torch.empty_like(q)
     err = _build.load("paged_decode").paged_decode_launch(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        B, H, G, Dh, ps, tables.shape[1], C, default_sm_scale(Dh),
-        _DTYPES[q.dtype], _stream(q))
+        B, H, G, Dh, ps, P, N, C, default_sm_scale(Dh), _DTYPES[q.dtype],
+        int(engine == "warpgroup"), _stream(q))
     _build.check(err, "paged_decode")
     role = cta_role(H // G)
     launches[name if role == "decode" else f"{name}[{role}]"] += 1
+    if role == "block":
+        block_launches[engine] += 1
     return out
 
 

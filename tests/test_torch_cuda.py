@@ -1098,3 +1098,262 @@ def test_paged_kernels_launch_on_a_64_sm_split_stream(dev):
     for name, got, want in zip(names, gots, wants):
         assert after[name] - before.get(name, 0) == 1
         torch.testing.assert_close(got, want, **ATTN_TOL["bfloat16"])
+
+
+# ---------------------------------------------------------------------------
+# paged_decode's block role on the warpgroup block (bf16, rep > 16, Dh
+# 64-256, tables of at least ops.PAGED_WG_MIN_KEYS = 2048 keys; these cases
+# use 4096): NaN past each length, repeatability, capture, a green context,
+# split counts that are not powers of two
+# ---------------------------------------------------------------------------
+BLOCK_LENS = (5, 17, 33, 300, 2000, 4096)
+
+
+def _block_case(dev, H, Dh, ps, seed=21):
+    """MQA heads (H on one KV head), bf16: a decode batch at BLOCK_LENS over
+    tables of 4096 keys in pages of ps, with NaN in every key and value past
+    each length in its last page. Returns the case and the clean pools."""
+    rng = np.random.default_rng(seed)
+    B, P = len(BLOCK_LENS), -(-4096 // ps)
+    N = B * P + 1
+    kp = _randn(rng, (N, ps, 1, Dh), "bfloat16", dev)
+    vp = _randn(rng, (N, ps, 1, Dh), "bfloat16", dev)
+    tables = torch.tensor(1 + rng.permutation(N - 1).reshape(B, P),
+                          dtype=torch.int32, device=dev)
+    q = _randn(rng, (B, H, Dh), "bfloat16", dev)
+    lengths = torch.tensor(BLOCK_LENS, dtype=torch.int32, device=dev)
+    clean = (kp.clone(), vp.clone())
+    for b, n in enumerate(BLOCK_LENS):
+        pid = int(tables[b, (n - 1) // ps])
+        for pool in (kp, vp):
+            pool[pid, n - (n - 1) // ps * ps:] = float("nan")
+    return (q, kp, vp, tables, lengths), clean
+
+
+def _block_calls(case):
+    """paged_decode and split-KV (S = 4) on a block-role case."""
+    return (lambda: paged_decode(*case),
+            lambda: paged_decode_splitkv(*case, num_splits=4))
+
+
+@pytest.mark.parametrize("H,Dh,ps", [
+    (48, 128, 16), (48, 128, 12), (48, 64, 16), (48, 256, 16),
+    (96, 64, 12), (128, 128, 16), (128, 256, 12)])
+def test_block_role_on_the_warpgroup_block(dev, H, Dh, ps):
+    """paged_decode and split-KV on the warpgroup block at rep 48, 96 and
+    128 (two head blocks), Dh 64, 128 and 256, pages of 16 and 12, NaN past
+    every length: outputs finite and within ATTN_TOL of the plain versions
+    and of the block's walk at the wrapper's cluster size (S for split-KV)
+    on the clean pools; two launches bitwise equal."""
+    from repro_torch.kernels.paged_decode import (cluster_for,
+                                                  paged_decode_block_plain,
+                                                  paged_engine)
+    case, clean = _block_case(dev, H, Dh, ps)
+    q, kp, _, tables, lengths = case
+    assert paged_engine(q.dtype, Dh, tables.shape[1] * ps) == "warpgroup"
+    C = cluster_for(q, kp, tables)
+    wants = ((paged_decode_plain(q, *clean, tables, lengths),
+              paged_decode_block_plain(q, *clean, tables, lengths,
+                                       cluster=C)),
+             (paged_decode_splitkv_plain(q, *clean, tables, lengths,
+                                         num_splits=4),
+              paged_decode_block_plain(q, *clean, tables, lengths,
+                                       cluster=4)))
+    before = launch_counts()
+    for call, want in zip(_block_calls(case), wants):
+        got = call()
+        again = call()
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all()
+        for ref in want:
+            torch.testing.assert_close(got, ref, **ATTN_TOL["bfloat16"])
+        assert torch.equal(got, again)
+    after = launch_counts()
+    for name in ("paged_decode[block]", "paged_decode_splitkv[block]"):
+        assert after[name] - before.get(name, 0) == 2
+
+
+@pytest.mark.parametrize("num_splits", [3, 5, 6, 7])
+def test_block_role_splitkv_takes_any_split_count(dev, num_splits):
+    """Split-KV on the warpgroup block at split counts that are not powers
+    of two (clusters of 3, 5, 6 and 7 CTAs), over tables of 2048 keys (the
+    least the block takes), granite-20b's heads: every row of every head
+    within ATTN_TOL of the plain version and of the block's walk at S
+    ranks; two launches bitwise equal."""
+    from repro_torch.kernels.ops import PAGED_WG_MIN_KEYS
+    from repro_torch.kernels.paged_decode import (paged_decode_block_plain,
+                                                  paged_engine)
+    rng = np.random.default_rng(29)
+    B, H, Dh, ps = 8, 48, 128, 16
+    P = PAGED_WG_MIN_KEYS // ps
+    N = B * P + 1
+    kp = _randn(rng, (N, ps, 1, Dh), "bfloat16", dev)
+    vp = _randn(rng, (N, ps, 1, Dh), "bfloat16", dev)
+    tables = torch.tensor(1 + rng.permutation(N - 1).reshape(B, P),
+                          dtype=torch.int32, device=dev)
+    q = _randn(rng, (B, H, Dh), "bfloat16", dev)
+    lengths = torch.tensor(np.linspace(1, P * ps, B).astype(np.int32),
+                           device=dev)
+    assert paged_engine(q.dtype, Dh, P * ps) == "warpgroup"
+    case = (q, kp, vp, tables, lengths)
+    got = paged_decode_splitkv(*case, num_splits=num_splits)
+    again = paged_decode_splitkv(*case, num_splits=num_splits)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all() and torch.equal(got, again)
+    for want in (paged_decode_splitkv_plain(*case, num_splits=num_splits),
+                 paged_decode_block_plain(*case, cluster=num_splits)):
+        torch.testing.assert_close(got, want, **ATTN_TOL["bfloat16"])
+
+
+@pytest.mark.parametrize("B,C", [(1, 16), (4, 16), (8, 8)])
+def test_block_role_grid_at_granite_20b_batches(dev, B, C):
+    """granite-20b's heads over tables of 4096 keys on the card: the
+    warpgroup block's clusters of 16 up to a batch of 4 (at most 64 CTAs),
+    clusters of 8 at a batch of 8 (64 CTAs), as the card's occupancy
+    query and ops.cluster_cap give them."""
+    from repro_torch.kernels.paged_decode import cluster_for
+    q = torch.empty((B, 48, 128), dtype=torch.bfloat16, device=dev)
+    kp = torch.empty((1, 16, 1, 128), dtype=torch.bfloat16, device=dev)
+    tables = torch.empty((B, 256), dtype=torch.int32, device=dev)
+    assert cluster_for(q, kp, tables) == C
+
+
+def test_block_role_replays_bitwise_from_a_graph(dev):
+    """Each warpgroup-block launch captured in a CUDA graph replays its
+    eager run's bits, twice."""
+    case, _ = _block_case(dev, 48, 128, 16)
+    for call in _block_calls(case):
+        eager = call()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = call()
+        for _ in range(2):
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(out, eager)
+
+
+def test_block_role_launches_on_a_64_sm_split_stream(dev):
+    """On an SM split's 64-SM green context each warpgroup-block launch
+    (its clusters sized to that context) is counted and matches its plain
+    version."""
+    from repro_torch.core.device import SmSplit
+    case, clean = _block_case(dev, 48, 128, 16)
+    q, _, _, tables, lengths = case
+    wants = (paged_decode_plain(q, *clean, tables, lengths),
+             paged_decode_splitkv_plain(q, *clean, tables, lengths,
+                                        num_splits=4))
+    names = ("paged_decode[block]", "paged_decode_splitkv[block]")
+    before = launch_counts()
+    split = SmSplit(dev, 32)
+    try:
+        assert split.sms["decode"] == 64
+        with torch.cuda.stream(split.decode_stream):
+            gots = [call() for call in _block_calls(case)]
+        split.decode_stream.synchronize()
+    finally:
+        split.close()
+    after = launch_counts()
+    for name, got, want in zip(names, gots, wants):
+        assert after[name] - before.get(name, 0) == 1
+        torch.testing.assert_close(got, want, **ATTN_TOL["bfloat16"])
+
+
+# ---------------------------------------------------------------------------
+# the slab duet_attention's block role (bf16, one-row tiles at rep > 16, Dh
+# 64-256, prefill_core.cuh's block) over slabs of 4096 keys: NaN past each
+# row's position, the log-sum-exp, repeatability, capture, a green context
+# ---------------------------------------------------------------------------
+SLAB_POS = (0, 16, 32, 299, 1999, 4095)
+# the bf16 log-sum-exp, as chip_smoke.py holds it: l sums the bf16-rounded
+# P, about 2^-9 of each key's weight
+LSE_TOL = dict(atol=1e-2, rtol=1e-3)
+
+
+def _slab_block_case(dev, H, Dh, seed=23):
+    """MQA heads (H on one KV head), bf16: one-row decode tiles at
+    SLAB_POS and a pad tile over slabs of 4096 keys, NaN in every key and
+    value past each row's position in its slot. Returns the case and the
+    clean slabs."""
+    rng = np.random.default_rng(seed)
+    T, S = len(SLAB_POS) + 1, 4096
+    ks = _randn(rng, (T, S, 1, Dh), "bfloat16", dev)
+    vs = _randn(rng, (T, S, 1, Dh), "bfloat16", dev)
+    q = _randn(rng, (T, H, Dh), "bfloat16", dev)
+    slots = rng.permutation(T - 1).tolist()
+    tile_slot = torch.tensor(slots + [-1], dtype=torch.int32, device=dev)
+    row_pos = torch.tensor([[p] for p in SLAB_POS] + [[-1]],
+                           dtype=torch.int32, device=dev)
+    clean = (ks.clone(), vs.clone())
+    for slot, p in zip(slots, SLAB_POS):
+        for slab in (ks, vs):
+            slab[slot, p + 1:] = float("nan")
+    return (q, row_pos, tile_slot, ks, vs), clean
+
+
+@pytest.mark.parametrize("H,Dh", [(48, 128), (48, 64), (48, 256), (96, 64),
+                                  (128, 128), (128, 256)])
+def test_slab_block_role_with_lse(dev, H, Dh):
+    """The slab duet_attention's one-row tiles at rep 48, 96 and 128, Dh
+    64, 128 and 256, NaN past every position: output and log-sum-exp
+    finite on the live rows and within ATTN_TOL of the plain version on
+    the clean slabs, the pad tile zeros and -inf; two launches bitwise
+    equal."""
+    case, clean = _slab_block_case(dev, H, Dh)
+    q, row_pos, tile_slot = case[:3]
+    want, want_lse = duet_attention_plain(q, row_pos, tile_slot, *clean,
+                                          block_q=1, return_lse=True)
+    before = launch_counts()
+    got, lse = duet_attention(*case, block_q=1, return_lse=True)
+    again, again_lse = duet_attention(*case, block_q=1, return_lse=True)
+    plain_out = duet_attention(*case, block_q=1)
+    torch.cuda.synchronize()
+    live = slice(0, len(SLAB_POS))
+    assert torch.isfinite(got[live]).all() and torch.isfinite(lse[live]).all()
+    torch.testing.assert_close(got[live], want[live], **ATTN_TOL["bfloat16"])
+    torch.testing.assert_close(lse[live], want_lse[live], **LSE_TOL)
+    assert not got[-1].any() and torch.isinf(lse[-1]).all()
+    assert torch.equal(got, again) and torch.equal(lse, again_lse)
+    torch.testing.assert_close(plain_out[live], want[live],
+                               **ATTN_TOL["bfloat16"])
+    assert launch_counts()["duet_attention[block]"] - \
+        before.get("duet_attention[block]", 0) == 3
+
+
+def test_slab_block_role_replays_bitwise_from_a_graph(dev):
+    """The slab block role's launch, with its log-sum-exp, captured in a
+    CUDA graph replays its eager run's bits, twice."""
+    case, _ = _slab_block_case(dev, 48, 128)
+    eager = duet_attention(*case, block_q=1, return_lse=True)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = duet_attention(*case, block_q=1, return_lse=True)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(out, eager))
+
+
+def test_slab_block_role_launches_on_a_64_sm_split_stream(dev):
+    """On an SM split's 64-SM green context the slab block role's launch
+    (its clusters sized to that context) is counted and matches its plain
+    version."""
+    from repro_torch.core.device import SmSplit
+    case, clean = _slab_block_case(dev, 48, 128)
+    q, row_pos, tile_slot = case[:3]
+    want = duet_attention_plain(q, row_pos, tile_slot, *clean, block_q=1)
+    before = launch_counts()
+    split = SmSplit(dev, 32)
+    try:
+        assert split.sms["decode"] == 64
+        with torch.cuda.stream(split.decode_stream):
+            got = duet_attention(*case, block_q=1)
+        split.decode_stream.synchronize()
+    finally:
+        split.close()
+    assert launch_counts()["duet_attention[block]"] - \
+        before.get("duet_attention[block]", 0) == 1
+    live = slice(0, len(SLAB_POS))
+    torch.testing.assert_close(got[live], want[live], **ATTN_TOL["bfloat16"])

@@ -343,3 +343,51 @@ def test_bucket_key_holds_no_per_dispatch_scalar(jax_setup, monkeypatch):
     assert max(len(v) for v in scalars.values()) > 1
     starts = {sc[0] for v in scalars.values() for sc in v}
     assert len(starts) > 2
+
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _events(decode, duet):
+    from types import SimpleNamespace
+    return [SimpleNamespace(key="void paged_decode_cluster_kernel<128>(...)",
+                            count=decode),
+            SimpleNamespace(key="void duet_attention_paged_kernel<128>(...)",
+                            count=duet),
+            SimpleNamespace(key="void elementwise_kernel<4>(...)", count=9)]
+
+
+@pytest.mark.parametrize("traces, tries, holds", [
+    ([(72, 36)], 1, True),                     # as captured
+    ([(72, 35), (72, 36)], 2, True),           # a lost record, then whole
+    ([(71, 36), (72, 35), (72, 35)], 3, False),  # short in every trace
+    ([(72, 37)], 1, False),                    # a launch more than captured
+    ([(74, 36)], 1, False),
+], ids=["whole", "lost-then-whole", "always-short", "one-more", "more"])
+def test_replay_trace_is_retaken_only_where_a_record_was_lost(
+        traces, tries, holds):
+    """``chip_smoke._hold_trace``: two traced replays of a graph whose
+    capture counted 36 decode and 18 duet launches a replay. A trace with
+    fewer launches (a record the profiler lost) is taken again, up to
+    TRACE_TRIES times; one with more fails at once; one that matches
+    holds."""
+    cs = _chip_smoke()
+    assert cs.TRACE_TRIES == 3
+    left = list(traces)
+
+    def trace():
+        return _events(*left.pop(0))
+    launches = {"paged_decode": 36, "duet_attention_paged": 18}
+    if holds:
+        cs._hold_trace("bucket", launches, trace, 2, "cpu")
+    else:
+        with pytest.raises(AssertionError, match="differ from the launches"):
+            cs._hold_trace("bucket", launches, trace, 2, "cpu")
+    assert len(traces) - len(left) == tries

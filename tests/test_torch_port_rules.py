@@ -30,7 +30,7 @@ PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "decode_core_sweep.py",
     REPO / "flash_prefill_sweep.py", REPO / "duet_paged_sweep.py",
     REPO / "train_check_floor.py", REPO / "pace_probe.py",
-    REPO / "kernel_turns.py"]
+    REPO / "kernel_turns.py", REPO / "block_role_sweep.py"]
 
 
 def test_cli_serves_on_cpu_without_jax_or_reference():
